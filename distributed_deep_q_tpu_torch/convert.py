@@ -1,0 +1,111 @@
+"""Weights and train state between the Flax reference and the port.
+
+Inputs and outputs are nested dicts of numpy arrays (what
+``jax.tree.map(np.asarray, tree)`` gives for a Flax param tree), so this
+module never needs jax.
+
+Reference leaf names (as ``NatureCnnQNet`` / ``MlpQNet`` build them):
+
+- ``torso/conv1..conv3/{kernel,bias}`` — kernels HWIO, e.g. ``(8,8,4,32)``,
+  ``(4,4,32,64)``, ``(3,3,64,64)``; the port keeps OIHW.
+- ``torso/fc4`` (or ``torso/fc{i}`` for the MLP) and ``_Head_0/{q, value,
+  advantage}`` — Dense kernels ``[in, out]``; the port keeps ``[out, in]``.
+- ``fc4``'s input rows are the conv3 output flattened in HWC order in the
+  reference and CHW order in the port, so its rows are permuted; that needs
+  the frame shape (``frame_shape``) to know conv3's spatial size.
+
+Port names are the ``named_parameters()`` of ``models/qnet.py``:
+``torso.conv1.weight``, ``head.q.bias``, ...
+
+A train state is ``{"params", "target_params", "opt_state": {"count", "mu",
+"nu"}, "step"}``: θ, θ⁻, the Adam state as optax's ``ScaleByAdamState``
+holds it (``mu``/``nu`` have the params' structure) and the step counter.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+from distributed_deep_q_tpu_torch.models.qnet import conv_out_hw
+
+_SCOPES = (("torso", "torso"), ("_Head_0", "head"))
+
+
+def _fc4_rows_hwc_to_chw(k: np.ndarray, frame_shape) -> np.ndarray:
+    h3, w3 = conv_out_hw(frame_shape)
+    c = k.shape[0] // (h3 * w3)
+    return k.reshape(h3, w3, c, -1).transpose(2, 0, 1, 3).reshape(k.shape)
+
+
+def _fc4_rows_chw_to_hwc(k: np.ndarray, frame_shape) -> np.ndarray:
+    h3, w3 = conv_out_hw(frame_shape)
+    c = k.shape[0] // (h3 * w3)
+    return k.reshape(c, h3, w3, -1).transpose(1, 2, 0, 3).reshape(k.shape)
+
+
+def params_from_flax(tree: dict, frame_shape=None) -> dict[str, np.ndarray]:
+    """Flax param tree → ``{port name: array}`` in the port's layouts.
+    ``frame_shape`` is required for a Nature CNN (the fc4 row permutation)."""
+    out: dict[str, np.ndarray] = {}
+    for flax_scope, port_scope in _SCOPES:
+        for layer, leaves in tree[flax_scope].items():
+            k = np.asarray(leaves["kernel"])
+            if k.ndim == 4:
+                w = k.transpose(3, 2, 0, 1)              # HWIO → OIHW
+            else:
+                if layer == "fc4":
+                    k = _fc4_rows_hwc_to_chw(k, frame_shape)
+                w = k.T                                  # [in,out] → [out,in]
+            out[f"{port_scope}.{layer}.weight"] = np.array(w, order="C")
+            out[f"{port_scope}.{layer}.bias"] = np.array(leaves["bias"])
+    return out
+
+
+def params_to_flax(params: dict[str, Any], frame_shape=None) -> dict:
+    """Inverse of ``params_from_flax`` (accepts numpy arrays or CPU
+    tensors; returns numpy)."""
+    port_to_flax = dict((p, f) for f, p in _SCOPES)
+    tree: dict = {}
+    for name, value in params.items():
+        scope, layer, leaf = name.split(".")
+        a = np.asarray(value)
+        if leaf == "weight":
+            if a.ndim == 4:
+                a = a.transpose(2, 3, 1, 0)              # OIHW → HWIO
+            else:
+                a = a.T
+                if layer == "fc4":
+                    a = _fc4_rows_chw_to_hwc(a, frame_shape)
+            leaf = "kernel"
+        tree.setdefault(port_to_flax[scope], {}).setdefault(layer, {})[
+            leaf] = np.array(a, order="C")
+    return tree
+
+
+def train_state_from_flax(params: dict, target_params: dict, count, mu: dict,
+                          nu: dict, step, frame_shape=None) -> dict:
+    """Reference ``TrainState`` pieces → the port's train-state dict."""
+    return {
+        "params": params_from_flax(params, frame_shape),
+        "target_params": params_from_flax(target_params, frame_shape),
+        "opt_state": {"count": np.int32(count),
+                      "mu": params_from_flax(mu, frame_shape),
+                      "nu": params_from_flax(nu, frame_shape)},
+        "step": np.int32(step),
+    }
+
+
+def train_state_to_flax(state: dict, frame_shape=None) -> dict:
+    """The port's train-state dict → ``{"params", "target_params",
+    "count", "mu", "nu", "step"}`` with Flax-layout nested dicts."""
+    opt = state["opt_state"]
+    return {
+        "params": params_to_flax(state["params"], frame_shape),
+        "target_params": params_to_flax(state["target_params"], frame_shape),
+        "count": np.int32(opt["count"]),
+        "mu": params_to_flax(opt["mu"], frame_shape),
+        "nu": params_to_flax(opt["nu"], frame_shape),
+        "step": np.int32(state["step"]),
+    }

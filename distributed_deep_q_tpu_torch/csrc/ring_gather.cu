@@ -1,0 +1,119 @@
+// Frame-ring copy kernels for Hopper (sm_90a), bound to Python with ctypes.
+//
+// The replay's frame plane is ONE flat int32 array: each frame row holds the
+// frame's pixel bytes packed 4 per int32 and padded to `rowb` bytes (a
+// multiple of 4096), and every sub-ring carries ghost rows so that a
+// sample's stack+n_step window is one contiguous run of rows
+// (replay/device_per.py). Both kernels are therefore pure indexed copies of
+// 16-byte-aligned contiguous runs.
+//
+// gather_windows — replaces the TPU kernel `_gather_kernel` /
+//   `gather_windows` in distributed_deep_q_tpu/ops/ring_gather.py, which
+//   pipelined one DMA per window over 64 semaphores.
+//   out[k] = ring[idx[k]·rowb .. idx[k]·rowb + w·rowb) for k < n.
+//   Bound: bytes. It reads and writes n·w·rowb bytes (Pong preset: n = 512
+//   windows of 5 × 8192 B → 41.9 MB moved, 12.5 µs at 3.35 TB/s). Design:
+//   one 256-thread block per window (grid-stride past 2^20 windows), each
+//   thread moving 16 B per access with consecutive threads on consecutive
+//   addresses, ring loads through the read-only path, the loop unrolled so
+//   each thread keeps several loads in flight. n blocks of 40 KB each are
+//   enough to keep all 132 SMs streaming.
+//
+// scatter_rows — replaces the TPU kernel `_scatter_kernel` / `scatter_rows`
+//   in the same file (the replay flush). ring[dst[k]] ← staged[src[k]],
+//   row by row, in place. Ghost lanes re-send a staged row to its mirror
+//   row; padding lanes all target the ring's scratch row, where racing
+//   writes are harmless by contract; distinct real targets are the caller's
+//   invariant. Bound: bytes, but tiny (128 lanes × 8 KB = 2.1 MB moved,
+//   0.63 µs at 3.35 TB/s), so in practice launch-bound. Design: one block
+//   per lane, 16-byte copies.
+//
+// Offsets: the Pong ring is 1,000,005 rows × 8192 B = 8.19 GB, so a row's
+// byte offset passes 2^31 from row 262,144 on. Every offset is computed in
+// 64 bits. A window or lane whose index falls outside its array is a caller
+// bug: the gather writes zeros for it and the scatter skips it, instead of
+// faulting.
+//
+// Each C entry launches on the caller's stream and returns
+// cudaGetLastError() (0 = launched).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int64_t kMaxGrid = 1 << 20;
+
+__global__ void __launch_bounds__(kThreads)
+gather_windows_kernel(const int32_t* __restrict__ idx,
+                      const int4* __restrict__ ring,
+                      int4* __restrict__ out,
+                      int64_t n, int64_t w, int64_t row_vec,
+                      int64_t ring_rows) {
+  const int64_t win_vec = w * row_vec;
+  for (int64_t k = blockIdx.x; k < n; k += gridDim.x) {
+    const int64_t start = static_cast<int64_t>(idx[k]);
+    int4* dst = out + k * win_vec;
+    if (start < 0 || start + w > ring_rows) {
+      for (int64_t i = threadIdx.x; i < win_vec; i += kThreads)
+        dst[i] = make_int4(0, 0, 0, 0);
+      continue;
+    }
+    const int4* src = ring + start * row_vec;
+#pragma unroll 4
+    for (int64_t i = threadIdx.x; i < win_vec; i += kThreads)
+      dst[i] = __ldg(src + i);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_kernel(const int32_t* __restrict__ src_idx,
+                    const int32_t* __restrict__ dst_idx,
+                    const int4* __restrict__ staged,
+                    int4* __restrict__ ring,
+                    int64_t n, int64_t row_vec, int64_t staged_rows,
+                    int64_t ring_rows) {
+  for (int64_t k = blockIdx.x; k < n; k += gridDim.x) {
+    const int64_t s = static_cast<int64_t>(src_idx[k]);
+    const int64_t d = static_cast<int64_t>(dst_idx[k]);
+    if (s < 0 || s >= staged_rows || d < 0 || d >= ring_rows) continue;
+    const int4* from = staged + s * row_vec;
+    int4* to = ring + d * row_vec;
+#pragma unroll 4
+    for (int64_t i = threadIdx.x; i < row_vec; i += kThreads)
+      to[i] = __ldg(from + i);
+  }
+}
+
+inline unsigned grid_for(int64_t n) {
+  return static_cast<unsigned>(n < kMaxGrid ? n : kMaxGrid);
+}
+
+}  // namespace
+
+extern "C" int ddq_gather_windows(const void* idx, const void* ring,
+                                  void* out, long long n, long long w,
+                                  long long rowb, long long ring_rows,
+                                  void* stream) {
+  if (n <= 0) return 0;
+  gather_windows_kernel<<<grid_for(n), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(idx), static_cast<const int4*>(ring),
+      static_cast<int4*>(out), n, w, rowb / 16, ring_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ddq_scatter_rows(const void* src_idx, const void* dst_idx,
+                                const void* staged, void* ring, long long n,
+                                long long rowb, long long staged_rows,
+                                long long ring_rows, void* stream) {
+  if (n <= 0) return 0;
+  scatter_rows_kernel<<<grid_for(n), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(src_idx),
+      static_cast<const int32_t*>(dst_idx),
+      static_cast<const int4*>(staged), static_cast<int4*>(ring), n,
+      rowb / 16, staged_rows, ring_rows);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,196 @@
+"""Q-network models in PyTorch — counterparts of the reference's Flax modules.
+
+- ``MlpQNet``       — MLP for vector envs.
+- ``NatureCnnQNet`` — Nature-DQN CNN: stack×84×84 → conv(32,8,4) →
+  conv(64,4,2) → conv(64,3,1) → FC512 → FC|A|; optional dueling head.
+
+Layers follow Flax's ``dtype`` semantics: parameters stay float32 and each
+layer casts its input, weight and bias to the compute dtype (``bfloat16``
+for the Pong preset) before the op; Q-values come back in float32. uint8
+pixels are normalized to [0, 1] inside the net.
+
+Initialization matches Flax's defaults in distribution (not in bits):
+lecun-normal weights (truncated normal, fan-in scaling) and zero biases, so
+the optimizer dynamics resemble the reference's even without converted
+weights (``convert.py`` brings exact reference weights over).
+
+Layouts: torch convolutions are NCHW with OIHW weights; the public
+``forward`` takes the reference's ``[B, H, W, stack]`` uint8 frames and
+permutes them, while the fused train step feeds its gathered
+``[B, stack, H, W]`` windows straight to ``forward_nchw``. The flatten before
+``fc4`` is CHW here and HWC in the reference; ``convert.py`` permutes the
+``fc4`` rows accordingly.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from distributed_deep_q_tpu_torch.config import NetConfig
+
+# Flax's truncated-normal stddev correction for truncation at ±2σ
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   gen: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+def _to_compute(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Cast input to compute dtype; normalize uint8 pixels to [0, 1]."""
+    if x.dtype == torch.uint8:
+        return x.to(dtype) / 255.0
+    return x.to(dtype)
+
+
+class _Dense(nn.Module):
+    """Flax ``nn.Dense`` twin: weight ``[out, in]`` (Flax keeps ``[in, out]``)."""
+
+    def __init__(self, fan_in: int, features: int, dtype: torch.dtype,
+                 gen: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, fan_in))
+        self.bias = nn.Parameter(torch.zeros(features))
+        _lecun_normal_(self.weight.data, fan_in, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class _Conv(nn.Module):
+    """Flax ``nn.Conv`` (VALID padding) twin: weight OIHW (Flax keeps HWIO)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+                 dtype: torch.dtype, gen: torch.Generator):
+        super().__init__()
+        self.dtype, self.stride = dtype, stride
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        _lecun_normal_(self.weight.data, cin * kernel * kernel, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                        stride=self.stride)
+
+
+class _Head(nn.Module):
+    """Final Q head: plain FC|A| or dueling value/advantage streams."""
+
+    def __init__(self, fan_in: int, num_actions: int, dueling: bool,
+                 dtype: torch.dtype, gen: torch.Generator):
+        super().__init__()
+        self.dueling = dueling
+        if dueling:
+            self.value = _Dense(fan_in, 1, dtype, gen)
+            self.advantage = _Dense(fan_in, num_actions, dtype, gen)
+        else:
+            self.q = _Dense(fan_in, num_actions, dtype, gen)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        if not self.dueling:
+            q = self.q(h)
+        else:
+            v = self.value(h)
+            a = self.advantage(h)
+            q = v + a - a.mean(dim=-1, keepdim=True)
+        return q.float()  # Q-values / losses always in fp32
+
+
+def conv_out_hw(frame_shape: tuple[int, int]) -> tuple[int, int]:
+    """Spatial size of the Nature torso's conv3 output for ``frame_shape``
+    (84×84 → 7×7, 52×52 → 3×3, 36×36 → 1×1)."""
+    h, w = frame_shape
+    for k, s in ((8, 4), (4, 2), (3, 1)):
+        h, w = (h - k) // s + 1, (w - k) // s + 1
+    return h, w
+
+
+class _NatureTorso(nn.Module):
+    """The Nature-DQN conv stack: NCHW frames → [B, 512]."""
+
+    def __init__(self, stack: int, frame_shape: tuple[int, int],
+                 dtype: torch.dtype, gen: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = _Conv(stack, 32, 8, 4, dtype, gen)
+        self.conv2 = _Conv(32, 64, 4, 2, dtype, gen)
+        self.conv3 = _Conv(64, 64, 3, 1, dtype, gen)
+        h3, w3 = conv_out_hw(frame_shape)
+        self.fc4 = _Dense(64 * h3 * w3, 512, dtype, gen)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        h = _to_compute(frames, self.dtype)
+        h = F.relu(self.conv1(h))
+        h = F.relu(self.conv2(h))
+        h = F.relu(self.conv3(h))
+        return F.relu(self.fc4(h.flatten(1)))   # CHW flatten
+
+
+class NatureCnnQNet(nn.Module):
+    """Nature-DQN CNN Q-network (presets pong, breakout, apex)."""
+
+    def __init__(self, num_actions: int, stack: int = 4,
+                 frame_shape: tuple[int, int] = (84, 84),
+                 dueling: bool = False, dtype: torch.dtype = torch.float32,
+                 seed: int = 0):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.frame_shape = tuple(frame_shape)
+        self.torso = _NatureTorso(stack, self.frame_shape, dtype, gen)
+        self.head = _Head(512, num_actions, dueling, dtype, gen)
+
+    def forward_nchw(self, frames: torch.Tensor) -> torch.Tensor:
+        """Q-values for ``[B, stack, H, W]`` frames (the fused path's layout)."""
+        return self.head(self.torso(frames))
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        """Q-values for ``[B, H, W, stack]`` frames, the reference layout."""
+        return self.forward_nchw(frames.permute(0, 3, 1, 2))
+
+
+class MlpQNet(nn.Module):
+    """MLP Q-network (CartPole preset)."""
+
+    def __init__(self, num_actions: int, obs_dim: int,
+                 hidden: Sequence[int] = (64, 64), dueling: bool = False,
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.dtype = dtype
+        self.torso = nn.ModuleDict()
+        fan_in = obs_dim
+        for i, width in enumerate(hidden):
+            self.torso[f"fc{i}"] = _Dense(fan_in, width, dtype, gen)
+            fan_in = width
+        self.head = _Head(fan_in, num_actions, dueling, dtype, gen)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        h = _to_compute(obs.reshape(obs.shape[0], -1), self.dtype)
+        for layer in self.torso.values():
+            h = F.relu(layer(h))
+        return self.head(h)
+
+
+def build_qnet(cfg: NetConfig, obs_dim: int = 4, seed: int = 0) -> nn.Module:
+    """The net ``cfg`` describes, on the CPU (move it with ``.to``)."""
+    dtype = getattr(torch, cfg.compute_dtype)
+    if cfg.kind == "mlp":
+        return MlpQNet(cfg.num_actions, obs_dim, tuple(cfg.hidden),
+                       cfg.dueling, dtype, seed)
+    if cfg.kind == "nature_cnn":
+        return NatureCnnQNet(cfg.num_actions, cfg.stack,
+                             tuple(cfg.frame_shape), cfg.dueling, dtype, seed)
+    if cfg.kind == "r2d2":
+        raise NotImplementedError(
+            "net.kind=r2d2 is not ported yet (ROADMAP A13: R2D2)")
+    raise ValueError(f"unknown net kind: {cfg.kind!r}")

@@ -1,0 +1,257 @@
+"""The learner: loss, gradients, fused clip+Adam+target refresh, and the
+fused device-PER dispatch (port of the reference ``parallel/learner.py``).
+
+The reference compiles each step into one XLA program under ``shard_map``
+over a ``dp`` mesh; the port runs eagerly on one device, so the gradient
+``pmean`` over ``dp`` is the identity and the step is the plain full-batch
+mean. The train state is two ``nn.Module``s (θ, θ⁻) plus plain dicts of
+tensors (the Adam state) and a step counter, all updated in place.
+
+What the port computes differently from the reference, on purpose:
+
+- The forwards run one net at a time. The reference's ``stack_forwards``
+  and ``fuse_double_forward`` change XLA's op schedule, not the function,
+  and at the Pong batch (512 per shard > 128) it takes this unstacked path
+  too.
+- The optimizer is the reference's tree-form ``fused_adam_target_step``;
+  its flat "plane-carry" variant is an XLA op-schedule device (it computes
+  the same per-element update) and is not ported.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from distributed_deep_q_tpu_torch.config import TrainConfig
+from distributed_deep_q_tpu_torch.ops.losses import bellman_targets, dqn_loss
+from distributed_deep_q_tpu_torch.ops.ring_gather import gather_windows
+from distributed_deep_q_tpu_torch.replay.device_per import (
+    build_meta_pack, fused_sample_draw_packed, fused_sample_prep,
+    scatter_priorities)
+
+ADAM_B1, ADAM_B2 = 0.9, 0.999
+_INT32_MAX = 2**31 - 1
+
+
+@dataclasses.dataclass
+class TrainState:
+    """θ and θ⁻ as modules; the Adam state ``{"count": int32 [],
+    "mu": {name: tensor}, "nu": {name: tensor}}`` keyed like
+    ``net.named_parameters()``; ``step`` an int32 [] tensor."""
+
+    net: nn.Module
+    target_net: nn.Module
+    opt_state: dict[str, Any]
+    step: torch.Tensor
+
+
+def safe_increment(count: torch.Tensor) -> torch.Tensor:
+    """``count + 1``, saturating at the int32 maximum (optax's rule)."""
+    return torch.where(count < _INT32_MAX, count + 1, count)
+
+
+def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
+    """√Σ‖g‖² over the leaves, summed leaf by leaf."""
+    total = sum(g.square().sum() for g in grads.values())
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def fused_adam_target_step(cfg: TrainConfig, grads: dict[str, torch.Tensor],
+                           opt_state: dict[str, Any],
+                           params: dict[str, torch.Tensor],
+                           target_params: dict[str, torch.Tensor] | None,
+                           gnorm: torch.Tensor,
+                           step: torch.Tensor | None) -> None:
+    """Clip + Adam + parameter update + target refresh, IN PLACE on
+    ``params``, ``target_params`` and ``opt_state`` — the reference's tree
+    form, written out in its order: ``g*scale``, ``m2``, ``v2``,
+    ``(m2/bc1)/(sqrt(v2/bc2)+eps)``, ``p - lr*upd``. The target refresh is
+    Polyak ``τ·p₂ + (1−τ)·t`` when ``target_tau`` > 0, else
+    ``where(step % C == 0, p₂, t)`` with ``step`` already incremented.
+    (``torch.optim.Adam`` takes ``sqrt(v)/sqrt(bc2)`` and rounds
+    elsewhere, so it is not used.)"""
+    b1, b2 = ADAM_B1, ADAM_B2
+    count = safe_increment(opt_state["count"])
+    c = count.float()
+    bc1 = 1.0 - torch.pow(b1, c)
+    bc2 = 1.0 - torch.pow(b2, c)
+    if cfg.grad_clip_norm > 0:
+        scale = torch.clamp(cfg.grad_clip_norm / torch.clamp(gnorm, min=1e-12),
+                            max=1.0)
+    else:
+        scale = 1.0
+    lr, eps = cfg.lr, cfg.adam_eps
+    mu_dtype = getattr(torch, cfg.adam_mu_dtype)
+    refresh = None
+    if target_params is not None and cfg.target_tau <= 0:
+        refresh = step % cfg.target_update_period == 0
+    mu, nu = opt_state["mu"], opt_state["nu"]
+    for name, p in params.items():
+        g = grads[name] * scale
+        m2 = b1 * mu[name].float() + (1.0 - b1) * g
+        v2 = b2 * nu[name] + (1.0 - b2) * g.square()
+        upd = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+        p2 = p - lr * upd
+        mu[name] = m2.to(mu_dtype)
+        nu[name] = v2
+        p.copy_(p2)
+        if target_params is not None:
+            t = target_params[name]
+            if refresh is None:
+                tau = cfg.target_tau
+                t.copy_(tau * p2 + (1.0 - tau) * t)
+            else:
+                t.copy_(torch.where(refresh, p2, t))
+    opt_state["count"] = count
+
+
+def q_step_loss(cfg: TrainConfig, q: torch.Tensor,
+                q_next_o: torch.Tensor | None, q_next_t: torch.Tensor,
+                batch: dict[str, torch.Tensor]):
+    """Bellman targets + weighted Huber. Returns (loss, |TD|)."""
+    if cfg.use_pallas_loss:
+        raise NotImplementedError(
+            "train.use_pallas_loss=true needs the fused TD-loss kernel, "
+            "which is not ported yet (ROADMAP B3/B4, slice 2)")
+    targets = bellman_targets(batch["reward"], batch["discount"], q_next_t,
+                              q_next_o, cfg.double_dqn)
+    return dqn_loss(q, batch["action"], targets, batch["weight"],
+                    cfg.huber_delta)
+
+
+def fused_sample(rows: dict[str, torch.Tensor], cursors: torch.Tensor,
+                 sizes: torch.Tensor, betas: torch.Tensor, u: torch.Tensor,
+                 spec: tuple):
+    """The sample stage of a fused dispatch, against the priorities as of
+    chunk start: prep + meta pack + ``chain × B`` draws from the uniforms
+    ``u`` [chain, B] + ONE ``gather_windows`` launch for every sample's
+    obs+next-obs window. Returns (meta dict [chain, B, ...], windows
+    ``[chain · B · window · rowb/4]`` int32, sampled row indices
+    [chain, B], window-start rows [chain, B])."""
+    (slot_cap, slot_pad, rowb, row_len, stack, n_step, gamma,
+     frame_shape, per_shard, alpha, eps, num_shards) = spec
+    assert num_shards == 1, "the port runs one shard on one device"
+    pm, cdf, mass, n_glob = fused_sample_prep(
+        rows, cursors, sizes, slot_cap, stack, n_step)
+    pack = build_meta_pack(rows["action"], rows["reward"], rows["done"],
+                           rows["boundary"], slot_cap, stack, n_step, gamma)
+    metas, ws, idxs = fused_sample_draw_packed(
+        u, pack, pm, cdf, mass, n_glob, per_shard, slot_cap, slot_pad,
+        stack, n_step, betas, num_shards)
+    win = gather_windows(ws.reshape(-1), rows["frames"],
+                         n=ws.numel(), w=stack + n_step, rowb=rowb)
+    return metas, win, idxs, ws
+
+
+class Learner:
+    """Owns the train step for feed-forward Q-nets on one device."""
+
+    def __init__(self, cfg: TrainConfig, device: torch.device):
+        if cfg.optimizer != "adam":
+            raise NotImplementedError(
+                f"train.optimizer={cfg.optimizer!r}: only adam is ported "
+                "(ROADMAP A4)")
+        if cfg.learn_metrics:
+            raise NotImplementedError(
+                "train.learn_metrics=true (the learning-dynamics plane) is "
+                "not ported yet (ROADMAP A12)")
+        self.cfg = cfg
+        self.device = device
+
+    # -- state -------------------------------------------------------------
+
+    def init_state(self, net: nn.Module) -> TrainState:
+        target = copy.deepcopy(net).requires_grad_(False)
+        mu_dtype = getattr(torch, self.cfg.adam_mu_dtype)
+        params = dict(net.named_parameters())
+        return TrainState(
+            net=net,
+            target_net=target,
+            opt_state={
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=self.device),
+                "mu": {k: torch.zeros_like(p, dtype=mu_dtype)
+                       for k, p in params.items()},
+                "nu": {k: torch.zeros_like(p) for k, p in params.items()},
+            },
+            step=torch.zeros((), dtype=torch.int32, device=self.device))
+
+    # -- train step --------------------------------------------------------
+
+    def _step_core(self, state: TrainState, batch: dict[str, torch.Tensor]):
+        """Loss + gradients + optimizer + target refresh on one batch whose
+        ``obs``/``next_obs`` are ``[B, stack, H, W]`` frames. Updates
+        ``state`` in place; returns (metrics, |TD|)."""
+        cfg = self.cfg
+        net, target = state.net, state.target_net
+        q = net.forward_nchw(batch["obs"])
+        with torch.no_grad():
+            # action selection must not backprop into the online net
+            q_next_o = (net.forward_nchw(batch["next_obs"])
+                        if cfg.double_dqn else None)
+            q_next_t = target.forward_nchw(batch["next_obs"])
+        loss, td_abs = q_step_loss(cfg, q, q_next_o, q_next_t, batch)
+        params = dict(net.named_parameters())
+        grads = dict(zip(params, torch.autograd.grad(loss,
+                                                     list(params.values()))))
+        gnorm = global_norm(grads)
+        state.step = state.step + 1
+        fused_adam_target_step(cfg, grads, state.opt_state, params,
+                               dict(target.named_parameters()), gnorm,
+                               state.step)
+        metrics = {"loss": loss.detach(), "q_mean": q.detach().mean(),
+                   "grad_norm": gnorm}
+        return metrics, td_abs
+
+    def train_steps_device_per(self, state: TrainState,
+                               rows: dict[str, torch.Tensor],
+                               cursors: torch.Tensor, sizes: torch.Tensor,
+                               betas: torch.Tensor, u: torch.Tensor,
+                               spec: tuple):
+        """``len(betas)`` fused sample+train+priority-update steps.
+
+        Sampling happens once for the whole chunk (``fused_sample``), then
+        the chain's optimizer steps and priority scatters run strictly in
+        order (staleness within a chunk ≤ chain steps, as in the
+        reference).
+
+        Updates ``state`` and ``rows["prio"]`` in place. Returns (new
+        running max priority, metrics stacked over ``[chain]``)."""
+        (slot_cap, slot_pad, rowb, row_len, stack, n_step, gamma,
+         frame_shape, per_shard, alpha, eps, num_shards) = spec
+        chain = betas.shape[0]
+        metas, win, idxs, _ = fused_sample(rows, cursors, sizes, betas, u,
+                                           spec)
+        # unpack int32 → pixel bytes, drop the row padding: [chain, B, w,
+        # H·W] uint8, already the nets' NCHW order along (window, pixels)
+        pix = win.view(torch.uint8).view(chain, per_shard, stack + n_step,
+                                         rowb)[..., :row_len]
+
+        # the train stage
+        prio, maxp = rows["prio"], rows["maxp"]
+        steps = []
+        for i in range(chain):
+            ov = metas["ovalid"][i][..., None]
+            nv = metas["nvalid"][i][..., None]
+            batch = {
+                "obs": (pix[i, :, :stack] * ov).view(
+                    per_shard, stack, *frame_shape),
+                "next_obs": (pix[i, :, n_step:n_step + stack] * nv).view(
+                    per_shard, stack, *frame_shape),
+                "action": metas["action"][i],
+                "reward": metas["reward"][i],
+                "discount": metas["discount"][i],
+                "weight": metas["weight"][i],
+            }
+            metrics, td_abs = self._step_core(state, batch)
+            maxp = scatter_priorities(prio, maxp, idxs[i], td_abs, alpha,
+                                      eps)
+            steps.append(metrics)
+        stacked = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        return maxp, stacked

@@ -1,0 +1,100 @@
+"""The port's CLI end to end on the CPU, its device switch, its refusals,
+and the rule that it imports nothing of JAX or the reference package."""
+
+import ast
+import contextlib
+import io
+import json
+import math
+from pathlib import Path
+
+import pytest
+import torch
+
+from distributed_deep_q_tpu_torch.main import main
+
+REPO = Path(__file__).resolve().parents[1]
+
+# the verify recipe's fused device-PER overrides (36×36 frames, small ring)
+RECIPE = ["env.kind=signal_atari", "env.id=signal", "env.frame_shape=36,36",
+          "net.frame_shape=36,36", "net.compute_dtype=float32",
+          "replay.capacity=4096", "replay.batch_size=16",
+          "replay.learn_start=300", "replay.write_chunk=16",
+          "train.target_update_period=20", "actors.eps_decay_steps=400"]
+
+
+def _run(argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def test_cli_trains_pong_preset_on_cpu():
+    """``train --preset pong --backend cpu``: 800 env steps, 125 grad
+    steps of the fused device-PER dispatch; prints one JSON summary."""
+    torch.set_num_threads(1)
+    rc, summary = _run(["train", "--preset", "pong", "--backend", "cpu",
+                        "--log-every", "25", "--set", *RECIPE,
+                        "train.total_steps=800", "train.train_every=4"])
+    assert rc == 0 and summary["mode"] == "train"
+    assert summary["grad_steps"] == (800 - 300) // 4 + 1
+    for key in ("loss", "q_mean", "grad_steps_per_s", "env_steps_per_s",
+                "eval_return"):
+        assert math.isfinite(summary[key]), key
+    assert summary["eval_return"] >= 0
+
+
+def test_cli_eval_on_cpu():
+    torch.set_num_threads(1)
+    rc, out = _run(["eval", "--preset", "pong", "--backend", "cpu", "--set",
+                    *RECIPE, "train.eval_episodes=2"])
+    assert rc == 0 and out["mode"] == "eval" and out["episodes"] == 2
+    assert 0 <= out["eval_return"] <= 32
+
+
+def test_backend_cuda_raises_without_a_card():
+    """No CPU fallback: ``--backend cuda`` on a machine without a card
+    raises. (Where a card is present this case has nothing to check.)"""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="backend cuda"):
+        main(["train", "--preset", "pong", "--backend", "cuda", "--set",
+              *RECIPE, "train.total_steps=10"])
+
+
+@pytest.mark.parametrize("override", [
+    "net.kind=r2d2", "replay.device_per=false", "replay.prioritized=false",
+    "train.checkpoint_dir=ckpt", "replay.persist_path=r.npz",
+    "train.profile_dir=prof", "mesh.num_processes=2", "mesh.dp=2"])
+def test_out_of_slice_configs_are_refused(override):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["train", "--preset", "pong", "--backend", "cpu", "--set",
+              *RECIPE, "train.total_steps=10", override])
+
+
+def test_non_pixel_env_is_refused():
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        main(["train", "--preset", "pong", "--backend", "cpu", "--set",
+              "env.kind=gym", "env.id=CartPole-v1", "train.total_steps=10"])
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    """Walks the sources (not ``sys.modules``: another test may already
+    have imported jax in this process)."""
+    files = sorted((REPO / "distributed_deep_q_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    banned = {"jax", "jaxlib", "flax", "optax", "distributed_deep_q_tpu"}
+    for f in files:
+        assert not (_imported_roots(f) & banned), f
