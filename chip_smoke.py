@@ -11,22 +11,38 @@ Phases (any failure exits non-zero and prints no result line):
    and the TF32 flags;
 2. build — compile the hand-written kernels (one ``nvcc`` per source, all
    started together) and print the compiler's register/spill report;
-3. kernels — each kernel against its plain PyTorch version on the card,
+3. ring kernels — each against its plain PyTorch version on the card,
    bitwise, at the Pong preset's shapes on a 1,000,005-row × 8192-byte ring
    (8.19 GB, window starts past the 2³¹-byte mark), then timed (device
    time by CUDA events, host time per call by wall clock) beside its byte
    bound, its plain version and one library call;
+3b. loss kernels — the fused TD loss forward (B3) and backward (B4)
+   against their plain versions at B = 512 with A = 4 and A = 18, δ in
+   {0.5, 1, 2}, a few actions out of range: |td| and dq bitwise, the loss
+   within 1e-6 relative; then timed beside their byte bound, the plain
+   versions, the nearest PyTorch composition and an empty kernel;
 4. main path — ``main train --preset pong --backend cuda`` in process on the
    SignalAtari probe at full 84×84 (bf16 Nature CNN, batch 512, 1M ring,
-   learn_start 20,000), several hundred grad steps; the kernels' launch
-   counters are reset just before and read just after;
+   learn_start 20,000), several hundred grad steps of the fused device-PER
+   dispatch;
 5. chained dispatch — a ``Solver`` and a filled replay at the same preset,
-   ``train_steps_device_per(chain=8)`` timed over a few dozen dispatches,
-   then traced with ``torch.profiler`` over four; then the same small
-   fused dispatch on the card and on the CPU (whose path the CPU tests
-   hold to the JAX reference), compared;
-6. the ``kernels`` JSON line, the ``nvidia-smi`` line, and the last line
+   ``train_steps_device_per(chain=8)`` timed over a few dozen dispatches
+   with the plain loss and with the fused loss kernels, then traced with
+   ``torch.profiler`` over four; then the same small fused dispatch on the
+   card and on the CPU (whose path the CPU tests hold to the JAX
+   reference), compared;
+6. host-sampled path — ``main train --preset breakout --backend cuda`` with
+   ``replay.device_per=false train.use_pallas_loss=true`` at full width
+   (84×84, batch 512, 1M-frame device ring, host sum trees, n-step 3,
+   Double DQN, PER α = 0.6): several hundred grad steps through B3/B4;
+6b. the same preset with ``replay.device_resident=false`` (frames in a host
+   ``FrameStackReplay``, pixel batches shipped per step), learn_start cut
+   to 5,000, a hundred grad steps;
+7. the ``kernels`` JSON line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
+
+Every path run (phases 4, 6, 6b) sets all kernel launch counters to 0 just
+before it and reads them just after.
 """
 
 from __future__ import annotations
@@ -181,31 +197,124 @@ def check_scatter(torch, rg, ring, dev) -> dict:
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
 
 
-# -- phases 4 and 5 -----------------------------------------------------------
+# -- phase 3b -----------------------------------------------------------------
 
 
-def run_main_path(torch, rg, main) -> dict:
+def loss_inputs(torch, dev, b: int, a: int, seed: int):
+    """Q-values [b, a], int32 actions with three out of [0, a), targets,
+    weights and the incoming loss gradient, on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, a, device=dev, generator=gen) * 3
+    actions = torch.randint(0, a, (b,), dtype=torch.int32, device=dev,
+                            generator=gen)
+    actions[:3] = torch.tensor([-1, a, a + 5], dtype=torch.int32)
+    targets = torch.randn(b, device=dev, generator=gen) * 2
+    weights = torch.rand(b, device=dev, generator=gen) * 0.9 + 0.1
+    g = torch.tensor(0.37, device=dev)
+    return q, actions, targets, weights, g
+
+
+def check_fused_loss(torch, fl, dev) -> dict:
+    """B3/B4 against their plain versions (bitwise |td| and dq, loss to
+    1e-6 relative) over A in {4, 18} and δ in {0.5, 1, 2}, then timed at
+    δ = 1 for both A."""
+    import torch.nn.functional as F
+
+    b = 512
+    out: dict = {"cases": 0, "td_max_abs_err": 0.0, "dq_max_abs_err": 0.0,
+                 "loss_max_rel_err": 0.0}
+    for a in (4, 18):
+        for delta in (0.5, 1.0, 2.0):
+            q, act, t, w, g = loss_inputs(torch, dev, b, a, seed=a)
+            loss, td = fl.fused_loss_fwd(q, act, t, w, delta)
+            dq = fl.fused_loss_bwd(q, act, t, w, g, delta)
+            loss_p, td_p = fl.fused_loss_fwd_plain(q, act, t, w, delta)
+            dq_p = fl.fused_loss_bwd_plain(q, act, t, w, g, delta)
+            torch.cuda.synchronize()
+            out["cases"] += 1
+            out["td_max_abs_err"] = max(out["td_max_abs_err"],
+                                        float((td - td_p).abs().max()))
+            out["dq_max_abs_err"] = max(out["dq_max_abs_err"],
+                                        float((dq - dq_p).abs().max()))
+            out["loss_max_rel_err"] = max(
+                out["loss_max_rel_err"],
+                abs(float(loss) - float(loss_p)) / abs(float(loss_p)))
+            assert not dq[:3].any(), "out-of-range actions got a gradient"
+    for a in (4, 18):
+        q, act, t, w, g = loss_inputs(torch, dev, b, a, seed=a)
+        # the composition cannot take out-of-range actions: gather faults
+        act_in = act.clamp(0, a - 1)
+        qr = q.clone().requires_grad_(True)
+
+        def composition(qq):
+            q_sa = qq.gather(1, act_in.long()[:, None])[:, 0]
+            hub = F.huber_loss(q_sa, t, reduction="none", delta=1.0)
+            return (w * hub).mean()
+
+        comp_loss = composition(qr)
+        fwd = {
+            "ms": time_ms(torch, lambda i: fl.fused_loss_fwd(
+                q, act, t, w, 1.0))[0],
+            "plain_ms": time_ms(torch, lambda i: fl.fused_loss_fwd_plain(
+                q, act, t, w, 1.0))[0],
+            "composition_ms": time_ms(torch, lambda i: composition(q))[0],
+            "bytes": 4 * (b * a + 4 * b + 1)}
+        bwd = {
+            "ms": time_ms(torch, lambda i: fl.fused_loss_bwd(
+                q, act, t, w, g, 1.0))[0],
+            "plain_ms": time_ms(torch, lambda i: fl.fused_loss_bwd_plain(
+                q, act, t, w, g, 1.0))[0],
+            "composition_ms": time_ms(torch, lambda i: torch.autograd.grad(
+                comp_loss, [qr], retain_graph=True))[0],
+            "bytes": 4 * (2 * b * a + 3 * b + 1)}
+        for k in (fwd, bwd):
+            k["bound_ms"] = 1e3 * k["bytes"] / HBM_BYTES_PER_S
+        out[f"a{a}"] = {"fwd": fwd, "bwd": bwd}
+    out["empty_kernel_ms"] = time_ms(torch, lambda i: torch.cuda._sleep(0))[0]
+    return out
+
+
+# -- phases 4, 5 and 6 -------------------------------------------------------
+
+
+def run_cli(main, counters, argv: list[str], jsonl: str):
+    """``main(argv)`` in process, with every kernel launch counter set to 0
+    just before and read just after. Returns (summary, launches, the last
+    metrics record)."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    argv = ["train", "--preset", "pong", "--backend", "cuda",
-            "--log-every", "100",
-            "--metrics-jsonl", os.path.join(OUT_DIR, "chip_smoke_train.jsonl"),
-            "--set", "env.kind=signal_atari", "env.id=signal",
-            "train.total_steps=22000"]
-    rg.gather_windows.launches = 0
-    rg.scatter_rows.launches = 0
+    path = os.path.join(OUT_DIR, jsonl)
+    argv = argv[:1] + ["--metrics-jsonl", path] + argv[1:]
+    for fn in counters.values():
+        fn.launches = 0
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = main(argv)
     wall = time.perf_counter() - t0
-    launches = {"gather_windows": rg.gather_windows.launches,
-                "scatter_rows": rg.scatter_rows.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
     assert rc == 0, f"main returned {rc}"
     summary["wall_s"] = wall
-    with open(os.path.join(OUT_DIR, "chip_smoke_train.jsonl")) as f:
+    with open(path) as f:
         last_record = json.loads(f.read().strip().splitlines()[-1])
     return summary, launches, last_record
+
+
+def random_policy_return(make_env, env_cfg, episodes: int,
+                         seed: int = 10_000) -> float:
+    """The uniform-random policy's mean return on the eval env and seed
+    (actions drawn independently of the env's own generator)."""
+    env = make_env(env_cfg, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    returns = []
+    for _ in range(episodes):
+        env.reset()
+        total, over = 0.0, False
+        while not over:
+            _, r, _, over = env.step(int(rng.integers(env.num_actions)))
+            total += r
+        returns.append(total)
+    return float(np.mean(returns))
 
 
 def fill_replay(replay, rows: int, seed: int = 0) -> None:
@@ -221,21 +330,13 @@ def fill_replay(replay, rows: int, seed: int = 0) -> None:
     replay.flush()
 
 
-def run_chained(torch, config, Solver, DevicePERFrameReplay) -> dict:
-    cfg = config.pong_config()
-    cfg.mesh.backend = "cuda"
-    cfg.env.kind, cfg.env.id = "signal_atari", "signal"
-    cfg.net.num_actions = 4
-    solver = Solver(cfg)
-    replay = DevicePERFrameReplay(cfg.replay, solver.device, (84, 84),
-                                  cfg.env.stack, cfg.train.gamma,
-                                  write_chunk=cfg.replay.write_chunk)
-    fill_replay(replay, 30_000)
-    chain, dispatches = 8, 24
+def time_chain(torch, solver, replay, chain: int, dispatches: int):
+    """(ms per grad step, last chunk's losses) over ``dispatches`` chained
+    dispatches, after two of warm-up; host clock, ending in a
+    synchronize."""
     for _ in range(2):
         solver.train_steps_device_per(replay, chain=chain)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(dispatches):
         m = solver.train_steps_device_per(replay, chain=chain)
@@ -243,12 +344,40 @@ def run_chained(torch, config, Solver, DevicePERFrameReplay) -> dict:
     dt = time.perf_counter() - t0
     loss = m["loss"].float().cpu().numpy()
     assert np.isfinite(loss).all() and loss.shape == (chain,), loss
+    return 1e3 * dt / (chain * dispatches), loss
+
+
+def run_chained(torch, config, Solver, DevicePERFrameReplay) -> dict:
+    """The chain=8 dispatch with the plain loss and with the fused loss
+    kernels (``use_pallas_loss``), two solvers on one replay, timed in
+    turns: plain, fused, fused, plain."""
+    def solver_for(pallas: bool):
+        cfg = config.pong_config()
+        cfg.mesh.backend = "cuda"
+        cfg.env.kind, cfg.env.id = "signal_atari", "signal"
+        cfg.net.num_actions = 4
+        cfg.train.use_pallas_loss = pallas
+        return Solver(cfg)
+
+    plain, fused = solver_for(False), solver_for(True)
+    cfg = plain.config
+    replay = DevicePERFrameReplay(cfg.replay, plain.device, (84, 84),
+                                  cfg.env.stack, cfg.train.gamma,
+                                  write_chunk=cfg.replay.write_chunk)
+    fill_replay(replay, 30_000)
+    chain, dispatches = 8, 24
+    torch.cuda.reset_peak_memory_stats()
+    times: dict[str, list[float]] = {"plain_loss": [], "fused_loss": []}
+    for name, solver in (("plain_loss", plain), ("fused_loss", fused),
+                         ("fused_loss", fused), ("plain_loss", plain)):
+        ms, loss = time_chain(torch, solver, replay, chain, dispatches)
+        times[name].append(ms)
     out = {"chain": chain, "dispatches": dispatches,
-           "ms_per_grad_step": 1e3 * dt / (chain * dispatches),
-           "grad_steps_per_s": chain * dispatches / dt,
+           "ms_per_grad_step": times["plain_loss"],
+           "fused_loss_ms_per_grad_step": times["fused_loss"],
            "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
            "last_loss": float(loss[-1])}
-    out["trace"] = trace_dispatches(torch, solver, replay, chain, 4)
+    out["trace"] = trace_dispatches(torch, plain, replay, chain, 4)
     return out
 
 
@@ -323,6 +452,24 @@ def cross_device_check(torch, config, Solver, DevicePERFrameReplay) -> dict:
             "max_abs_dtheta": dtheta}
 
 
+PONG_ARGV = ["train", "--preset", "pong", "--backend", "cuda",
+             "--log-every", "100", "--set", "env.kind=signal_atari",
+             "env.id=signal", "train.total_steps=22000"]
+# the Breakout preset at full width; depth cut to 1,600 env steps (400 grad
+# steps) past learn_start 20,000
+BREAKOUT_ARGV = ["train", "--preset", "breakout", "--backend", "cuda",
+                 "--log-every", "100", "--set", "env.kind=signal_atari",
+                 "env.id=signal", "train.use_pallas_loss=true",
+                 "train.total_steps=21600"]
+
+
+def check_path(summary: dict, grad_steps: int) -> None:
+    for key in ("loss", "q_mean", "grad_steps_per_s", "env_steps_per_s",
+                "eval_return"):
+        assert math.isfinite(summary[key]), f"{key} = {summary.get(key)}"
+    assert summary["grad_steps"] == grad_steps, summary["grad_steps"]
+
+
 def main() -> int:
     import torch
 
@@ -333,8 +480,10 @@ def main() -> int:
         return 1
     try:
         from distributed_deep_q_tpu_torch import config
+        from distributed_deep_q_tpu_torch.actors.game import make_env
         from distributed_deep_q_tpu_torch.main import main as cli_main
         from distributed_deep_q_tpu_torch.ops import cuda_build
+        from distributed_deep_q_tpu_torch.ops import fused_loss as fl
         from distributed_deep_q_tpu_torch.ops import ring_gather as rg
         from distributed_deep_q_tpu_torch.replay.device_per import (
             DevicePERFrameReplay)
@@ -352,6 +501,10 @@ def main() -> int:
         f"flags at start: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32} (the port's Solver sets "
         "both False on the card)")
+    counters = {"gather_windows": rg.gather_windows,
+                "scatter_rows": rg.scatter_rows,
+                "fused_loss_fwd": fl.fused_loss_fwd,
+                "fused_loss_bwd": fl.fused_loss_bwd}
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -362,7 +515,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[2] {name}: {line.strip()}")
 
-    # -- 3. kernels at main-path shapes ----------------------------------------
+    # -- 3. ring kernels at main-path shapes -----------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     ring = torch.randint(-2**31, 2**31 - 1, (ROWS * ROWB // 4,),
                          dtype=torch.int32, device=dev, generator=gen)
@@ -378,17 +531,22 @@ def main() -> int:
     del ring
     torch.cuda.empty_cache()
 
-    # -- 4. main path through the CLI ------------------------------------------
-    summary, launches, record = run_main_path(torch, rg, cli_main)
+    # -- 3b. loss kernels ----------------------------------------------------
+    loss_k = check_fused_loss(torch, fl, dev)
+    log(f"[3b] fused loss: {json.dumps(loss_k)}")
+    assert loss_k["td_max_abs_err"] == 0, "B3 |td| disagrees with plain"
+    assert loss_k["dq_max_abs_err"] == 0, "B4 dq disagrees with plain"
+    assert loss_k["loss_max_rel_err"] <= 1e-6, "B3 loss disagrees with plain"
+
+    # -- 4. Pong main path through the CLI -------------------------------------
+    summary, launches, record = run_cli(cli_main, counters, PONG_ARGV,
+                                        "chip_smoke_train.jsonl")
     log(f"[4] main path summary: {json.dumps(summary)}")
     log(f"[4] last metrics record (100 grad steps): {json.dumps(record)}")
     log(f"[4] main path launches: {json.dumps(launches)}; TF32 flags now: "
         f"matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
-    for key in ("loss", "q_mean", "grad_steps_per_s", "env_steps_per_s",
-                "eval_return"):
-        assert math.isfinite(summary[key]), f"{key} = {summary.get(key)}"
-    assert summary["grad_steps"] == 501, summary["grad_steps"]
+    check_path(summary, 501)
     assert launches["gather_windows"] >= summary["grad_steps"], launches
     assert launches["scatter_rows"] > 0, launches
     torch.cuda.empty_cache()
@@ -399,9 +557,48 @@ def main() -> int:
     torch.cuda.empty_cache()
     cross = cross_device_check(torch, config, Solver, DevicePERFrameReplay)
     log(f"[5] card vs CPU fused dispatch: {json.dumps(cross)}")
+    torch.cuda.empty_cache()
 
-    # -- 6. result lines ------------------------------------------------------
+    # -- 6. Breakout host-sampled path through the CLI ------------------------
+    b_summary, b_launches, b_record = run_cli(
+        cli_main, counters, BREAKOUT_ARGV + ["replay.device_per=false"],
+        "chip_smoke_breakout.jsonl")
+    cfg = config.breakout_config()
+    cfg.env.kind, cfg.env.id = "signal_atari", "signal"
+    random_ret = random_policy_return(make_env, cfg.env,
+                                      cfg.train.eval_episodes)
+    log(f"[6] breakout host-sampled summary: {json.dumps(b_summary)}")
+    log(f"[6] last metrics record (100 grad steps): {json.dumps(b_record)}")
+    log(f"[6] launches: {json.dumps(b_launches)}; random policy's "
+        f"eval_return {random_ret}")
+    log("[6] loop phases, ms per grad step: " + json.dumps(
+        {k: b_record.get(k) for k in ("time_sample_ms", "time_dispatch_ms",
+                                      "time_writeback_ms", "time_step_ms",
+                                      "time_device_ms")}))
+    check_path(b_summary, 401)
+    for name in ("fused_loss_fwd", "fused_loss_bwd"):
+        assert b_launches[name] >= b_summary["grad_steps"], b_launches
+    assert b_summary["eval_return"] > random_ret, (b_summary, random_ret)
+    torch.cuda.empty_cache()
+
+    # -- 6b. Breakout with frames in a host FrameStackReplay --------------------
+    h_summary, h_launches, h_record = run_cli(
+        cli_main, counters,
+        BREAKOUT_ARGV[:-1] + ["train.total_steps=5400",
+                              "replay.learn_start=5000",
+                              "replay.device_resident=false"],
+        "chip_smoke_breakout_host.jsonl")
+    log(f"[6b] breakout host FrameStackReplay summary: "
+        f"{json.dumps(h_summary)}")
+    log(f"[6b] last metrics record (100 grad steps): {json.dumps(h_record)}")
+    log(f"[6b] launches: {json.dumps(h_launches)}")
+    check_path(h_summary, 101)
+    for name in ("fused_loss_fwd", "fused_loss_bwd"):
+        assert h_launches[name] >= h_summary["grad_steps"], h_launches
+
+    # -- 7. result lines ------------------------------------------------------
     src = "distributed_deep_q_tpu_torch/csrc/ring_gather.cu"
+    loss_src = "distributed_deep_q_tpu_torch/csrc/fused_loss.cu"
     g512, g4096 = gathers
     kernels = [
         {"name": "gather_windows", "route": "cuda", "source": src,
@@ -411,7 +608,7 @@ def main() -> int:
          "plain_ms": g512["plain_ms"], "bound_ms": g512["bound_ms"],
          "bound_by": "bytes", "library_ms": g512["library_ms"],
          "ok": g512["max_abs_err"] == 0 and g4096["max_abs_err"] == 0,
-         "shape": "n=512 w=5 rowb=8192",
+         "shape": "n=512 w=5 rowb=8192", "path": "phase 4 (pong)",
          "chain8": {k: g4096[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "library_ms", "max_abs_err")}},
         {"name": "scatter_rows", "route": "cuda", "source": src,
@@ -421,8 +618,25 @@ def main() -> int:
          "plain_ms": scatter["plain_ms"], "bound_ms": scatter["bound_ms"],
          "bound_by": "bytes", "library_ms": scatter["library_ms"],
          "ok": scatter["max_abs_err"] == 0,
-         "shape": "n=128 lanes rowb=8192"},
+         "shape": "n=128 lanes rowb=8192", "path": "phase 4 (pong)"},
     ]
+    for name, line, part, err in (
+            ("fused_loss_fwd", 100, "fwd", loss_k["td_max_abs_err"]),
+            ("fused_loss_bwd", 130, "bwd", loss_k["dq_max_abs_err"])):
+        k4, k18 = loss_k["a4"][part], loss_k["a18"][part]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": loss_src,
+             "replaces": f"distributed_deep_q_tpu/ops/pallas_kernels.py:{line}",
+             "launches": b_launches[name], "max_abs_err": err,
+             "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+             "bound_ms": k4["bound_ms"], "bound_by": "bytes",
+             "library_ms": None, "composition_ms": k4["composition_ms"],
+             "empty_kernel_ms": loss_k["empty_kernel_ms"],
+             "loss_max_rel_err": loss_k["loss_max_rel_err"],
+             "ok": err == 0, "shape": "B=512 A=4 delta=1",
+             "path": "phase 6 (breakout, host-sampled)",
+             "a18": {k: k18[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "composition_ms")}})
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

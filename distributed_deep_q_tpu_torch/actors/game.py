@@ -1,12 +1,14 @@
 """Environments + actor-side helpers (copy of the reference ``actors/game.py``).
 
-Host-only numpy code, copied with its imports rewritten. The port's slice
-needs the pixel envs and the frame stacker:
+Host-only numpy code, copied with its imports rewritten:
 
 - ``SignalAtari`` — reward is a function of what's on screen (the
   learnability probe for the CNN + device-ring path).
 - ``FakeAtari`` — deterministic counter frames for byte-exact replay tests.
+- ``GymEnv`` — classic-control vector envs (the CartPole preset).
 - ``FrameStacker`` — the rolling ``[H, W, stack]`` uint8 observation.
+- ``NStepAccumulator`` — n-step transitions for the explicit-transition
+  ``ReplayMemory`` (non-pixel envs).
 
 ``GymEnv`` and ``AtariEnv`` import ``gymnasium`` / ``ale_py`` only when they
 are built, and raise a clear ``ImportError`` when the package is missing.
@@ -292,3 +294,55 @@ class FrameStacker:
     @property
     def obs(self) -> np.ndarray:
         return self._buf
+
+
+class NStepAccumulator:
+    """Rolls (s, a, r) history into n-step transitions at the actor.
+
+    Emits (obs, action, R_n, next_obs, discount) where R_n = Σ γᵏ r and
+    discount = γⁿ·(1-done); on episode end, flushes the partial tail with
+    the remaining horizon. Keeps the replay storage-agnostic about n.
+    """
+
+    def __init__(self, n_step: int, gamma: float):
+        self.n = int(n_step)
+        self.gamma = float(gamma)
+        self._buf: deque = deque()
+
+    def push(self, obs, action, reward, next_obs, done: bool):
+        """Returns a list of matured transitions (possibly empty)."""
+        out = []
+        self._buf.append([obs, action, reward])
+        if len(self._buf) >= self.n:
+            out.append(self._compose(next_obs, done))
+            self._buf.popleft()
+        if done:
+            while self._buf:
+                out.append(self._compose(next_obs, True))
+                self._buf.popleft()
+        return out
+
+    def flush_truncated(self, next_obs):
+        """Flush the buffered tail at a time-limit truncation.
+
+        Unlike episode termination, truncation keeps the bootstrap: each
+        emitted transition gets discount γᵏ over its (shortened) horizon
+        with ``next_obs`` = the final observed state.
+        """
+        out = []
+        while self._buf:
+            out.append(self._compose(next_obs, False))
+            self._buf.popleft()
+        return out
+
+    def _compose(self, next_obs, done: bool):
+        r, g = 0.0, 1.0
+        for _, _, rew in self._buf:
+            r += g * rew
+            g *= self.gamma
+        obs, action, _ = self._buf[0]
+        return (obs, action, np.float32(r), next_obs,
+                np.float32(0.0 if done else g))
+
+    def reset(self) -> None:
+        self._buf.clear()

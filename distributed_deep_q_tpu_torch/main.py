@@ -4,6 +4,10 @@ train and eval modes).
 Examples:
     python -m distributed_deep_q_tpu_torch.main train --preset pong --backend cuda \\
         --set env.kind=signal_atari env.id=signal
+    python -m distributed_deep_q_tpu_torch.main train --preset breakout --backend cuda \\
+        --set env.kind=signal_atari env.id=signal replay.device_per=false \\
+        train.use_pallas_loss=true
+    python -m distributed_deep_q_tpu_torch.main train --preset cartpole --backend cpu
     python -m distributed_deep_q_tpu_torch.main eval --preset pong --backend cpu \\
         --set env.kind=signal_atari env.id=signal
 

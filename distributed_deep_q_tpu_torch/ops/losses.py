@@ -1,8 +1,8 @@
 """DQN loss construction (port of the reference ``ops/losses.py``).
 
 Pure tensor functions, differentiated by autograd inside the learner step.
-The optional fused TD-loss kernel (reference ``ops/pallas_kernels.py``) is
-not ported yet.
+The fused TD-loss kernels (``train.use_pallas_loss``) are in
+``ops/fused_loss.py``.
 """
 
 from __future__ import annotations

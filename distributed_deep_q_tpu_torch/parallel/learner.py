@@ -1,5 +1,8 @@
-"""The learner: loss, gradients, fused clip+Adam+target refresh, and the
-fused device-PER dispatch (port of the reference ``parallel/learner.py``).
+"""The learner: loss, gradients, fused clip+Adam+target refresh, and its
+three train steps (port of the reference ``parallel/learner.py``): on a
+host batch (``train_step``), on index batches into the device frame ring
+(``train_step_from_ring``), and the fused device-PER dispatch
+(``train_steps_device_per``).
 
 The reference compiles each step into one XLA program under ``shard_map``
 over a ``dp`` mesh; the port runs eagerly on one device, so the gradient
@@ -24,15 +27,19 @@ import copy
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
 from distributed_deep_q_tpu_torch.config import TrainConfig
+from distributed_deep_q_tpu_torch.ops.fused_loss import FusedDqnLoss
 from distributed_deep_q_tpu_torch.ops.losses import bellman_targets, dqn_loss
 from distributed_deep_q_tpu_torch.ops.ring_gather import gather_windows
 from distributed_deep_q_tpu_torch.replay.device_per import (
     build_meta_pack, fused_sample_draw_packed, fused_sample_prep,
     scatter_priorities)
+from distributed_deep_q_tpu_torch.replay.device_ring import (
+    compose_stacks, to_device)
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
 _INT32_MAX = 2**31 - 1
@@ -114,13 +121,14 @@ def fused_adam_target_step(cfg: TrainConfig, grads: dict[str, torch.Tensor],
 def q_step_loss(cfg: TrainConfig, q: torch.Tensor,
                 q_next_o: torch.Tensor | None, q_next_t: torch.Tensor,
                 batch: dict[str, torch.Tensor]):
-    """Bellman targets + weighted Huber. Returns (loss, |TD|)."""
-    if cfg.use_pallas_loss:
-        raise NotImplementedError(
-            "train.use_pallas_loss=true needs the fused TD-loss kernel, "
-            "which is not ported yet (ROADMAP B3/B4, slice 2)")
+    """Bellman targets + weighted Huber: the fused kernels
+    (``ops/fused_loss.py``) with ``use_pallas_loss``, else the plain tensor
+    loss. Returns (loss, |TD|)."""
     targets = bellman_targets(batch["reward"], batch["discount"], q_next_t,
                               q_next_o, cfg.double_dqn)
+    if cfg.use_pallas_loss:
+        return FusedDqnLoss.apply(q, batch["action"], targets.detach(),
+                                  batch["weight"], float(cfg.huber_delta))
     return dqn_loss(q, batch["action"], targets, batch["weight"],
                     cfg.huber_delta)
 
@@ -184,18 +192,21 @@ class Learner:
 
     # -- train step --------------------------------------------------------
 
-    def _step_core(self, state: TrainState, batch: dict[str, torch.Tensor]):
-        """Loss + gradients + optimizer + target refresh on one batch whose
-        ``obs``/``next_obs`` are ``[B, stack, H, W]`` frames. Updates
+    def _step_core(self, state: TrainState, batch: dict[str, torch.Tensor],
+                   forward: str = "forward_nchw"):
+        """Loss + gradients + optimizer + target refresh on one batch on the
+        device. ``forward`` names the nets' method for ``obs``/``next_obs``:
+        ``forward_nchw`` for ``[B, stack, H, W]`` frames (the ring paths),
+        ``forward`` for the reference's layouts (a host batch). Updates
         ``state`` in place; returns (metrics, |TD|)."""
         cfg = self.cfg
         net, target = state.net, state.target_net
-        q = net.forward_nchw(batch["obs"])
+        q = getattr(net, forward)(batch["obs"])
         with torch.no_grad():
             # action selection must not backprop into the online net
-            q_next_o = (net.forward_nchw(batch["next_obs"])
+            q_next_o = (getattr(net, forward)(batch["next_obs"])
                         if cfg.double_dqn else None)
-            q_next_t = target.forward_nchw(batch["next_obs"])
+            q_next_t = getattr(target, forward)(batch["next_obs"])
         loss, td_abs = q_step_loss(cfg, q, q_next_o, q_next_t, batch)
         params = dict(net.named_parameters())
         grads = dict(zip(params, torch.autograd.grad(loss,
@@ -208,6 +219,35 @@ class Learner:
         metrics = {"loss": loss.detach(), "q_mean": q.detach().mean(),
                    "grad_norm": gnorm}
         return metrics, td_abs
+
+    def _to_device(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
+        return {k: to_device(np.asarray(v), self.device)
+                for k, v in batch.items()}
+
+    def train_step(self, state: TrainState, batch: dict[str, Any]):
+        """One gradient step on a host batch (numpy ``obs``, ``action``,
+        ``reward``, ``next_obs``, ``discount``, ``weight``; pixel ``obs`` in
+        the reference's ``[B, H, W, stack]``). Returns (metrics, |TD|)."""
+        return self._step_core(state, self._to_device(batch),
+                               forward="forward")
+
+    def train_step_from_ring(self, state: TrainState, ring: torch.Tensor,
+                             batch: dict[str, Any],
+                             frame_shape: tuple[int, int] = (84, 84)):
+        """One gradient step on an index batch into the device frame ring
+        (``DeviceFrameReplay.sample``): the stacks are gathered on the
+        device (``compose_stacks``). Returns (metrics, |TD|)."""
+        b = self._to_device(batch)
+        composed = {
+            "obs": compose_stacks(ring, b["oidx"], b["valid"], frame_shape),
+            "next_obs": compose_stacks(ring, b["noidx"], b["nvalid"],
+                                       frame_shape),
+            "action": b["action"],
+            "reward": b["reward"],
+            "discount": b["discount"],
+            "weight": b["weight"],
+        }
+        return self._step_core(state, composed)
 
     def train_steps_device_per(self, state: TrainState,
                                rows: dict[str, torch.Tensor],

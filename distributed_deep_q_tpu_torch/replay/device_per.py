@@ -31,22 +31,16 @@ dispatches draw.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from distributed_deep_q_tpu_torch.ops.ring_gather import (
     padded_row_bytes, scatter_rows)
-from distributed_deep_q_tpu_torch.replay.device_ring import DeviceFrameReplay
-
-
-def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array → device tensor. On the card the copy goes through pinned
-    memory and does not block the host behind queued device work."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.clone()
+from distributed_deep_q_tpu_torch.replay.device_ring import (
+    DeviceFrameReplay, to_device)
 
 
 def uniforms_for_keys(keys: np.ndarray, per_shard: int,
@@ -274,10 +268,14 @@ class DevicePERFrameReplay(DeviceFrameReplay):
     """
 
     def __init__(self, cfg, device, frame_shape=(84, 84), stack: int = 4,
-                 gamma: float = 0.99, write_chunk: int = 64,
+                 gamma: float = 0.99, seed: int = 0, write_chunk: int = 64,
                  num_streams: int = 1):
-        super().__init__(cfg, device, frame_shape, stack, write_chunk,
+        # host trees off: the priorities live on the device
+        super().__init__(dataclasses.replace(cfg, prioritized=False), device,
+                         frame_shape, stack, gamma, seed, write_chunk,
                          num_streams)
+        self.prioritized = True
+        self._cfg = cfg
         self.n_step, self.gamma = cfg.n_step, gamma
         self._alpha = float(cfg.priority_alpha)
         # staged columns: raw frame rows (padded/packed on device by

@@ -1,9 +1,14 @@
-"""Device-resident replay: host bookkeeping (port of the reference
-``replay/device_ring.py``'s ``DeviceFrameReplay``).
+"""Device-resident replay: frames on the device, metadata on the host (port
+of the reference ``replay/device_ring.py``'s ``DeviceFrameReplay``).
 
-Frames live in device memory; the host keeps per-slot metadata rings and
-stages fresh rows, which ``flush`` writes to the device in fixed-size
-chunks. Layout — shards and stream slots, as in the reference:
+Frames enter device memory once, at actor rate: a uint8 ring
+``[capacity, H·W]`` (one flattened frame per row), written in fixed-size
+chunks. The host keeps per-slot metadata rings and, when prioritized,
+per-slot sum trees; it samples *indices*, composes n-step returns and
+validity masks from the metadata, and ships only ``[B, stack]`` int32
+indices plus a few ``[B]`` scalars. The train step gathers and stacks the
+frames on the device (``compose_stacks``). Layout — shards and stream
+slots, as in the reference:
 
     device shard s owns ring rows [s·cap_local, (s+1)·cap_local)
     each shard is split into ``subs_per_shard`` SLOTS of ``slot_cap`` rows
@@ -14,9 +19,8 @@ writer stream at a time: stream i owns the slots {g : g % num_streams == i}
 and cycles through them at episode boundaries. The port runs on one device,
 so D = 1 (one shard); the bookkeeping stays generic over slots.
 
-This base class is the host half only. ``DevicePERFrameReplay``
-(``replay/device_per.py``) supplies the device ring and its write program;
-the reference's host-sampled variant (``device_per=False``) is not ported.
+``DevicePERFrameReplay`` (``replay/device_per.py``) replaces the ring, its
+writer and the sampler with the fused device-PER ones.
 """
 
 from __future__ import annotations
@@ -26,14 +30,43 @@ import torch
 
 from distributed_deep_q_tpu_torch.config import ReplayConfig
 from distributed_deep_q_tpu_torch.replay.columnar import ColumnStage
-from distributed_deep_q_tpu_torch.replay.prioritized import beta_at
+from distributed_deep_q_tpu_torch.replay.prioritized import (
+    SumTree, allocate_proportional, beta_at, filter_stale,
+    sample_valid_from_tree)
 from distributed_deep_q_tpu_torch.replay.replay_memory import FrameStackReplay
 
 
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array → device tensor. On the card the copy goes through pinned
+    memory and does not block the host behind queued device work."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()
+
+
+def compose_stacks(ring: torch.Tensor, oidx: torch.Tensor,
+                   valid: torch.Tensor,
+                   frame_shape: tuple[int, int] = (84, 84)) -> torch.Tensor:
+    """``[cap, H·W]`` ring + ``[B, stack]`` row indices/validity →
+    ``[B, stack, H, W]`` uint8. Frames before an episode start (invalid)
+    are zeroed, matching ``FrameStackReplay.gather``.
+
+    The reference returns ``[B, H, W, stack]`` (its CNN's layout); the
+    port's nets take ``[B, stack, H, W]`` (``forward_nchw``), so the stack
+    stays where the gather puts it and no transpose is needed."""
+    frames = ring[oidx.long()]                              # [B, S, H·W]
+    frames = frames * valid[..., None].to(torch.uint8)
+    return frames.view(frames.shape[:2] + tuple(frame_shape))
+
+
 class DeviceFrameReplay:
-    """Slot bookkeeping, staging and the chunked flush of a device frame
-    ring. Subclasses implement ``_alloc_ring``, ``_stage`` and
-    ``_apply_write``."""
+    """Device frame ring + host metadata/priorities, one logical buffer:
+    ``add`` / ``add_batch`` / ``sample`` / ``__len__`` plus
+    ``update_priorities``. ``sample`` returns an *index batch* whose pixels
+    the learner's ring train step composes on the device."""
+
+    prioritized: bool
 
     def __init__(
         self,
@@ -41,6 +74,8 @@ class DeviceFrameReplay:
         device: torch.device | str,
         frame_shape: tuple[int, int] = (84, 84),
         stack: int = 4,
+        gamma: float = 0.99,
+        seed: int = 0,
         write_chunk: int = 64,
         num_streams: int = 1,
     ):
@@ -66,11 +101,20 @@ class DeviceFrameReplay:
         self.stack = int(stack)
         self.frame_shape = tuple(frame_shape)
         self.write_chunk = int(write_chunk)
+        self.prioritized = bool(cfg.prioritized)
         self._cfg = cfg
+        self._rng = np.random.default_rng(seed)
 
         # per-slot metadata rings (single writer each → adjacency holds)
-        self.slots = [FrameStackReplay(self.slot_cap, stack, cfg.n_step)
-                      for _ in range(g)]
+        self.slots = [
+            FrameStackReplay(self.slot_cap, frame_shape, stack, cfg.n_step,
+                             gamma, seed=seed + i, store_frames=False)
+            for i in range(g)]
+        # per-slot priority trees with SHARED max-priority/β bookkeeping
+        self.trees = ([SumTree(self.slot_cap, use_native=cfg.use_native)
+                       for _ in range(g)]
+                      if self.prioritized else None)
+        self.max_priority = 1.0
         self._samples = 0
 
         # stream i owns every num_streams-th slot
@@ -92,13 +136,11 @@ class DeviceFrameReplay:
         self._pending_rows = [0] * d
 
     def _alloc_ring(self) -> None:
-        raise NotImplementedError
-
-    def _stage(self, slot: int, local: np.ndarray, frames: np.ndarray) -> None:
-        raise NotImplementedError
-
-    def _apply_write(self, idx: np.ndarray, cols: list) -> None:
-        raise NotImplementedError
+        """The device frame plane: ``[capacity, H·W]`` uint8, one flattened
+        frame per row (7.06 GB at 1M × 84×84). ``DevicePERFrameReplay``
+        overrides this with its padded int32 ring."""
+        self.ring = torch.zeros((self.capacity, self._row_len),
+                                dtype=torch.uint8, device=self.device)
 
     # -- layout helpers -----------------------------------------------------
 
@@ -110,6 +152,12 @@ class DeviceFrameReplay:
         shard, base = self._slot_base(slot)
         return shard * self.cap_local + base + local
 
+    def _slot_of_global(self, gidx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """global ring row → (slot id, slot-local index)."""
+        shard, rem = gidx // self.cap_local, gidx % self.cap_local
+        sub, local = rem // self.slot_cap, rem % self.slot_cap
+        return sub * self.num_shards + shard, local
+
     # -- bookkeeping --------------------------------------------------------
 
     def __len__(self) -> int:
@@ -118,6 +166,10 @@ class DeviceFrameReplay:
     def pending_rows(self) -> int:
         """Rows staged but not yet flushed to the device."""
         return sum(self._pending_rows)
+
+    @property
+    def steps_added(self) -> int:
+        return sum(m.steps_added for m in self.slots)
 
     def _sampleable(self, slot: int) -> int:
         """Sampleable transition mass of a slot (0 until it can sample)."""
@@ -156,6 +208,16 @@ class DeviceFrameReplay:
                 depth=self._staging_depth)
         st.append(idx, *cols)
         self._pending_rows[shard] += len(idx)
+
+    def _stage(self, slot: int, local: np.ndarray, frames: np.ndarray) -> None:
+        """Queue (slot-local rows, flat frames) for the device write and set
+        their fresh-row priorities."""
+        if self.prioritized:
+            self.trees[slot].set(
+                local, np.full(len(local),
+                               self.max_priority ** self._cfg.priority_alpha))
+        shard, base = self._slot_base(slot)
+        self._stage_rows(shard, (base + local).astype(np.int32), (frames,))
 
     def add(self, frame, action, reward, done, boundary=None) -> int:
         """Single-stream add (in-process training loop)."""
@@ -237,3 +299,110 @@ class DeviceFrameReplay:
         for _ in range(rounds):
             idx, cols, _ = self._assemble_round()
             self._apply_write(idx, cols)
+
+    def _apply_write(self, idx: np.ndarray, cols: list) -> None:
+        """One padded write chunk (``[1, k]`` planes) → the device ring.
+        The reference's scatter drops its padding lanes (index
+        ``cap_local``) on the device; here they are dropped on the host, so
+        ``index_copy_`` only sees real rows (distinct: a chunk never wraps
+        a sub-ring)."""
+        ok = idx[0] < self.cap_local
+        if not ok.any():
+            return
+        self.ring.index_copy_(
+            0, to_device(idx[0][ok].astype(np.int64), self.device),
+            to_device(cols[0][0][ok], self.device))
+
+    # -- sample path --------------------------------------------------------
+
+    def _allocate(self, quota: int, masses: list[float]) -> list[int]:
+        """Split ``quota`` draws across slots ∝ mass (largest remainder)."""
+        return allocate_proportional(quota, masses)
+
+    def sample(self, batch_size: int) -> dict[str, np.ndarray]:
+        """Index batch (no pixels): per-shard draws concatenated in shard
+        order."""
+        self.flush()
+        d = self.num_shards
+        per = batch_size // d
+        parts: list[dict[str, np.ndarray]] = []
+        self._samples += 1
+        for s in range(d):
+            shard_slots = [g for g in range(self.num_slots)
+                           if g % d == s]
+            if self.prioritized:
+                masses = [self.trees[g].total if self._sampleable(g) else 0.0
+                          for g in shard_slots]
+            else:
+                masses = [float(self._sampleable(g)) for g in shard_slots]
+            counts = self._allocate(per, masses)
+            assert sum(counts) == per, \
+                f"shard {s} has no sampleable slot (gate on ready())"
+            for g, c in zip(shard_slots, counts):
+                if c == 0:
+                    continue
+                meta = self.slots[g]
+                if self.prioritized:
+                    local = sample_valid_from_tree(
+                        self.trees[g], meta, c, self._rng)
+                    p = self.trees[g].get(local)
+                else:
+                    local = meta.sample_indices(c)
+                    p = np.ones(c)
+                m = meta.gather_meta(local)
+                _, base = self._slot_base(g)
+                for key in ("oidx", "noidx"):
+                    m[key] = (m[key] + base).astype(np.int32)
+                m["index"] = self._global_index(g, local).astype(np.int64)
+                m["_slot"] = np.full(c, g, np.int32)
+                m["_p"] = p
+                parts.append(m)
+        batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+        if self.prioritized:
+            # IS weights for the REALIZED stratified distribution: each
+            # shard contributes exactly batch/D draws (proportional within
+            # the shard), so P(i) = p_i / (D · mass_shard(i)). Only
+            # SAMPLEABLE slots count: the allocation above zeroes
+            # unsampleable ones, so their mass is not part of the realized
+            # distribution either.
+            shard_mass = np.zeros(d)
+            for g in range(self.num_slots):
+                if self._sampleable(g):
+                    shard_mass[g % d] += self.trees[g].total
+            owner_shard = batch.pop("_slot") % d
+            n = len(self)
+            pr = np.maximum(
+                batch.pop("_p")
+                / np.maximum(d * shard_mass[owner_shard], 1e-12), 1e-12)
+            w = (n * pr) ** (-self.beta)
+            batch["weight"] = (w / w.max()).astype(np.float32)
+        else:
+            batch.pop("_p")
+            batch.pop("_slot")
+            batch["weight"] = np.ones(batch_size, np.float32)
+        batch["valid"] = batch["valid"].astype(np.uint8)
+        batch["nvalid"] = batch["nvalid"].astype(np.uint8)
+        batch["index"] = batch["index"].astype(np.int32)
+        batch["_sampled_at"] = tuple(m.steps_added for m in self.slots)
+        return batch
+
+    # -- learner feedback ---------------------------------------------------
+
+    def update_priorities(self, idx: np.ndarray, td_abs: np.ndarray,
+                          sampled_at=None) -> None:
+        if not self.prioritized:
+            return
+        gidx = np.asarray(idx, np.int64)
+        td = np.abs(np.asarray(td_abs, np.float64)) + self._cfg.priority_eps
+        slot_ids, local = self._slot_of_global(gidx)
+        for g in np.unique(slot_ids):
+            pick = slot_ids == g
+            li, lt = local[pick], td[pick]
+            if sampled_at is not None:
+                li, lt = filter_stale(li, lt, self.slots[g].steps_added,
+                                      sampled_at[g], self.slot_cap)
+                if li.size == 0:
+                    continue
+            self.trees[g].set(li, lt ** self._cfg.priority_alpha)
+            self.max_priority = max(self.max_priority, float(lt.max()))

@@ -19,8 +19,8 @@ from distributed_deep_q_tpu_torch.convert import (
     train_state_from_flax, train_state_to_flax)
 from distributed_deep_q_tpu_torch.models.qnet import build_qnet
 from distributed_deep_q_tpu_torch.parallel.learner import Learner, TrainState
-from distributed_deep_q_tpu_torch.replay.device_per import (
-    to_device, uniforms_for_keys)
+from distributed_deep_q_tpu_torch.replay.device_per import uniforms_for_keys
+from distributed_deep_q_tpu_torch.replay.device_ring import to_device
 
 
 def select_device(backend: str) -> torch.device:
@@ -92,11 +92,22 @@ def next_fused_keys(owner, num_shards: int, chain: int) -> np.ndarray:
     return out
 
 
+def _strip_host_keys(batch: dict[str, Any]) -> dict[str, Any]:
+    """Drop host-only bookkeeping (slot indices, sample snapshots) before a
+    batch goes to the device."""
+    return {k: v for k, v in batch.items()
+            if k not in ("index", "_sampled_at")}
+
+
 class Solver:
     """Facade over (net, learner, state) on one device.
 
+    - ``train_step(batch)`` — one step on a host batch (``ReplayMemory``,
+      host ``FrameStackReplay``);
+    - ``train_step_from_ring(ring, batch, frame_shape)`` — one step on an
+      index batch into a ``DeviceFrameReplay`` ring;
     - ``train_steps_device_per(replay, chain)`` — the fused device-PER
-      dispatch (the slice's hot path);
+      dispatch;
     - ``q_values(obs)`` / ``act(obs, ε, rng)`` — the actor-side forward;
     - ``get_weights()`` / ``update(weights)`` — numpy weight IO;
     - ``load_flax_state(...)`` / ``flax_state()`` — the train state in the
@@ -139,6 +150,36 @@ class Solver:
     @property
     def step(self) -> int:
         return int(self.state.step)
+
+    def train_step(self, batch: dict[str, np.ndarray]) -> dict[str, Any]:
+        """One gradient step on a host batch. Returns the metrics as device
+        scalars plus the per-sample ``td_abs`` (a device tensor, for PER
+        priorities) and the sampled ``index``; nothing here waits on the
+        device."""
+        metrics, td_abs = self.learner.train_step(self.state,
+                                                  _strip_host_keys(batch))
+        return self._with_feedback(metrics, td_abs, batch)
+
+    def train_step_from_ring(self, ring: torch.Tensor, batch: dict[str, Any],
+                             frame_shape: tuple[int, int] | None = None,
+                             ) -> dict[str, Any]:
+        """One gradient step on an index batch into the device frame ring
+        (``replay/device_ring.py``): ``batch`` carries indices, masks and
+        scalars; frames are gathered on the device. ``frame_shape`` decodes
+        the ring's flat rows (defaults to the net config's). Returns what
+        ``train_step`` returns."""
+        metrics, td_abs = self.learner.train_step_from_ring(
+            self.state, ring, _strip_host_keys(batch),
+            frame_shape=tuple(frame_shape or self.config.net.frame_shape))
+        return self._with_feedback(metrics, td_abs, batch)
+
+    @staticmethod
+    def _with_feedback(metrics, td_abs, batch) -> dict[str, Any]:
+        out: dict[str, Any] = dict(metrics)
+        out["td_abs"] = td_abs
+        if "index" in batch:
+            out["index"] = batch["index"]
+        return out
 
     def train_step_device_per(self, replay) -> dict[str, Any]:
         """One fused prioritized step; metrics as device scalars."""

@@ -1,11 +1,27 @@
-"""Single-process training loop — the pixel device-PER path (port of the
-reference ``train.py``'s ``train_single_process`` and ``evaluate``).
+"""Single-process training loop (port of the reference ``train.py``'s
+``train_single_process`` and ``evaluate``).
 
-One process hosts actor + replay + learner on one device: the env steps on
-the host, frames go to the device ring in chunks, and every ``train_every``
-env steps the fused device-PER dispatch (``FusedStepStream``) samples,
-trains and updates priorities on the device. Configurations outside this
-path are refused with the ROADMAP item that will port them.
+One process hosts actor + replay + learner on one device. The env steps on
+the host; what happens to a transition depends on the env and the replay
+settings, as in the reference:
+
+- pixel env, ``replay.device_resident`` and ``prioritized`` and
+  ``device_per``: frames go to the device ring in chunks and every
+  ``train_every`` env steps the fused device-PER dispatch
+  (``FusedStepStream``) samples, trains and updates priorities on the
+  device;
+- pixel env, ``device_resident`` otherwise: frames go to the device ring,
+  the host samples index batches (uniform, or from per-slot sum trees) and
+  the step gathers the stacks on the device (``train_step_from_ring``);
+- pixel env, ``device_resident=false``: frames stay in a host
+  ``FrameStackReplay``, and whole pixel batches go to the device
+  (``train_step``);
+- vector env (CartPole): n-step transitions in a host ``ReplayMemory``
+  (``train_step``).
+
+Host-sampled prioritized replay gets its priorities back through a
+``DelayedPriorityWriteback``. Configurations outside the port are refused
+with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -13,11 +29,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from distributed_deep_q_tpu_torch.actors.game import FrameStacker, make_env
+from distributed_deep_q_tpu_torch.actors.game import (
+    FrameStacker, NStepAccumulator, make_env)
 from distributed_deep_q_tpu_torch.config import Config
 from distributed_deep_q_tpu_torch.metrics import Metrics, MovingAverage
 from distributed_deep_q_tpu_torch.profiling import StepTimer
 from distributed_deep_q_tpu_torch.replay.device_per import DevicePERFrameReplay
+from distributed_deep_q_tpu_torch.replay.device_ring import DeviceFrameReplay
+from distributed_deep_q_tpu_torch.replay.prioritized import (
+    make_writeback, maybe_prioritize)
+from distributed_deep_q_tpu_torch.replay.replay_memory import (
+    FrameStackReplay, ReplayMemory)
 from distributed_deep_q_tpu_torch.solver import FusedStepStream, Solver
 
 
@@ -53,15 +75,6 @@ def check_slice(cfg: Config) -> None:
     """Refuse, by name, the settings this port does not run yet."""
     refusals = [
         (cfg.net.kind == "r2d2", "net.kind=r2d2 (ROADMAP A13: R2D2)"),
-        (cfg.env.kind == "gym",
-         "non-pixel envs and the host ReplayMemory (ROADMAP A7: the "
-         "CartPole slice)"),
-        (not (cfg.replay.device_resident and cfg.replay.prioritized
-              and cfg.replay.device_per),
-         "host-sampled replay (replay.device_resident/prioritized/device_per "
-         "must all be true; ROADMAP A17)"),
-        (cfg.train.use_pallas_loss,
-         "train.use_pallas_loss=true (ROADMAP B3/B4, slice 2)"),
         (bool(cfg.train.checkpoint_dir) or cfg.train.resume,
          "checkpoints (train.checkpoint_dir/resume; ROADMAP A7)"),
         (bool(cfg.replay.persist_path),
@@ -74,64 +87,117 @@ def check_slice(cfg: Config) -> None:
             raise NotImplementedError(f"not ported yet: {what}")
 
 
+def make_replay(cfg: Config, env, device: torch.device):
+    """The replay the reference builds for this env and these settings
+    (see the module docstring)."""
+    seed = cfg.train.seed
+    if env.obs_dtype != np.uint8:
+        return maybe_prioritize(ReplayMemory(
+            cfg.replay.capacity, env.obs_shape, np.float32, seed=seed),
+            cfg.replay, seed=seed)
+    if not cfg.replay.device_resident:
+        return maybe_prioritize(FrameStackReplay(
+            cfg.replay.capacity, env.obs_shape, cfg.env.stack,
+            cfg.replay.n_step, cfg.train.gamma, seed=seed),
+            cfg.replay, seed=seed)
+    kind = (DevicePERFrameReplay
+            if cfg.replay.prioritized and cfg.replay.device_per
+            else DeviceFrameReplay)
+    return kind(cfg.replay, device, env.obs_shape, cfg.env.stack,
+                cfg.train.gamma, seed=seed,
+                write_chunk=cfg.replay.write_chunk)
+
+
 def train_single_process(cfg: Config, metrics: Metrics | None = None,
                          log_every: int = 1_000) -> dict:
-    """Run the in-process pixel device-PER loop; returns final summary
-    metrics (and the solver under ``"solver"``)."""
+    """Run the in-process loop; returns final summary metrics (and the
+    solver under ``"solver"``)."""
     check_slice(cfg)
     metrics = metrics or Metrics()
     env = make_env(cfg.env, seed=cfg.train.seed)
-    if env.obs_dtype != np.uint8:
-        raise NotImplementedError(
-            "not ported yet: non-pixel envs and the host ReplayMemory "
-            "(ROADMAP A7: the CartPole slice)")
     cfg.net.num_actions = env.num_actions
     obs_dim = int(np.prod(env.obs_shape))
     solver = Solver(cfg, obs_dim=obs_dim)
     rng = np.random.default_rng(cfg.train.seed)
-    replay = DevicePERFrameReplay(
-        cfg.replay, solver.device, env.obs_shape, cfg.env.stack,
-        cfg.train.gamma, write_chunk=cfg.replay.write_chunk)
-    stacker = FrameStacker(env.obs_shape, cfg.env.stack)
+    replay = make_replay(cfg, env, solver.device)
+    pixel_env = env.obs_dtype == np.uint8
+    if pixel_env:
+        stacker = FrameStacker(env.obs_shape, cfg.env.stack)
+    else:
+        nstep = NStepAccumulator(cfg.replay.n_step, cfg.train.gamma)
 
     frame = env.reset()
-    obs = stacker.reset(frame)
+    obs = stacker.reset(frame) if pixel_env else frame
     ep_ret, ep_returns = 0.0, MovingAverage(100)
     summary: dict = {}
+    fused_per = isinstance(replay, DevicePERFrameReplay)
+    writeback = (make_writeback(replay, cfg.replay)
+                 if replay.prioritized and not fused_per else None)
     learn_live = False
     gsteps = 0
     best_eval, best_params = float("-inf"), None
     timer = StepTimer()
-    fused_stream = FusedStepStream(solver, replay, cfg.replay.fused_chain,
-                                   timer=timer)
+    fused_stream = (FusedStepStream(solver, replay, cfg.replay.fused_chain,
+                                    timer=timer) if fused_per else None)
 
     for t in range(1, cfg.train.total_steps + 1):
         eps = epsilon_at(t, cfg.actors)
         a = solver.act(obs, eps, rng)
         next_frame, r, done, over = env.step(a)
         ep_ret += r
-        # frame (pre-action), action, reward, done; boundary marks any
-        # episode end incl. truncation so stacks/windows never cross it
-        replay.add(frame, a, r, done, boundary=over)
-        frame = next_frame
-        obs = stacker.push(frame)
+        if pixel_env:
+            # frame (pre-action), action, reward, done; boundary marks any
+            # episode end incl. truncation so stacks/windows never cross it
+            replay.add(frame, a, r, done, boundary=over)
+            frame = next_frame
+            obs = stacker.push(frame)
+        else:
+            for tr in nstep.push(obs, a, r, next_frame, done):
+                replay.add(*tr)
+            obs = next_frame
         metrics.count("env_steps")
 
         if over:
+            if not pixel_env and not done:
+                # time-limit truncation: flush the n-step tail with
+                # bootstrap instead of discarding the episode's end
+                for tr in nstep.flush_truncated(next_frame):
+                    replay.add(*tr)
             ep_returns.add(ep_ret)
             ep_ret = 0.0
             frame = env.reset()
-            obs = stacker.reset(frame)
+            if pixel_env:
+                obs = stacker.reset(frame)
+            else:
+                obs = frame
+                nstep.reset()
 
         if t % cfg.train.train_every == 0 and not learn_live:
             learn_live = replay.ready(cfg.replay.learn_start)
         if learn_live and t % cfg.train.train_every == 0:
-            # learn phase: j minibatches per k env steps, chained up to
-            # fused_chain per dispatch by the stream
+            # learn phase: j minibatches per k env steps; the fused path
+            # chains up to fused_chain of them per dispatch
             for j in range(cfg.train.grad_steps_per_train):
-                m = fused_stream.next(cfg.train.grad_steps_per_train - j)
+                if fused_per:
+                    m = fused_stream.next(cfg.train.grad_steps_per_train - j)
+                else:
+                    with timer.phase("sample"):
+                        batch = replay.sample(cfg.replay.batch_size)
+                    sampled_at = batch.pop("_sampled_at",
+                                           replay.steps_added)
+                    with timer.phase("dispatch"):
+                        if isinstance(replay, DeviceFrameReplay):
+                            m = solver.train_step_from_ring(
+                                replay.ring, batch, replay.frame_shape)
+                        else:
+                            m = solver.train_step(batch)
                 gsteps += 1
                 timer.step_done()
+                if writeback is not None:
+                    # |TD| is copied to the host at dispatch and applied
+                    # depth steps later: the loop never waits on it
+                    with timer.phase("writeback"):
+                        writeback.push(m["index"], m["td_abs"], sampled_at)
                 metrics.count("grad_steps")
                 if gsteps % log_every == 0:
                     timer.measure_device(m["loss"])
@@ -143,7 +209,9 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
                         "env_steps_per_s": metrics.rate("env_steps"),
                     }
                     metrics.gauge("queue/replay_size", len(replay))
-                    metrics.gauge("queue/staged_rows", replay.pending_rows())
+                    pending = getattr(replay, "pending_rows", None)
+                    if pending is not None:
+                        metrics.gauge("queue/staged_rows", pending())
                     metrics.log(gsteps, **summary, **timer.summary(),
                                 **metrics.telemetry())
 
@@ -154,6 +222,8 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
                 best_eval = ret
                 best_params = [w.copy() for w in solver.get_weights()]
 
+    if writeback is not None:
+        writeback.drain()  # apply the depth-queued priority tail
     summary["final_return_avg100"] = ep_returns.value
     summary["grad_steps"] = gsteps
     final_ret = evaluate(solver, cfg)

@@ -52,7 +52,7 @@ from distributed_deep_q_tpu_torch.solver import Solver
 FRAME, LR, STEPS = (52, 52), 1e-4, 6
 
 
-def _cfg(mod, alpha=0.0):
+def _cfg(mod, alpha=0.0, pallas=False):
     cfg = mod.Config()
     cfg.mesh.backend = "cpu"
     cfg.mesh.dp = 1
@@ -64,7 +64,7 @@ def _cfg(mod, alpha=0.0):
                                   fused_chain=3)
     cfg.train = mod.TrainConfig(lr=LR, double_dqn=True,
                                 target_update_period=2, stack_forwards="off",
-                                seed=0)
+                                use_pallas_loss=pallas, seed=0)
     return cfg
 
 
@@ -84,8 +84,8 @@ def _ref_uniforms(keys, per_shard, device):
     return torch.from_numpy(u).to(device)
 
 
-def _port_from(ref_solver, alpha):
-    cfg = _cfg(port_config, alpha)
+def _port_from(ref_solver, alpha, pallas=False):
+    cfg = _cfg(port_config, alpha, pallas)
     solver = Solver(cfg, backend="cpu")
     st = jax.tree.map(np.asarray, ref_solver.state)
     adam, _ = _locate_adam_state(st.opt_state)
@@ -121,11 +121,22 @@ def _within_step_duplicates(idxs: list[torch.Tensor]) -> np.ndarray:
 
 @pytest.mark.parametrize("alpha", [0.0, 0.6])
 def test_fused_dispatch_matches_reference(alpha, monkeypatch):
+    _check_fused_dispatch(alpha, False, monkeypatch)
+
+
+def test_fused_dispatch_with_fused_loss_matches_reference(monkeypatch):
+    """``train.use_pallas_loss=true`` on the fused path: the reference's
+    Pallas loss kernels (interpret mode) against the port's plain B3/B4,
+    with the same pins."""
+    _check_fused_dispatch(0.6, True, monkeypatch)
+
+
+def _check_fused_dispatch(alpha, pallas, monkeypatch):
     torch.set_num_threads(1)
-    ref = RefSolver(_cfg(ref_config, alpha))
+    ref = RefSolver(_cfg(ref_config, alpha, pallas))
     ref_rep = RefReplay(ref.config.replay, ref.mesh, FRAME, stack=4,
                         gamma=0.99, seed=0, write_chunk=16)
-    port = _port_from(ref, alpha)
+    port = _port_from(ref, alpha, pallas)
     port.draw_uniforms = _ref_uniforms
     rep = _port_replay(port.config)
     # record the port's sampled rows (the reference's are the same: both
@@ -204,8 +215,7 @@ def test_port_chain3_equals_three_single_dispatches_bitwise():
 
 
 @pytest.mark.parametrize("setting, value", [
-    ("use_pallas_loss", True), ("learn_metrics", True),
-    ("optimizer", "rmsprop")])
+    ("learn_metrics", True), ("optimizer", "rmsprop")])
 def test_out_of_slice_train_settings_are_refused(setting, value):
     cfg = _cfg(port_config)
     setattr(cfg.train, setting, value)

@@ -1,5 +1,7 @@
-"""The port's CLI end to end on the CPU, its device switch, its refusals,
-and the rule that it imports nothing of JAX or the reference package."""
+"""The port's CLI end to end on the CPU (the Pong preset's fused path, the
+CartPole preset, the Breakout preset's host-sampled paths), its device
+switch, its refusals, and the rule that it imports nothing of JAX or the
+reference package."""
 
 import ast
 import contextlib
@@ -64,19 +66,68 @@ def test_backend_cuda_raises_without_a_card():
 
 
 @pytest.mark.parametrize("override", [
-    "net.kind=r2d2", "replay.device_per=false", "replay.prioritized=false",
-    "train.checkpoint_dir=ckpt", "replay.persist_path=r.npz",
-    "train.profile_dir=prof", "mesh.num_processes=2", "mesh.dp=2"])
+    "net.kind=r2d2", "train.checkpoint_dir=ckpt", "replay.persist_path=r.npz",
+    "train.profile_dir=prof", "mesh.num_processes=2", "mesh.dp=2",
+    "train.optimizer=rmsprop", "train.learn_metrics=true"])
 def test_out_of_slice_configs_are_refused(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["train", "--preset", "pong", "--backend", "cpu", "--set",
               *RECIPE, "train.total_steps=10", override])
 
 
-def test_non_pixel_env_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        main(["train", "--preset", "pong", "--backend", "cpu", "--set",
-              "env.kind=gym", "env.id=CartPole-v1", "train.total_steps=10"])
+def test_cli_trains_cartpole_preset_on_cpu():
+    """``train --preset cartpole --backend cpu`` (the CLI's default preset):
+    a dueling MLP on the host ``ReplayMemory`` with 3-step transitions,
+    1,499 grad steps (the replay holds 500 transitions from env step 502
+    on: 3-step transitions mature two steps late); its greedy eval beats
+    the random policy (≈ 9.3)."""
+    torch.set_num_threads(1)
+    rc, summary = _run(["train", "--preset", "cartpole", "--backend", "cpu",
+                        "--log-every", "500", "--set",
+                        "train.total_steps=2000", "replay.learn_start=500",
+                        "actors.eps_decay_steps=1000"])
+    assert rc == 0 and summary["grad_steps"] == 2000 - 502 + 1
+    assert math.isfinite(summary["loss"])
+    assert summary["eval_return"] > 50, summary
+
+
+@pytest.mark.parametrize("replay_override", [
+    "replay.device_per=false", "replay.device_resident=false",
+    "replay.prioritized=false"])
+def test_cli_trains_host_sampled_breakout_on_cpu(replay_override):
+    """The Breakout preset's host-sampled paths on ``fake_atari`` at 36×36,
+    with the fused TD loss: the device ring with per-slot sum trees
+    (``device_per=false``), the host ``FrameStackReplay``
+    (``device_resident=false``), and uniform sampling from the device ring
+    (``prioritized=false``)."""
+    torch.set_num_threads(1)
+    rc, summary = _run(["train", "--preset", "breakout", "--backend", "cpu",
+                        "--log-every", "25", "--set",
+                        "env.kind=fake_atari", "env.frame_shape=36,36",
+                        "net.frame_shape=36,36", "net.compute_dtype=float32",
+                        "replay.capacity=2048", "replay.batch_size=16",
+                        "replay.learn_start=300", "replay.write_chunk=16",
+                        "train.total_steps=500", "train.train_every=4",
+                        "train.use_pallas_loss=true", replay_override])
+    assert rc == 0 and summary["grad_steps"] == (500 - 300) // 4 + 1
+    for key in ("loss", "q_mean", "grad_steps_per_s", "eval_return"):
+        assert math.isfinite(summary[key]), key
+
+
+def test_cli_evals_cartpole_preset_on_cpu():
+    torch.set_num_threads(1)
+    rc, out = _run(["eval", "--preset", "cartpole", "--backend", "cpu",
+                    "--set", "train.eval_episodes=2"])
+    assert rc == 0 and out["episodes"] == 2 and out["eval_return"] > 0
+
+
+@pytest.mark.slow
+def test_cli_cartpole_preset_reaches_500():
+    """The preset's own bar: 500/500 within its 30k steps."""
+    torch.set_num_threads(1)
+    rc, summary = _run(["train", "--preset", "cartpole", "--backend", "cpu",
+                        "--log-every", "2500"])
+    assert rc == 0 and summary["eval_return"] >= 500, summary
 
 
 def _imported_roots(path: Path) -> set[str]:
