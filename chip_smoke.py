@@ -11,26 +11,33 @@ Phases (any failure exits non-zero and prints no result line):
    and the TF32 flags;
 2. build — compile the hand-written kernels (one ``nvcc`` per source, all
    started together) and print the compiler's register/spill report;
-3. ring kernels — each against its plain PyTorch version on the card,
-   bitwise, at the Pong preset's shapes on a 1,000,005-row × 8192-byte ring
-   (8.19 GB, window starts past the 2³¹-byte mark), then timed (device
-   time by CUDA events, host time per call by wall clock) beside its byte
-   bound, its plain version and one library call;
+3. ring kernels — an empty kernel's time first (the launch floor every
+   kernel row stands beside); then each kernel against its plain PyTorch
+   version on the card, bitwise, at the Pong preset's shapes on a
+   1,000,005-row × 8192-byte ring (8.19 GB, window starts past the
+   2³¹-byte mark): the gather at n = 512 and 4096, the scatter at the
+   flush's two shapes (a 62-row chunk filled while acting, and the 4-row
+   flush before each dispatch, 124 of whose 128 lanes are padding); then
+   timed (device time by CUDA events, host time per call by wall clock)
+   beside the bound of the bytes the data needs, the plain version and one
+   library call;
 3b. loss kernels — the fused TD loss forward (B3) and backward (B4)
    against their plain versions at B = 512 with A = 4 and A = 18, δ in
    {0.5, 1, 2}, a few actions out of range: |td| and dq bitwise, the loss
-   within 1e-6 relative; then timed beside their byte bound, the plain
-   versions, the nearest PyTorch composition and an empty kernel;
+   within 1e-6 relative; then timed (device and host time per call) beside
+   their byte bound, the plain versions and the nearest PyTorch
+   composition;
 4. main path — ``main train --preset pong --backend cuda`` in process on the
    SignalAtari probe at full 84×84 (bf16 Nature CNN, batch 512, 1M ring,
    learn_start 20,000), several hundred grad steps of the fused device-PER
    dispatch;
 5. chained dispatch — a ``Solver`` and a filled replay at the same preset,
    ``train_steps_device_per(chain=8)`` timed over a few dozen dispatches
-   with the plain loss and with the fused loss kernels, then traced with
-   ``torch.profiler`` over four; then the same small fused dispatch on the
-   card and on the CPU (whose path the CPU tests hold to the JAX
-   reference), compared;
+   with the plain loss and with the fused loss kernels, then each traced
+   with ``torch.profiler`` over four (the port's kernels' device time per
+   launch read from the fused-loss trace); then the same small fused
+   dispatch on the card and on the CPU (whose path the CPU tests hold to
+   the JAX reference), compared;
 6. host-sampled path — ``main train --preset breakout --backend cuda`` with
    ``replay.device_per=false train.use_pallas_loss=true`` at full width
    (84×84, batch 512, 1M-frame device ring, host sum trees, n-step 3,
@@ -64,6 +71,8 @@ ROWS, ROWB = 1_000_005, 8192       # Pong ring: 1M slots + 4 ghost + scratch
 SLOT_CAP, WINDOW = 1_000_000, 5    # stack 4 + n_step 1
 ITERS, WARMUP = 64, 5
 OUT_DIR = "chip_smoke_out"   # gitignored; the train loop's metrics JSONL
+PORT_KERNELS = ("gather_windows", "scatter_rows", "fused_loss_fwd",
+                "fused_loss_bwd")
 
 
 def log(msg: str) -> None:
@@ -148,53 +157,87 @@ def check_gather(torch, rg, ring, dev, n: int) -> dict:
             "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
 
 
-def check_scatter(torch, rg, ring, dev) -> dict:
-    """A Pong flush chunk (write_chunk 64 → 128 lanes) that wraps to the
-    sub-ring's start: main lanes on rows 0..61, two padding lanes on the
-    scratch row, ghost lanes re-sending rows 0..3 to their mirrors
-    1,000,000..1,000,003 (past 2³¹ bytes), the other ghost lanes on the
-    scratch row."""
+# The Pong flush's two shapes (write_chunk 64 → 128 lanes: 64 main, 64
+# ghost; src = arange(64) twice, as ``DevicePERFrameReplay._apply_write``
+# builds it). Padding lanes target the scratch row.
+SCATTER_SHAPES = {
+    # a chunk filled while acting, wrapping to the sub-ring's start: main
+    # lanes on rows 0..61, two padding lanes, ghost lanes re-sending rows
+    # 0..3 to their mirrors 1,000,000..1,000,003 (past 2³¹ bytes); 66 real
+    # lanes, 62 padding
+    "fill": (0, 62, True),
+    # the flush before each dispatch: the train_every = 4 rows staged since
+    # the last one, past the 2³¹-byte mark and clear of the sub-ring's first
+    # window - 1 rows (so no ghost lane is real); 4 real lanes, 124 padding
+    "flush": (700_000, 4, False),
+}
+
+
+def check_scatter(torch, rg, ring, dev, shape: str, empty_ms: float) -> dict:
+    """One flush shape of ``SCATTER_SHAPES``, launched as the main path
+    launches it (the scratch row named as ``skip_row``): the kernel against
+    its plain version (bitwise outside the scratch row, whose contents are
+    unspecified) and the scratch row untouched; the same for the TMA design
+    (``bulk``) on fresh staged rows; then both timed beside the plain
+    version, ``index_copy_`` and the bound of the bytes this data needs."""
+    first, real, ghosts = SCATTER_SHAPES[shape]
     rowp, k = ROWB // 4, 64
     scratch = ROWS - 1
     gen = torch.Generator(device=dev).manual_seed(7)
-    staged = torch.randint(-2**31, 2**31 - 1, (k * rowp,), dtype=torch.int32,
-                           device=dev, generator=gen)
-    main = torch.arange(k, dtype=torch.int32, device=dev)
-    main[-2:] = scratch
+    main = torch.full((k,), scratch, dtype=torch.int32, device=dev)
+    main[:real] = first + torch.arange(real, dtype=torch.int32, device=dev)
     ghost = torch.full((k,), scratch, dtype=torch.int32, device=dev)
-    ghost[:WINDOW - 1] = SLOT_CAP + torch.arange(WINDOW - 1,
-                                                 dtype=torch.int32, device=dev)
+    if ghosts:
+        ghost[:WINDOW - 1] = SLOT_CAP + torch.arange(
+            WINDOW - 1, dtype=torch.int32, device=dev)
     src = torch.arange(k, dtype=torch.int32, device=dev).repeat(2)
     dst = torch.cat([main, ghost])
+    n = 2 * k
     plain = ring.clone()
-    rg.scatter_rows(src, dst, staged, ring, n=2 * k, rowb=ROWB)
-    rg.scatter_rows_plain(src, dst, staged, plain, n=2 * k, rowb=ROWB)
-    torch.cuda.synchronize()
-    # the scratch row takes racing padding writes by contract
-    err = max_abs_err(torch, ring[:-rowp], plain[:-rowp])
+    scratch_row = ring[-rowp:].clone()
+    errs, kept = {}, {}
+    for bulk in (True, False):   # the main design last: its staged rows stay
+        staged = torch.randint(-2**31, 2**31 - 1, (k * rowp,),
+                               dtype=torch.int32, device=dev, generator=gen)
+        rg.scatter_rows(src, dst, staged, ring, n=n, rowb=ROWB,
+                        skip_row=scratch, bulk=bulk)
+        rg.scatter_rows_plain(src, dst, staged, plain, n=n, rowb=ROWB)
+        torch.cuda.synchronize()
+        errs[bulk] = max_abs_err(torch, ring[:-rowp], plain[:-rowp])
+        kept[bulk] = bool(torch.equal(ring[-rowp:], scratch_row))
     del plain
     torch.cuda.empty_cache()
     ring2d, staged2d = ring.view(-1, rowp), staged.view(-1, rowp)
     rows_src = staged2d[src.long()]
     dst_l = dst.long()
     ms, host_ms = time_ms(torch, lambda i: rg.scatter_rows(
-        src, dst, staged, ring, n=2 * k, rowb=ROWB))
+        src, dst, staged, ring, n=n, rowb=ROWB, skip_row=scratch))
+    bulk_ms, bulk_host_ms = time_ms(torch, lambda i: rg.scatter_rows(
+        src, dst, staged, ring, n=n, rowb=ROWB, skip_row=scratch, bulk=True))
     plain_ms, plain_host_ms = time_ms(
         torch, lambda i: rg.scatter_rows_plain(
-            src, dst, staged, ring, n=2 * k, rowb=ROWB))
+            src, dst, staged, ring, n=n, rowb=ROWB))
     library_ms, library_host_ms = time_ms(
         torch, lambda i: ring2d.index_copy_(0, dst_l, rows_src))
-    # bytes this data needs: each distinct staged row read once, each
-    # distinct target row written once, both index vectors read once
-    n_src = int(torch.unique(src).numel())
-    n_dst = int(torch.unique(dst).numel())
-    nbytes = (n_src + n_dst) * ROWB + 2 * (2 * k) * 4
-    return {"n": 2 * k, "distinct_src_rows": n_src,
-            "distinct_dst_rows": n_dst, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+    # bytes this data needs: the scratch row's contents are unspecified, so
+    # a padding lane needs none; each distinct staged row a real lane sends
+    # read once, each distinct real target written once, both index
+    # vectors read once
+    to_ring = dst != scratch
+    n_src = int(torch.unique(src[to_ring]).numel())
+    n_dst = int(torch.unique(dst[to_ring]).numel())
+    nbytes = (n_src + n_dst) * ROWB + 2 * n * 4
+    return {"shape": shape, "n": n, "real_lanes": int(to_ring.sum()),
+            "distinct_src_rows": n_src, "distinct_dst_rows": n_dst,
+            "max_abs_err": errs[False], "scratch_row_kept": kept[False],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "empty_kernel_ms": empty_ms, "host_ms": host_ms,
+            "plain_host_ms": plain_host_ms,
             "library_host_ms": library_host_ms, "bytes": nbytes,
-            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "tma_bulk": {"ms": bulk_ms, "host_ms": bulk_host_ms,
+                         "max_abs_err": errs[True],
+                         "scratch_row_kept": kept[True]}}
 
 
 # -- phase 3b -----------------------------------------------------------------
@@ -228,6 +271,8 @@ def check_fused_loss(torch, fl, dev) -> dict:
             q, act, t, w, g = loss_inputs(torch, dev, b, a, seed=a)
             loss, td = fl.fused_loss_fwd(q, act, t, w, delta)
             dq = fl.fused_loss_bwd(q, act, t, w, g, delta)
+            loss_pdl, td_pdl = fl.fused_loss_fwd(q, act, t, w, delta,
+                                                 pdl=True)
             loss_p, td_p = fl.fused_loss_fwd_plain(q, act, t, w, delta)
             dq_p = fl.fused_loss_bwd_plain(q, act, t, w, g, delta)
             torch.cuda.synchronize()
@@ -240,6 +285,8 @@ def check_fused_loss(torch, fl, dev) -> dict:
                 out["loss_max_rel_err"],
                 abs(float(loss) - float(loss_p)) / abs(float(loss_p)))
             assert not dq[:3].any(), "out-of-range actions got a gradient"
+            assert torch.equal(loss_pdl, loss) and torch.equal(td_pdl, td), \
+                "B3 launched early (PDL) disagrees with B3"
     for a in (4, 18):
         q, act, t, w, g = loss_inputs(torch, dev, b, a, seed=a)
         # the composition cannot take out-of-range actions: gather faults
@@ -252,26 +299,30 @@ def check_fused_loss(torch, fl, dev) -> dict:
             return (w * hub).mean()
 
         comp_loss = composition(qr)
-        fwd = {
-            "ms": time_ms(torch, lambda i: fl.fused_loss_fwd(
-                q, act, t, w, 1.0))[0],
-            "plain_ms": time_ms(torch, lambda i: fl.fused_loss_fwd_plain(
-                q, act, t, w, 1.0))[0],
-            "composition_ms": time_ms(torch, lambda i: composition(q))[0],
-            "bytes": 4 * (b * a + 4 * b + 1)}
-        bwd = {
-            "ms": time_ms(torch, lambda i: fl.fused_loss_bwd(
-                q, act, t, w, g, 1.0))[0],
-            "plain_ms": time_ms(torch, lambda i: fl.fused_loss_bwd_plain(
-                q, act, t, w, g, 1.0))[0],
-            "composition_ms": time_ms(torch, lambda i: torch.autograd.grad(
-                comp_loss, [qr], retain_graph=True))[0],
-            "bytes": 4 * (2 * b * a + 3 * b + 1)}
+        fwd = timed(torch, lambda i: fl.fused_loss_fwd(q, act, t, w, 1.0),
+                    lambda i: fl.fused_loss_fwd_plain(q, act, t, w, 1.0))
+        fwd["pdl_ms"] = time_ms(torch, lambda i: fl.fused_loss_fwd(
+            q, act, t, w, 1.0, pdl=True))[0]
+        fwd["composition_ms"] = time_ms(torch, lambda i: composition(q))[0]
+        fwd["bytes"] = 4 * (b * a + 4 * b + 1)
+        bwd = timed(torch, lambda i: fl.fused_loss_bwd(q, act, t, w, g, 1.0),
+                    lambda i: fl.fused_loss_bwd_plain(q, act, t, w, g, 1.0))
+        bwd["composition_ms"] = time_ms(torch, lambda i: torch.autograd.grad(
+            comp_loss, [qr], retain_graph=True))[0]
+        bwd["bytes"] = 4 * (2 * b * a + 3 * b + 1)
         for k in (fwd, bwd):
             k["bound_ms"] = 1e3 * k["bytes"] / HBM_BYTES_PER_S
         out[f"a{a}"] = {"fwd": fwd, "bwd": bwd}
-    out["empty_kernel_ms"] = time_ms(torch, lambda i: torch.cuda._sleep(0))[0]
     return out
+
+
+def timed(torch, kernel, plain) -> dict:
+    """Device and host ms per call of a kernel's wrapper and of its plain
+    version."""
+    ms, host_ms = time_ms(torch, kernel)
+    plain_ms, plain_host_ms = time_ms(torch, plain)
+    return {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "plain_host_ms": plain_host_ms}
 
 
 # -- phases 4, 5 and 6 -------------------------------------------------------
@@ -347,7 +398,7 @@ def time_chain(torch, solver, replay, chain: int, dispatches: int):
     return 1e3 * dt / (chain * dispatches), loss
 
 
-def run_chained(torch, config, Solver, DevicePERFrameReplay) -> dict:
+def run_chained(torch, config, fl, Solver, DevicePERFrameReplay) -> dict:
     """The chain=8 dispatch with the plain loss and with the fused loss
     kernels (``use_pallas_loss``), two solvers on one replay, timed in
     turns: plain, fused, fused, plain."""
@@ -378,6 +429,17 @@ def run_chained(torch, config, Solver, DevicePERFrameReplay) -> dict:
            "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
            "last_loss": float(loss[-1])}
     out["trace"] = trace_dispatches(torch, plain, replay, chain, 4)
+    out["fused_loss_trace"] = trace_dispatches(torch, fused, replay, chain, 4)
+    # the same with B3 launched as a programmatic dependent (PDL)
+    defaults = fl.fused_loss_fwd.__kwdefaults__
+    fl.fused_loss_fwd.__kwdefaults__ = {"pdl": True}
+    try:
+        out["fused_loss_pdl_ms_per_grad_step"] = time_chain(
+            torch, fused, replay, chain, dispatches)[0]
+        out["fused_loss_pdl_trace"] = trace_dispatches(torch, fused, replay,
+                                                       chain, 4)
+    finally:
+        fl.fused_loss_fwd.__kwdefaults__ = defaults
     return out
 
 
@@ -400,6 +462,29 @@ def trace_dispatches(torch, solver, replay, chain: int, dispatches: int):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    # the port's own kernels, by the name of their __global__ function:
+    # device time per launch, and the part of it past the end of the work
+    # before it on the stream (the same, unless the kernel was launched
+    # early as a programmatic dependent and waited inside)
+    past: dict[str, list[float]] = {}
+    prev_end = -math.inf
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        start, end = e.time_range.start, e.time_range.end
+        for name in PORT_KERNELS:
+            if f"{name}_kernel" in e.name:
+                past.setdefault(name, []).append(end - max(start, prev_end))
+        prev_end = max(prev_end, end)
+    ours = {}
+    for name in PORT_KERNELS:
+        hits = [e for e in kernels if f"{name}_kernel" in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            ours[name] = {"launches": count, "us_per_launch": sum(
+                e.self_device_time_total for e in hits) / count}
+            if past.get(name):
+                ours[name]["us_past_predecessor"] = float(np.mean(past[name]))
     return {"wall_ms_per_grad_step": wall_ms / steps,
             "device_ms_per_grad_step": device_ms / steps,
             "device_busy_share": device_ms / wall_ms,
@@ -407,7 +492,8 @@ def trace_dispatches(torch, solver, replay, chain: int, dispatches: int):
                 sum(e.count for e in kernels) / steps,
             "top_kernels_ms_per_grad_step": [
                 [e.key[:60], e.self_device_time_total / 1e3 / steps]
-                for e in top]}
+                for e in top],
+            "port_kernels": ours}
 
 
 def cross_device_check(torch, config, Solver, DevicePERFrameReplay) -> dict:
@@ -501,10 +587,9 @@ def main() -> int:
         f"flags at start: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32} (the port's Solver sets "
         "both False on the card)")
-    counters = {"gather_windows": rg.gather_windows,
-                "scatter_rows": rg.scatter_rows,
-                "fused_loss_fwd": fl.fused_loss_fwd,
-                "fused_loss_bwd": fl.fused_loss_bwd}
+    counters = {name: getattr(rg if name in ("gather_windows",
+                                             "scatter_rows") else fl, name)
+                for name in PORT_KERNELS}
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -516,6 +601,10 @@ def main() -> int:
                 log(f"[2] {name}: {line.strip()}")
 
     # -- 3. ring kernels at main-path shapes -----------------------------------
+    # the launch floor every kernel row stands beside: an empty kernel,
+    # queued back to back as the kernels are
+    empty_ms = time_ms(torch, lambda i: torch.cuda._sleep(0))[0]
+    log(f"[3] empty kernel: {empty_ms} ms")
     gen = torch.Generator(device=dev).manual_seed(0)
     ring = torch.randint(-2**31, 2**31 - 1, (ROWS * ROWB // 4,),
                          dtype=torch.int32, device=dev, generator=gen)
@@ -525,14 +614,20 @@ def main() -> int:
         log(f"[3] gather_windows {json.dumps(g)}")
         assert g["max_abs_err"] == 0, "gather_windows disagrees with plain"
         assert g["windows_past_2^31_bytes"] > 0
-    scatter = check_scatter(torch, rg, ring, dev)
-    log(f"[3] scatter_rows {json.dumps(scatter)}")
-    assert scatter["max_abs_err"] == 0, "scatter_rows disagrees with plain"
+    scatters = {shape: check_scatter(torch, rg, ring, dev, shape, empty_ms)
+                for shape in SCATTER_SHAPES}
+    for s in scatters.values():
+        log(f"[3] scatter_rows {json.dumps(s)}")
+        assert s["max_abs_err"] == s["tma_bulk"]["max_abs_err"] == 0, \
+            "scatter_rows disagrees with plain"
+        assert s["scratch_row_kept"] and s["tma_bulk"]["scratch_row_kept"], \
+            "scatter_rows wrote the skipped scratch row"
     del ring
     torch.cuda.empty_cache()
 
     # -- 3b. loss kernels ----------------------------------------------------
     loss_k = check_fused_loss(torch, fl, dev)
+    loss_k["empty_kernel_ms"] = empty_ms
     log(f"[3b] fused loss: {json.dumps(loss_k)}")
     assert loss_k["td_max_abs_err"] == 0, "B3 |td| disagrees with plain"
     assert loss_k["dq_max_abs_err"] == 0, "B4 dq disagrees with plain"
@@ -552,7 +647,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. chained dispatch, then card vs CPU on a small input ---------------
-    chained = run_chained(torch, config, Solver, DevicePERFrameReplay)
+    chained = run_chained(torch, config, fl, Solver, DevicePERFrameReplay)
     log(f"[5] chained dispatch: {json.dumps(chained)}")
     torch.cuda.empty_cache()
     cross = cross_device_check(torch, config, Solver, DevicePERFrameReplay)
@@ -607,23 +702,44 @@ def main() -> int:
          "max_abs_err": g512["max_abs_err"], "ms": g512["ms"],
          "plain_ms": g512["plain_ms"], "bound_ms": g512["bound_ms"],
          "bound_by": "bytes", "library_ms": g512["library_ms"],
+         "empty_kernel_ms": empty_ms, "host_ms": g512["host_ms"],
          "ok": g512["max_abs_err"] == 0 and g4096["max_abs_err"] == 0,
          "shape": "n=512 w=5 rowb=8192", "path": "phase 4 (pong)",
          "chain8": {k: g4096[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "library_ms", "max_abs_err")}},
+                                          "library_ms", "max_abs_err",
+                                          "host_ms")}},
+    ]
+    # B2's row: the pre-dispatch flush, the shape of most of its launches;
+    # the fill chunk beside it
+    flush, fill = scatters["flush"], scatters["fill"]
+    kernels.append(
         {"name": "scatter_rows", "route": "cuda", "source": src,
          "replaces": "distributed_deep_q_tpu/ops/ring_gather.py:165",
          "launches": launches["scatter_rows"],
-         "max_abs_err": scatter["max_abs_err"], "ms": scatter["ms"],
-         "plain_ms": scatter["plain_ms"], "bound_ms": scatter["bound_ms"],
-         "bound_by": "bytes", "library_ms": scatter["library_ms"],
-         "ok": scatter["max_abs_err"] == 0,
-         "shape": "n=128 lanes rowb=8192", "path": "phase 4 (pong)"},
-    ]
+         "max_abs_err": max(flush["max_abs_err"], fill["max_abs_err"]),
+         "ms": flush["ms"], "plain_ms": flush["plain_ms"],
+         "bound_ms": flush["bound_ms"], "bound_by": "bytes",
+         "library_ms": flush["library_ms"], "empty_kernel_ms": empty_ms,
+         "host_ms": flush["host_ms"],
+         "ok": flush["max_abs_err"] == 0 and fill["max_abs_err"] == 0,
+         "shape": "n=128 lanes, 4 real (pre-dispatch flush), rowb=8192",
+         "path": "phase 4 (pong)",
+         "tma_bulk": flush["tma_bulk"],
+         "fill": {k: fill[k] for k in ("real_lanes", "ms", "plain_ms",
+                                       "bound_ms", "library_ms",
+                                       "max_abs_err", "host_ms",
+                                       "tma_bulk")}})
+    in_trace = chained["fused_loss_trace"]["port_kernels"]
+    pdl_trace = chained["fused_loss_pdl_trace"]["port_kernels"]
     for name, line, part, err in (
             ("fused_loss_fwd", 100, "fwd", loss_k["td_max_abs_err"]),
             ("fused_loss_bwd", 130, "bwd", loss_k["dq_max_abs_err"])):
         k4, k18 = loss_k["a4"][part], loss_k["a18"][part]
+        extra = {} if part == "bwd" else {"pdl": {
+            "ms": k4["pdl_ms"], "a18_ms": k18["pdl_ms"],
+            "phase5_trace": pdl_trace.get(name),
+            "chain8_ms_per_grad_step":
+                chained["fused_loss_pdl_ms_per_grad_step"]}}
         kernels.append(
             {"name": name, "route": "cuda", "source": loss_src,
              "replaces": f"distributed_deep_q_tpu/ops/pallas_kernels.py:{line}",
@@ -631,12 +747,15 @@ def main() -> int:
              "ms": k4["ms"], "plain_ms": k4["plain_ms"],
              "bound_ms": k4["bound_ms"], "bound_by": "bytes",
              "library_ms": None, "composition_ms": k4["composition_ms"],
-             "empty_kernel_ms": loss_k["empty_kernel_ms"],
+             "empty_kernel_ms": empty_ms, "host_ms": k4["host_ms"],
+             "phase5_trace_us_per_launch":
+                 in_trace.get(name, {}).get("us_per_launch"),
+             **extra,
              "loss_max_rel_err": loss_k["loss_max_rel_err"],
              "ok": err == 0, "shape": "B=512 A=4 delta=1",
              "path": "phase 6 (breakout, host-sampled)",
              "a18": {k: k18[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "composition_ms")}})
+                                         "composition_ms", "host_ms")}})
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

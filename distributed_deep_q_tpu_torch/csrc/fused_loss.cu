@@ -12,10 +12,23 @@
 //   huber = 0.5*m*m + delta*(|td| - m);
 //   loss = mean_b(w * huber) (a scalar);  td_abs[b] = |td|.
 //   Bound: bytes, but tiny (B = 512, A = 4: 14.3 KB read, 2 KB written,
-//   about 5 ns at 3.35 TB/s), so in practice launch-bound. Design: ONE
-//   block, no atomics. Each thread walks rows b = tid, tid + 512, ... and
-//   keeps its own partial sum; the block then sums the partials with warp
-//   shuffles in a fixed tree, so the loss is the same bits on every run.
+//   about 5 ns at 3.35 TB/s), so in practice launch-bound: what counts is
+//   how few dependent steps lie between the launch and the last store.
+//   Design: ONE block of 512 threads, no atomics; thread t takes rows
+//   t, t + 512, ... For the head widths the presets use (A = 2, 4, 6, 18)
+//   the row is one instance of a template, loaded into registers with
+//   vector loads together with the action, target and weight, so a row
+//   costs one round trip to memory whatever A is; other widths take the
+//   runtime-A loop. At A = 4 a row is one float4 and a warp's loads are
+//   coalesced; at 2, 6 and 18 they would be strided, and with the whole
+//   kernel on one SM that costs, so the block first copies q (512 rows at
+//   a time, 36 KB at A = 18) into shared memory with coalesced float4
+//   loads. Each thread keeps its own partial sum; the block sums the
+//   partials in one pass, a shared-memory stage then one warp (lane l adds
+//   partials l, l + 32, ... in order, then a shuffle tree), so the loss is
+//   the same bits on every run. The first design (a runtime-A loop of
+//   scalar loads, two levels of shuffles) took ~1.0 µs above an empty
+//   launch at A = 4 and ~1.7 µs at A = 18 on an H100 (PERF.md §6).
 //
 // fused_loss_bwd — replaces `_bwd_kernel` / `_bwd_rule` in the same file
 //   (B4). Recomputes td (cheaper than storing it) and writes
@@ -54,35 +67,108 @@ __device__ __forceinline__ float q_at_action(const float* __restrict__ q,
   return s;
 }
 
+// a row's A Q-values into registers, with the widest vector load the row's
+// alignment allows (rows of global q are 16-byte aligned when A % 4 == 0,
+// rows staged in shared memory are 8-byte aligned for even A)
+template <int A>
+__device__ __forceinline__ void load_row(const float* __restrict__ row,
+                                         float (&v)[A]) {
+  if constexpr (A % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < A; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(row + c);
+      v[c] = x.x, v[c + 1] = x.y, v[c + 2] = x.z, v[c + 3] = x.w;
+    }
+  } else if constexpr (A % 2 == 0) {
+#pragma unroll
+    for (int c = 0; c < A; c += 2) {
+      const float2 x = *reinterpret_cast<const float2*>(row + c);
+      v[c] = x.x, v[c + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < A; ++c) v[c] = row[c];
+  }
+}
+
+// q_at_action over a row already in registers: the same column-order sum
+template <int A>
+__device__ __forceinline__ float q_at_action_row(const float (&v)[A], int a) {
+  float s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < A; ++c)
+    s = __fadd_rn(s, __fmul_rn(v[c], c == a ? 1.0f : 0.0f));
+  return s;
+}
+
+// A > 0: the head width, fixed at compile time; A == 0: `a_rt` at run time.
+// Thread t takes rows t, t + kFwdThreads, ..., one chunk of kFwdThreads rows
+// at a time. At a width whose rows are not 16-byte multiples (2, 6, 18) a
+// thread's own row is a strided, uncoalesced read, and the whole kernel runs
+// on one SM; so the block first copies the chunk's q into shared memory
+// with coalesced 16-byte loads, and each thread reads its row from there.
+template <int A>
 __global__ void __launch_bounds__(kFwdThreads)
 fused_loss_fwd_kernel(const float* __restrict__ q,
                       const int32_t* __restrict__ actions,
                       const float* __restrict__ targets,
                       const float* __restrict__ weights,
                       float* __restrict__ loss, float* __restrict__ td_abs,
-                      int64_t B, int A, float delta) {
-  __shared__ float warp_sums[kFwdThreads / 32];
+                      int64_t B, int a_rt, float delta) {
+  constexpr bool kStage = A > 0 && A % 4 != 0;
+  __shared__ float partial[kFwdThreads];
+  __shared__ __align__(16) float stage[kStage ? kFwdThreads * A : 4];
+  // launched as a programmatic dependent, the kernel may start before its
+  // predecessor on the stream ends: nothing touches global memory (whose
+  // blocks the caching allocator may have just handed over) before this
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int tid = threadIdx.x;
   float acc = 0.0f;
-  for (int64_t b = threadIdx.x; b < B; b += kFwdThreads) {
-    const float td = __fsub_rn(q_at_action(q, b, actions[b], A), targets[b]);
+  for (int64_t base = 0; base < B; base += kFwdThreads) {
+    const int64_t b = base + tid;
+    const int64_t rows = B - base < kFwdThreads ? B - base : kFwdThreads;
+    if constexpr (kStage) {
+      // q's chunk starts at a multiple of kFwdThreads · A floats: 16-byte
+      // aligned, as q is
+      const float* chunk = q + base * A;
+      const int n = static_cast<int>(rows) * A, n4 = n / 4;
+      __syncthreads();   // the previous chunk's rows have been read
+      for (int i = tid; i < n4; i += kFwdThreads)
+        reinterpret_cast<float4*>(stage)[i] =
+            __ldg(reinterpret_cast<const float4*>(chunk) + i);
+      for (int i = 4 * n4 + tid; i < n; i += kFwdThreads)
+        stage[i] = __ldg(chunk + i);
+      __syncthreads();
+    }
+    if (tid >= rows) continue;
+    const int a = actions[b];
+    const float t = targets[b], w = weights[b];
+    float q_sa;
+    if constexpr (A == 0) {
+      q_sa = q_at_action(q, b, a, a_rt);
+    } else {
+      float v[A];
+      load_row<A>(kStage ? stage + tid * A : q + b * A, v);
+      q_sa = q_at_action_row<A>(v, a);
+    }
+    const float td = __fsub_rn(q_sa, t);
     const float abs_td = fabsf(td);
     const float m = abs_td > delta ? delta : abs_td;
     const float huber = __fadd_rn(__fmul_rn(__fmul_rn(0.5f, m), m),
                                   __fmul_rn(delta, __fsub_rn(abs_td, m)));
-    acc = __fadd_rn(acc, __fmul_rn(weights[b], huber));
+    acc = __fadd_rn(acc, __fmul_rn(w, huber));
     td_abs[b] = abs_td;
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1)
-    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
-  if (lane == 0) warp_sums[warp] = acc;
+  partial[tid] = acc;
   __syncthreads();
-  if (warp == 0) {
-    acc = lane < kFwdThreads / 32 ? warp_sums[lane] : 0.0f;
+  if (tid < 32) {
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kFwdThreads / 32; ++i)
+      s = __fadd_rn(s, partial[i * 32 + tid]);
     for (int off = 16; off > 0; off >>= 1)
-      acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
-    if (lane == 0) loss[0] = __fdiv_rn(acc, static_cast<float>(B));
+      s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
+    if (tid == 0) loss[0] = __fdiv_rn(s, static_cast<float>(B));
   }
 }
 
@@ -110,19 +196,61 @@ fused_loss_bwd_kernel(const float* __restrict__ q,
   }
 }
 
+// the forward for head width A (0: the runtime loop), as a programmatic
+// dependent launch when `pdl` is set
+template <int A>
+cudaError_t launch_fwd(bool pdl, cudaStream_t stream, const float* q,
+                       const int32_t* actions, const float* targets,
+                       const float* weights, float* loss, float* td_abs,
+                       int64_t B, int a_rt, float delta) {
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, fused_loss_fwd_kernel<A>, q, actions,
+                            targets, weights, loss, td_abs, B, a_rt, delta);
+}
+
 }  // namespace
 
 extern "C" int ddq_fused_loss_fwd(const void* q, const void* actions,
                                   const void* targets, const void* weights,
                                   void* loss, void* td_abs, long long B,
-                                  int A, float delta, void* stream) {
+                                  int A, float delta, int pdl, void* stream) {
   if (B <= 0 || A <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  fused_loss_fwd_kernel<<<1, kFwdThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int32_t*>(actions),
-      static_cast<const float*>(targets), static_cast<const float*>(weights),
-      static_cast<float*>(loss), static_cast<float*>(td_abs), B, A, delta);
-  return static_cast<int>(cudaGetLastError());
+  const auto* qf = static_cast<const float*>(q);
+  const auto* act = static_cast<const int32_t*>(actions);
+  const auto* t = static_cast<const float*>(targets);
+  const auto* w = static_cast<const float*>(weights);
+  auto* l = static_cast<float*>(loss);
+  auto* ta = static_cast<float*>(td_abs);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool dep = pdl != 0;
+  // the vector loads need q 16-byte aligned; any other q takes the loop
+  const int fixed = reinterpret_cast<uintptr_t>(q) % 16 ? 0 : A;
+  cudaError_t err;
+  switch (fixed) {
+    case 2:
+      err = launch_fwd<2>(dep, s, qf, act, t, w, l, ta, B, A, delta);
+      break;
+    case 4:
+      err = launch_fwd<4>(dep, s, qf, act, t, w, l, ta, B, A, delta);
+      break;
+    case 6:
+      err = launch_fwd<6>(dep, s, qf, act, t, w, l, ta, B, A, delta);
+      break;
+    case 18:
+      err = launch_fwd<18>(dep, s, qf, act, t, w, l, ta, B, A, delta);
+      break;
+    default:
+      err = launch_fwd<0>(dep, s, qf, act, t, w, l, ta, B, A, delta);
+  }
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int ddq_fused_loss_bwd(const void* q, const void* actions,

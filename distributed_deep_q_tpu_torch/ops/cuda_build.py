@@ -6,6 +6,7 @@ the package (the hash is the source's, so an edited source rebuilds), then
 loaded with ``ctypes``. Nothing is built when the package is imported: the
 first CUDA call of a kernel builds its library, and ``build_all`` starts one
 ``nvcc`` per source at once for callers that want the build up front.
+``Entry`` is how a kernel wrapper calls a C entry point.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -90,3 +93,36 @@ def load(name: str) -> ctypes.CDLL:
             build_all((name,))
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+class Entry:
+    """One C entry point of a kernel library, called as
+    ``entry(device, *args)``: it appends PyTorch's current stream on
+    ``device`` to ``args``, makes ``device`` current for the call when it
+    is not, and returns the entry's CUDA error code (0 = launched).
+
+    Its library is loaded (built first, if need be) and the function looked
+    up at the first call, and kept: a wrapper's per-call host cost is then
+    the ctypes call and a stream lookup, which matters because a flush or a
+    grad step is host-bound."""
+
+    def __init__(self, lib: str, symbol: str, argtypes: list):
+        self.lib, self.symbol = lib, symbol
+        self.argtypes = [*argtypes, ctypes.c_void_p]    # + the stream
+        self._fn = None
+
+    def __call__(self, device: torch.device, *args) -> int:
+        fn = self._fn
+        if fn is None:
+            fn = getattr(load(self.lib), self.symbol)
+            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+            self._fn = fn
+        index = device.index
+        current = torch.cuda.current_device()
+        if index is None:
+            index = current
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        if index == current:
+            return fn(*args, stream)
+        with torch.cuda.device(index):
+            return fn(*args, stream)

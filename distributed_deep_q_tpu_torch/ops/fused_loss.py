@@ -31,11 +31,13 @@ import ctypes
 
 import torch
 
+from distributed_deep_q_tpu_torch.ops.cuda_build import Entry
+
 
 def _check(q: torch.Tensor, actions: torch.Tensor, targets: torch.Tensor,
            weights: torch.Tensor) -> torch.Tensor:
     """Validate the operands; returns ``actions`` as contiguous int32 (the
-    reference casts them too)."""
+    reference casts them too), without a copy when they already are."""
     if q.dtype != torch.float32 or q.dim() != 2 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous [B, A] float32 tensor, got "
                          f"{q.dtype} {tuple(q.shape)}")
@@ -43,36 +45,33 @@ def _check(q: torch.Tensor, actions: torch.Tensor, targets: torch.Tensor,
     if b == 0 or a == 0:
         raise ValueError(f"q has an empty dimension: {tuple(q.shape)}")
     for name, t in (("targets", targets), ("weights", weights)):
-        if (t.dtype != torch.float32 or t.shape != (b,)
+        if (t.dtype != torch.float32 or t.dim() != 1 or t.shape[0] != b
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous [{b}] float32 "
                              f"tensor, got {t.dtype} {tuple(t.shape)}")
-    if actions.shape != (b,) or actions.is_floating_point() \
-            or actions.is_complex():
+    if actions.dim() != 1 or actions.shape[0] != b \
+            or actions.is_floating_point() or actions.is_complex():
         raise ValueError(f"actions must be a [{b}] integer tensor, got "
                          f"{actions.dtype} {tuple(actions.shape)}")
-    devs = {t.device for t in (q, actions, targets, weights)}
-    if len(devs) != 1:
+    dev = q.device
+    if actions.device != dev or targets.device != dev \
+            or weights.device != dev:
+        devs = {t.device for t in (q, actions, targets, weights)}
         raise ValueError(f"tensors on different devices: "
                          f"{sorted(str(d) for d in devs)}")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {q.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if actions.dtype == torch.int32 and actions.is_contiguous():
+        return actions
     return actions.to(torch.int32).contiguous()
 
 
-def _lib():
-    from distributed_deep_q_tpu_torch.ops import cuda_build
-
-    lib = cuda_build.load("fused_loss")
-    if not getattr(lib, "_ddq_typed", False):
-        p, i64 = ctypes.c_void_p, ctypes.c_longlong
-        i32, f32 = ctypes.c_int, ctypes.c_float
-        lib.ddq_fused_loss_fwd.argtypes = [p, p, p, p, p, p, i64, i32, f32, p]
-        lib.ddq_fused_loss_fwd.restype = ctypes.c_int
-        lib.ddq_fused_loss_bwd.argtypes = [p, p, p, p, p, p, i64, i32, f32, p]
-        lib.ddq_fused_loss_bwd.restype = ctypes.c_int
-        lib._ddq_typed = True
-    return lib
+_P, _I64 = ctypes.c_void_p, ctypes.c_longlong
+_I32, _F32 = ctypes.c_int, ctypes.c_float
+_FWD = Entry("fused_loss", "ddq_fused_loss_fwd",
+             [_P, _P, _P, _P, _P, _P, _I64, _I32, _F32, _I32])
+_BWD = Entry("fused_loss", "ddq_fused_loss_bwd",
+             [_P, _P, _P, _P, _P, _P, _I64, _I32, _F32])
 
 
 # -- plain versions (the CPU path, and the card's reference) ----------------
@@ -112,19 +111,22 @@ def fused_loss_bwd_plain(q, actions, targets, weights, g,
 
 def fused_loss_fwd(q: torch.Tensor, actions: torch.Tensor,
                    targets: torch.Tensor, weights: torch.Tensor,
-                   delta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """B3: returns (0-d loss, |td| [B]), both float32 on ``q``'s device."""
+                   delta: float, *, pdl: bool = False
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B3: returns (0-d loss, |td| [B]), both float32 on ``q``'s device.
+    ``pdl`` launches the kernel as a programmatic dependent of the work
+    before it on the stream (Hopper's early launch), for the comparison
+    ``chip_smoke.py`` times."""
     a32 = _check(q, actions, targets, weights)
-    if q.device.type == "cpu":
+    dev = q.device
+    if dev.type == "cpu":
         return fused_loss_fwd_plain(q, a32, targets, weights, delta)
     b, a = q.shape
-    loss = torch.empty((), dtype=torch.float32, device=q.device)
-    td_abs = torch.empty(b, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _lib().ddq_fused_loss_fwd(
-            q.data_ptr(), a32.data_ptr(), targets.data_ptr(),
-            weights.data_ptr(), loss.data_ptr(), td_abs.data_ptr(), b, a,
-            float(delta), torch.cuda.current_stream(q.device).cuda_stream)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    td_abs = torch.empty(b, dtype=torch.float32, device=dev)
+    err = _FWD(dev, q.data_ptr(), a32.data_ptr(), targets.data_ptr(),
+               weights.data_ptr(), loss.data_ptr(), td_abs.data_ptr(), b, a,
+               delta, int(pdl))
     if err:
         raise RuntimeError(f"fused_loss_fwd kernel launch failed: CUDA "
                            f"error {err}")
@@ -147,11 +149,8 @@ def fused_loss_bwd(q: torch.Tensor, actions: torch.Tensor,
     b, a = q.shape
     g = g.contiguous()
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _lib().ddq_fused_loss_bwd(
-            q.data_ptr(), a32.data_ptr(), targets.data_ptr(),
-            weights.data_ptr(), g.data_ptr(), dq.data_ptr(), b, a,
-            float(delta), torch.cuda.current_stream(q.device).cuda_stream)
+    err = _BWD(q.device, q.data_ptr(), a32.data_ptr(), targets.data_ptr(),
+               weights.data_ptr(), g.data_ptr(), dq.data_ptr(), b, a, delta)
     if err:
         raise RuntimeError(f"fused_loss_bwd kernel launch failed: CUDA "
                            f"error {err}")

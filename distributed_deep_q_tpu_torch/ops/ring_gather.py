@@ -26,6 +26,8 @@ import ctypes
 
 import torch
 
+from distributed_deep_q_tpu_torch.ops.cuda_build import Entry
+
 # rows are padded to whole 4096-byte blocks (the reference's 1024-element
 # int32 tile; on the card it keeps every row 16-byte aligned)
 I32_TILE = 1024
@@ -67,18 +69,11 @@ def _check_aligned(*ts: torch.Tensor) -> None:
             raise ValueError("ring/staged storage must be 16-byte aligned")
 
 
-def _lib():
-    from distributed_deep_q_tpu_torch.ops import cuda_build
-
-    lib = cuda_build.load("ring_gather")
-    if not getattr(lib, "_ddq_typed", False):
-        p, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.ddq_gather_windows.argtypes = [p, p, p, i64, i64, i64, i64, p]
-        lib.ddq_gather_windows.restype = ctypes.c_int
-        lib.ddq_scatter_rows.argtypes = [p, p, p, p, i64, i64, i64, i64, p]
-        lib.ddq_scatter_rows.restype = ctypes.c_int
-        lib._ddq_typed = True
-    return lib
+_P, _I64 = ctypes.c_void_p, ctypes.c_longlong
+_GATHER = Entry("ring_gather", "ddq_gather_windows",
+                [_P, _P, _P, _I64, _I64, _I64, _I64])
+_SCATTER = Entry("ring_gather", "ddq_scatter_rows",
+                 [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, ctypes.c_int])
 
 
 # -- plain versions (the CPU path, and the card's reference) ----------------
@@ -94,8 +89,11 @@ def gather_windows_plain(idx: torch.Tensor, ring: torch.Tensor, *, n: int,
 
 def scatter_rows_plain(src_idx: torch.Tensor, dst_idx: torch.Tensor,
                        staged: torch.Tensor, ring: torch.Tensor, *, n: int,
-                       rowb: int) -> torch.Tensor:
-    """``ring.view(-1, rowp)[dst] = staged.view(-1, rowp)[src]``, in place."""
+                       rowb: int, skip_row: int | None = None
+                       ) -> torch.Tensor:
+    """``ring.view(-1, rowp)[dst] = staged.view(-1, rowp)[src]``, in place.
+    It writes every lane, as the reference does; ``skip_row`` is accepted
+    and ignored (the skipped row's contents are unspecified either way)."""
     rowp = rowb // 4
     ring.view(-1, rowp)[dst_idx.long()] = staged.view(-1, rowp)[src_idx.long()]
     return ring
@@ -124,10 +122,8 @@ def gather_windows(idx: torch.Tensor, ring: torch.Tensor, *, n: int, w: int,
         return gather_windows_plain(idx, ring, n=n, w=w, rowb=rowb)
     _check_aligned(ring)
     out = torch.empty(n * w * rowp, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().ddq_gather_windows(
-            idx.data_ptr(), ring.data_ptr(), out.data_ptr(), n, w, rowb,
-            ring.numel() // rowp, torch.cuda.current_stream(dev).cuda_stream)
+    err = _GATHER(dev, idx.data_ptr(), ring.data_ptr(), out.data_ptr(), n, w,
+                  rowb, ring.numel() // rowp)
     if err:
         raise RuntimeError(f"gather_windows kernel launch failed: CUDA "
                            f"error {err}")
@@ -137,15 +133,20 @@ def gather_windows(idx: torch.Tensor, ring: torch.Tensor, *, n: int, w: int,
 
 def scatter_rows(src_idx: torch.Tensor, dst_idx: torch.Tensor,
                  staged: torch.Tensor, ring: torch.Tensor, *, n: int,
-                 rowb: int) -> torch.Tensor:
+                 rowb: int, skip_row: int | None = None,
+                 bulk: bool = False) -> torch.Tensor:
     """Write ``n`` rows ``staged[src_idx[k]] → ring[dst_idx[k]]`` (row
     units; ``staged``/``ring`` flat int32, ``rowb`` in BYTES), in place on
     ``ring``, which is returned.
 
     ``src_idx`` decouples lane from source row, so ghost rows re-send the
     same staged bytes to their mirror target. Padding lanes point at the
-    ring's scratch row, where racing writes are harmless; distinct REAL
-    targets within one call are the caller's invariant.
+    ring's scratch row, whose contents are unspecified; distinct REAL
+    targets within one call are the caller's invariant. ``skip_row``, the
+    scratch row's index, lets the kernel skip those lanes without moving a
+    byte; the plain version ignores it. ``bulk`` launches the TMA design
+    (a bulk copy through shared memory per row) instead of the register
+    copy, for the comparison ``chip_smoke.py`` times.
     """
     _check_rowb(rowb)
     _check_i32("src_idx", src_idx, n)
@@ -156,16 +157,23 @@ def scatter_rows(src_idx: torch.Tensor, dst_idx: torch.Tensor,
     if ring.numel() % rowp or staged.numel() % rowp:
         raise ValueError("ring and staged must hold whole rows of "
                          f"{rowp} int32")
+    ring_rows = ring.numel() // rowp
+    if skip_row is not None:
+        if isinstance(skip_row, bool) or not isinstance(skip_row, int):
+            raise TypeError(f"skip_row must be an int row index, got "
+                            f"{type(skip_row).__name__}")
+        if not 0 <= skip_row < ring_rows:
+            raise ValueError(f"skip_row={skip_row} is outside the ring's "
+                             f"{ring_rows} rows")
     dev = _same_device(src_idx, dst_idx, staged, ring)
     if dev.type == "cpu":
         return scatter_rows_plain(src_idx, dst_idx, staged, ring, n=n,
                                   rowb=rowb)
     _check_aligned(staged, ring)
-    with torch.cuda.device(dev):
-        err = _lib().ddq_scatter_rows(
-            src_idx.data_ptr(), dst_idx.data_ptr(), staged.data_ptr(),
-            ring.data_ptr(), n, rowb, staged.numel() // rowp,
-            ring.numel() // rowp, torch.cuda.current_stream(dev).cuda_stream)
+    err = _SCATTER(dev, src_idx.data_ptr(), dst_idx.data_ptr(),
+                   staged.data_ptr(), ring.data_ptr(), n, rowb,
+                   staged.numel() // rowp, ring_rows,
+                   -1 if skip_row is None else skip_row, int(bulk))
     if err:
         raise RuntimeError(f"scatter_rows kernel launch failed: CUDA "
                            f"error {err}")

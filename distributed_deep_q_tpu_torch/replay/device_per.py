@@ -284,6 +284,10 @@ class DevicePERFrameReplay(DeviceFrameReplay):
             ((), np.int32), ((), np.float32), ((), np.uint8), ((), np.uint8)]
         self._di_cache: tuple[np.ndarray, np.ndarray] | None = None
         cap, dev = self.capacity, self.device
+        # every flush's source lanes: staged rows 0..k-1 for the main lanes,
+        # again for the ghost lanes; constant, so shipped once
+        src = np.arange(self.write_chunk, dtype=np.int32)
+        self._scatter_src = to_device(np.concatenate([src, src]), dev)
         self.dstate: dict[str, torch.Tensor] = {
             "frames": self._frames,
             "action": torch.zeros(cap, dtype=torch.int32, device=dev),
@@ -334,10 +338,10 @@ class DevicePERFrameReplay(DeviceFrameReplay):
     def _apply_write(self, idx, cols) -> None:
         """One padded chunk ([1, k] planes) → the device: frame rows
         through the ``scatter_rows`` kernel (padded coords, ghost
-        duplicates, padding lanes → the scratch row) and the metadata
-        scatters (real coords; fresh rows' priorities seeded from the
-        device max). Padding lanes of the metadata scatter are dropped on
-        the host."""
+        duplicates, padding lanes → the scratch row, which the kernel
+        skips) and the metadata scatters (real coords; fresh rows'
+        priorities seeded from the device max). Padding lanes of the
+        metadata scatter are dropped on the host."""
         k = self.write_chunk
         i2 = idx[0]                     # [k], in-shard real coords
         ok = i2 < self.cap_local
@@ -348,15 +352,14 @@ class DevicePERFrameReplay(DeviceFrameReplay):
         ghost = np.where(ok & (local < self.window - 1),
                          sub * self.slot_pad + self.slot_cap + local,
                          scratch)
-        src = np.arange(k, dtype=np.int32)
-        sidx = np.concatenate([src, src])
         didx = np.concatenate([main, ghost]).astype(np.int32)
         dev, st = self.device, self.dstate
         staged, new_p = insert_meta_pack(
             to_device(cols[0][0], dev), st["maxp"], k=k,
             row_len=self._row_len, rowb=self.rowb, alpha=self._alpha)
-        scatter_rows(to_device(sidx, dev), to_device(didx, dev), staged,
-                     st["frames"], n=2 * k, rowb=self.rowb)
+        scatter_rows(self._scatter_src, to_device(didx, dev), staged,
+                     st["frames"], n=2 * k, rowb=self.rowb,
+                     skip_row=int(scratch))
         midx = to_device(i2[ok].astype(np.int64), dev)
         for name, col in zip(("action", "reward", "done", "boundary"),
                              cols[1:]):

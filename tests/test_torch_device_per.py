@@ -118,6 +118,38 @@ def test_write_path_matches_reference_bitwise(n_fill):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("n_fill", [240, 254])
+def test_small_flush_matches_reference_bitwise(n_fill):
+    """The flush before a dispatch: 4 rows staged after a full flush, so 60
+    main lanes and (clear of the sub-ring's first rows) all 64 ghost lanes
+    are padding, skipped by the port's kernel; and at 254 the same 4 rows
+    wrap the sub-ring (rows 254, 255, 0, 1, two of them with ghost
+    mirrors). Ring bytes but the scratch row, the metadata and the
+    priorities equal the reference's."""
+    torch.set_num_threads(1)
+    ref, port = _replays(n_fill)
+    _stream([ref, port], 4, seed=1)
+    assert port.pending_rows() == 4
+    ref.flush()
+    port.flush()
+    rowp = port.rowp
+    ring_ref = np.asarray(ref.dstate.frames)
+    ring = port.dstate["frames"].numpy()
+    np.testing.assert_array_equal(ring[:-rowp], ring_ref[:-rowp])
+    for name in ("action", "reward", "done", "boundary", "prio", "maxp"):
+        np.testing.assert_array_equal(
+            port.dstate[name].numpy(), np.asarray(getattr(ref.dstate, name)),
+            err_msg=name)
+    for a, b in zip(port.device_inputs(), ref.device_inputs()):
+        np.testing.assert_array_equal(a, b)
+    # the rows just flushed are there, mirrors included when they wrapped
+    rows = ring.reshape(-1, rowp)
+    first = n_fill % port.slot_cap
+    assert rows[first].any()
+    if n_fill + 4 > port.slot_cap:
+        np.testing.assert_array_equal(rows[port.slot_cap], rows[0])
+
+
 @pytest.mark.parametrize("n_fill", [200, 300])
 def test_mask_and_meta_pack_match_reference(n_fill):
     torch.set_num_threads(1)

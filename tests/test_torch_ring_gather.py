@@ -74,6 +74,31 @@ def test_scatter_rows_plain_matches_reference_kernel():
     np.testing.assert_array_equal(r2[20:23], r2[4:7])
 
 
+def test_scatter_rows_validates_skip_row_and_plain_ignores_it():
+    """``skip_row`` must be an int row of the ring; on the CPU the plain
+    version writes every lane, the skipped row included, as the reference
+    kernel does."""
+    rows, k = 12, 4
+    ring = torch.from_numpy(_ring(rows, seed=4))
+    staged = torch.from_numpy(_ring(k, seed=5))
+    src = torch.arange(k, dtype=torch.int32)
+    dst = torch.tensor([2, 5, rows - 1, rows - 1], dtype=torch.int32)
+    for bad, err in ((rows, ValueError), (-1, ValueError),
+                     (2.0, TypeError), (True, TypeError),
+                     (np.int64(3), TypeError)):
+        with pytest.raises(err, match="skip_row"):
+            rg.scatter_rows(src, dst, staged, ring.clone(), n=k, rowb=ROWB,
+                            skip_row=bad)
+    skipped = rg.scatter_rows(src, dst, staged, ring.clone(), n=k,
+                              rowb=ROWB, skip_row=rows - 1)
+    plain = rg.scatter_rows_plain(src, dst, staged, ring.clone(), n=k,
+                                  rowb=ROWB)
+    assert torch.equal(skipped, plain)
+    r2 = skipped.view(rows, ROWP)
+    assert torch.equal(r2[rows - 1], staged.view(k, ROWP)[3])
+    assert torch.equal(r2[5], staged.view(k, ROWP)[1])
+
+
 def test_wrappers_reject_bad_inputs():
     ring = torch.zeros(4 * ROWP, dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
