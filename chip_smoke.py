@@ -177,13 +177,14 @@ def check_scatter(torch, rg, ring, dev, shape: str, empty_ms: float) -> dict:
     """One flush shape of ``SCATTER_SHAPES``, launched as the main path
     launches it (the scratch row named as ``skip_row``): the kernel against
     its plain version (bitwise outside the scratch row, whose contents are
-    unspecified) and the scratch row untouched; the same for the TMA design
-    (``bulk``) on fresh staged rows; then both timed beside the plain
+    unspecified) and the scratch row untouched; then timed beside the plain
     version, ``index_copy_`` and the bound of the bytes this data needs."""
     first, real, ghosts = SCATTER_SHAPES[shape]
     rowp, k = ROWB // 4, 64
     scratch = ROWS - 1
     gen = torch.Generator(device=dev).manual_seed(7)
+    staged = torch.randint(-2**31, 2**31 - 1, (k * rowp,), dtype=torch.int32,
+                           device=dev, generator=gen)
     main = torch.full((k,), scratch, dtype=torch.int32, device=dev)
     main[:real] = first + torch.arange(real, dtype=torch.int32, device=dev)
     ghost = torch.full((k,), scratch, dtype=torch.int32, device=dev)
@@ -195,16 +196,11 @@ def check_scatter(torch, rg, ring, dev, shape: str, empty_ms: float) -> dict:
     n = 2 * k
     plain = ring.clone()
     scratch_row = ring[-rowp:].clone()
-    errs, kept = {}, {}
-    for bulk in (True, False):   # the main design last: its staged rows stay
-        staged = torch.randint(-2**31, 2**31 - 1, (k * rowp,),
-                               dtype=torch.int32, device=dev, generator=gen)
-        rg.scatter_rows(src, dst, staged, ring, n=n, rowb=ROWB,
-                        skip_row=scratch, bulk=bulk)
-        rg.scatter_rows_plain(src, dst, staged, plain, n=n, rowb=ROWB)
-        torch.cuda.synchronize()
-        errs[bulk] = max_abs_err(torch, ring[:-rowp], plain[:-rowp])
-        kept[bulk] = bool(torch.equal(ring[-rowp:], scratch_row))
+    rg.scatter_rows(src, dst, staged, ring, n=n, rowb=ROWB, skip_row=scratch)
+    rg.scatter_rows_plain(src, dst, staged, plain, n=n, rowb=ROWB)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, ring[:-rowp], plain[:-rowp])
+    kept = bool(torch.equal(ring[-rowp:], scratch_row))
     del plain
     torch.cuda.empty_cache()
     ring2d, staged2d = ring.view(-1, rowp), staged.view(-1, rowp)
@@ -212,8 +208,6 @@ def check_scatter(torch, rg, ring, dev, shape: str, empty_ms: float) -> dict:
     dst_l = dst.long()
     ms, host_ms = time_ms(torch, lambda i: rg.scatter_rows(
         src, dst, staged, ring, n=n, rowb=ROWB, skip_row=scratch))
-    bulk_ms, bulk_host_ms = time_ms(torch, lambda i: rg.scatter_rows(
-        src, dst, staged, ring, n=n, rowb=ROWB, skip_row=scratch, bulk=True))
     plain_ms, plain_host_ms = time_ms(
         torch, lambda i: rg.scatter_rows_plain(
             src, dst, staged, ring, n=n, rowb=ROWB))
@@ -229,15 +223,12 @@ def check_scatter(torch, rg, ring, dev, shape: str, empty_ms: float) -> dict:
     nbytes = (n_src + n_dst) * ROWB + 2 * n * 4
     return {"shape": shape, "n": n, "real_lanes": int(to_ring.sum()),
             "distinct_src_rows": n_src, "distinct_dst_rows": n_dst,
-            "max_abs_err": errs[False], "scratch_row_kept": kept[False],
+            "max_abs_err": err, "scratch_row_kept": kept,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "empty_kernel_ms": empty_ms, "host_ms": host_ms,
             "plain_host_ms": plain_host_ms,
             "library_host_ms": library_host_ms, "bytes": nbytes,
-            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-            "tma_bulk": {"ms": bulk_ms, "host_ms": bulk_host_ms,
-                         "max_abs_err": errs[True],
-                         "scratch_row_kept": kept[True]}}
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
 
 
 # -- phase 3b -----------------------------------------------------------------
@@ -271,8 +262,6 @@ def check_fused_loss(torch, fl, dev) -> dict:
             q, act, t, w, g = loss_inputs(torch, dev, b, a, seed=a)
             loss, td = fl.fused_loss_fwd(q, act, t, w, delta)
             dq = fl.fused_loss_bwd(q, act, t, w, g, delta)
-            loss_pdl, td_pdl = fl.fused_loss_fwd(q, act, t, w, delta,
-                                                 pdl=True)
             loss_p, td_p = fl.fused_loss_fwd_plain(q, act, t, w, delta)
             dq_p = fl.fused_loss_bwd_plain(q, act, t, w, g, delta)
             torch.cuda.synchronize()
@@ -285,8 +274,6 @@ def check_fused_loss(torch, fl, dev) -> dict:
                 out["loss_max_rel_err"],
                 abs(float(loss) - float(loss_p)) / abs(float(loss_p)))
             assert not dq[:3].any(), "out-of-range actions got a gradient"
-            assert torch.equal(loss_pdl, loss) and torch.equal(td_pdl, td), \
-                "B3 launched early (PDL) disagrees with B3"
     for a in (4, 18):
         q, act, t, w, g = loss_inputs(torch, dev, b, a, seed=a)
         # the composition cannot take out-of-range actions: gather faults
@@ -301,8 +288,6 @@ def check_fused_loss(torch, fl, dev) -> dict:
         comp_loss = composition(qr)
         fwd = timed(torch, lambda i: fl.fused_loss_fwd(q, act, t, w, 1.0),
                     lambda i: fl.fused_loss_fwd_plain(q, act, t, w, 1.0))
-        fwd["pdl_ms"] = time_ms(torch, lambda i: fl.fused_loss_fwd(
-            q, act, t, w, 1.0, pdl=True))[0]
         fwd["composition_ms"] = time_ms(torch, lambda i: composition(q))[0]
         fwd["bytes"] = 4 * (b * a + 4 * b + 1)
         bwd = timed(torch, lambda i: fl.fused_loss_bwd(q, act, t, w, g, 1.0),
@@ -398,7 +383,7 @@ def time_chain(torch, solver, replay, chain: int, dispatches: int):
     return 1e3 * dt / (chain * dispatches), loss
 
 
-def run_chained(torch, config, fl, Solver, DevicePERFrameReplay) -> dict:
+def run_chained(torch, config, Solver, DevicePERFrameReplay) -> dict:
     """The chain=8 dispatch with the plain loss and with the fused loss
     kernels (``use_pallas_loss``), two solvers on one replay, timed in
     turns: plain, fused, fused, plain."""
@@ -430,16 +415,6 @@ def run_chained(torch, config, fl, Solver, DevicePERFrameReplay) -> dict:
            "last_loss": float(loss[-1])}
     out["trace"] = trace_dispatches(torch, plain, replay, chain, 4)
     out["fused_loss_trace"] = trace_dispatches(torch, fused, replay, chain, 4)
-    # the same with B3 launched as a programmatic dependent (PDL)
-    defaults = fl.fused_loss_fwd.__kwdefaults__
-    fl.fused_loss_fwd.__kwdefaults__ = {"pdl": True}
-    try:
-        out["fused_loss_pdl_ms_per_grad_step"] = time_chain(
-            torch, fused, replay, chain, dispatches)[0]
-        out["fused_loss_pdl_trace"] = trace_dispatches(torch, fused, replay,
-                                                       chain, 4)
-    finally:
-        fl.fused_loss_fwd.__kwdefaults__ = defaults
     return out
 
 
@@ -462,20 +437,7 @@ def trace_dispatches(torch, solver, replay, chain: int, dispatches: int):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    # the port's own kernels, by the name of their __global__ function:
-    # device time per launch, and the part of it past the end of the work
-    # before it on the stream (the same, unless the kernel was launched
-    # early as a programmatic dependent and waited inside)
-    past: dict[str, list[float]] = {}
-    prev_end = -math.inf
-    for e in sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start):
-        start, end = e.time_range.start, e.time_range.end
-        for name in PORT_KERNELS:
-            if f"{name}_kernel" in e.name:
-                past.setdefault(name, []).append(end - max(start, prev_end))
-        prev_end = max(prev_end, end)
+    # the port's own kernels, by the name of their __global__ function
     ours = {}
     for name in PORT_KERNELS:
         hits = [e for e in kernels if f"{name}_kernel" in e.key]
@@ -483,8 +445,6 @@ def trace_dispatches(torch, solver, replay, chain: int, dispatches: int):
         if count:
             ours[name] = {"launches": count, "us_per_launch": sum(
                 e.self_device_time_total for e in hits) / count}
-            if past.get(name):
-                ours[name]["us_past_predecessor"] = float(np.mean(past[name]))
     return {"wall_ms_per_grad_step": wall_ms / steps,
             "device_ms_per_grad_step": device_ms / steps,
             "device_busy_share": device_ms / wall_ms,
@@ -587,9 +547,10 @@ def main() -> int:
         f"flags at start: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32} (the port's Solver sets "
         "both False on the card)")
-    counters = {name: getattr(rg if name in ("gather_windows",
-                                             "scatter_rows") else fl, name)
-                for name in PORT_KERNELS}
+    counters = {"gather_windows": rg.gather_windows,
+                "scatter_rows": rg.scatter_rows,
+                "fused_loss_fwd": fl.fused_loss_fwd,
+                "fused_loss_bwd": fl.fused_loss_bwd}
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -618,10 +579,8 @@ def main() -> int:
                 for shape in SCATTER_SHAPES}
     for s in scatters.values():
         log(f"[3] scatter_rows {json.dumps(s)}")
-        assert s["max_abs_err"] == s["tma_bulk"]["max_abs_err"] == 0, \
-            "scatter_rows disagrees with plain"
-        assert s["scratch_row_kept"] and s["tma_bulk"]["scratch_row_kept"], \
-            "scatter_rows wrote the skipped scratch row"
+        assert s["max_abs_err"] == 0, "scatter_rows disagrees with plain"
+        assert s["scratch_row_kept"], "scatter_rows wrote the scratch row"
     del ring
     torch.cuda.empty_cache()
 
@@ -647,7 +606,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. chained dispatch, then card vs CPU on a small input ---------------
-    chained = run_chained(torch, config, fl, Solver, DevicePERFrameReplay)
+    chained = run_chained(torch, config, Solver, DevicePERFrameReplay)
     log(f"[5] chained dispatch: {json.dumps(chained)}")
     torch.cuda.empty_cache()
     cross = cross_device_check(torch, config, Solver, DevicePERFrameReplay)
@@ -724,22 +683,14 @@ def main() -> int:
          "ok": flush["max_abs_err"] == 0 and fill["max_abs_err"] == 0,
          "shape": "n=128 lanes, 4 real (pre-dispatch flush), rowb=8192",
          "path": "phase 4 (pong)",
-         "tma_bulk": flush["tma_bulk"],
          "fill": {k: fill[k] for k in ("real_lanes", "ms", "plain_ms",
                                        "bound_ms", "library_ms",
-                                       "max_abs_err", "host_ms",
-                                       "tma_bulk")}})
+                                       "max_abs_err", "host_ms")}})
     in_trace = chained["fused_loss_trace"]["port_kernels"]
-    pdl_trace = chained["fused_loss_pdl_trace"]["port_kernels"]
     for name, line, part, err in (
             ("fused_loss_fwd", 100, "fwd", loss_k["td_max_abs_err"]),
             ("fused_loss_bwd", 130, "bwd", loss_k["dq_max_abs_err"])):
         k4, k18 = loss_k["a4"][part], loss_k["a18"][part]
-        extra = {} if part == "bwd" else {"pdl": {
-            "ms": k4["pdl_ms"], "a18_ms": k18["pdl_ms"],
-            "phase5_trace": pdl_trace.get(name),
-            "chain8_ms_per_grad_step":
-                chained["fused_loss_pdl_ms_per_grad_step"]}}
         kernels.append(
             {"name": name, "route": "cuda", "source": loss_src,
              "replaces": f"distributed_deep_q_tpu/ops/pallas_kernels.py:{line}",
@@ -750,7 +701,6 @@ def main() -> int:
              "empty_kernel_ms": empty_ms, "host_ms": k4["host_ms"],
              "phase5_trace_us_per_launch":
                  in_trace.get(name, {}).get("us_per_launch"),
-             **extra,
              "loss_max_rel_err": loss_k["loss_max_rel_err"],
              "ok": err == 0, "shape": "B=512 A=4 delta=1",
              "path": "phase 6 (breakout, host-sampled)",

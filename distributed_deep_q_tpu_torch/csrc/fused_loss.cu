@@ -116,33 +116,41 @@ fused_loss_fwd_kernel(const float* __restrict__ q,
                       float* __restrict__ loss, float* __restrict__ td_abs,
                       int64_t B, int a_rt, float delta) {
   constexpr bool kStage = A > 0 && A % 4 != 0;
+  // float4 loads per thread to stage one chunk (5 at A = 18)
+  constexpr int kPer = (kFwdThreads * A / 4 + kFwdThreads - 1) / kFwdThreads;
   __shared__ float partial[kFwdThreads];
   __shared__ __align__(16) float stage[kStage ? kFwdThreads * A : 4];
-  // launched as a programmatic dependent, the kernel may start before its
-  // predecessor on the stream ends: nothing touches global memory (whose
-  // blocks the caching allocator may have just handed over) before this
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int tid = threadIdx.x;
   float acc = 0.0f;
   for (int64_t base = 0; base < B; base += kFwdThreads) {
     const int64_t b = base + tid;
     const int64_t rows = B - base < kFwdThreads ? B - base : kFwdThreads;
+    // the row's other operands are loaded with the staged chunk, so every
+    // global load of the chunk is in flight at once
+    const bool live = tid < rows;
+    const int a = live ? actions[b] : 0;
+    const float t = live ? targets[b] : 0.f, w = live ? weights[b] : 0.f;
     if constexpr (kStage) {
       // q's chunk starts at a multiple of kFwdThreads · A floats: 16-byte
       // aligned, as q is
       const float* chunk = q + base * A;
       const int n = static_cast<int>(rows) * A, n4 = n / 4;
+      float4 x[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (tid + j * kFwdThreads < n4)
+          x[j] = __ldg(reinterpret_cast<const float4*>(chunk) + tid +
+                       j * kFwdThreads);
+      const float tail = 4 * n4 + tid < n ? __ldg(chunk + 4 * n4 + tid) : 0.f;
       __syncthreads();   // the previous chunk's rows have been read
-      for (int i = tid; i < n4; i += kFwdThreads)
-        reinterpret_cast<float4*>(stage)[i] =
-            __ldg(reinterpret_cast<const float4*>(chunk) + i);
-      for (int i = 4 * n4 + tid; i < n; i += kFwdThreads)
-        stage[i] = __ldg(chunk + i);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (tid + j * kFwdThreads < n4)
+          reinterpret_cast<float4*>(stage)[tid + j * kFwdThreads] = x[j];
+      if (4 * n4 + tid < n) stage[4 * n4 + tid] = tail;
       __syncthreads();
     }
-    if (tid >= rows) continue;
-    const int a = actions[b];
-    const float t = targets[b], w = weights[b];
+    if (!live) continue;
     float q_sa;
     if constexpr (A == 0) {
       q_sa = q_at_action(q, b, a, a_rt);
@@ -196,32 +204,12 @@ fused_loss_bwd_kernel(const float* __restrict__ q,
   }
 }
 
-// the forward for head width A (0: the runtime loop), as a programmatic
-// dependent launch when `pdl` is set
-template <int A>
-cudaError_t launch_fwd(bool pdl, cudaStream_t stream, const float* q,
-                       const int32_t* actions, const float* targets,
-                       const float* weights, float* loss, float* td_abs,
-                       int64_t B, int a_rt, float delta) {
-  cudaLaunchAttribute attr = {};
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1);
-  cfg.blockDim = dim3(kFwdThreads);
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, fused_loss_fwd_kernel<A>, q, actions,
-                            targets, weights, loss, td_abs, B, a_rt, delta);
-}
-
 }  // namespace
 
 extern "C" int ddq_fused_loss_fwd(const void* q, const void* actions,
                                   const void* targets, const void* weights,
                                   void* loss, void* td_abs, long long B,
-                                  int A, float delta, int pdl, void* stream) {
+                                  int A, float delta, void* stream) {
   if (B <= 0 || A <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* act = static_cast<const int32_t*>(actions);
@@ -230,27 +218,29 @@ extern "C" int ddq_fused_loss_fwd(const void* q, const void* actions,
   auto* l = static_cast<float*>(loss);
   auto* ta = static_cast<float*>(td_abs);
   const auto s = static_cast<cudaStream_t>(stream);
-  const bool dep = pdl != 0;
   // the vector loads need q 16-byte aligned; any other q takes the loop
-  const int fixed = reinterpret_cast<uintptr_t>(q) % 16 ? 0 : A;
-  cudaError_t err;
-  switch (fixed) {
+  switch (reinterpret_cast<uintptr_t>(q) % 16 ? 0 : A) {
     case 2:
-      err = launch_fwd<2>(dep, s, qf, act, t, w, l, ta, B, A, delta);
+      fused_loss_fwd_kernel<2><<<1, kFwdThreads, 0, s>>>(qf, act, t, w, l, ta,
+                                                        B, A, delta);
       break;
     case 4:
-      err = launch_fwd<4>(dep, s, qf, act, t, w, l, ta, B, A, delta);
+      fused_loss_fwd_kernel<4><<<1, kFwdThreads, 0, s>>>(qf, act, t, w, l, ta,
+                                                        B, A, delta);
       break;
     case 6:
-      err = launch_fwd<6>(dep, s, qf, act, t, w, l, ta, B, A, delta);
+      fused_loss_fwd_kernel<6><<<1, kFwdThreads, 0, s>>>(qf, act, t, w, l, ta,
+                                                        B, A, delta);
       break;
     case 18:
-      err = launch_fwd<18>(dep, s, qf, act, t, w, l, ta, B, A, delta);
+      fused_loss_fwd_kernel<18><<<1, kFwdThreads, 0, s>>>(qf, act, t, w, l,
+                                                         ta, B, A, delta);
       break;
     default:
-      err = launch_fwd<0>(dep, s, qf, act, t, w, l, ta, B, A, delta);
+      fused_loss_fwd_kernel<0><<<1, kFwdThreads, 0, s>>>(qf, act, t, w, l, ta,
+                                                        B, A, delta);
   }
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ddq_fused_loss_bwd(const void* q, const void* actions,

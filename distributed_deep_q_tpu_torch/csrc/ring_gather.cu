@@ -33,13 +33,16 @@
 //   0.02 µs). Both are launch-bound.
 //   The first design gave every lane a block that copied a whole row,
 //   padding lanes included, so the pre-dispatch flush wrote 124 copies of
-//   8 KB onto the one scratch row. Now the caller names the scratch row
+//   8 KB onto the one scratch row: 4.2 µs there against 3.5 µs for the
+//   fill chunk, on an H100. Now the caller names the scratch row
 //   (`skip_row`) and a lane that targets it returns before any load; a
 //   real lane loads its whole row into registers (2 × 16 B per thread at
-//   8 KB rows, all in flight) before it stores. The TMA design (one
-//   elected thread per row: a 1-D bulk copy global→shared completed on an
-//   mbarrier, then shared→global as a bulk group) is kept beside it for
-//   the comparison `chip_smoke.py` times; see PERF.md for both.
+//   8 KB rows, all in flight) before it stores: 2.6–2.75 µs at both
+//   shapes, 0.6–0.8 µs above an empty kernel. What is left is two
+//   dependent round trips (the lane's indices, then its row) and the
+//   store. A TMA design (one thread per row: a 1-D bulk copy
+//   global→shared on an mbarrier, then shared→global) measured 0.1–0.2 µs
+//   slower at both shapes and was not kept (PERF.md §6).
 //
 // Offsets: the Pong ring is 1,000,005 rows × 8192 B = 8.19 GB, so a row's
 // byte offset passes 2^31 from row 262,144 on. Every offset is computed in
@@ -57,7 +60,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kCopyUnroll = 4;     // 16-byte loads in flight per thread
-constexpr int kBulkBytes = 8192;   // one bulk copy's shared-memory buffer
 constexpr int64_t kMaxGrid = 1 << 20;
 
 __global__ void __launch_bounds__(kThreads)
@@ -126,75 +128,6 @@ scatter_rows_kernel(const int32_t* __restrict__ src_idx,
   }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the TMA design: one thread per block moves each of its lanes' rows in
-// kBulkBytes pieces, global → shared (completed on an mbarrier), then
-// shared → global (a bulk group); rowb is a multiple of 16 bytes
-__global__ void __launch_bounds__(32)
-scatter_rows_bulk_kernel(const int32_t* __restrict__ src_idx,
-                         const int32_t* __restrict__ dst_idx,
-                         const char* __restrict__ staged,
-                         char* __restrict__ ring, int64_t n, int64_t rowb,
-                         int64_t staged_rows, int64_t ring_rows,
-                         int64_t skip_row) {
-  __shared__ __align__(128) char buf[kBulkBytes];
-  __shared__ __align__(8) uint64_t bar;
-  if (threadIdx.x != 0) return;
-  const uint32_t buf_s = smem_addr(buf), bar_s = smem_addr(&bar);
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_s)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  uint32_t phase = 0;
-  for (int64_t k = blockIdx.x; k < n; k += gridDim.x) {
-    int64_t s, d;
-    if (!lane_rows(src_idx, dst_idx, k, staged_rows, ring_rows, skip_row, s,
-                   d))
-      continue;
-    for (int64_t off = 0; off < rowb; off += kBulkBytes) {
-      const uint32_t bytes = static_cast<uint32_t>(
-          rowb - off < kBulkBytes ? rowb - off : kBulkBytes);
-      // the last store must have read the buffer before it is refilled
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-              bar_s),
-          "r"(bytes)
-          : "memory");
-      const auto from = reinterpret_cast<uint64_t>(staged + s * rowb + off);
-      const auto to = reinterpret_cast<uint64_t>(ring + d * rowb + off);
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];\n" ::"r"(buf_s),
-          "l"(from), "r"(bytes), "r"(bar_s)
-          : "memory");
-      uint32_t done = 0;
-      do {
-        asm volatile(
-            "{\n"
-            ".reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n"
-            "}\n"
-            : "=r"(done)
-            : "r"(bar_s), "r"(phase)
-            : "memory");
-      } while (!done);
-      phase ^= 1u;
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile(
-          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-              to),
-          "r"(buf_s), "r"(bytes)
-          : "memory");
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    }
-  }
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 inline unsigned grid_for(int64_t n) {
   return static_cast<unsigned>(n < kMaxGrid ? n : kMaxGrid);
 }
@@ -218,18 +151,13 @@ extern "C" int ddq_scatter_rows(const void* src_idx, const void* dst_idx,
                                 const void* staged, void* ring, long long n,
                                 long long rowb, long long staged_rows,
                                 long long ring_rows, long long skip_row,
-                                int bulk, void* stream) {
+                                void* stream) {
   if (n <= 0) return 0;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* si = static_cast<const int32_t*>(src_idx);
-  const auto* di = static_cast<const int32_t*>(dst_idx);
-  if (bulk)
-    scatter_rows_bulk_kernel<<<grid_for(n), 32, 0, s>>>(
-        si, di, static_cast<const char*>(staged), static_cast<char*>(ring), n,
-        rowb, staged_rows, ring_rows, skip_row);
-  else
-    scatter_rows_kernel<<<grid_for(n), kThreads, 0, s>>>(
-        si, di, static_cast<const int4*>(staged), static_cast<int4*>(ring), n,
-        rowb / 16, staged_rows, ring_rows, skip_row);
+  scatter_rows_kernel<<<grid_for(n), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(src_idx),
+      static_cast<const int32_t*>(dst_idx),
+      static_cast<const int4*>(staged), static_cast<int4*>(ring), n,
+      rowb / 16, staged_rows, ring_rows, skip_row);
   return static_cast<int>(cudaGetLastError());
 }

@@ -69,7 +69,7 @@ def _check(q: torch.Tensor, actions: torch.Tensor, targets: torch.Tensor,
 _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 _I32, _F32 = ctypes.c_int, ctypes.c_float
 _FWD = Entry("fused_loss", "ddq_fused_loss_fwd",
-             [_P, _P, _P, _P, _P, _P, _I64, _I32, _F32, _I32])
+             [_P, _P, _P, _P, _P, _P, _I64, _I32, _F32])
 _BWD = Entry("fused_loss", "ddq_fused_loss_bwd",
              [_P, _P, _P, _P, _P, _P, _I64, _I32, _F32])
 
@@ -111,12 +111,8 @@ def fused_loss_bwd_plain(q, actions, targets, weights, g,
 
 def fused_loss_fwd(q: torch.Tensor, actions: torch.Tensor,
                    targets: torch.Tensor, weights: torch.Tensor,
-                   delta: float, *, pdl: bool = False
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """B3: returns (0-d loss, |td| [B]), both float32 on ``q``'s device.
-    ``pdl`` launches the kernel as a programmatic dependent of the work
-    before it on the stream (Hopper's early launch), for the comparison
-    ``chip_smoke.py`` times."""
+                   delta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """B3: returns (0-d loss, |td| [B]), both float32 on ``q``'s device."""
     a32 = _check(q, actions, targets, weights)
     dev = q.device
     if dev.type == "cpu":
@@ -126,7 +122,7 @@ def fused_loss_fwd(q: torch.Tensor, actions: torch.Tensor,
     td_abs = torch.empty(b, dtype=torch.float32, device=dev)
     err = _FWD(dev, q.data_ptr(), a32.data_ptr(), targets.data_ptr(),
                weights.data_ptr(), loss.data_ptr(), td_abs.data_ptr(), b, a,
-               delta, int(pdl))
+               delta)
     if err:
         raise RuntimeError(f"fused_loss_fwd kernel launch failed: CUDA "
                            f"error {err}")

@@ -73,7 +73,7 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 _GATHER = Entry("ring_gather", "ddq_gather_windows",
                 [_P, _P, _P, _I64, _I64, _I64, _I64])
 _SCATTER = Entry("ring_gather", "ddq_scatter_rows",
-                 [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, ctypes.c_int])
+                 [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64])
 
 
 # -- plain versions (the CPU path, and the card's reference) ----------------
@@ -133,8 +133,7 @@ def gather_windows(idx: torch.Tensor, ring: torch.Tensor, *, n: int, w: int,
 
 def scatter_rows(src_idx: torch.Tensor, dst_idx: torch.Tensor,
                  staged: torch.Tensor, ring: torch.Tensor, *, n: int,
-                 rowb: int, skip_row: int | None = None,
-                 bulk: bool = False) -> torch.Tensor:
+                 rowb: int, skip_row: int | None = None) -> torch.Tensor:
     """Write ``n`` rows ``staged[src_idx[k]] → ring[dst_idx[k]]`` (row
     units; ``staged``/``ring`` flat int32, ``rowb`` in BYTES), in place on
     ``ring``, which is returned.
@@ -144,9 +143,7 @@ def scatter_rows(src_idx: torch.Tensor, dst_idx: torch.Tensor,
     ring's scratch row, whose contents are unspecified; distinct REAL
     targets within one call are the caller's invariant. ``skip_row``, the
     scratch row's index, lets the kernel skip those lanes without moving a
-    byte; the plain version ignores it. ``bulk`` launches the TMA design
-    (a bulk copy through shared memory per row) instead of the register
-    copy, for the comparison ``chip_smoke.py`` times.
+    byte; the plain version ignores it.
     """
     _check_rowb(rowb)
     _check_i32("src_idx", src_idx, n)
@@ -173,7 +170,7 @@ def scatter_rows(src_idx: torch.Tensor, dst_idx: torch.Tensor,
     err = _SCATTER(dev, src_idx.data_ptr(), dst_idx.data_ptr(),
                    staged.data_ptr(), ring.data_ptr(), n, rowb,
                    staged.numel() // rowp, ring_rows,
-                   -1 if skip_row is None else skip_row, int(bulk))
+                   -1 if skip_row is None else skip_row)
     if err:
         raise RuntimeError(f"scatter_rows kernel launch failed: CUDA "
                            f"error {err}")

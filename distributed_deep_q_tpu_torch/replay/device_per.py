@@ -359,7 +359,7 @@ class DevicePERFrameReplay(DeviceFrameReplay):
             row_len=self._row_len, rowb=self.rowb, alpha=self._alpha)
         scatter_rows(self._scatter_src, to_device(didx, dev), staged,
                      st["frames"], n=2 * k, rowb=self.rowb,
-                     skip_row=int(scratch))
+                     skip_row=scratch)
         midx = to_device(i2[ok].astype(np.int64), dev)
         for name, col in zip(("action", "reward", "done", "boundary"),
                              cols[1:]):

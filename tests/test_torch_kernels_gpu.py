@@ -74,15 +74,13 @@ def test_scatter_rows_kernel_matches_plain_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bulk", [False, True])
 @pytest.mark.parametrize("skip", [True, False])
 @pytest.mark.parametrize("real, ghosts", [(4, 0), (0, 0), (62, 4)])
-def test_scatter_rows_flush_shapes_on_card(real, ghosts, skip, bulk):
+def test_scatter_rows_flush_shapes_on_card(real, ghosts, skip):
     """The flush's shapes: the 4-row flush before each dispatch (124 of
     128 lanes padding), a chunk with no real lane, and a 62-row chunk with
-    4 ghost mirrors; with and without ``skip_row``, both designs. Bitwise
-    outside the scratch row; with ``skip_row`` the scratch row is
-    untouched."""
+    4 ghost mirrors; with and without ``skip_row``. Bitwise outside the
+    scratch row; with ``skip_row`` the scratch row is untouched."""
     dev = _need_card()
     rowb, rows, k = 8192, 300_000, 64
     rowp, scratch = rowb // 4, rows - 1
@@ -98,7 +96,7 @@ def test_scatter_rows_flush_shapes_on_card(real, ghosts, skip, bulk):
     kernel, plain = ring.clone(), ring
     before = rg.scatter_rows.launches
     rg.scatter_rows(src, dst, staged, kernel, n=2 * k, rowb=rowb,
-                    skip_row=scratch if skip else None, bulk=bulk)
+                    skip_row=scratch if skip else None)
     torch.cuda.synchronize()
     assert rg.scatter_rows.launches == before + 1
     scratch_before = plain[-rowp:].clone()
@@ -161,48 +159,33 @@ def test_fused_loss_kernels_match_plain_on_card(b, a, delta):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("pdl", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("b", [1, 31, 512, 1500])
 @pytest.mark.parametrize("a", [2, 4, 6, 18, 5])
-def test_fused_loss_fwd_widths_on_card(a, b, pdl):
+def test_fused_loss_fwd_widths_on_card(a, b, aligned):
     """B3 at every head width with its own instance (2, 4, 6, 18) and one
     that takes the runtime loop (5), over batch sizes from one row to
-    three rows a thread, launched plainly and early (PDL): |td| bitwise,
-    the loss within 1e-6 relative, and the same bits on a second run."""
+    three rows a thread; and with q one float off 16-byte alignment, which
+    takes the loop at every width. q is written by a copy queued behind a
+    slow kernel just before the launch. |td| bitwise, the loss within 1e-6
+    relative, and the same bits on a second run."""
     dev = _need_card()
     q, actions, targets, weights = _loss_inputs(max(b, 3), a, dev,
                                                 seed=7 * b + a)
     q, actions, targets, weights = q[:b], actions[:b], targets[:b], \
         weights[:b]
-    loss, td = fl.fused_loss_fwd(q, actions, targets, weights, 1.0, pdl=pdl)
-    again, td_again = fl.fused_loss_fwd(q, actions, targets, weights, 1.0,
-                                        pdl=pdl)
+    fresh = torch.empty(b * a + 1, device=dev)[int(not aligned):]
+    fresh = fresh[:b * a].view(b, a)
+    torch.cuda._sleep(2_000_000)          # keeps the copy below queued
+    fresh.copy_(q)
+    loss, td = fl.fused_loss_fwd(fresh, actions, targets, weights, 1.0)
+    again, td_again = fl.fused_loss_fwd(fresh, actions, targets, weights,
+                                        1.0)
     torch.cuda.synchronize()
     loss_p, td_p = fl.fused_loss_fwd_plain(q, actions, targets, weights, 1.0)
     assert torch.equal(td, td_p)
     assert abs(float(loss) - float(loss_p)) <= 1e-6 * abs(float(loss_p))
     assert torch.equal(loss, again) and torch.equal(td, td_again)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("pdl", [False, True])
-def test_fused_loss_fwd_after_a_kernel_writing_q(pdl):
-    """B3 launched right behind a slow kernel that writes its q (and, at
-    A = 4 from an offset of one float, a q that is not 16-byte aligned, so
-    the runtime loop): it reads the written values."""
-    dev = _need_card()
-    q, actions, targets, weights = _loss_inputs(512, 4, dev, seed=11)
-    for fresh in (torch.empty_like(q),
-                  torch.empty(q.numel() + 1, device=dev)[1:].view(512, 4)):
-        torch.cuda._sleep(2_000_000)      # keeps the copy below queued
-        fresh.copy_(q)
-        loss, td = fl.fused_loss_fwd(fresh, actions, targets, weights, 1.0,
-                                     pdl=pdl)
-        loss_p, td_p = fl.fused_loss_fwd_plain(q, actions, targets, weights,
-                                               1.0)
-        torch.cuda.synchronize()
-        assert torch.equal(td, td_p)
-        assert abs(float(loss) - float(loss_p)) <= 1e-6 * abs(float(loss_p))
 
 
 @pytest.mark.gpu
