@@ -24,9 +24,18 @@ Phases (any failure exits non-zero and prints no result line):
 3b. loss kernels — the fused TD loss forward (B3) and backward (B4)
    against their plain versions at B = 512 with A = 4 and A = 18, δ in
    {0.5, 1, 2}, a few actions out of range: |td| and dq bitwise, the loss
-   within 1e-6 relative; then timed (device and host time per call) beside
-   their byte bound, the plain versions and the nearest PyTorch
+   within 1e-6 relative; B4 also at every head width it has an instance
+   for (2, 4, 6, 18) and one it loops over (5), with and without NaN and
+   inf in q, dq compared as int32 bit patterns (NaN rows, −0.0 columns);
+   then timed (device and host time per call, B4's host time both through
+   its public wrapper and on the autograd route ``FusedDqnLoss`` takes)
+   beside their byte bound, the plain versions and the nearest PyTorch
    composition;
+3c. B4's designs — the parent design (one thread per element) against the
+   new one in turns (parent, new, new, parent): device time back to back,
+   host time per call of the wrapper and of the autograd route; then the
+   new design's candidates (direct or staged rows, 128 or 256 threads a
+   block) back to back, each first checked bitwise;
 4. main path — ``main train --preset pong --backend cuda`` in process on the
    SignalAtari probe at full 84×84 (bf16 Nature CNN, batch 512, 1M ring,
    learn_start 20,000), several hundred grad steps of the fused device-PER
@@ -35,7 +44,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``train_steps_device_per(chain=8)`` timed over a few dozen dispatches
    with the plain loss and with the fused loss kernels, then each traced
    with ``torch.profiler`` over four (the port's kernels' device time per
-   launch read from the fused-loss trace); then the same small fused
+   launch read from the fused-loss trace, beside an empty kernel's time in
+   a profiler window of its own; the fused-loss trace again with B4's
+   parent and new designs in turns); then the same small fused
    dispatch on the card and on the CPU (whose path the CPU tests hold to
    the JAX reference), compared;
 6. host-sampled path — ``main train --preset breakout --backend cuda`` with
@@ -55,6 +66,7 @@ before it and reads them just after.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -117,6 +129,14 @@ def max_abs_err(torch, a, b) -> int:
     if torch.equal(a, b):
         return 0
     return int((a.long() - b.long()).abs().max())
+
+
+def float_err(torch, a, b) -> float:
+    """0.0 when two float32 tensors are the same bit patterns, else their
+    largest difference (inf where NaN meets a number)."""
+    if torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        return 0.0
+    return float((a - b).abs().nan_to_num(math.inf).max())
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -248,10 +268,59 @@ def loss_inputs(torch, dev, b: int, a: int, seed: int):
     return q, actions, targets, weights, g
 
 
+def with_nonfinite(q, actions):
+    """NaN and ±inf in rows 3-8, on and off each row's action: rows 3, 4,
+    7 and 8 come out NaN, rows 5 and 6 (inf on the action) clip to ±δ."""
+    a = q.shape[1]
+    for row, on_action, value in ((3, False, math.nan), (4, False, math.inf),
+                                  (5, True, math.inf), (6, True, -math.inf),
+                                  (7, True, math.nan), (8, False, -math.inf)):
+        col = int(actions[row]) if on_action else (int(actions[row]) + 1) % a
+        q[row, col] = value
+    return q
+
+
+# B4's head widths: the presets' (an instance each) and one the loop takes
+BWD_WIDTHS = (2, 4, 6, 18, 5)
+
+
+def check_bwd_widths(torch, fl, dev, b: int = 512) -> list[dict]:
+    """B4 against its plain version at every width of ``BWD_WIDTHS``, with
+    finite q and with NaN and inf in it, as int32 bit patterns."""
+    cases = []
+    for a in BWD_WIDTHS:
+        for nonfinite in (False, True):
+            q, act, t, w, g = loss_inputs(torch, dev, b, a, seed=100 + a)
+            if nonfinite:
+                q = with_nonfinite(q, act)
+            dq = fl.fused_loss_bwd(q, act, t, w, g, 1.0)
+            dq_p = fl.fused_loss_bwd_plain(q, act, t, w, g, 1.0)
+            torch.cuda.synchronize()
+            bits = dq_p.view(torch.int32)
+            cases.append({
+                "a": a, "nonfinite": nonfinite,
+                "max_abs_err": float_err(torch, dq, dq_p),
+                "nan_rows": int(torch.isnan(dq_p).all(dim=1).sum()),
+                "neg_zeros": int((bits == -2**31).sum())})
+    return cases
+
+
+def autograd_route(torch, fl, q, act, t, w, g):
+    """(B4 on the autograd route, the whole ``torch.autograd.grad`` call):
+    ``FusedDqnLoss`` on int64 actions, as the learner hands them over; the
+    first calls the Function's backward as the engine does."""
+    qr = q.clone().requires_grad_(True)
+    loss, _ = fl.FusedDqnLoss.apply(qr, act.long(), t, w, 1.0)
+    ctx = loss.grad_fn
+    return (lambda i: fl.FusedDqnLoss.backward(ctx, g, None),
+            lambda i: torch.autograd.grad(loss, [qr], retain_graph=True))
+
+
 def check_fused_loss(torch, fl, dev) -> dict:
     """B3/B4 against their plain versions (bitwise |td| and dq, loss to
-    1e-6 relative) over A in {4, 18} and δ in {0.5, 1, 2}, then timed at
-    δ = 1 for both A."""
+    1e-6 relative) over A in {4, 18} and δ in {0.5, 1, 2}, B4 at every
+    width with and without NaN and inf, then timed at δ = 1 for A = 4
+    and 18."""
     import torch.nn.functional as F
 
     b = 512
@@ -267,13 +336,16 @@ def check_fused_loss(torch, fl, dev) -> dict:
             torch.cuda.synchronize()
             out["cases"] += 1
             out["td_max_abs_err"] = max(out["td_max_abs_err"],
-                                        float((td - td_p).abs().max()))
+                                        float_err(torch, td, td_p))
             out["dq_max_abs_err"] = max(out["dq_max_abs_err"],
-                                        float((dq - dq_p).abs().max()))
+                                        float_err(torch, dq, dq_p))
             out["loss_max_rel_err"] = max(
                 out["loss_max_rel_err"],
                 abs(float(loss) - float(loss_p)) / abs(float(loss_p)))
             assert not dq[:3].any(), "out-of-range actions got a gradient"
+    out["bwd_widths"] = check_bwd_widths(torch, fl, dev, b)
+    out["dq_max_abs_err"] = max([out["dq_max_abs_err"]] + [
+        c["max_abs_err"] for c in out["bwd_widths"]])
     for a in (4, 18):
         q, act, t, w, g = loss_inputs(torch, dev, b, a, seed=a)
         # the composition cannot take out-of-range actions: gather faults
@@ -292,6 +364,9 @@ def check_fused_loss(torch, fl, dev) -> dict:
         fwd["bytes"] = 4 * (b * a + 4 * b + 1)
         bwd = timed(torch, lambda i: fl.fused_loss_bwd(q, act, t, w, g, 1.0),
                     lambda i: fl.fused_loss_bwd_plain(q, act, t, w, g, 1.0))
+        backward, grad = autograd_route(torch, fl, q, act, t, w, g)
+        bwd["autograd_host_ms"] = time_ms(torch, backward)[1]
+        bwd["autograd_grad_host_ms"] = time_ms(torch, grad)[1]
         bwd["composition_ms"] = time_ms(torch, lambda i: torch.autograd.grad(
             comp_loss, [qr], retain_graph=True))[0]
         bwd["bytes"] = 4 * (2 * b * a + 3 * b + 1)
@@ -299,6 +374,136 @@ def check_fused_loss(torch, fl, dev) -> dict:
             k["bound_ms"] = 1e3 * k["bytes"] / HBM_BYTES_PER_S
         out[f"a{a}"] = {"fwd": fwd, "bwd": bwd}
     return out
+
+
+# -- phase 3c: B4's designs ----------------------------------------------------
+
+
+def bwd_entries(fl, cuda_build) -> dict:
+    """B4's C entry points by design: the parent (one thread per element),
+    and the new design's candidates, staged (b) or direct (a) rows at 128
+    or 256 threads a block; each called as the wrapper calls its entry."""
+    args = fl._BWD.argtypes[:-1]
+    parent = cuda_build.Entry("fused_loss", "ddq_fused_loss_bwd_parent", args)
+    design = cuda_build.Entry("fused_loss", "ddq_fused_loss_bwd_design",
+                              [*args, ctypes.c_int, ctypes.c_int])
+
+    def candidate(staged: int, threads: int):
+        return lambda dev, *a: design(dev, *a, staged, threads)
+
+    entries = {"parent": parent, "new": fl._BWD}
+    for staged, name in ((0, "direct"), (1, "staged")):
+        for threads in (128, 256):
+            entries[f"{name}{threads}"] = candidate(staged, threads)
+    return entries
+
+
+@contextlib.contextmanager
+def bwd_design(fl, entry):
+    """B4's wrapper (and so every route to it) launches ``entry``."""
+    kept = fl._BWD
+    fl._BWD = entry
+    try:
+        yield
+    finally:
+        fl._BWD = kept
+
+
+def parent_routes(torch, fl, q, act, t, w, g):
+    """The parent tree's host path to B4, for its host cost: its public
+    wrapper (the operand checks and ``g.contiguous()`` on every call) and
+    its ``FusedDqnLoss``, which kept the caller's actions and went through
+    that wrapper, casting int64 actions again in every backward."""
+    def wrapper(q, actions, targets, weights, g, delta):
+        a32 = fl._check(q, actions, targets, weights)
+        if g.dtype != torch.float32 or g.numel() != 1 or \
+                g.device != q.device:
+            raise ValueError("g")
+        b, a = q.shape
+        g = g.contiguous()
+        dq = torch.empty_like(q)
+        err = fl._BWD(q.device, q.data_ptr(), a32.data_ptr(),
+                      targets.data_ptr(), weights.data_ptr(), g.data_ptr(),
+                      dq.data_ptr(), b, a, delta)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        fl.fused_loss_bwd.launches += 1
+        return dq
+
+    class ParentFusedDqnLoss(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, actions, targets, weights, delta):
+            loss, td_abs = fl.fused_loss_fwd(q, actions, targets, weights,
+                                             delta)
+            ctx.save_for_backward(q, actions, targets, weights)
+            ctx.delta = delta
+            ctx.mark_non_differentiable(td_abs)
+            return loss, td_abs
+
+        @staticmethod
+        def backward(ctx, g_loss, g_td_abs):
+            q, actions, targets, weights = ctx.saved_tensors
+            return (wrapper(q, actions, targets, weights, g_loss, ctx.delta),
+                    None, None, None, None)
+
+    qr = q.clone().requires_grad_(True)
+    loss, _ = ParentFusedDqnLoss.apply(qr, act.long(), t, w, 1.0)
+    ctx = loss.grad_fn
+    return (lambda i: wrapper(q, act, t, w, g, 1.0),
+            lambda i: ParentFusedDqnLoss.backward(ctx, g, None),
+            lambda i: torch.autograd.grad(loss, [qr], retain_graph=True))
+
+
+def compare_bwd_designs(torch, fl, entries, dev) -> dict:
+    """Every design bitwise against the plain version at every width (NaN
+    and inf in q), then the parent and the new design in turns (parent,
+    new, new, parent) at A = 4 and 18, then the candidates back to back
+    (in a list and again reversed), with an empty kernel in every turn."""
+    b = 512
+    bitwise = {}
+    for name, entry in entries.items():
+        with bwd_design(fl, entry):
+            bitwise[name] = all(c["max_abs_err"] == 0 for c in
+                                check_bwd_widths(torch, fl, dev, b))
+    assert all(bitwise.values()), f"a B4 design disagrees: {bitwise}"
+    inputs = {a: loss_inputs(torch, dev, b, a, seed=a) for a in (2, 4, 6, 18)}
+    turns = []
+    for name in ("parent", "new", "new", "parent"):
+        turn = {"design": name,
+                "empty_kernel_ms": time_ms(torch, lambda i: torch.cuda._sleep(
+                    0))[0]}
+        with bwd_design(fl, entries[name]):
+            for a in (4, 18):
+                q, act, t, w, g = inputs[a]
+                if name == "parent":
+                    wrapper, backward, grad = parent_routes(torch, fl, q, act,
+                                                            t, w, g)
+                else:
+                    backward, grad = autograd_route(torch, fl, q, act, t, w,
+                                                    g)
+                    wrapper = lambda i: fl.fused_loss_bwd(q, act, t, w, g,
+                                                          1.0)
+                ms, host_ms = time_ms(torch, wrapper)
+                turn[f"a{a}"] = {"ms": ms, "host_ms": host_ms,
+                                 "autograd_host_ms": time_ms(torch,
+                                                             backward)[1],
+                                 "autograd_grad_host_ms": time_ms(torch,
+                                                                  grad)[1]}
+        turns.append(turn)
+    order = [(name, a) for a in (2, 4, 6, 18) for name in
+             ("direct128", "direct256", "staged128", "staged256")
+             if not (a == 4 and name.startswith("staged"))]
+    candidates: dict = {}
+    for run in (order, order[::-1]):
+        for name, a in run:
+            q, act, t, w, g = inputs[a]
+            with bwd_design(fl, entries[name]):
+                ms = time_ms(torch, lambda i: fl.fused_loss_bwd(
+                    q, act, t, w, g, 1.0))[0]
+            candidates.setdefault(f"{name}_a{a}", []).append(ms)
+    return {"bitwise": bitwise, "turns": turns, "candidates": candidates,
+            "empty_kernel_ms": time_ms(torch,
+                                       lambda i: torch.cuda._sleep(0))[0]}
 
 
 def timed(torch, kernel, plain) -> dict:
@@ -383,10 +588,13 @@ def time_chain(torch, solver, replay, chain: int, dispatches: int):
     return 1e3 * dt / (chain * dispatches), loss
 
 
-def run_chained(torch, config, Solver, DevicePERFrameReplay) -> dict:
+def run_chained(torch, config, fl, bwd, Solver,
+                DevicePERFrameReplay) -> dict:
     """The chain=8 dispatch with the plain loss and with the fused loss
     kernels (``use_pallas_loss``), two solvers on one replay, timed in
-    turns: plain, fused, fused, plain."""
+    turns: plain, fused, fused, plain; each traced, beside an empty
+    kernel in a trace of its own; then the fused loss traced with B4's
+    designs ``bwd`` in turns (parent, new, new, parent)."""
     def solver_for(pallas: bool):
         cfg = config.pong_config()
         cfg.mesh.backend = "cuda"
@@ -415,7 +623,38 @@ def run_chained(torch, config, Solver, DevicePERFrameReplay) -> dict:
            "last_loss": float(loss[-1])}
     out["trace"] = trace_dispatches(torch, plain, replay, chain, 4)
     out["fused_loss_trace"] = trace_dispatches(torch, fused, replay, chain, 4)
+    out["empty_kernel_trace_us"] = trace_empty_kernel(torch)
+    out["bwd_design_traces"] = []
+    for name in ("parent", "new", "new", "parent"):
+        with bwd_design(fl, bwd[name]):
+            tr = trace_dispatches(torch, fused, replay, chain, 4)
+        out["bwd_design_traces"].append(
+            {"design": name, "fused_loss_bwd": tr["port_kernels"].get(
+                "fused_loss_bwd"), "empty_kernel_trace_us":
+                trace_empty_kernel(torch)})
     return out
+
+
+def trace_empty_kernel(torch, launches: int = 64) -> float:
+    """An empty kernel's (``torch.cuda._sleep(0)``) device time per launch
+    in a ``torch.profiler`` window of its own: the floor of the phase-5
+    "in trace" times, which, unlike the back-to-back floor, hold no gap
+    between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # ATen's spin_kernel, if the trace holds anything else
+    kernels = [e for e in kernels if "spin" in e.key] or kernels
+    count = sum(e.count for e in kernels)
+    assert count > 0, "the profiler saw no empty kernel"
+    return sum(e.self_device_time_total for e in kernels) / count
 
 
 def trace_dispatches(torch, solver, replay, chain: int, dispatches: int):
@@ -591,6 +830,15 @@ def main() -> int:
     assert loss_k["td_max_abs_err"] == 0, "B3 |td| disagrees with plain"
     assert loss_k["dq_max_abs_err"] == 0, "B4 dq disagrees with plain"
     assert loss_k["loss_max_rel_err"] <= 1e-6, "B3 loss disagrees with plain"
+    assert all(c["nan_rows"] == 4 for c in loss_k["bwd_widths"]
+               if c["nonfinite"]), "the NaN case lost its NaN rows"
+    assert all(c["neg_zeros"] > 0 for c in loss_k["bwd_widths"]), \
+        "no -0.0 column was checked"
+
+    # -- 3c. B4's designs -------------------------------------------------------
+    bwd = bwd_entries(fl, cuda_build)
+    designs = compare_bwd_designs(torch, fl, bwd, dev)
+    log(f"[3c] B4 designs: {json.dumps(designs)}")
 
     # -- 4. Pong main path through the CLI -------------------------------------
     summary, launches, record = run_cli(cli_main, counters, PONG_ARGV,
@@ -606,7 +854,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. chained dispatch, then card vs CPU on a small input ---------------
-    chained = run_chained(torch, config, Solver, DevicePERFrameReplay)
+    chained = run_chained(torch, config, fl, bwd, Solver,
+                          DevicePERFrameReplay)
     log(f"[5] chained dispatch: {json.dumps(chained)}")
     torch.cuda.empty_cache()
     cross = cross_device_check(torch, config, Solver, DevicePERFrameReplay)
@@ -701,11 +950,19 @@ def main() -> int:
              "empty_kernel_ms": empty_ms, "host_ms": k4["host_ms"],
              "phase5_trace_us_per_launch":
                  in_trace.get(name, {}).get("us_per_launch"),
+             "phase5_trace_empty_kernel_us":
+                 chained["empty_kernel_trace_us"],
              "loss_max_rel_err": loss_k["loss_max_rel_err"],
              "ok": err == 0, "shape": "B=512 A=4 delta=1",
              "path": "phase 6 (breakout, host-sampled)",
              "a18": {k: k18[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "composition_ms", "host_ms")}})
+    bwd_row = kernels[-1]
+    bwd_row.update({k: loss_k["a4"]["bwd"][k] for k in (
+        "autograd_host_ms", "autograd_grad_host_ms")})
+    bwd_row["a18"].update({k: loss_k["a18"]["bwd"][k] for k in (
+        "autograd_host_ms", "autograd_grad_host_ms")})
+    bwd_row["widths_checked"] = sorted({c["a"] for c in loss_k["bwd_widths"]})
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -34,9 +34,23 @@
 //   (B4). Recomputes td (cheaper than storing it) and writes
 //   dq[b, a] = onehot(a_b)[a] * (((g * w_b) * clip(td_b, -delta, delta)) / B)
 //   over the whole [B, A]. g, the incoming gradient of the loss, is read
-//   from device memory, so the host never waits on it. Bound: bytes
-//   (22.5 KB at B = 512, A = 4; about 7 ns), launch-bound. Design: one
-//   thread per element of dq.
+//   from device memory, so the host never waits on it. Bound: bytes, but
+//   tiny (22.5 KB at B = 512, A = 4; about 7 ns at 3.35 TB/s), so
+//   launch-bound like B3: what counts is the dependent steps between the
+//   launch and the last store. Design: one thread per row, the row's whole
+//   work in one round trip to memory: its Q-values (vector loads, as in
+//   B3), action, target and weight, and g, all issued before the first
+//   use; the coefficient computed once; the dq row written with vector
+//   stores. Templated on the presets' head widths (2, 4, 6, 18); other
+//   widths, and a q or dq that is not 16-byte aligned, take a runtime-A
+//   loop. Blocks of kBwdThreads threads spread the rows over several SMs,
+//   and a grid-stride loop with int64 offsets keeps B·A past 2³¹ right.
+//   Every element of dq is the multiply (1 or 0) · coeff, never a select:
+//   a NaN coefficient fills its row with NaN, a negative one leaves -0.0
+//   off the action, as the reference's onehot * coeff does. The first
+//   design (one thread per element of dq, a 64-bit division per element,
+//   the row re-read A times) took ~0.75 µs above an empty launch at A = 4
+//   and ~1.1 µs at A = 18 on an H100 (PERF.md §6).
 //
 // Rounding follows the reference's operation order. Every product, sum and
 // quotient that feeds td_abs or dq is an explicit round-to-nearest
@@ -54,7 +68,7 @@
 namespace {
 
 constexpr int kFwdThreads = 512;
-constexpr int kBwdThreads = 256;
+constexpr int kBwdThreads = 128;
 constexpr int64_t kMaxGrid = 1 << 16;
 
 // the reference's one-hot contraction over row b, in column order
@@ -180,19 +194,138 @@ fused_loss_fwd_kernel(const float* __restrict__ q,
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
+// the reference's backward coefficient ((g * w) * clip(td, ±delta)) / B,
+// with a clip that passes a NaN through
+__device__ __forceinline__ float bwd_coeff(float q_sa, float t, float w,
+                                           float gv, float delta,
+                                           float batch) {
+  const float td = __fsub_rn(q_sa, t);
+  const float dhuber = td < -delta ? -delta : (td > delta ? delta : td);
+  return __fdiv_rn(__fmul_rn(__fmul_rn(gv, w), dhuber), batch);
+}
+
+// dq's row: every column the multiply onehot · coeff, stored with the
+// widest vector store the row's alignment allows (as load_row reads)
+template <int A>
+__device__ __forceinline__ void store_dq_row(float* __restrict__ row, int a,
+                                             float coeff) {
+  float v[A];
+#pragma unroll
+  for (int c = 0; c < A; ++c) v[c] = __fmul_rn(c == a ? 1.0f : 0.0f, coeff);
+  if constexpr (A % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < A; c += 4)
+      *reinterpret_cast<float4*>(row + c) =
+          make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+  } else if constexpr (A % 2 == 0) {
+#pragma unroll
+    for (int c = 0; c < A; c += 2)
+      *reinterpret_cast<float2*>(row + c) = make_float2(v[c], v[c + 1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < A; ++c) row[c] = v[c];
+  }
+}
+
+// A > 0: the head width, fixed at compile time; A == 0: `a_rt` at run time.
+// One thread per row, rows b = blockIdx.x * T + threadIdx.x, then a grid
+// stride. kStage (candidate b, even A only): the block copies its T rows of
+// q into shared memory with coalesced float4 loads, each thread computes
+// its row there and writes its dq row back in place, and the block stores
+// the chunk with coalesced float4 stores. Without it (candidate a) each
+// thread reads and writes its own row directly.
+template <int A, int T, bool kStage>
+__global__ void __launch_bounds__(T)
 fused_loss_bwd_kernel(const float* __restrict__ q,
                       const int32_t* __restrict__ actions,
                       const float* __restrict__ targets,
                       const float* __restrict__ weights,
                       const float* __restrict__ g, float* __restrict__ dq,
-                      int64_t B, int A, float delta) {
+                      int64_t B, int a_rt, float delta) {
+  const float gv = g[0];
+  const float batch = static_cast<float>(B);
+  const int tid = threadIdx.x;
+  if constexpr (kStage) {
+    static_assert(A > 0 && A % 2 == 0, "staging needs an even width");
+    constexpr int kPer = (T * A / 4 + T - 1) / T;
+    __shared__ __align__(16) float stage[T * A];
+    for (int64_t base = static_cast<int64_t>(blockIdx.x) * T; base < B;
+         base += static_cast<int64_t>(gridDim.x) * T) {
+      const int64_t b = base + tid;
+      const int64_t rows = B - base < T ? B - base : T;
+      const bool live = tid < rows;
+      const int a = live ? actions[b] : 0;
+      const float t = live ? targets[b] : 0.f, w = live ? weights[b] : 0.f;
+      // the chunk starts at a multiple of T · A floats: 16-byte aligned, as
+      // q and dq are
+      const float* chunk = q + base * A;
+      const int n = static_cast<int>(rows) * A, n4 = n / 4;
+      float4 x[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (tid + j * T < n4)
+          x[j] = reinterpret_cast<const float4*>(chunk)[tid + j * T];
+      const float tail = 4 * n4 + tid < n ? chunk[4 * n4 + tid] : 0.f;
+      __syncthreads();   // the previous chunk's dq has left the stage
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (tid + j * T < n4)
+          reinterpret_cast<float4*>(stage)[tid + j * T] = x[j];
+      if (4 * n4 + tid < n) stage[4 * n4 + tid] = tail;
+      __syncthreads();
+      if (live) {
+        float v[A];
+        load_row<A>(stage + tid * A, v);
+        store_dq_row<A>(stage + tid * A, a,
+                        bwd_coeff(q_at_action_row<A>(v, a), t, w, gv, delta,
+                                  batch));
+      }
+      __syncthreads();
+      float* out = dq + base * A;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (tid + j * T < n4)
+          reinterpret_cast<float4*>(out)[tid + j * T] =
+              reinterpret_cast<const float4*>(stage)[tid + j * T];
+      if (4 * n4 + tid < n) out[4 * n4 + tid] = stage[4 * n4 + tid];
+    }
+  } else {
+    for (int64_t b = static_cast<int64_t>(blockIdx.x) * T + tid; b < B;
+         b += static_cast<int64_t>(gridDim.x) * T) {
+      const int a = actions[b];
+      const float t = targets[b], w = weights[b];
+      if constexpr (A == 0) {
+        const float coeff =
+            bwd_coeff(q_at_action(q, b, a, a_rt), t, w, gv, delta, batch);
+        float* row = dq + b * a_rt;
+        for (int c = 0; c < a_rt; ++c)
+          row[c] = __fmul_rn(c == a ? 1.0f : 0.0f, coeff);
+      } else {
+        float v[A];
+        load_row<A>(q + b * A, v);
+        store_dq_row<A>(dq + b * A, a,
+                        bwd_coeff(q_at_action_row<A>(v, a), t, w, gv, delta,
+                                  batch));
+      }
+    }
+  }
+}
+
+// the first design, kept beside the new one to be timed against it: one
+// thread per element of dq
+__global__ void __launch_bounds__(256)
+fused_loss_bwd_kernel_parent(const float* __restrict__ q,
+                             const int32_t* __restrict__ actions,
+                             const float* __restrict__ targets,
+                             const float* __restrict__ weights,
+                             const float* __restrict__ g,
+                             float* __restrict__ dq, int64_t B, int A,
+                             float delta) {
   const float gv = g[0];
   const float batch = static_cast<float>(B);
   const int64_t n = B * A;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kBwdThreads +
-                   threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * kBwdThreads) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * 256) {
     const int64_t b = i / A;
     const int col = static_cast<int>(i - b * A);
     const int a = actions[b];
@@ -202,6 +335,49 @@ fused_loss_bwd_kernel(const float* __restrict__ q,
         __fmul_rn(__fmul_rn(gv, weights[b]), dhuber), batch);
     dq[i] = __fmul_rn(col == a ? 1.0f : 0.0f, coeff);
   }
+}
+
+template <int T, bool kStage>
+int launch_bwd(const void* q, const void* actions, const void* targets,
+               const void* weights, const void* g, void* dq, long long B,
+               int A, float delta, void* stream) {
+  if (B <= 0 || A <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* act = static_cast<const int32_t*>(actions);
+  const auto* t = static_cast<const float*>(targets);
+  const auto* w = static_cast<const float*>(weights);
+  const auto* gf = static_cast<const float*>(g);
+  auto* out = static_cast<float*>(dq);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int64_t blocks = (B + T - 1) / T;
+  const unsigned grid =
+      static_cast<unsigned>(blocks < kMaxGrid ? blocks : kMaxGrid);
+  // the vector loads and stores need q and dq 16-byte aligned; any other
+  // pair takes the loop
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(dq)) % 16) == 0;
+  switch (aligned ? A : 0) {
+    case 2:
+      fused_loss_bwd_kernel<2, T, kStage><<<grid, T, 0, s>>>(
+          qf, act, t, w, gf, out, B, A, delta);
+      break;
+    case 4:
+      fused_loss_bwd_kernel<4, T, false><<<grid, T, 0, s>>>(
+          qf, act, t, w, gf, out, B, A, delta);
+      break;
+    case 6:
+      fused_loss_bwd_kernel<6, T, kStage><<<grid, T, 0, s>>>(
+          qf, act, t, w, gf, out, B, A, delta);
+      break;
+    case 18:
+      fused_loss_bwd_kernel<18, T, kStage><<<grid, T, 0, s>>>(
+          qf, act, t, w, gf, out, B, A, delta);
+      break;
+    default:
+      fused_loss_bwd_kernel<0, T, false><<<grid, T, 0, s>>>(
+          qf, act, t, w, gf, out, B, A, delta);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -247,13 +423,42 @@ extern "C" int ddq_fused_loss_bwd(const void* q, const void* actions,
                                   const void* targets, const void* weights,
                                   const void* g, void* dq, long long B, int A,
                                   float delta, void* stream) {
+  return launch_bwd<kBwdThreads, false>(q, actions, targets, weights, g, dq,
+                                        B, A, delta, stream);
+}
+
+// the candidates measured against each other: staged (b) or not (a), at
+// 128 or 256 threads a block
+extern "C" int ddq_fused_loss_bwd_design(const void* q, const void* actions,
+                                         const void* targets,
+                                         const void* weights, const void* g,
+                                         void* dq, long long B, int A,
+                                         float delta, int staged,
+                                         int threads, void* stream) {
+  if (threads == 128)
+    return staged ? launch_bwd<128, true>(q, actions, targets, weights, g,
+                                          dq, B, A, delta, stream)
+                  : launch_bwd<128, false>(q, actions, targets, weights, g,
+                                           dq, B, A, delta, stream);
+  if (threads == 256)
+    return staged ? launch_bwd<256, true>(q, actions, targets, weights, g,
+                                          dq, B, A, delta, stream)
+                  : launch_bwd<256, false>(q, actions, targets, weights, g,
+                                           dq, B, A, delta, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int ddq_fused_loss_bwd_parent(const void* q, const void* actions,
+                                         const void* targets,
+                                         const void* weights, const void* g,
+                                         void* dq, long long B, int A,
+                                         float delta, void* stream) {
   if (B <= 0 || A <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n = static_cast<int64_t>(B) * A;
-  const int64_t blocks = (n + kBwdThreads - 1) / kBwdThreads;
-  fused_loss_bwd_kernel<<<static_cast<unsigned>(
-                              blocks < kMaxGrid ? blocks : kMaxGrid),
-                          kBwdThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  const int64_t blocks = (n + 255) / 256;
+  fused_loss_bwd_kernel_parent<<<static_cast<unsigned>(
+                                     blocks < kMaxGrid ? blocks : kMaxGrid),
+                                 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const int32_t*>(actions),
       static_cast<const float*>(targets), static_cast<const float*>(weights),
       static_cast<const float*>(g), static_cast<float*>(dq), B, A, delta);

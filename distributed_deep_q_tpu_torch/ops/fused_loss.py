@@ -113,7 +113,22 @@ def fused_loss_fwd(q: torch.Tensor, actions: torch.Tensor,
                    targets: torch.Tensor, weights: torch.Tensor,
                    delta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """B3: returns (0-d loss, |td| [B]), both float32 on ``q``'s device."""
-    a32 = _check(q, actions, targets, weights)
+    return _fwd(q, _check(q, actions, targets, weights), targets, weights,
+                delta)
+
+
+def fused_loss_bwd(q: torch.Tensor, actions: torch.Tensor,
+                   targets: torch.Tensor, weights: torch.Tensor,
+                   g: torch.Tensor, delta: float) -> torch.Tensor:
+    """B4: ``dq`` [B, A] float32 for the loss gradient ``g`` (a 0-d float32
+    tensor on ``q``'s device, read there by the kernel)."""
+    return _bwd(q, _check(q, actions, targets, weights), targets, weights, g,
+                delta)
+
+
+def _fwd(q, a32, targets, weights, delta):
+    """B3 on operands ``_check`` has passed, ``a32`` the actions it
+    returned."""
     dev = q.device
     if dev.type == "cpu":
         return fused_loss_fwd_plain(q, a32, targets, weights, delta)
@@ -130,12 +145,10 @@ def fused_loss_fwd(q: torch.Tensor, actions: torch.Tensor,
     return loss, td_abs
 
 
-def fused_loss_bwd(q: torch.Tensor, actions: torch.Tensor,
-                   targets: torch.Tensor, weights: torch.Tensor,
-                   g: torch.Tensor, delta: float) -> torch.Tensor:
-    """B4: ``dq`` [B, A] float32 for the loss gradient ``g`` (a 0-d float32
-    tensor on ``q``'s device, read there by the kernel)."""
-    a32 = _check(q, actions, targets, weights)
+def _bwd(q, a32, targets, weights, g, delta):
+    """B4 on operands ``_check`` has passed, ``a32`` the actions it
+    returned; only ``g`` is checked here. The backward of ``FusedDqnLoss``
+    comes here directly, since its forward checked the rest."""
     if g.dtype != torch.float32 or g.numel() != 1 or g.device != q.device:
         raise ValueError(f"g must be one float32 element on {q.device}, "
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
@@ -143,8 +156,8 @@ def fused_loss_bwd(q: torch.Tensor, actions: torch.Tensor,
         return fused_loss_bwd_plain(q, a32, targets, weights, g.reshape(()),
                                     delta)
     b, a = q.shape
-    g = g.contiguous()
     dq = torch.empty_like(q)
+    # one element: data_ptr() is its address whatever g's strides
     err = _BWD(q.device, q.data_ptr(), a32.data_ptr(), targets.data_ptr(),
                weights.data_ptr(), g.data_ptr(), dq.data_ptr(), b, a, delta)
     if err:
@@ -162,19 +175,20 @@ class FusedDqnLoss(torch.autograd.Function):
     """``FusedDqnLoss.apply(q, actions, targets, weights, delta)``: the
     contract of ``ops.losses.dqn_loss`` — (scalar loss, |TD| [B]), with
     ``targets`` and ``weights`` constants (no gradient). Forward is B3,
-    backward is B4; the inputs are kept for the backward, which recomputes
-    td from them."""
+    backward is B4; the checked inputs (the actions as int32) are kept for
+    the backward, which recomputes td from them."""
 
     @staticmethod
     def forward(ctx, q, actions, targets, weights, delta: float):
-        loss, td_abs = fused_loss_fwd(q, actions, targets, weights, delta)
-        ctx.save_for_backward(q, actions, targets, weights)
+        a32 = _check(q, actions, targets, weights)
+        loss, td_abs = _fwd(q, a32, targets, weights, delta)
+        ctx.save_for_backward(q, a32, targets, weights)
         ctx.delta = delta
         ctx.mark_non_differentiable(td_abs)
         return loss, td_abs
 
     @staticmethod
     def backward(ctx, g_loss, g_td_abs):
-        q, actions, targets, weights = ctx.saved_tensors
-        dq = fused_loss_bwd(q, actions, targets, weights, g_loss, ctx.delta)
+        q, a32, targets, weights = ctx.saved_tensors
+        dq = _bwd(q, a32, targets, weights, g_loss, ctx.delta)
         return dq, None, None, None, None

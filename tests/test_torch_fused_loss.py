@@ -13,7 +13,14 @@ Pins and their reasons:
   compute ``q[b, a] − t`` exactly;
 - ``dq``: bitwise — ``((g·w)·clip)/B`` is three roundings in the same
   order on both sides;
-- the loss: 1e-6 relative — the batch mean sums in another order.
+- the loss: 1e-6 relative — the batch mean sums in another order;
+- ``dq`` with NaN and ±inf in q: bitwise as int32 patterns (NaN payloads
+  and −0.0 included) against the reference compiled with XLA's algebraic
+  simplifier off. With its default passes XLA turns the kernel source's
+  multiplies by the one-hot (``q * onehot``, ``onehot * coeff``) into
+  selects on the CPU, so a row with NaN or inf off its action comes out
+  finite there and a negative coefficient leaves +0.0 off the action. The
+  port computes the multiply the source writes.
 """
 
 import jax
@@ -49,6 +56,33 @@ def _ref(q, actions, targets, weights, delta, g):
     return float(loss), np.asarray(td), np.asarray(dq)
 
 
+def _ref_dq_as_written(q, actions, targets, weights, delta, g):
+    """The reference backward's ``dq`` in Pallas interpret mode, compiled
+    with XLA's algebraic simplifier off, so each multiply runs as written."""
+    args = [jnp.asarray(x) for x in (actions, targets, weights)]
+
+    def dq_of(qq, gg):
+        (_, td), vjp = jax.vjp(
+            lambda x: ref_fused_dqn_loss(x, *args, delta), qq)
+        return vjp((gg, jnp.zeros_like(td)))[0]
+
+    qq, gg = jnp.asarray(q), jnp.float32(g)
+    compiled = jax.jit(dq_of).lower(qq, gg).compile(
+        compiler_options={"xla_disable_hlo_passes": "algsimp"})
+    return np.asarray(compiled(qq, gg))
+
+
+def _with_nonfinite(q, actions):
+    """NaN and ±inf in rows 3–8, on and off each row's action."""
+    q = q.copy()
+    a = q.shape[1]
+    for row, on_action, value in ((3, False, np.nan), (4, False, np.inf),
+                                  (5, True, np.inf), (6, True, -np.inf),
+                                  (7, True, np.nan), (8, False, -np.inf)):
+        q[row, actions[row] if on_action else (actions[row] + 1) % a] = value
+    return q
+
+
 CASES = [(b, a, delta) for b, a in ((512, 4), (512, 18), (32, 6))
          for delta in (0.5, 1.0, 2.0)]
 
@@ -67,6 +101,26 @@ def test_plain_fused_loss_matches_reference(b, a, delta):
     np.testing.assert_array_equal(dq.numpy(), dq_r)
     # out-of-range actions: zero gradient rows
     assert not dq[:3].any()
+
+
+@pytest.mark.parametrize("b, a", [(64, 4), (64, 18), (32, 6), (16, 2)])
+@pytest.mark.parametrize("g", [0.37, -0.37])
+def test_plain_backward_bits_with_nonfinite_q(b, a, g):
+    """NaN or inf off a row's action makes q_sa NaN (inf·0), so the whole
+    row is NaN; inf on the action clips to ±δ and stays finite; a negative
+    coefficient leaves −0.0 off the action. Compared as int32 patterns."""
+    q, actions, targets, weights = _inputs(b, a, seed=3 * b + a)
+    q = _with_nonfinite(q, actions)
+    want = _ref_dq_as_written(q, actions, targets, weights, 1.0, g)
+    tq, ta, tt, tw = (torch.from_numpy(x)
+                      for x in (q, actions, targets, weights))
+    dq = fl.fused_loss_bwd_plain(tq, ta, tt, tw, torch.tensor(g), 1.0)
+    np.testing.assert_array_equal(dq.numpy().view(np.int32),
+                                  want.view(np.int32))
+    # the case holds what it is meant to pin
+    assert np.isnan(want[[3, 4, 7, 8]]).all()
+    assert np.isfinite(want[[5, 6]]).all()
+    assert (want.view(np.int32) == np.int32(-2**31)).any()
 
 
 def test_autograd_function_on_cpu_matches_reference_gradient():
@@ -110,6 +164,24 @@ def test_int64_actions_are_taken_as_int32():
     a64 = fl.fused_loss_fwd(tq, torch.from_numpy(actions).long(), tt, tw, 1.0)
     for x, y in zip(a32, a64):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_autograd_int64_actions_equal_int32_and_save_int32():
+    """``FusedDqnLoss`` with int64 actions gives the int32 route's loss,
+    |td| and dq bit for bit, and keeps the int32 actions its forward
+    checked for the backward (which re-checks and re-casts nothing)."""
+    q, actions, targets, weights = _inputs(64, 6, seed=8)
+    tt, tw = torch.from_numpy(targets), torch.from_numpy(weights)
+    outs = []
+    for acts in (torch.from_numpy(actions), torch.from_numpy(actions).long()):
+        tq = torch.from_numpy(q).requires_grad_(True)
+        loss, td = fl.FusedDqnLoss.apply(tq, acts, tt, tw, 1.0)
+        saved = loss.grad_fn.saved_tensors
+        assert saved[1].dtype == torch.int32 and saved[1].is_contiguous()
+        (dq,) = torch.autograd.grad(loss, [tq])
+        outs.append((loss.detach(), td, dq))
+    for x, y in zip(*outs):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 def test_wrappers_reject_bad_inputs_and_count_no_cpu_launches():

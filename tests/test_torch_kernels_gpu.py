@@ -188,6 +188,94 @@ def test_fused_loss_fwd_widths_on_card(a, b, aligned):
     assert torch.equal(loss, again) and torch.equal(td, td_again)
 
 
+def _bits(x):
+    return x.view(torch.int32)
+
+
+def _with_nonfinite(q, actions):
+    """NaN and ±inf in rows 3–8, on and off each row's action: NaN rows
+    where the one-hot sum meets NaN or inf·0, finite rows where inf sits on
+    the action and clips to ±δ."""
+    a = q.shape[1]
+    for row, on_action, value in ((3, False, float("nan")),
+                                  (4, False, float("inf")),
+                                  (5, True, float("inf")),
+                                  (6, True, float("-inf")),
+                                  (7, True, float("nan")),
+                                  (8, False, float("-inf"))):
+        col = int(actions[row]) if on_action else (int(actions[row]) + 1) % a
+        q[row, col] = value
+    return q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("b", [1, 31, 512, 1500])
+@pytest.mark.parametrize("a", [2, 4, 6, 18, 5])
+def test_fused_loss_bwd_widths_on_card(a, b, aligned):
+    """B4 at every head width with its own instance (2, 4, 6, 18) and one
+    that takes the runtime loop (5), over batch sizes from one row to
+    several blocks; and with q one float off 16-byte alignment, which takes
+    the loop at every width. q is written by a copy queued behind a slow
+    kernel just before the launch; g is a 0-d view at an offset. dq equals
+    the plain version as int32 bit patterns (−0.0 off the action where the
+    coefficient is negative); one launch."""
+    dev = _need_card()
+    q, actions, targets, weights = _loss_inputs(max(b, 3), a, dev,
+                                                seed=11 * b + a)
+    q, actions, targets, weights = q[:b], actions[:b], targets[:b], \
+        weights[:b]
+    g = torch.tensor([5.0, 0.37], device=dev)[1]
+    fresh = torch.empty(b * a + 1, device=dev)[int(not aligned):]
+    fresh = fresh[:b * a].view(b, a)
+    before = fl.fused_loss_bwd.launches
+    torch.cuda._sleep(2_000_000)          # keeps the copy below queued
+    fresh.copy_(q)
+    dq = fl.fused_loss_bwd(fresh, actions, targets, weights, g, 1.0)
+    torch.cuda.synchronize()
+    assert fl.fused_loss_bwd.launches == before + 1
+    want = fl.fused_loss_bwd_plain(q, actions, targets, weights, g, 1.0)
+    assert torch.equal(_bits(dq), _bits(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a", [2, 4, 6, 18, 5])
+def test_fused_loss_bwd_nonfinite_on_card(a):
+    """NaN and inf in q, and negative coefficients: NaN rows and −0.0
+    columns come out of B4 with the plain version's bits."""
+    dev = _need_card()
+    q, actions, targets, weights = _loss_inputs(512, a, dev, seed=a)
+    q = _with_nonfinite(q, actions)
+    g = torch.tensor(-0.37, device=dev)
+    dq = fl.fused_loss_bwd(q, actions, targets, weights, g, 1.0)
+    torch.cuda.synchronize()
+    want = fl.fused_loss_bwd_plain(q, actions, targets, weights, g, 1.0)
+    assert torch.equal(_bits(dq), _bits(want))
+    assert torch.isnan(want[[3, 4, 7, 8]]).all()
+    assert torch.isfinite(want[[5, 6]]).all()
+    assert (_bits(want) == -2**31).any()
+
+
+@pytest.mark.gpu
+def test_fused_loss_autograd_int64_actions_on_card():
+    """``FusedDqnLoss`` with int64 actions: the same dq bits as the public
+    wrapper with int32 actions, and exactly one B4 launch per backward (the
+    forward's int32 actions are kept, so nothing is cast again)."""
+    dev = _need_card()
+    q, actions, targets, weights = _loss_inputs(512, 18, dev, seed=5)
+    want = fl.fused_loss_bwd(q, actions, targets, weights,
+                             torch.ones((), device=dev), 1.0)
+    q.requires_grad_(True)
+    loss, _ = fl.FusedDqnLoss.apply(q, actions.long(), targets, weights, 1.0)
+    assert loss.grad_fn.saved_tensors[1].dtype == torch.int32
+    for _ in range(2):
+        before = fl.fused_loss_bwd.launches
+        (dq,) = torch.autograd.grad(loss, [q], retain_graph=True)
+        torch.cuda.synchronize()
+        assert fl.fused_loss_bwd.launches == before + 1
+        assert torch.equal(_bits(dq), _bits(want))
+
+
 @pytest.mark.gpu
 def test_fused_loss_autograd_on_card():
     """``FusedDqnLoss`` on card tensors runs B3 forward and B4 backward,
