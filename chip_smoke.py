@@ -31,11 +31,6 @@ Phases (any failure exits non-zero and prints no result line):
    its public wrapper and on the autograd route ``FusedDqnLoss`` takes)
    beside their byte bound, the plain versions and the nearest PyTorch
    composition;
-3c. B4's designs — the parent design (one thread per element) against the
-   new one in turns (parent, new, new, parent): device time back to back,
-   host time per call of the wrapper and of the autograd route; then the
-   new design's candidates (direct or staged rows, 128 or 256 threads a
-   block) back to back, each first checked bitwise;
 4. main path — ``main train --preset pong --backend cuda`` in process on the
    SignalAtari probe at full 84×84 (bf16 Nature CNN, batch 512, 1M ring,
    learn_start 20,000), several hundred grad steps of the fused device-PER
@@ -45,8 +40,7 @@ Phases (any failure exits non-zero and prints no result line):
    with the plain loss and with the fused loss kernels, then each traced
    with ``torch.profiler`` over four (the port's kernels' device time per
    launch read from the fused-loss trace, beside an empty kernel's time in
-   a profiler window of its own; the fused-loss trace again with B4's
-   parent and new designs in turns); then the same small fused
+   a profiler window of its own); then the same small fused
    dispatch on the card and on the CPU (whose path the CPU tests hold to
    the JAX reference), compared;
 6. host-sampled path — ``main train --preset breakout --backend cuda`` with
@@ -66,7 +60,6 @@ before it and reads them just after.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import io
 import json
 import math
@@ -376,136 +369,6 @@ def check_fused_loss(torch, fl, dev) -> dict:
     return out
 
 
-# -- phase 3c: B4's designs ----------------------------------------------------
-
-
-def bwd_entries(fl, cuda_build) -> dict:
-    """B4's C entry points by design: the parent (one thread per element),
-    and the new design's candidates, staged (b) or direct (a) rows at 128
-    or 256 threads a block; each called as the wrapper calls its entry."""
-    args = fl._BWD.argtypes[:-1]
-    parent = cuda_build.Entry("fused_loss", "ddq_fused_loss_bwd_parent", args)
-    design = cuda_build.Entry("fused_loss", "ddq_fused_loss_bwd_design",
-                              [*args, ctypes.c_int, ctypes.c_int])
-
-    def candidate(staged: int, threads: int):
-        return lambda dev, *a: design(dev, *a, staged, threads)
-
-    entries = {"parent": parent, "new": fl._BWD}
-    for staged, name in ((0, "direct"), (1, "staged")):
-        for threads in (128, 256):
-            entries[f"{name}{threads}"] = candidate(staged, threads)
-    return entries
-
-
-@contextlib.contextmanager
-def bwd_design(fl, entry):
-    """B4's wrapper (and so every route to it) launches ``entry``."""
-    kept = fl._BWD
-    fl._BWD = entry
-    try:
-        yield
-    finally:
-        fl._BWD = kept
-
-
-def parent_routes(torch, fl, q, act, t, w, g):
-    """The parent tree's host path to B4, for its host cost: its public
-    wrapper (the operand checks and ``g.contiguous()`` on every call) and
-    its ``FusedDqnLoss``, which kept the caller's actions and went through
-    that wrapper, casting int64 actions again in every backward."""
-    def wrapper(q, actions, targets, weights, g, delta):
-        a32 = fl._check(q, actions, targets, weights)
-        if g.dtype != torch.float32 or g.numel() != 1 or \
-                g.device != q.device:
-            raise ValueError("g")
-        b, a = q.shape
-        g = g.contiguous()
-        dq = torch.empty_like(q)
-        err = fl._BWD(q.device, q.data_ptr(), a32.data_ptr(),
-                      targets.data_ptr(), weights.data_ptr(), g.data_ptr(),
-                      dq.data_ptr(), b, a, delta)
-        if err:
-            raise RuntimeError(f"CUDA error {err}")
-        fl.fused_loss_bwd.launches += 1
-        return dq
-
-    class ParentFusedDqnLoss(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, q, actions, targets, weights, delta):
-            loss, td_abs = fl.fused_loss_fwd(q, actions, targets, weights,
-                                             delta)
-            ctx.save_for_backward(q, actions, targets, weights)
-            ctx.delta = delta
-            ctx.mark_non_differentiable(td_abs)
-            return loss, td_abs
-
-        @staticmethod
-        def backward(ctx, g_loss, g_td_abs):
-            q, actions, targets, weights = ctx.saved_tensors
-            return (wrapper(q, actions, targets, weights, g_loss, ctx.delta),
-                    None, None, None, None)
-
-    qr = q.clone().requires_grad_(True)
-    loss, _ = ParentFusedDqnLoss.apply(qr, act.long(), t, w, 1.0)
-    ctx = loss.grad_fn
-    return (lambda i: wrapper(q, act, t, w, g, 1.0),
-            lambda i: ParentFusedDqnLoss.backward(ctx, g, None),
-            lambda i: torch.autograd.grad(loss, [qr], retain_graph=True))
-
-
-def compare_bwd_designs(torch, fl, entries, dev) -> dict:
-    """Every design bitwise against the plain version at every width (NaN
-    and inf in q), then the parent and the new design in turns (parent,
-    new, new, parent) at A = 4 and 18, then the candidates back to back
-    (in a list and again reversed), with an empty kernel in every turn."""
-    b = 512
-    bitwise = {}
-    for name, entry in entries.items():
-        with bwd_design(fl, entry):
-            bitwise[name] = all(c["max_abs_err"] == 0 for c in
-                                check_bwd_widths(torch, fl, dev, b))
-    assert all(bitwise.values()), f"a B4 design disagrees: {bitwise}"
-    inputs = {a: loss_inputs(torch, dev, b, a, seed=a) for a in (2, 4, 6, 18)}
-    turns = []
-    for name in ("parent", "new", "new", "parent"):
-        turn = {"design": name,
-                "empty_kernel_ms": time_ms(torch, lambda i: torch.cuda._sleep(
-                    0))[0]}
-        with bwd_design(fl, entries[name]):
-            for a in (4, 18):
-                q, act, t, w, g = inputs[a]
-                if name == "parent":
-                    wrapper, backward, grad = parent_routes(torch, fl, q, act,
-                                                            t, w, g)
-                else:
-                    backward, grad = autograd_route(torch, fl, q, act, t, w,
-                                                    g)
-                    wrapper = lambda i: fl.fused_loss_bwd(q, act, t, w, g,
-                                                          1.0)
-                ms, host_ms = time_ms(torch, wrapper)
-                turn[f"a{a}"] = {"ms": ms, "host_ms": host_ms,
-                                 "autograd_host_ms": time_ms(torch,
-                                                             backward)[1],
-                                 "autograd_grad_host_ms": time_ms(torch,
-                                                                  grad)[1]}
-        turns.append(turn)
-    order = [(name, a) for a in (2, 4, 6, 18) for name in
-             ("direct128", "direct256", "staged128", "staged256")
-             if not (a == 4 and name.startswith("staged"))]
-    candidates: dict = {}
-    for run in (order, order[::-1]):
-        for name, a in run:
-            q, act, t, w, g = inputs[a]
-            with bwd_design(fl, entries[name]):
-                ms = time_ms(torch, lambda i: fl.fused_loss_bwd(
-                    q, act, t, w, g, 1.0))[0]
-            candidates.setdefault(f"{name}_a{a}", []).append(ms)
-    return {"bitwise": bitwise, "turns": turns, "candidates": candidates,
-            "empty_kernel_ms": time_ms(torch,
-                                       lambda i: torch.cuda._sleep(0))[0]}
-
-
 def timed(torch, kernel, plain) -> dict:
     """Device and host ms per call of a kernel's wrapper and of its plain
     version."""
@@ -588,13 +451,11 @@ def time_chain(torch, solver, replay, chain: int, dispatches: int):
     return 1e3 * dt / (chain * dispatches), loss
 
 
-def run_chained(torch, config, fl, bwd, Solver,
-                DevicePERFrameReplay) -> dict:
+def run_chained(torch, config, Solver, DevicePERFrameReplay) -> dict:
     """The chain=8 dispatch with the plain loss and with the fused loss
     kernels (``use_pallas_loss``), two solvers on one replay, timed in
     turns: plain, fused, fused, plain; each traced, beside an empty
-    kernel in a trace of its own; then the fused loss traced with B4's
-    designs ``bwd`` in turns (parent, new, new, parent)."""
+    kernel in a trace of its own."""
     def solver_for(pallas: bool):
         cfg = config.pong_config()
         cfg.mesh.backend = "cuda"
@@ -624,14 +485,6 @@ def run_chained(torch, config, fl, bwd, Solver,
     out["trace"] = trace_dispatches(torch, plain, replay, chain, 4)
     out["fused_loss_trace"] = trace_dispatches(torch, fused, replay, chain, 4)
     out["empty_kernel_trace_us"] = trace_empty_kernel(torch)
-    out["bwd_design_traces"] = []
-    for name in ("parent", "new", "new", "parent"):
-        with bwd_design(fl, bwd[name]):
-            tr = trace_dispatches(torch, fused, replay, chain, 4)
-        out["bwd_design_traces"].append(
-            {"design": name, "fused_loss_bwd": tr["port_kernels"].get(
-                "fused_loss_bwd"), "empty_kernel_trace_us":
-                trace_empty_kernel(torch)})
     return out
 
 
@@ -835,11 +688,6 @@ def main() -> int:
     assert all(c["neg_zeros"] > 0 for c in loss_k["bwd_widths"]), \
         "no -0.0 column was checked"
 
-    # -- 3c. B4's designs -------------------------------------------------------
-    bwd = bwd_entries(fl, cuda_build)
-    designs = compare_bwd_designs(torch, fl, bwd, dev)
-    log(f"[3c] B4 designs: {json.dumps(designs)}")
-
     # -- 4. Pong main path through the CLI -------------------------------------
     summary, launches, record = run_cli(cli_main, counters, PONG_ARGV,
                                         "chip_smoke_train.jsonl")
@@ -854,8 +702,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. chained dispatch, then card vs CPU on a small input ---------------
-    chained = run_chained(torch, config, fl, bwd, Solver,
-                          DevicePERFrameReplay)
+    chained = run_chained(torch, config, Solver, DevicePERFrameReplay)
     log(f"[5] chained dispatch: {json.dumps(chained)}")
     torch.cuda.empty_cache()
     cross = cross_device_check(torch, config, Solver, DevicePERFrameReplay)

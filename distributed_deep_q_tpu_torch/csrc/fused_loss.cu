@@ -37,20 +37,24 @@
 //   from device memory, so the host never waits on it. Bound: bytes, but
 //   tiny (22.5 KB at B = 512, A = 4; about 7 ns at 3.35 TB/s), so
 //   launch-bound like B3: what counts is the dependent steps between the
-//   launch and the last store. Design: one thread per row, the row's whole
-//   work in one round trip to memory: its Q-values (vector loads, as in
-//   B3), action, target and weight, and g, all issued before the first
-//   use; the coefficient computed once; the dq row written with vector
-//   stores. Templated on the presets' head widths (2, 4, 6, 18); other
-//   widths, and a q or dq that is not 16-byte aligned, take a runtime-A
-//   loop. Blocks of kBwdThreads threads spread the rows over several SMs,
-//   and a grid-stride loop with int64 offsets keeps B·A past 2³¹ right.
-//   Every element of dq is the multiply (1 or 0) · coeff, never a select:
-//   a NaN coefficient fills its row with NaN, a negative one leaves -0.0
-//   off the action, as the reference's onehot * coeff does. The first
-//   design (one thread per element of dq, a 64-bit division per element,
-//   the row re-read A times) took ~0.75 µs above an empty launch at A = 4
-//   and ~1.1 µs at A = 18 on an H100 (PERF.md §6).
+//   launch and the last store. Design: one thread per row in blocks of
+//   kBwdThreads (B = 512 spreads over 4 SMs), the row's whole work in one
+//   round trip to memory: its Q-values (vector loads, as in B3), action,
+//   target and weight, and g, all issued before the first use; the
+//   coefficient computed once; the dq row written with vector stores.
+//   Templated on the presets' head widths (2, 4, 6, 18); other widths, and
+//   a q or dq that is not 16-byte aligned, take a runtime-A loop. At A = 18
+//   a thread's own 72-byte row is a strided access, so the block stages its
+//   rows of q through shared memory with coalesced float4 loads and writes
+//   dq back the same way; at A = 2 and 6 direct rows were faster (PERF.md
+//   §6 has the candidates' times). A grid-stride loop with int64 offsets
+//   keeps B·A past 2³¹ right. Every element of dq is the multiply
+//   (1 or 0) · coeff, never a select: a NaN coefficient fills its row with
+//   NaN and a negative one leaves -0.0 off the action, as the reference's
+//   onehot * coeff does. The first design (one thread per element of dq, a
+//   64-bit division per element, the row re-read A times) took 0.8 µs
+//   above an empty launch at A = 4 and 1.1 µs at A = 18 on an H100; this
+//   one 0.26 and 0.68 µs.
 //
 // Rounding follows the reference's operation order. Every product, sum and
 // quotient that feeds td_abs or dq is an explicit round-to-nearest
@@ -229,24 +233,25 @@ __device__ __forceinline__ void store_dq_row(float* __restrict__ row, int a,
 
 // A > 0: the head width, fixed at compile time; A == 0: `a_rt` at run time.
 // One thread per row, rows b = blockIdx.x * T + threadIdx.x, then a grid
-// stride. kStage (candidate b, even A only): the block copies its T rows of
-// q into shared memory with coalesced float4 loads, each thread computes
-// its row there and writes its dq row back in place, and the block stores
-// the chunk with coalesced float4 stores. Without it (candidate a) each
-// thread reads and writes its own row directly.
-template <int A, int T, bool kStage>
-__global__ void __launch_bounds__(T)
+// stride. At A = 18 (kStage) the block copies its T rows of q into shared
+// memory with coalesced float4 loads, each thread computes its row there
+// and writes its dq row back in place, and the block stores the chunk with
+// coalesced float4 stores; at other widths each thread reads and writes
+// its own row directly.
+template <int A>
+__global__ void __launch_bounds__(kBwdThreads)
 fused_loss_bwd_kernel(const float* __restrict__ q,
                       const int32_t* __restrict__ actions,
                       const float* __restrict__ targets,
                       const float* __restrict__ weights,
                       const float* __restrict__ g, float* __restrict__ dq,
                       int64_t B, int a_rt, float delta) {
+  constexpr int T = kBwdThreads;
+  constexpr bool kStage = A == 18;
   const float gv = g[0];
   const float batch = static_cast<float>(B);
   const int tid = threadIdx.x;
   if constexpr (kStage) {
-    static_assert(A > 0 && A % 2 == 0, "staging needs an even width");
     constexpr int kPer = (T * A / 4 + T - 1) / T;
     __shared__ __align__(16) float stage[T * A];
     for (int64_t base = static_cast<int64_t>(blockIdx.x) * T; base < B;
@@ -311,75 +316,6 @@ fused_loss_bwd_kernel(const float* __restrict__ q,
   }
 }
 
-// the first design, kept beside the new one to be timed against it: one
-// thread per element of dq
-__global__ void __launch_bounds__(256)
-fused_loss_bwd_kernel_parent(const float* __restrict__ q,
-                             const int32_t* __restrict__ actions,
-                             const float* __restrict__ targets,
-                             const float* __restrict__ weights,
-                             const float* __restrict__ g,
-                             float* __restrict__ dq, int64_t B, int A,
-                             float delta) {
-  const float gv = g[0];
-  const float batch = static_cast<float>(B);
-  const int64_t n = B * A;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * 256) {
-    const int64_t b = i / A;
-    const int col = static_cast<int>(i - b * A);
-    const int a = actions[b];
-    const float td = __fsub_rn(q_at_action(q, b, a, A), targets[b]);
-    const float dhuber = td < -delta ? -delta : (td > delta ? delta : td);
-    const float coeff = __fdiv_rn(
-        __fmul_rn(__fmul_rn(gv, weights[b]), dhuber), batch);
-    dq[i] = __fmul_rn(col == a ? 1.0f : 0.0f, coeff);
-  }
-}
-
-template <int T, bool kStage>
-int launch_bwd(const void* q, const void* actions, const void* targets,
-               const void* weights, const void* g, void* dq, long long B,
-               int A, float delta, void* stream) {
-  if (B <= 0 || A <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* qf = static_cast<const float*>(q);
-  const auto* act = static_cast<const int32_t*>(actions);
-  const auto* t = static_cast<const float*>(targets);
-  const auto* w = static_cast<const float*>(weights);
-  const auto* gf = static_cast<const float*>(g);
-  auto* out = static_cast<float*>(dq);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int64_t blocks = (B + T - 1) / T;
-  const unsigned grid =
-      static_cast<unsigned>(blocks < kMaxGrid ? blocks : kMaxGrid);
-  // the vector loads and stores need q and dq 16-byte aligned; any other
-  // pair takes the loop
-  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
-                         reinterpret_cast<uintptr_t>(dq)) % 16) == 0;
-  switch (aligned ? A : 0) {
-    case 2:
-      fused_loss_bwd_kernel<2, T, kStage><<<grid, T, 0, s>>>(
-          qf, act, t, w, gf, out, B, A, delta);
-      break;
-    case 4:
-      fused_loss_bwd_kernel<4, T, false><<<grid, T, 0, s>>>(
-          qf, act, t, w, gf, out, B, A, delta);
-      break;
-    case 6:
-      fused_loss_bwd_kernel<6, T, kStage><<<grid, T, 0, s>>>(
-          qf, act, t, w, gf, out, B, A, delta);
-      break;
-    case 18:
-      fused_loss_bwd_kernel<18, T, kStage><<<grid, T, 0, s>>>(
-          qf, act, t, w, gf, out, B, A, delta);
-      break;
-    default:
-      fused_loss_bwd_kernel<0, T, false><<<grid, T, 0, s>>>(
-          qf, act, t, w, gf, out, B, A, delta);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int ddq_fused_loss_fwd(const void* q, const void* actions,
@@ -423,44 +359,41 @@ extern "C" int ddq_fused_loss_bwd(const void* q, const void* actions,
                                   const void* targets, const void* weights,
                                   const void* g, void* dq, long long B, int A,
                                   float delta, void* stream) {
-  return launch_bwd<kBwdThreads, false>(q, actions, targets, weights, g, dq,
-                                        B, A, delta, stream);
-}
-
-// the candidates measured against each other: staged (b) or not (a), at
-// 128 or 256 threads a block
-extern "C" int ddq_fused_loss_bwd_design(const void* q, const void* actions,
-                                         const void* targets,
-                                         const void* weights, const void* g,
-                                         void* dq, long long B, int A,
-                                         float delta, int staged,
-                                         int threads, void* stream) {
-  if (threads == 128)
-    return staged ? launch_bwd<128, true>(q, actions, targets, weights, g,
-                                          dq, B, A, delta, stream)
-                  : launch_bwd<128, false>(q, actions, targets, weights, g,
-                                           dq, B, A, delta, stream);
-  if (threads == 256)
-    return staged ? launch_bwd<256, true>(q, actions, targets, weights, g,
-                                          dq, B, A, delta, stream)
-                  : launch_bwd<256, false>(q, actions, targets, weights, g,
-                                           dq, B, A, delta, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int ddq_fused_loss_bwd_parent(const void* q, const void* actions,
-                                         const void* targets,
-                                         const void* weights, const void* g,
-                                         void* dq, long long B, int A,
-                                         float delta, void* stream) {
   if (B <= 0 || A <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n = static_cast<int64_t>(B) * A;
-  const int64_t blocks = (n + 255) / 256;
-  fused_loss_bwd_kernel_parent<<<static_cast<unsigned>(
-                                     blocks < kMaxGrid ? blocks : kMaxGrid),
-                                 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int32_t*>(actions),
-      static_cast<const float*>(targets), static_cast<const float*>(weights),
-      static_cast<const float*>(g), static_cast<float*>(dq), B, A, delta);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* act = static_cast<const int32_t*>(actions);
+  const auto* t = static_cast<const float*>(targets);
+  const auto* w = static_cast<const float*>(weights);
+  const auto* gf = static_cast<const float*>(g);
+  auto* out = static_cast<float*>(dq);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int64_t blocks = (B + kBwdThreads - 1) / kBwdThreads;
+  const unsigned grid =
+      static_cast<unsigned>(blocks < kMaxGrid ? blocks : kMaxGrid);
+  // the vector loads and stores need q and dq 16-byte aligned; any other
+  // pair takes the loop
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(dq)) % 16) == 0;
+  switch (aligned ? A : 0) {
+    case 2:
+      fused_loss_bwd_kernel<2><<<grid, kBwdThreads, 0, s>>>(
+          qf, act, t, w, gf, out, B, A, delta);
+      break;
+    case 4:
+      fused_loss_bwd_kernel<4><<<grid, kBwdThreads, 0, s>>>(
+          qf, act, t, w, gf, out, B, A, delta);
+      break;
+    case 6:
+      fused_loss_bwd_kernel<6><<<grid, kBwdThreads, 0, s>>>(
+          qf, act, t, w, gf, out, B, A, delta);
+      break;
+    case 18:
+      fused_loss_bwd_kernel<18><<<grid, kBwdThreads, 0, s>>>(
+          qf, act, t, w, gf, out, B, A, delta);
+      break;
+    default:
+      fused_loss_bwd_kernel<0><<<grid, kBwdThreads, 0, s>>>(
+          qf, act, t, w, gf, out, B, A, delta);
+  }
   return static_cast<int>(cudaGetLastError());
 }
