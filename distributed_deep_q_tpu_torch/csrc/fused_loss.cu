@@ -119,6 +119,30 @@ __device__ __forceinline__ float q_at_action_row(const float (&v)[A], int a) {
   return s;
 }
 
+// Copies a chunk of n floats of q (16-byte aligned, n <= T · A) into the
+// block's `stage` with coalesced float4 loads, T threads. Every load is
+// issued before the first barrier, which waits until the block is done
+// with the stage's previous contents, so a chunk costs one round trip.
+template <int A, int T>
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ chunk,
+                                            int n, float* stage, int tid) {
+  // float4 loads per thread (5 at A = 18 with 512 threads)
+  constexpr int kPer = (T * A / 4 + T - 1) / T;
+  const int n4 = n / 4;
+  float4 x[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    if (tid + j * T < n4)
+      x[j] = __ldg(reinterpret_cast<const float4*>(chunk) + tid + j * T);
+  const float tail = 4 * n4 + tid < n ? __ldg(chunk + 4 * n4 + tid) : 0.f;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    if (tid + j * T < n4) reinterpret_cast<float4*>(stage)[tid + j * T] = x[j];
+  if (4 * n4 + tid < n) stage[4 * n4 + tid] = tail;
+  __syncthreads();
+}
+
 // A > 0: the head width, fixed at compile time; A == 0: `a_rt` at run time.
 // Thread t takes rows t, t + kFwdThreads, ..., one chunk of kFwdThreads rows
 // at a time. At a width whose rows are not 16-byte multiples (2, 6, 18) a
@@ -134,8 +158,6 @@ fused_loss_fwd_kernel(const float* __restrict__ q,
                       float* __restrict__ loss, float* __restrict__ td_abs,
                       int64_t B, int a_rt, float delta) {
   constexpr bool kStage = A > 0 && A % 4 != 0;
-  // float4 loads per thread to stage one chunk (5 at A = 18)
-  constexpr int kPer = (kFwdThreads * A / 4 + kFwdThreads - 1) / kFwdThreads;
   __shared__ float partial[kFwdThreads];
   __shared__ __align__(16) float stage[kStage ? kFwdThreads * A : 4];
   const int tid = threadIdx.x;
@@ -151,22 +173,8 @@ fused_loss_fwd_kernel(const float* __restrict__ q,
     if constexpr (kStage) {
       // q's chunk starts at a multiple of kFwdThreads · A floats: 16-byte
       // aligned, as q is
-      const float* chunk = q + base * A;
-      const int n = static_cast<int>(rows) * A, n4 = n / 4;
-      float4 x[kPer];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        if (tid + j * kFwdThreads < n4)
-          x[j] = __ldg(reinterpret_cast<const float4*>(chunk) + tid +
-                       j * kFwdThreads);
-      const float tail = 4 * n4 + tid < n ? __ldg(chunk + 4 * n4 + tid) : 0.f;
-      __syncthreads();   // the previous chunk's rows have been read
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        if (tid + j * kFwdThreads < n4)
-          reinterpret_cast<float4*>(stage)[tid + j * kFwdThreads] = x[j];
-      if (4 * n4 + tid < n) stage[4 * n4 + tid] = tail;
-      __syncthreads();
+      stage_chunk<A, kFwdThreads>(q + base * A, static_cast<int>(rows) * A,
+                                  stage, tid);
     }
     if (!live) continue;
     float q_sa;
@@ -252,7 +260,6 @@ fused_loss_bwd_kernel(const float* __restrict__ q,
   const float batch = static_cast<float>(B);
   const int tid = threadIdx.x;
   if constexpr (kStage) {
-    constexpr int kPer = (T * A / 4 + T - 1) / T;
     __shared__ __align__(16) float stage[T * A];
     for (int64_t base = static_cast<int64_t>(blockIdx.x) * T; base < B;
          base += static_cast<int64_t>(gridDim.x) * T) {
@@ -263,21 +270,8 @@ fused_loss_bwd_kernel(const float* __restrict__ q,
       const float t = live ? targets[b] : 0.f, w = live ? weights[b] : 0.f;
       // the chunk starts at a multiple of T · A floats: 16-byte aligned, as
       // q and dq are
-      const float* chunk = q + base * A;
       const int n = static_cast<int>(rows) * A, n4 = n / 4;
-      float4 x[kPer];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        if (tid + j * T < n4)
-          x[j] = reinterpret_cast<const float4*>(chunk)[tid + j * T];
-      const float tail = 4 * n4 + tid < n ? chunk[4 * n4 + tid] : 0.f;
-      __syncthreads();   // the previous chunk's dq has left the stage
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        if (tid + j * T < n4)
-          reinterpret_cast<float4*>(stage)[tid + j * T] = x[j];
-      if (4 * n4 + tid < n) stage[4 * n4 + tid] = tail;
-      __syncthreads();
+      stage_chunk<A, T>(q + base * A, n, stage, tid);
       if (live) {
         float v[A];
         load_row<A>(stage + tid * A, v);
@@ -287,11 +281,9 @@ fused_loss_bwd_kernel(const float* __restrict__ q,
       }
       __syncthreads();
       float* out = dq + base * A;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        if (tid + j * T < n4)
-          reinterpret_cast<float4*>(out)[tid + j * T] =
-              reinterpret_cast<const float4*>(stage)[tid + j * T];
+      for (int j = tid; j < n4; j += T)
+        reinterpret_cast<float4*>(out)[j] =
+            reinterpret_cast<const float4*>(stage)[j];
       if (4 * n4 + tid < n) out[4 * n4 + tid] = stage[4 * n4 + tid];
     }
   } else {
