@@ -31,6 +31,15 @@ Phases (any failure exits non-zero and prints no result line):
    its public wrapper and on the autograd route ``FusedDqnLoss`` takes)
    beside their byte bound, the plain versions and the nearest PyTorch
    composition;
+3c. ring kernels at the r2d2 preset's sequence shapes — on a ring of its
+   geometry (12,501 slots × 84 rows × 8192 B = 8.6 GB, slots past the
+   2³¹-byte mark), bitwise against the plain versions at every chunk
+   candidate: the gather at n = 64 and 512 windows of 84 rows, the
+   scatter at 4 lanes of one 688,128-byte slot each with 1 and with 4
+   real (the scratch slot named as ``skip_row`` and untouched); then the
+   grid before the chunk split and the chosen chunk timed in turns
+   (parent, split, split, parent), the other candidates once, beside the
+   plain version, ``index_select``/``index_copy_`` and the byte bound;
 4. main path — ``main train --preset pong --backend cuda`` in process on the
    SignalAtari probe at full 84×84 (bf16 Nature CNN, batch 512, 1M ring,
    learn_start 20,000), several hundred grad steps of the fused device-PER
@@ -50,16 +59,32 @@ Phases (any failure exits non-zero and prints no result line):
 6b. the same preset with ``replay.device_resident=false`` (frames in a host
    ``FrameStackReplay``, pixel batches shipped per step), learn_start cut
    to 5,000, a hundred grad steps;
-7. the ``kernels`` JSON line, the ``nvidia-smi`` line, and the last line
+7. the r2d2 preset — ``main train --preset r2d2 --backend cuda`` on the
+   SignalAtari probe at full width (bf16 Nature torso at 84×84, LSTM 512,
+   dueling, batch 64 × 80 steps with 40 of burn-in, an 8.6 GB sequence
+   ring, host sum trees): 201 grad steps of the ring step (one B1 launch
+   each), B2 flushing the sequences; eval_return printed beside the random
+   policy's (SignalAtari's 32-step episodes end inside the 40-step burn-in,
+   so the train windows are all masked and the loss is 0);
+7b. the same preset with ``replay.device_per=true``: the chained fused
+   path (chain 8, one B1 launch per dispatch), learn_start cut, 100 grad
+   steps;
+7c. the ring step at full width on a ring filled with random sequences
+   (most of them full length, so the loss is not 0), timed and traced with
+   ``torch.profiler`` (ms per grad step, device busy share, launches per
+   grad step, the top five kernels); then one small ring step on the card
+   and on the CPU from the same weights and batch, compared;
+8. the ``kernels`` JSON line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Every path run (phases 4, 6, 6b) sets all kernel launch counters to 0 just
-before it and reads them just after.
+Every path run (phases 4, 6, 6b, 7, 7b) sets all kernel launch counters to
+0 just before it and reads them just after.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -163,7 +188,16 @@ def check_gather(torch, rg, ring, dev, n: int) -> dict:
     library_ms, library_host_ms = time_ms(
         torch, lambda i: torch.index_select(ring2d, 0, lib_rows[i % 8]))
     nbytes = n * 4 + 2 * n * WINDOW * ROWB
+    # the grid before the chunk split against the wrapper's chunk, in
+    # turns: a 40 KB window is one chunk either way
+    out = torch.empty(n * WINDOW * rowp, dtype=torch.int32, device=dev)
+    turns = in_turns(torch, {f"chunk_{c}": (
+        lambda i, c=c: rg.launch_gather(idx_sets[i % 8], ring, out, n=n,
+                                        w=WINDOW, rowb=ROWB, chunk_bytes=c))
+        for c in (0, rg.GATHER_CHUNK_BYTES)},
+        parent_split_order(rg.GATHER_CHUNK_BYTES)[:4])
     return {"n": n, "windows_past_2^31_bytes": high, "max_abs_err": err,
+            "turns_ms": {k: [t[0] for t in v] for k, v in turns.items()},
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "host_ms": host_ms, "plain_host_ms": plain_host_ms,
             "library_host_ms": library_host_ms,
@@ -234,7 +268,14 @@ def check_scatter(torch, rg, ring, dev, shape: str, empty_ms: float) -> dict:
     n_src = int(torch.unique(src[to_ring]).numel())
     n_dst = int(torch.unique(dst[to_ring]).numel())
     nbytes = (n_src + n_dst) * ROWB + 2 * n * 4
+    turns = in_turns(torch, {f"chunk_{c}": (
+        lambda i, c=c: rg.launch_scatter(src, dst, staged, ring, n=n,
+                                         rowb=ROWB, skip_row=scratch,
+                                         chunk_bytes=c))
+        for c in (0, rg.SCATTER_CHUNK_BYTES)},
+        parent_split_order(rg.SCATTER_CHUNK_BYTES)[:4])
     return {"shape": shape, "n": n, "real_lanes": int(to_ring.sum()),
+            "turns_ms": {k: [t[0] for t in v] for k, v in turns.items()},
             "distinct_src_rows": n_src, "distinct_dst_rows": n_dst,
             "max_abs_err": err, "scratch_row_kept": kept,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -242,6 +283,193 @@ def check_scatter(torch, rg, ring, dev, shape: str, empty_ms: float) -> dict:
             "plain_host_ms": plain_host_ms,
             "library_host_ms": library_host_ms, "bytes": nbytes,
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+# -- phase 3c -----------------------------------------------------------------
+
+# The r2d2 preset's sequence ring: 1M transitions / 80 = 12,500 sequence
+# slots + 1 scratch slot, each W = 3 + 81 = 84 frame rows of 8192 B
+SEQ_SLOTS, SEQ_W = 12_501, 84
+SEQ_ROWB = SEQ_W * ROWB               # one sequence slot: 688,128 B
+SEQ_SCRATCH = SEQ_SLOTS - 1
+# the chunk per block on the grids' second dimension: 0 = one block per
+# window or lane (the design before the split), then the candidates
+CHUNKS = (0, 16 * 1024, 32 * 1024, 64 * 1024, 128 * 1024)
+
+
+def in_turns(torch, fns: dict, order: list) -> dict:
+    """Device and host ms per call for each entry of ``fns``, run in the
+    order ``order`` (a name may come twice: parent, split, split,
+    parent); each name maps to its list of (device ms, host ms)."""
+    out: dict = {name: [] for name in fns}
+    for name in order:
+        out[name].append(time_ms(torch, fns[name]))
+    return out
+
+
+def parent_split_order(chosen: int) -> list:
+    """Parent grid, the chosen chunk, the chosen chunk, parent grid; then
+    each other candidate once."""
+    return (["chunk_0", f"chunk_{chosen}", f"chunk_{chosen}", "chunk_0"]
+            + [f"chunk_{c}" for c in CHUNKS if c not in (0, chosen)])
+
+
+def check_seq_gather(torch, rg, ring, dev, n: int) -> dict:
+    """B1 on the sequence ring at ``n`` windows of 84 rows, window starts
+    at sequence slots (most past the 2³¹-byte mark): every chunk candidate
+    bitwise against the plain version, then timed in turns, beside
+    ``index_select`` over the slots and the byte bound."""
+    gen = torch.Generator(device=dev).manual_seed(100 + n)
+    slot_sets = [torch.randint(0, SEQ_SCRATCH, (n,), dtype=torch.int32,
+                               device=dev, generator=gen) for _ in range(8)]
+    slot_sets[0][0] = SEQ_SCRATCH - 1          # the last real slot
+    slot_sets[0][1] = 2**31 // SEQ_ROWB + 1    # just past 2³¹ bytes
+    idx_sets = [s * SEQ_W for s in slot_sets]
+    high = int((slot_sets[0].long() * SEQ_ROWB >= 2**31).sum())
+    rowp = ROWB // 4
+    want = rg.gather_windows_plain(idx_sets[0], ring, n=n, w=SEQ_W,
+                                   rowb=ROWB)
+    out = torch.empty_like(want)
+    errs = {}
+    for chunk in CHUNKS:
+        out.zero_()
+        rg.launch_gather(idx_sets[0], ring, out, n=n, w=SEQ_W, rowb=ROWB,
+                         chunk_bytes=chunk)
+        torch.cuda.synchronize()
+        errs[chunk] = max_abs_err(torch, out, want)
+    got = rg.gather_windows(idx_sets[0], ring, n=n, w=SEQ_W, rowb=ROWB)
+    torch.cuda.synchronize()
+    errs["wrapper"] = max_abs_err(torch, got, want)
+    del got, want
+
+    def launch(chunk):
+        return lambda i: rg.launch_gather(idx_sets[i % 8], ring, out, n=n,
+                                          w=SEQ_W, rowb=ROWB,
+                                          chunk_bytes=chunk)
+
+    fns = {f"chunk_{c}": launch(c) for c in CHUNKS}
+    turns = in_turns(torch, fns, parent_split_order(rg.GATHER_CHUNK_BYTES))
+    slots2d = ring.view(-1, SEQ_W * rowp)
+    slots_l = [s.long() for s in slot_sets]
+    ms, host_ms = time_ms(torch, lambda i: rg.gather_windows(
+        idx_sets[i % 8], ring, n=n, w=SEQ_W, rowb=ROWB))
+    plain_ms = time_ms(torch, lambda i: rg.gather_windows_plain(
+        idx_sets[i % 8], ring, n=n, w=SEQ_W, rowb=ROWB))[0]
+    library_ms = time_ms(torch, lambda i: torch.index_select(
+        slots2d, 0, slots_l[i % 8]))[0]
+    nbytes = n * 4 + 2 * n * SEQ_ROWB
+    return {"n": n, "w": SEQ_W, "windows_past_2^31_bytes": high,
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_by_chunk": {str(k): v for k, v in errs.items()},
+            "turns_ms": {k: [t[0] for t in v] for k, v in turns.items()},
+            "turns_host_ms": {k: [t[1] for t in v] for k, v in turns.items()},
+            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bytes": nbytes,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def check_seq_scatter(torch, rg, ring, dev, real: int) -> dict:
+    """B2 as the sequence flush launches it: 4 lanes of one 688,128-byte
+    sequence row each, ``real`` of them aimed at slots (past the 2³¹-byte
+    mark), the rest at the scratch slot, named as ``skip_row``. Every
+    chunk candidate bitwise against the plain version outside the scratch
+    slot, the scratch slot untouched; then timed in turns beside
+    ``index_copy_`` and the byte bound."""
+    k, rowp = 4, SEQ_ROWB // 4
+    gen = torch.Generator(device=dev).manual_seed(200 + real)
+    staged = torch.randint(-2**31, 2**31 - 1, (k * rowp,), dtype=torch.int32,
+                           device=dev, generator=gen)
+    dst = torch.full((k,), SEQ_SCRATCH, dtype=torch.int32, device=dev)
+    dst[:real] = torch.tensor([12_345, 4_000, 9_999, 7_777][:real],
+                              dtype=torch.int32)
+    src = torch.arange(k, dtype=torch.int32, device=dev)
+    scratch_slot = ring[-rowp:].clone()
+    errs, kept = {}, True
+    for chunk in CHUNKS + ("wrapper",):
+        plain = ring.clone()
+        if chunk == "wrapper":
+            rg.scatter_rows(src, dst, staged, ring, n=k, rowb=SEQ_ROWB,
+                            skip_row=SEQ_SCRATCH)
+        else:
+            rg.launch_scatter(src, dst, staged, ring, n=k, rowb=SEQ_ROWB,
+                              skip_row=SEQ_SCRATCH, chunk_bytes=chunk)
+        rg.scatter_rows_plain(src, dst, staged, plain, n=k, rowb=SEQ_ROWB)
+        torch.cuda.synchronize()
+        errs[chunk] = max_abs_err(torch, ring[:-rowp], plain[:-rowp])
+        kept = kept and bool(torch.equal(ring[-rowp:], scratch_slot))
+        del plain
+        torch.cuda.empty_cache()
+
+    def launch(chunk):
+        return lambda i: rg.launch_scatter(
+            src, dst, staged, ring, n=k, rowb=SEQ_ROWB, skip_row=SEQ_SCRATCH,
+            chunk_bytes=chunk)
+
+    fns = {f"chunk_{c}": launch(c) for c in CHUNKS}
+    turns = in_turns(torch, fns, parent_split_order(rg.SCATTER_CHUNK_BYTES))
+    ms, host_ms = time_ms(torch, lambda i: rg.scatter_rows(
+        src, dst, staged, ring, n=k, rowb=SEQ_ROWB, skip_row=SEQ_SCRATCH))
+    plain_ms = time_ms(torch, lambda i: rg.scatter_rows_plain(
+        src, dst, staged, ring, n=k, rowb=SEQ_ROWB))[0]
+    ring2d, rows_src = ring.view(-1, rowp), staged.view(-1, rowp)[src.long()]
+    dst_l = dst.long()
+    library_ms = time_ms(
+        torch, lambda i: ring2d.index_copy_(0, dst_l, rows_src))[0]
+    to_ring = dst != SEQ_SCRATCH
+    n_src = int(torch.unique(src[to_ring]).numel())
+    n_dst = int(torch.unique(dst[to_ring]).numel())
+    nbytes = (n_src + n_dst) * SEQ_ROWB + 2 * k * 4
+    return {"n": k, "rowb": SEQ_ROWB, "real_lanes": real,
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_by_chunk": {str(c): v for c, v in errs.items()},
+            "scratch_slot_kept": kept,
+            "turns_ms": {c: [t[0] for t in v] for c, v in turns.items()},
+            "turns_host_ms": {c: [t[1] for t in v] for c, v in turns.items()},
+            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bytes": nbytes,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def seq_row(m: dict, chunk: int, empty_ms: float) -> dict:
+    """A phase-3c measurement as the ``kernels`` line carries it: the
+    wrapper's time, the parent grid's and the chosen chunk's in turns, and
+    the yardsticks."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "host_ms",
+            "max_abs_err", "bytes")
+    return dict({k: m[k] for k in keys}, bound_by="bytes",
+                empty_kernel_ms=empty_ms, chunk_bytes=chunk,
+                parent_grid_ms=m["turns_ms"]["chunk_0"],
+                split_ms=m["turns_ms"][f"chunk_{chunk}"],
+                candidates_ms={k: v for k, v in m["turns_ms"].items()
+                               if k not in ("chunk_0", f"chunk_{chunk}")})
+
+
+def r2d2_ring_kernels(torch, rg, dev, empty_ms: float) -> dict:
+    """Phase 3c: B1 and B2 at the r2d2 preset's shapes on a ring of its
+    geometry (12,501 slots × 84 rows × 8192 B = 8.6 GB)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ring = torch.randint(-2**31, 2**31 - 1,
+                         (SEQ_SLOTS * SEQ_ROWB // 4,), dtype=torch.int32,
+                         device=dev, generator=gen)
+    log(f"[3c] sequence ring: {SEQ_SLOTS} slots x {SEQ_W} rows x {ROWB} B "
+        f"= {ring.numel() * 4 / 1e9:.2f} GB; chunks: gather "
+        f"{rg.GATHER_CHUNK_BYTES} B, scatter {rg.SCATTER_CHUNK_BYTES} B")
+    out = {"gather": [check_seq_gather(torch, rg, ring, dev, n)
+                      for n in (64, 512)],
+           "scatter": [check_seq_scatter(torch, rg, ring, dev, real)
+                       for real in (1, 4)],
+           "empty_kernel_ms": empty_ms}
+    del ring
+    torch.cuda.empty_cache()
+    for g in out["gather"]:
+        log(f"[3c] gather_windows {json.dumps(g)}")
+        assert g["max_abs_err"] == 0, "gather_windows disagrees with plain"
+        assert g["windows_past_2^31_bytes"] > 0
+    for s in out["scatter"]:
+        log(f"[3c] scatter_rows {json.dumps(s)}")
+        assert s["max_abs_err"] == 0, "scatter_rows disagrees with plain"
+        assert s["scratch_slot_kept"], "scatter_rows wrote the scratch slot"
+    return out
 
 
 # -- phase 3b -----------------------------------------------------------------
@@ -511,24 +739,31 @@ def trace_empty_kernel(torch, launches: int = 64) -> float:
 
 
 def trace_dispatches(torch, solver, replay, chain: int, dispatches: int):
-    """Where a chained grad step's time goes: a ``torch.profiler`` window
-    over ``dispatches`` dispatches. Device-busy share = the kernels' summed
+    """Where a chained grad step's time goes: ``trace_steps`` over
+    ``dispatches`` dispatches of ``chain`` grad steps."""
+    return trace_steps(
+        torch, lambda: solver.train_steps_device_per(replay, chain=chain),
+        dispatches, chain * dispatches)
+
+
+def trace_steps(torch, run, calls: int, steps: int, top_n: int = 8):
+    """A ``torch.profiler`` window over ``calls`` calls of ``run`` that
+    make ``steps`` grad steps. Device-busy share = the kernels' summed
     device time over the window's wall time (one stream, so kernels do not
     overlap); the top kernels by device time, in ms per grad step."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps = chain * dispatches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(dispatches):
-            solver.train_steps_device_per(replay, chain=chain)
+        for _ in range(calls):
+            run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
     # the port's own kernels, by the name of their __global__ function
     ours = {}
     for name in PORT_KERNELS:
@@ -601,6 +836,154 @@ BREAKOUT_ARGV = ["train", "--preset", "breakout", "--backend", "cuda",
                  "train.total_steps=21600"]
 
 
+# the r2d2 preset at full width (bf16 Nature torso at 84×84, LSTM 512,
+# dueling head, batch 64 × 80 steps, burn-in 40, an 8.6 GB sequence ring)
+# on SignalAtari. Its 32-step episodes each give one 80-step sequence, so
+# the 250 sequences of learn_start 20,000 are in at env step 8,000; 8,800
+# steps train every 4th from there: 201 grad steps. A 32-step episode ends
+# before the 40-step burn-in does, so every train window is masked and the
+# loss is 0 (as in the reference): these paths run every layer and kernel
+# without a learning signal; phase 7c's ring step has one.
+R2D2_ARGV = ["train", "--preset", "r2d2", "--backend", "cuda",
+             "--log-every", "100", "--set", "env.kind=signal_atari",
+             "env.id=signal", "train.total_steps=8800"]
+R2D2_GRAD_STEPS = (8800 - 250 * 32) // 4 + 1
+# the chained fused path (replay.device_per=true, chain 8): learn_start cut
+# to 100 sequences (env step 3,200) and depth to 100 grad steps, 13
+# dispatches
+R2D2_FUSED_ARGV = R2D2_ARGV[:-1] + ["train.total_steps=3596",
+                                    "replay.learn_start=8000",
+                                    "replay.device_per=true"]
+R2D2_FUSED_GRAD_STEPS, R2D2_FUSED_DISPATCHES = 100, 13
+
+
+def r2d2_config(config):
+    cfg = config.r2d2_config()
+    cfg.mesh.backend = "cuda"
+    cfg.env.kind, cfg.env.id = "signal_atari", "signal"
+    cfg.net.num_actions = 4
+    return cfg
+
+
+def random_sequences(n: int, seq_len: int, lstm: int, frame=(84, 84),
+                     stack: int = 4, seed: int = 0):
+    """``n`` sequence emissions as a ``SequenceBuilder`` makes them: stacked
+    random frames, the last third of them padded past a 20-step episode
+    end, random stored carries."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        valid = seq_len if i % 3 else 20
+        mask = np.zeros(seq_len, np.float32)
+        mask[:valid] = 1.0
+        obs = np.zeros((seq_len + 1,) + frame + (stack,), np.uint8)
+        obs[:valid + 1] = rng.integers(0, 256, obs[:valid + 1].shape,
+                                       dtype=np.uint8)
+        yield {"obs": obs,
+               "action": rng.integers(0, 4, seq_len).astype(np.int32),
+               "reward": (rng.random(seq_len) < 0.25).astype(np.float32),
+               "discount": np.where(np.arange(seq_len) == valid - 1, 0.0,
+                                    0.99).astype(np.float32) * mask,
+               "mask": mask,
+               "init_c": rng.standard_normal(lstm).astype(np.float32) * 0.1,
+               "init_h": rng.standard_normal(lstm).astype(np.float32) * 0.1}
+
+
+def r2d2_ring_step_trace(torch, config, SequenceSolver,
+                         DeviceSequenceReplay) -> dict:
+    """Phase 7c, first half: the preset's ring step (host sample, one B1
+    launch, the recurrent step) at full width on a filled 8.6 GB ring:
+    ms per grad step by the host clock over 10 steps, then a profiler
+    window over 4."""
+    cfg = r2d2_config(config)
+    solver = SequenceSolver(cfg)
+    rc = cfg.replay
+    replay = DeviceSequenceReplay(
+        rc.capacity // rc.sequence_length, rc.sequence_length, (84, 84, 4),
+        solver.device, cfg.net.lstm_size, prioritized=rc.prioritized,
+        alpha=rc.priority_alpha, beta0=rc.priority_beta0,
+        beta_steps=rc.priority_beta_steps, eps=rc.priority_eps)
+    for seq in random_sequences(320, rc.sequence_length, cfg.net.lstm_size):
+        replay.add_sequence(seq)
+
+    def step():
+        batch = replay.sample(rc.batch_size)
+        batch.pop("_sampled_at")
+        return solver.train_step_from_ring(replay, batch)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        m = step()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 10
+    # two in three of these sequences fill the train window, so, unlike
+    # phase 7's SignalAtari sequences, they give a loss and a gradient
+    assert math.isfinite(float(m["loss"])) and float(m["loss"]) > 0, m
+    torch.cuda.reset_peak_memory_stats()
+    out = {"ms_per_grad_step": ms, "loss": float(m["loss"]),
+           "trace": trace_steps(torch, step, 4, 4, top_n=5),
+           "max_memory_allocated_GB":
+               torch.cuda.max_memory_allocated() / 1e9}
+    del solver, replay
+    return out
+
+
+def r2d2_cross_device_check(torch, config, SequenceSolver,
+                            DeviceSequenceReplay) -> dict:
+    """Phase 7c, second half: one small ring step (float32, 36×36, LSTM 16,
+    8-step sequences with 4 of burn-in, batch 8) on the card and on the CPU
+    (whose path the CPU tests hold to the JAX reference) from the same
+    weights, sequences and sampled batch. The rings must agree bitwise
+    outside the scratch slot; the loss within 1e-4 relative, the
+    priorities within 1e-3 relative plus 1e-5 (value_rescale_inv cancels
+    to 2ε, which magnifies a last-bit difference of sqrt), θ within 2·lr
+    (convolution algorithms differ; TF32 off)."""
+    frame, lstm, seq_len = (36, 36), 16, 8
+
+    def build(backend):
+        cfg = config.Config()
+        cfg.mesh.backend = backend
+        cfg.net = config.NetConfig(kind="r2d2", num_actions=4, lstm_size=lstm,
+                                   frame_shape=frame, dueling=True)
+        cfg.replay = config.ReplayConfig(batch_size=8, sequence_length=seq_len,
+                                         burn_in=4, prioritized=True)
+        cfg.train = config.TrainConfig(lr=1e-4, double_dqn=True,
+                                       target_update_period=2)
+        s = SequenceSolver(cfg)
+        r = DeviceSequenceReplay(24, seq_len, frame + (4,), s.device, lstm,
+                                 prioritized=True, alpha=0.6, seed=3)
+        for seq in random_sequences(30, seq_len, lstm, frame, seed=4):
+            r.add_sequence(seq)
+        return s, r
+
+    (sg, rg_), (sc, rc) = build("cuda"), build("cpu")
+    st = sc.flax_state()
+    sg.load_flax_state(st["params"], st["target_params"], st["count"],
+                       st["mu"], st["nu"], st["step"])
+    bg, bc = rg_.sample(8), rc.sample(8)
+    assert np.array_equal(bg["seq_local"], bc["seq_local"])
+    for b in (bg, bc):
+        b.pop("_sampled_at")
+    mg = sg.train_step_from_ring(rg_, bg)
+    mc = sc.train_step_from_ring(rc, bc)
+    seq_elems = rc.W * rc.rowp
+    assert torch.equal(rg_.ring[:-seq_elems].cpu(), rc.ring[:-seq_elems])
+    lg, lc = float(mg["loss"]), float(mc["loss"])
+    assert abs(lg - lc) <= 1e-4 * abs(lc), (lg, lc)
+    pg, pc = mg["td_abs"].cpu().numpy(), mc["td_abs"].numpy()
+    np.testing.assert_allclose(pg, pc, rtol=1e-3, atol=1e-5)
+    dtheta = max(float((a.detach().cpu() - b.detach()).abs().max())
+                 for a, b in zip(sg.state.net.parameters(),
+                                 sc.state.net.parameters()))
+    assert dtheta <= 2e-4, dtheta
+    return {"loss_cuda": lg, "loss_cpu": lc,
+            "priority_max_rel_diff": float(np.max(np.abs(pg - pc)
+                                                  / np.abs(pc))),
+            "max_abs_dtheta": dtheta}
+
+
 def check_path(summary: dict, grad_steps: int) -> None:
     for key in ("loss", "q_mean", "grad_steps_per_s", "env_steps_per_s",
                 "eval_return"):
@@ -623,8 +1006,12 @@ def main() -> int:
         from distributed_deep_q_tpu_torch.ops import cuda_build
         from distributed_deep_q_tpu_torch.ops import fused_loss as fl
         from distributed_deep_q_tpu_torch.ops import ring_gather as rg
+        from distributed_deep_q_tpu_torch.parallel.sequence_learner import (
+            SequenceSolver)
         from distributed_deep_q_tpu_torch.replay.device_per import (
             DevicePERFrameReplay)
+        from distributed_deep_q_tpu_torch.replay.device_sequence import (
+            DeviceSequenceReplay)
         from distributed_deep_q_tpu_torch.solver import Solver
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e}); run from "
@@ -688,6 +1075,9 @@ def main() -> int:
     assert all(c["neg_zeros"] > 0 for c in loss_k["bwd_widths"]), \
         "no -0.0 column was checked"
 
+    # -- 3c. ring kernels at the r2d2 preset's sequence shapes ---------------
+    seq_k = r2d2_ring_kernels(torch, rg, dev, empty_ms)
+
     # -- 4. Pong main path through the CLI -------------------------------------
     summary, launches, record = run_cli(cli_main, counters, PONG_ARGV,
                                         "chip_smoke_train.jsonl")
@@ -746,7 +1136,47 @@ def main() -> int:
     for name in ("fused_loss_fwd", "fused_loss_bwd"):
         assert h_launches[name] >= h_summary["grad_steps"], h_launches
 
-    # -- 7. result lines ------------------------------------------------------
+    torch.cuda.empty_cache()
+
+    # -- 7. the r2d2 preset through the CLI, its own path ---------------------
+    r_summary, r_launches, r_record = run_cli(
+        cli_main, counters, R2D2_ARGV, "chip_smoke_r2d2.jsonl")
+    r_random = random_policy_return(make_env, r2d2_config(config).env,
+                                    config.r2d2_config().train.eval_episodes)
+    log(f"[7] r2d2 ring path summary: {json.dumps(r_summary)}")
+    log(f"[7] last metrics record (100 grad steps): {json.dumps(r_record)}")
+    log(f"[7] launches: {json.dumps(r_launches)}; eval_return "
+        f"{r_summary['eval_return']} beside the random policy's {r_random} "
+        "(printed, not asserted: a few hundred R2D2 steps may not learn)")
+    check_path(r_summary, R2D2_GRAD_STEPS)
+    assert r_launches["gather_windows"] >= r_summary["grad_steps"], r_launches
+    assert r_launches["scatter_rows"] > 0, r_launches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 7b. the r2d2 preset's chained fused path ----------------------------
+    f_summary, f_launches, f_record = run_cli(
+        cli_main, counters, R2D2_FUSED_ARGV, "chip_smoke_r2d2_fused.jsonl")
+    log(f"[7b] r2d2 chained fused path summary: {json.dumps(f_summary)}")
+    log(f"[7b] last metrics record (100 grad steps): {json.dumps(f_record)}")
+    log(f"[7b] launches: {json.dumps(f_launches)}")
+    check_path(f_summary, R2D2_FUSED_GRAD_STEPS)
+    assert f_launches["gather_windows"] == R2D2_FUSED_DISPATCHES, f_launches
+    assert f_launches["scatter_rows"] > 0, f_launches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 7c. the ring step traced, then card vs CPU -------------------------
+    r_trace = r2d2_ring_step_trace(torch, config, SequenceSolver,
+                                   DeviceSequenceReplay)
+    log(f"[7c] r2d2 ring step: {json.dumps(r_trace)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    r_cross = r2d2_cross_device_check(torch, config, SequenceSolver,
+                                      DeviceSequenceReplay)
+    log(f"[7c] card vs CPU r2d2 ring step: {json.dumps(r_cross)}")
+
+    # -- 8. result lines ------------------------------------------------------
     src = "distributed_deep_q_tpu_torch/csrc/ring_gather.cu"
     loss_src = "distributed_deep_q_tpu_torch/csrc/fused_loss.cu"
     g512, g4096 = gathers
@@ -782,6 +1212,31 @@ def main() -> int:
          "fill": {k: fill[k] for k in ("real_lanes", "ms", "plain_ms",
                                        "bound_ms", "library_ms",
                                        "max_abs_err", "host_ms")}})
+    # the sequence-shape numbers (phase 3c) and the r2d2 paths' launches
+    r2d2_in_trace = r_trace["trace"]["port_kernels"]
+    g64, g512s = seq_k["gather"]
+    s1, s4 = seq_k["scatter"]
+    kernels[0]["ok"] = kernels[0]["ok"] and g64["max_abs_err"] == 0 \
+        and g512s["max_abs_err"] == 0
+    kernels[0]["r2d2"] = dict(
+        seq_row(g64, rg.GATHER_CHUNK_BYTES, empty_ms),
+        shape="n=64 w=84 rowb=8192 (ring step)",
+        launches=r_launches["gather_windows"], path="phase 7 (r2d2)",
+        in_trace_us_per_launch=r2d2_in_trace.get(
+            "gather_windows", {}).get("us_per_launch"),
+        chain8=dict(seq_row(g512s, rg.GATHER_CHUNK_BYTES, empty_ms),
+                    shape="n=512 w=84 rowb=8192 (chain 8)",
+                    launches=f_launches["gather_windows"],
+                    path="phase 7b (r2d2, device_per)"))
+    kernels[1]["ok"] = kernels[1]["ok"] and s1["max_abs_err"] == 0 \
+        and s4["max_abs_err"] == 0
+    kernels[1]["r2d2"] = dict(
+        seq_row(s1, rg.SCATTER_CHUNK_BYTES, empty_ms),
+        shape="n=4 lanes, 1 real, rowb=688128 (sequence flush)",
+        launches=r_launches["scatter_rows"], path="phase 7 (r2d2)",
+        launches_phase_7b=f_launches["scatter_rows"],
+        real4=dict(seq_row(s4, rg.SCATTER_CHUNK_BYTES, empty_ms),
+                   shape="n=4 lanes, 4 real, rowb=688128"))
     in_trace = chained["fused_loss_trace"]["port_kernels"]
     for name, line, part, err in (
             ("fused_loss_fwd", 100, "fwd", loss_k["td_max_abs_err"]),

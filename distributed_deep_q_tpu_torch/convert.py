@@ -14,8 +14,19 @@ Reference leaf names (as ``NatureCnnQNet`` / ``MlpQNet`` build them):
   reference and CHW order in the port, so its rows are permuted; that needs
   the frame shape (``frame_shape``) to know conv3's spatial size.
 
+``R2d2QNet`` trees name the head ``head`` and hold the LSTM cell under a
+third key, Flax's class-derived scope (``OptimizedLSTMCell_0`` in flax
+0.12.3; found as the key that is neither ``torso`` nor ``head``, as the
+reference's ``r2d2_param_split`` finds it). The cell keeps eight leaves:
+input kernels ``ii, if, ig, io`` ``[F, H]`` without bias and hidden
+kernels ``hi, hf, hg, ho`` ``[H, H]`` with bias ``[H]``. The port stacks
+them in gate order i, f, g, o: ``lstm.weight_ih [4H, F]``,
+``lstm.weight_hh [4H, H]`` (each block the kernel transposed) and
+``lstm.bias_hh`` (the hidden biases); its zero ``bias_ih`` is a buffer,
+not a parameter.
+
 Port names are the ``named_parameters()`` of ``models/qnet.py``:
-``torso.conv1.weight``, ``head.q.bias``, ...
+``torso.conv1.weight``, ``head.q.bias``, ``lstm.weight_ih``, ...
 
 A train state is ``{"params", "target_params", "opt_state": {"count", "mu",
 "nu"}, "step"}``: θ, θ⁻, the Adam state as optax's ``ScaleByAdamState``
@@ -31,6 +42,8 @@ import numpy as np
 from distributed_deep_q_tpu_torch.models.qnet import conv_out_hw
 
 _SCOPES = (("torso", "torso"), ("_Head_0", "head"))
+LSTM_SCOPE = "OptimizedLSTMCell_0"   # flax 0.12.3's name for R2D2's cell
+_GATES = ("i", "f", "g", "o")        # Flax's and torch's gate order
 
 
 def _fc4_rows_hwc_to_chw(k: np.ndarray, frame_shape) -> np.ndarray:
@@ -45,11 +58,39 @@ def _fc4_rows_chw_to_hwc(k: np.ndarray, frame_shape) -> np.ndarray:
     return k.reshape(c, h3, w3, -1).transpose(1, 2, 0, 3).reshape(k.shape)
 
 
+def _lstm_from_flax(cell: dict) -> dict[str, np.ndarray]:
+    return {
+        "lstm.weight_ih": np.concatenate(
+            [np.asarray(cell[f"i{g}"]["kernel"]).T for g in _GATES]),
+        "lstm.weight_hh": np.concatenate(
+            [np.asarray(cell[f"h{g}"]["kernel"]).T for g in _GATES]),
+        "lstm.bias_hh": np.concatenate(
+            [np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES]),
+    }
+
+
+def _lstm_to_flax(params: dict[str, Any]) -> dict:
+    w_ih = np.split(np.asarray(params["lstm.weight_ih"]), 4)
+    w_hh = np.split(np.asarray(params["lstm.weight_hh"]), 4)
+    b_hh = np.split(np.asarray(params["lstm.bias_hh"]), 4)
+    cell: dict = {}
+    for g, wi, wh, bh in zip(_GATES, w_ih, w_hh, b_hh):
+        cell[f"i{g}"] = {"kernel": np.array(wi.T, order="C")}
+        cell[f"h{g}"] = {"kernel": np.array(wh.T, order="C"),
+                         "bias": np.array(bh)}
+    return cell
+
+
 def params_from_flax(tree: dict, frame_shape=None) -> dict[str, np.ndarray]:
     """Flax param tree → ``{port name: array}`` in the port's layouts.
     ``frame_shape`` is required for a Nature CNN (the fc4 row permutation)."""
     out: dict[str, np.ndarray] = {}
-    for flax_scope, port_scope in _SCOPES:
+    scopes = list(_SCOPES)
+    if "head" in tree:                   # an R2d2QNet tree
+        scopes[1] = ("head", "head")
+        (cell,) = [k for k in tree if k not in ("torso", "head")]
+        out.update(_lstm_from_flax(tree[cell]))
+    for flax_scope, port_scope in scopes:
         for layer, leaves in tree[flax_scope].items():
             k = np.asarray(leaves["kernel"])
             if k.ndim == 4:
@@ -63,12 +104,19 @@ def params_from_flax(tree: dict, frame_shape=None) -> dict[str, np.ndarray]:
     return out
 
 
-def params_to_flax(params: dict[str, Any], frame_shape=None) -> dict:
+def params_to_flax(params: dict[str, Any], frame_shape=None,
+                   lstm_scope: str = LSTM_SCOPE) -> dict:
     """Inverse of ``params_from_flax`` (accepts numpy arrays or CPU
-    tensors; returns numpy)."""
+    tensors; returns numpy). An R2D2 tree's cell goes under
+    ``lstm_scope``."""
     port_to_flax = dict((p, f) for f, p in _SCOPES)
     tree: dict = {}
+    if "lstm.weight_ih" in params:       # an R2d2QNet
+        port_to_flax["head"] = "head"
+        tree[lstm_scope] = _lstm_to_flax(params)
     for name, value in params.items():
+        if name.startswith("lstm."):
+            continue
         scope, layer, leaf = name.split(".")
         a = np.asarray(value)
         if leaf == "weight":

@@ -7,6 +7,8 @@ Examples:
     python -m distributed_deep_q_tpu_torch.main train --preset breakout --backend cuda \\
         --set env.kind=signal_atari env.id=signal replay.device_per=false \\
         train.use_pallas_loss=true
+    python -m distributed_deep_q_tpu_torch.main train --preset r2d2 --backend cuda \\
+        --set env.kind=signal_atari env.id=signal
     python -m distributed_deep_q_tpu_torch.main train --preset cartpole --backend cpu
     python -m distributed_deep_q_tpu_torch.main eval --preset pong --backend cpu \\
         --set env.kind=signal_atari env.id=signal
@@ -49,7 +51,7 @@ def main(argv: list[str] | None = None) -> int:
     # imported past flag parsing so --help stays cheap
     from distributed_deep_q_tpu_torch.metrics import Metrics
     from distributed_deep_q_tpu_torch.train import (
-        check_slice, evaluate, train_single_process)
+        check_slice, evaluate, evaluate_recurrent, train_single_process)
 
     if args.mode == "train":
         summary = train_single_process(
@@ -64,12 +66,17 @@ def main(argv: list[str] | None = None) -> int:
     import numpy as np
 
     from distributed_deep_q_tpu_torch.actors.game import make_env
+    from distributed_deep_q_tpu_torch.parallel.sequence_learner import (
+        SequenceSolver)
     from distributed_deep_q_tpu_torch.solver import Solver
     check_slice(cfg)
     env = make_env(cfg.env, seed=cfg.train.seed)
     cfg.net.num_actions = env.num_actions
-    solver = Solver(cfg, obs_dim=int(np.prod(env.obs_shape)))
-    ret = evaluate(solver, cfg)
+    obs_dim = int(np.prod(env.obs_shape))
+    if cfg.net.kind == "r2d2":
+        ret = evaluate_recurrent(SequenceSolver(cfg, obs_dim=obs_dim), cfg)
+    else:
+        ret = evaluate(Solver(cfg, obs_dim=obs_dim), cfg)
     print(json.dumps({"mode": "eval", "eval_return": ret,
                       "episodes": cfg.train.eval_episodes,
                       "restored_step": None}))

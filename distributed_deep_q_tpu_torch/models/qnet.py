@@ -3,6 +3,8 @@
 - ``MlpQNet``       — MLP for vector envs.
 - ``NatureCnnQNet`` — Nature-DQN CNN: stack×84×84 → conv(32,8,4) →
   conv(64,4,2) → conv(64,3,1) → FC512 → FC|A|; optional dueling head.
+- ``R2d2QNet``      — recurrent Q-net: Nature CNN or MLP torso → LSTM →
+  (dueling) head over ``[B, T, ...]`` sequences.
 
 Layers follow Flax's ``dtype`` semantics: parameters stay float32 and each
 layer casts its input, weight and bias to the compute dtype (``bfloat16``
@@ -158,6 +160,27 @@ class NatureCnnQNet(nn.Module):
         return self.forward_nchw(frames.permute(0, 3, 1, 2))
 
 
+class _MlpTorso(nn.ModuleDict):
+    """Flat observation → ``relu(fc_i(...))`` features (the reference's
+    ``MlpTorso``); layers ``fc0, fc1, ...``."""
+
+    def __init__(self, obs_dim: int, hidden: Sequence[int],
+                 dtype: torch.dtype, gen: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        fan_in = obs_dim
+        for i, width in enumerate(hidden):
+            self[f"fc{i}"] = _Dense(fan_in, width, dtype, gen)
+            fan_in = width
+        self.width = fan_in
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        h = _to_compute(obs.reshape(obs.shape[0], -1), self.dtype)
+        for layer in self.values():
+            h = F.relu(layer(h))
+        return h
+
+
 class MlpQNet(nn.Module):
     """MLP Q-network (CartPole preset)."""
 
@@ -166,19 +189,137 @@ class MlpQNet(nn.Module):
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
         gen = torch.Generator().manual_seed(seed)
-        self.dtype = dtype
-        self.torso = nn.ModuleDict()
-        fan_in = obs_dim
-        for i, width in enumerate(hidden):
-            self.torso[f"fc{i}"] = _Dense(fan_in, width, dtype, gen)
-            fan_in = width
-        self.head = _Head(fan_in, num_actions, dueling, dtype, gen)
+        self.torso = _MlpTorso(obs_dim, hidden, dtype, gen)
+        self.head = _Head(self.torso.width, num_actions, dueling, dtype, gen)
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
-        h = _to_compute(obs.reshape(obs.shape[0], -1), self.dtype)
-        for layer in self.torso.values():
-            h = F.relu(layer(h))
-        return self.head(h)
+        return self.head(self.torso(obs))
+
+
+def lstm_cell(x: torch.Tensor, carry, w_ih: torch.Tensor,
+              w_hh: torch.Tensor, b_hh: torch.Tensor):
+    """One step of Flax's ``OptimizedLSTMCell``, written out: the carry is
+    ``(c, h)``, gates ``i, f, g, o`` in that order along ``4H``, each
+    ``(h·W_h + b) + x·W_i`` (the input kernels have no bias), then
+    ``c' = f·c + i·g`` and ``h' = o·tanh(c')``. The executable spec the
+    tests hold ``R2d2QNet``'s LSTM to. Returns ``((c', h'), h')``."""
+    c, h = carry
+    dense_h = F.linear(h, w_hh, b_hh)
+    dense_i = F.linear(x, w_ih)
+    hi, hf, hg, ho = dense_h.chunk(4, dim=-1)
+    ii, if_, ig, io = dense_i.chunk(4, dim=-1)
+    i = torch.sigmoid(hi + ii)
+    f = torch.sigmoid(hf + if_)
+    g = torch.tanh(hg + ig)
+    o = torch.sigmoid(ho + io)
+    new_c = f * c + i * g
+    new_h = o * torch.tanh(new_c)
+    return (new_c, new_h), new_h
+
+
+class _Lstm(nn.Module):
+    """Flax's ``OptimizedLSTMCell`` scanned over time, as PyTorch's LSTM
+    (``torch.lstm``, cuDNN on the card) computes it, in float32. Torch's
+    gate order is Flax's (i, f, g, o); Flax has no input bias, so
+    ``bias_ih`` is a buffer of zeros, not a parameter. Parameters:
+    ``weight_ih [4H, F]``, ``weight_hh [4H, H]``, ``bias_hh [4H]``."""
+
+    def __init__(self, fan_in: int, hidden: int, gen: torch.Generator):
+        super().__init__()
+        self.hidden = hidden
+        self.weight_ih = nn.Parameter(torch.empty(4 * hidden, fan_in))
+        self.weight_hh = nn.Parameter(torch.empty(4 * hidden, hidden))
+        self.bias_hh = nn.Parameter(torch.zeros(4 * hidden))
+        self.register_buffer("bias_ih", torch.zeros(4 * hidden))
+        # Flax initializes each gate's kernel alone: lecun-normal input
+        # kernels, orthogonal recurrent kernels
+        _lecun_normal_(self.weight_ih.data, fan_in, gen)
+        for block in self.weight_hh.data.chunk(4, dim=0):
+            nn.init.orthogonal_(block, generator=gen)
+
+    def forward(self, feats: torch.Tensor, carry):
+        """``feats [B, T, F]`` float32, carry ``(c, h)`` each ``[B, H]`` →
+        (outputs ``[B, T, H]``, carry ``(c, h)``)."""
+        c, h = carry
+        out, h_n, c_n = torch.lstm(
+            feats, (h[None].contiguous(), c[None].contiguous()),
+            (self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh),
+            True, 1, 0.0, self.training, False, True)
+        return out, (c_n[0], h_n[0])
+
+
+class R2d2QNet(nn.Module):
+    """Recurrent Q-net over ``[B, T, ...]`` sequences (the reference's
+    ``R2d2QNet`` and its ``r2d2_*`` helpers).
+
+    The torso (Nature CNN or MLP, in the compute dtype) runs once over all
+    ``B·T`` frames (``features``), then the LSTM in float32 (``burn_carry``
+    advances the carry only; ``recur`` also applies the head, in the
+    compute dtype). The carry is Flax's ``(c, h)``, each ``[B, H]``.
+
+    Layouts: ``forward``/``features`` take the reference's observations
+    (``[B, T, H, W, stack]`` uint8 frames, or ``[B, T, ...]`` vectors for
+    the MLP torso); ``features_stacked`` takes the sequence ring's
+    ``[B, T, stack, H·W]`` planes and hands them to the CNN as NCHW.
+    Parameter names: ``torso.*`` (``torso.fc{i}`` for the MLP),
+    ``lstm.{weight_ih, weight_hh, bias_hh}``, ``head.*``.
+    """
+
+    def __init__(self, num_actions: int, lstm_size: int = 512,
+                 torso: str = "nature_cnn", hidden: Sequence[int] = (64, 64),
+                 dueling: bool = True, stack: int = 4,
+                 frame_shape: tuple[int, int] = (84, 84), obs_dim: int = 4,
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.lstm_size = int(lstm_size)
+        self.num_actions = int(num_actions)
+        self.frame_shape = tuple(frame_shape)
+        self.cnn = torso == "nature_cnn"
+        if self.cnn:
+            self.torso = _NatureTorso(stack, self.frame_shape, dtype, gen)
+            fan_in = 512
+        elif torso == "mlp":
+            self.torso = _MlpTorso(obs_dim, tuple(hidden), dtype, gen)
+            fan_in = self.torso.width
+        else:
+            raise ValueError(f"unknown r2d2 torso: {torso!r}")
+        self.lstm = _Lstm(fan_in, self.lstm_size, gen)
+        self.head = _Head(self.lstm_size, num_actions, dueling, dtype, gen)
+
+    def features(self, obs: torch.Tensor) -> torch.Tensor:
+        """``[B, T, ...]`` observations in the reference's layout → ``[B, T,
+        F]`` float32 features, the torso applied once over ``B·T``."""
+        b, t = obs.shape[:2]
+        flat = obs.reshape((b * t,) + obs.shape[2:])
+        if self.cnn:
+            flat = flat.permute(0, 3, 1, 2)            # NHWC → NCHW
+        return self.torso(flat).reshape(b, t, -1).float()
+
+    def features_stacked(self, planes: torch.Tensor) -> torch.Tensor:
+        """``[B, T, stack, H·W]`` uint8 planes (``compose_sequence_block``)
+        → ``[B, T, F]`` float32 features."""
+        b, t, stack = planes.shape[:3]
+        flat = planes.reshape(b * t, stack, *self.frame_shape)
+        if not self.cnn:
+            flat = flat.permute(0, 2, 3, 1)            # the MLP reads HWC
+        return self.torso(flat).reshape(b, t, -1).float()
+
+    def burn_carry(self, feats: torch.Tensor, carry):
+        """Advance the carry over ``[B, T, F]`` features (no Q)."""
+        return self.lstm(feats, carry)[1]
+
+    def recur(self, feats: torch.Tensor, carry):
+        """LSTM + head over ``[B, T, F]`` features → (q ``[B, T, A]``,
+        carry)."""
+        b, t = feats.shape[:2]
+        hs, carry = self.lstm(feats, carry)
+        q = self.head(hs.reshape(b * t, -1))
+        return q.reshape(b, t, self.num_actions), carry
+
+    def forward(self, obs: torch.Tensor, carry):
+        """(q ``[B, T, A]``, final carry) for ``[B, T, ...]`` observations."""
+        return self.recur(self.features(obs), carry)
 
 
 def build_qnet(cfg: NetConfig, obs_dim: int = 4, seed: int = 0) -> nn.Module:
@@ -191,6 +332,7 @@ def build_qnet(cfg: NetConfig, obs_dim: int = 4, seed: int = 0) -> nn.Module:
         return NatureCnnQNet(cfg.num_actions, cfg.stack,
                              tuple(cfg.frame_shape), cfg.dueling, dtype, seed)
     if cfg.kind == "r2d2":
-        raise NotImplementedError(
-            "net.kind=r2d2 is not ported yet (ROADMAP A13: R2D2)")
+        return R2d2QNet(cfg.num_actions, cfg.lstm_size, cfg.torso,
+                        tuple(cfg.hidden), cfg.dueling, cfg.stack,
+                        tuple(cfg.frame_shape), obs_dim, dtype, seed)
     raise ValueError(f"unknown net kind: {cfg.kind!r}")

@@ -121,9 +121,17 @@ class Solver:
     def __init__(self, config: Config, obs_dim: int = 4,
                  backend: str | None = None):
         if config.net.kind == "r2d2":
-            raise NotImplementedError(
-                "r2d2 uses the sequence learner, not ported yet "
-                "(ROADMAP A13)")
+            raise ValueError("r2d2 nets train through SequenceSolver "
+                             "(parallel/sequence_learner.py)")
+        self._setup(config, obs_dim, backend,
+                    lambda cfg, dev: Learner(cfg.train, dev))
+        self._dp_spec: tuple | None = None
+        self._dp_spec_replay = None
+
+    def _setup(self, config: Config, obs_dim: int, backend: str | None,
+               make_learner) -> None:
+        """Device, net, learner and train state: what every solver of the
+        port builds the same way."""
         if backend is not None:
             config = dataclasses.replace(
                 config, mesh=dataclasses.replace(config.mesh, backend=backend))
@@ -137,11 +145,9 @@ class Solver:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         net = build_qnet(config.net, obs_dim, config.train.seed)
-        self.learner = Learner(config.train, self.device)
+        self.learner = make_learner(config, self.device)
         self.state: TrainState = self.learner.init_state(net.to(self.device))
         self.draw_uniforms = uniforms_for_keys
-        self._dp_spec: tuple | None = None
-        self._dp_spec_replay = None
         self._fused_key_base: int | None = None
         self._fused_steps_issued = 0
 

@@ -17,7 +17,10 @@ settings, as in the reference:
   ``FrameStackReplay``, and whole pixel batches go to the device
   (``train_step``);
 - vector env (CartPole): n-step transitions in a host ``ReplayMemory``
-  (``train_step``).
+  (``train_step``);
+- ``net.kind=r2d2``: the recurrent loop ``train_recurrent`` (sequences
+  from a ``SequenceBuilder`` into a ``DeviceSequenceReplay`` for pixels,
+  or a host ``SequenceReplay``).
 
 Host-sampled prioritized replay gets its priorities back through a
 ``DelayedPriorityWriteback``. Configurations outside the port are refused
@@ -33,13 +36,19 @@ from distributed_deep_q_tpu_torch.actors.game import (
     FrameStacker, NStepAccumulator, make_env)
 from distributed_deep_q_tpu_torch.config import Config
 from distributed_deep_q_tpu_torch.metrics import Metrics, MovingAverage
+from distributed_deep_q_tpu_torch.parallel.sequence_learner import (
+    SequenceSolver)
 from distributed_deep_q_tpu_torch.profiling import StepTimer
 from distributed_deep_q_tpu_torch.replay.device_per import DevicePERFrameReplay
 from distributed_deep_q_tpu_torch.replay.device_ring import DeviceFrameReplay
+from distributed_deep_q_tpu_torch.replay.device_sequence import (
+    DeviceSequenceReplay)
 from distributed_deep_q_tpu_torch.replay.prioritized import (
     make_writeback, maybe_prioritize)
 from distributed_deep_q_tpu_torch.replay.replay_memory import (
     FrameStackReplay, ReplayMemory)
+from distributed_deep_q_tpu_torch.replay.sequence import (
+    SequenceBuilder, SequenceReplay)
 from distributed_deep_q_tpu_torch.solver import FusedStepStream, Solver
 
 
@@ -74,7 +83,6 @@ def evaluate(solver: Solver, cfg: Config, episodes: int | None = None,
 def check_slice(cfg: Config) -> None:
     """Refuse, by name, the settings this port does not run yet."""
     refusals = [
-        (cfg.net.kind == "r2d2", "net.kind=r2d2 (ROADMAP A13: R2D2)"),
         (bool(cfg.train.checkpoint_dir) or cfg.train.resume,
          "checkpoints (train.checkpoint_dir/resume; ROADMAP A7)"),
         (bool(cfg.replay.persist_path),
@@ -113,6 +121,8 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
     """Run the in-process loop; returns final summary metrics (and the
     solver under ``"solver"``)."""
     check_slice(cfg)
+    if cfg.net.kind == "r2d2":
+        return train_recurrent(cfg, metrics, log_every)
     metrics = metrics or Metrics()
     env = make_env(cfg.env, seed=cfg.train.seed)
     cfg.net.num_actions = env.num_actions
@@ -233,6 +243,170 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
         final_ret = evaluate(solver, cfg)
     summary["eval_return"] = final_ret
     summary["solver"] = solver
+    if solver.device.type == "cuda":
+        torch.cuda.synchronize(solver.device)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# The recurrent (R2D2) loop
+# ---------------------------------------------------------------------------
+
+
+def evaluate_recurrent(solver, cfg: Config, episodes: int | None = None,
+                       seed: int = 10_000) -> float:
+    """Greedy rollouts (ε = eval_eps) threading the LSTM carry through
+    each episode → mean episode return."""
+    env = make_env(cfg.env, seed=seed)
+    rng = np.random.default_rng(seed)
+    episodes = episodes or cfg.train.eval_episodes
+    pixel = env.obs_dtype == np.uint8
+    stacker = FrameStacker(env.obs_shape, cfg.env.stack) if pixel else None
+    returns = []
+    for _ in range(episodes):
+        obs, ep_ret, over = env.reset(), 0.0, False
+        if stacker:
+            obs = stacker.reset(obs)
+        carry = solver.initial_state(1)
+        while not over:
+            a, carry = solver.act(np.asarray(obs), carry,
+                                  cfg.actors.eval_eps, rng)
+            frame, r, _, over = env.step(a)
+            obs = stacker.push(frame) if stacker else frame
+            ep_ret += r
+        returns.append(ep_ret)
+    return float(np.mean(returns))
+
+
+def train_recurrent(cfg: Config, metrics: Metrics | None = None,
+                    log_every: int = 1_000) -> dict:
+    """R2D2 loop: recurrent actor → ``SequenceBuilder`` → sequence replay →
+    ``SequenceSolver``. Sequence counts derive from the transition-counted
+    fields (capacity and learn_start ÷ sequence_length), as in the
+    reference. Pixel envs keep their sequences in a
+    ``DeviceSequenceReplay`` (``replay.device_resident``) and train by the
+    ring step, or, with ``replay.device_per`` and ``prioritized``, by the
+    chained fused dispatch; otherwise a host ``SequenceReplay`` ships
+    whole sequence batches."""
+    metrics = metrics or Metrics()
+    env = make_env(cfg.env, seed=cfg.train.seed)
+    cfg.net.num_actions = env.num_actions
+    obs_dim = int(np.prod(env.obs_shape))
+    solver = SequenceSolver(cfg, obs_dim=obs_dim)
+    rng = np.random.default_rng(cfg.train.seed)
+
+    pixel = env.obs_dtype == np.uint8
+    stacker = FrameStacker(env.obs_shape, cfg.env.stack) if pixel else None
+    obs_shape = (tuple(env.obs_shape) + (cfg.env.stack,)) if pixel \
+        else tuple(env.obs_shape)
+    obs_dtype = np.uint8 if pixel else np.float32
+
+    seq_len = cfg.replay.sequence_length
+    seq_capacity = max(cfg.replay.capacity // seq_len, 64)
+    per = dict(prioritized=cfg.replay.prioritized,
+               alpha=cfg.replay.priority_alpha,
+               beta0=cfg.replay.priority_beta0,
+               beta_steps=cfg.replay.priority_beta_steps,
+               eps=cfg.replay.priority_eps, seed=cfg.train.seed,
+               use_native=cfg.replay.use_native)
+    device_seq = pixel and cfg.replay.device_resident
+    if device_seq:
+        replay = DeviceSequenceReplay(seq_capacity, seq_len, obs_shape,
+                                      solver.device, cfg.net.lstm_size,
+                                      **per)
+    else:
+        replay = SequenceReplay(seq_capacity, seq_len, obs_shape, obs_dtype,
+                                cfg.net.lstm_size, **per)
+    builder = SequenceBuilder(seq_len, cfg.replay.burn_in, obs_shape,
+                              obs_dtype, cfg.net.lstm_size, cfg.train.gamma)
+    learn_start_seqs = max(cfg.replay.learn_start // seq_len, 2)
+
+    # the chained fused path samples from the device priority row, so it
+    # runs prioritized only, as in the reference
+    fused_seq = (device_seq and cfg.replay.device_per
+                 and cfg.replay.prioritized)
+    timer = StepTimer()
+    stream = (FusedStepStream(solver, replay, cfg.replay.fused_chain,
+                              timer=timer) if fused_seq else None)
+    writeback = (make_writeback(replay, cfg.replay)
+                 if replay.prioritized and not fused_seq else None)
+
+    frame = env.reset()
+    obs = stacker.reset(frame) if pixel else frame
+    carry = solver.initial_state(1)
+    ep_ret, ep_returns = 0.0, MovingAverage(100)
+    summary: dict = {}
+    gsteps = 0
+    for t in range(1, cfg.train.total_steps + 1):
+        eps = epsilon_at(t, cfg.actors)
+        carry_before = carry
+        a, carry = solver.act(np.asarray(obs), carry, eps, rng)
+        next_frame, r, done, over = env.step(a)
+        next_obs = stacker.push(next_frame) if pixel else next_frame
+        ep_ret += r
+        for seq in builder.on_step(obs, a, r, done,
+                                   (carry_before[0][0], carry_before[1][0]),
+                                   next_obs):
+            replay.add_sequence(seq)
+        obs = next_obs
+        metrics.count("env_steps")
+
+        if over:
+            if not done:
+                # time-limit truncation: emit the pending window with its
+                # bootstrap instead of discarding the episode's tail
+                for seq in builder.flush_truncated(next_obs):
+                    replay.add_sequence(seq)
+            ep_returns.add(ep_ret)
+            ep_ret = 0.0
+            builder.reset()
+            frame = env.reset()
+            obs = stacker.reset(frame) if pixel else frame
+            carry = solver.initial_state(1)
+
+        if (replay.ready(learn_start_seqs)
+                and t % cfg.train.train_every == 0):
+            if fused_seq:
+                remaining = ((cfg.train.total_steps - t)
+                             // cfg.train.train_every + 1)
+                m = stream.next(remaining)
+            else:
+                with timer.phase("sample"):
+                    batch = replay.sample(cfg.replay.batch_size)
+                sampled_at = batch.pop("_sampled_at")
+                with timer.phase("dispatch"):
+                    if device_seq:
+                        m = solver.train_step_from_ring(replay, batch)
+                    else:
+                        m = solver.train_step(batch)
+            gsteps += 1
+            timer.step_done()
+            if writeback is not None:
+                with timer.phase("writeback"):
+                    writeback.push(m["index"], m["td_abs"], sampled_at)
+            metrics.count("grad_steps")
+            if gsteps % log_every == 0:
+                timer.measure_device(m["loss"])
+                summary = {
+                    "loss": float(m["loss"]), "q_mean": float(m["q_mean"]),
+                    "return_avg100": ep_returns.value, "epsilon": eps,
+                    "grad_steps_per_s": metrics.rate("grad_steps"),
+                    "env_steps_per_s": metrics.rate("env_steps"),
+                }
+                metrics.gauge("queue/replay_size", len(replay))
+                pending = getattr(replay, "pending_rows", None)
+                if pending is not None:
+                    metrics.gauge("queue/staged_rows", pending())
+                metrics.log(gsteps, **summary, **timer.summary(),
+                            **metrics.telemetry())
+
+    if writeback is not None:
+        writeback.drain()
+    summary["final_return_avg100"] = ep_returns.value
+    summary["grad_steps"] = gsteps
+    summary["eval_return"] = evaluate_recurrent(solver, cfg)
+    summary["solver"] = solver
+    summary["replay"] = replay
     if solver.device.type == "cuda":
         torch.cuda.synchronize(solver.device)
     return summary

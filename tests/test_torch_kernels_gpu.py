@@ -106,6 +106,72 @@ def test_scatter_rows_flush_shapes_on_card(real, ghosts, skip):
         assert torch.equal(kernel[-rowp:], scratch_before)
 
 
+# the R2D2 sequence ring: windows of W = 84 rows of 8192 B, one 688,128-byte
+# slot per sequence; 3,200 slots put the ring past 2³¹ bytes
+SEQ_W, SEQ_SLOTS = 84, 3_200
+GC, SC = rg.GATHER_CHUNK_BYTES, rg.SCATTER_CHUNK_BYTES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, w, rowb", [
+    (64, SEQ_W, 8192), (512, SEQ_W, 8192),          # the r2d2 shapes
+    (7, 1, GC - 16), (7, 1, GC), (7, 1, GC + 16),   # around one chunk
+    (9, 3, (2 * GC + 64) // 3 // 16 * 16), (5, 16, GC // 16)])
+def test_gather_windows_split_windows_on_card(n, w, rowb):
+    """Windows longer than one chunk are split over the grid's second
+    dimension: bitwise at the sequence shapes (window starts at sequence
+    slots, past the 2³¹-byte mark) and at windows just under, at and over
+    one chunk and over two."""
+    dev = _need_card()
+    rows = max(SEQ_SLOTS * SEQ_W * 8192 // rowb, 4 * n * w)
+    ring, gen = _ring(rows, rowb // 4, dev, 3)
+    idx = torch.randint(0, rows - w + 1, (n,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    if w == SEQ_W:
+        idx = (idx // SEQ_W) * SEQ_W          # sequence slot starts
+    idx[0] = rows - w
+    before = rg.gather_windows.launches
+    got = rg.gather_windows(idx, ring, n=n, w=w, rowb=rowb)
+    torch.cuda.synchronize()
+    assert rg.gather_windows.launches == before + 1
+    want = rg.gather_windows_plain(idx, ring, n=n, w=w, rowb=rowb)
+    assert torch.equal(got, want)
+    assert int((idx.long() * rowb >= 2**31).sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("real", [1, 4, 0])
+@pytest.mark.parametrize("rowb", [SEQ_W * 8192, SC - 16, SC, SC + 16,
+                                  2 * SC + 16])
+def test_scatter_rows_split_rows_on_card(rowb, real):
+    """The sequence flush: 4 lanes of one row each, ``real`` aimed at rows
+    past the 2³¹-byte mark, the rest at the scratch row named as
+    ``skip_row``; rows of one sequence slot and just under, at and over
+    one chunk and over two. Bitwise outside the scratch row, which stays
+    untouched."""
+    dev = _need_card()
+    k, rowp = 4, rowb // 4
+    rows = 2**31 // rowb + 64
+    scratch = rows - 1
+    ring, gen = _ring(rows, rowp, dev, 4)
+    staged = torch.randint(-2**31, 2**31 - 1, (k * rowp,), dtype=torch.int32,
+                           device=dev, generator=gen)
+    dst = torch.full((k,), scratch, dtype=torch.int32, device=dev)
+    dst[:real] = torch.arange(real, dtype=torch.int32, device=dev) * 7 + (
+        rows - 40)
+    src = torch.arange(k, dtype=torch.int32, device=dev)
+    kernel, plain = ring.clone(), ring
+    scratch_before = plain[-rowp:].clone()
+    before = rg.scatter_rows.launches
+    rg.scatter_rows(src, dst, staged, kernel, n=k, rowb=rowb,
+                    skip_row=scratch)
+    torch.cuda.synchronize()
+    assert rg.scatter_rows.launches == before + 1
+    rg.scatter_rows_plain(src, dst, staged, plain, n=k, rowb=rowb)
+    assert torch.equal(kernel[:-rowp], plain[:-rowp])
+    assert torch.equal(kernel[-rowp:], scratch_before)
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_refuse_cpu_mixes_and_misalignment():
     dev = _need_card()
