@@ -33,13 +33,11 @@ Phases (any failure exits non-zero and prints no result line):
    composition;
 3c. ring kernels at the r2d2 preset's sequence shapes — on a ring of its
    geometry (12,501 slots × 84 rows × 8192 B = 8.6 GB, slots past the
-   2³¹-byte mark), bitwise against the plain versions at every chunk
-   candidate: the gather at n = 64 and 512 windows of 84 rows, the
-   scatter at 4 lanes of one 688,128-byte slot each with 1 and with 4
-   real (the scratch slot named as ``skip_row`` and untouched); then the
-   grid before the chunk split and the chosen chunk timed in turns
-   (parent, split, split, parent), the other candidates once, beside the
-   plain version, ``index_select``/``index_copy_`` and the byte bound;
+   2³¹-byte mark), bitwise against the plain versions: the gather at
+   n = 64 and 512 windows of 84 rows, the scatter at 4 lanes of one
+   688,128-byte slot each with 1 and with 4 real (the scratch slot named
+   as ``skip_row`` and untouched); then timed beside the plain version,
+   ``index_select``/``index_copy_`` and the byte bound;
 4. main path — ``main train --preset pong --backend cuda`` in process on the
    SignalAtari probe at full 84×84 (bf16 Nature CNN, batch 512, 1M ring,
    learn_start 20,000), several hundred grad steps of the fused device-PER
@@ -188,16 +186,7 @@ def check_gather(torch, rg, ring, dev, n: int) -> dict:
     library_ms, library_host_ms = time_ms(
         torch, lambda i: torch.index_select(ring2d, 0, lib_rows[i % 8]))
     nbytes = n * 4 + 2 * n * WINDOW * ROWB
-    # the grid before the chunk split against the wrapper's chunk, in
-    # turns: a 40 KB window is one chunk either way
-    out = torch.empty(n * WINDOW * rowp, dtype=torch.int32, device=dev)
-    turns = in_turns(torch, {f"chunk_{c}": (
-        lambda i, c=c: rg.launch_gather(idx_sets[i % 8], ring, out, n=n,
-                                        w=WINDOW, rowb=ROWB, chunk_bytes=c))
-        for c in (0, rg.GATHER_CHUNK_BYTES)},
-        parent_split_order(rg.GATHER_CHUNK_BYTES)[:4])
     return {"n": n, "windows_past_2^31_bytes": high, "max_abs_err": err,
-            "turns_ms": {k: [t[0] for t in v] for k, v in turns.items()},
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "host_ms": host_ms, "plain_host_ms": plain_host_ms,
             "library_host_ms": library_host_ms,
@@ -268,14 +257,7 @@ def check_scatter(torch, rg, ring, dev, shape: str, empty_ms: float) -> dict:
     n_src = int(torch.unique(src[to_ring]).numel())
     n_dst = int(torch.unique(dst[to_ring]).numel())
     nbytes = (n_src + n_dst) * ROWB + 2 * n * 4
-    turns = in_turns(torch, {f"chunk_{c}": (
-        lambda i, c=c: rg.launch_scatter(src, dst, staged, ring, n=n,
-                                         rowb=ROWB, skip_row=scratch,
-                                         chunk_bytes=c))
-        for c in (0, rg.SCATTER_CHUNK_BYTES)},
-        parent_split_order(rg.SCATTER_CHUNK_BYTES)[:4])
     return {"shape": shape, "n": n, "real_lanes": int(to_ring.sum()),
-            "turns_ms": {k: [t[0] for t in v] for k, v in turns.items()},
             "distinct_src_rows": n_src, "distinct_dst_rows": n_dst,
             "max_abs_err": err, "scratch_row_kept": kept,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -292,33 +274,13 @@ def check_scatter(torch, rg, ring, dev, shape: str, empty_ms: float) -> dict:
 SEQ_SLOTS, SEQ_W = 12_501, 84
 SEQ_ROWB = SEQ_W * ROWB               # one sequence slot: 688,128 B
 SEQ_SCRATCH = SEQ_SLOTS - 1
-# the chunk per block on the grids' second dimension: 0 = one block per
-# window or lane (the design before the split), then the candidates
-CHUNKS = (0, 16 * 1024, 32 * 1024, 64 * 1024, 128 * 1024)
-
-
-def in_turns(torch, fns: dict, order: list) -> dict:
-    """Device and host ms per call for each entry of ``fns``, run in the
-    order ``order`` (a name may come twice: parent, split, split,
-    parent); each name maps to its list of (device ms, host ms)."""
-    out: dict = {name: [] for name in fns}
-    for name in order:
-        out[name].append(time_ms(torch, fns[name]))
-    return out
-
-
-def parent_split_order(chosen: int) -> list:
-    """Parent grid, the chosen chunk, the chosen chunk, parent grid; then
-    each other candidate once."""
-    return (["chunk_0", f"chunk_{chosen}", f"chunk_{chosen}", "chunk_0"]
-            + [f"chunk_{c}" for c in CHUNKS if c not in (0, chosen)])
 
 
 def check_seq_gather(torch, rg, ring, dev, n: int) -> dict:
     """B1 on the sequence ring at ``n`` windows of 84 rows, window starts
-    at sequence slots (most past the 2³¹-byte mark): every chunk candidate
-    bitwise against the plain version, then timed in turns, beside
-    ``index_select`` over the slots and the byte bound."""
+    at sequence slots (most past the 2³¹-byte mark): bitwise against the
+    plain version, then timed beside the plain version, ``index_select``
+    over the slots and the byte bound."""
     gen = torch.Generator(device=dev).manual_seed(100 + n)
     slot_sets = [torch.randint(0, SEQ_SCRATCH, (n,), dtype=torch.int32,
                                device=dev, generator=gen) for _ in range(8)]
@@ -329,26 +291,10 @@ def check_seq_gather(torch, rg, ring, dev, n: int) -> dict:
     rowp = ROWB // 4
     want = rg.gather_windows_plain(idx_sets[0], ring, n=n, w=SEQ_W,
                                    rowb=ROWB)
-    out = torch.empty_like(want)
-    errs = {}
-    for chunk in CHUNKS:
-        out.zero_()
-        rg.launch_gather(idx_sets[0], ring, out, n=n, w=SEQ_W, rowb=ROWB,
-                         chunk_bytes=chunk)
-        torch.cuda.synchronize()
-        errs[chunk] = max_abs_err(torch, out, want)
     got = rg.gather_windows(idx_sets[0], ring, n=n, w=SEQ_W, rowb=ROWB)
     torch.cuda.synchronize()
-    errs["wrapper"] = max_abs_err(torch, got, want)
+    err = max_abs_err(torch, got, want)
     del got, want
-
-    def launch(chunk):
-        return lambda i: rg.launch_gather(idx_sets[i % 8], ring, out, n=n,
-                                          w=SEQ_W, rowb=ROWB,
-                                          chunk_bytes=chunk)
-
-    fns = {f"chunk_{c}": launch(c) for c in CHUNKS}
-    turns = in_turns(torch, fns, parent_split_order(rg.GATHER_CHUNK_BYTES))
     slots2d = ring.view(-1, SEQ_W * rowp)
     slots_l = [s.long() for s in slot_sets]
     ms, host_ms = time_ms(torch, lambda i: rg.gather_windows(
@@ -359,22 +305,18 @@ def check_seq_gather(torch, rg, ring, dev, n: int) -> dict:
         slots2d, 0, slots_l[i % 8]))[0]
     nbytes = n * 4 + 2 * n * SEQ_ROWB
     return {"n": n, "w": SEQ_W, "windows_past_2^31_bytes": high,
-            "max_abs_err": max(errs.values()),
-            "max_abs_err_by_chunk": {str(k): v for k, v in errs.items()},
-            "turns_ms": {k: [t[0] for t in v] for k, v in turns.items()},
-            "turns_host_ms": {k: [t[1] for t in v] for k, v in turns.items()},
-            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bytes": nbytes,
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
 
 
 def check_seq_scatter(torch, rg, ring, dev, real: int) -> dict:
     """B2 as the sequence flush launches it: 4 lanes of one 688,128-byte
     sequence row each, ``real`` of them aimed at slots (past the 2³¹-byte
-    mark), the rest at the scratch slot, named as ``skip_row``. Every
-    chunk candidate bitwise against the plain version outside the scratch
-    slot, the scratch slot untouched; then timed in turns beside
-    ``index_copy_`` and the byte bound."""
+    mark), the rest at the scratch slot, named as ``skip_row``: bitwise
+    against the plain version outside the scratch slot, the scratch slot
+    untouched; then timed beside the plain version, ``index_copy_`` and the
+    byte bound."""
     k, rowp = 4, SEQ_ROWB // 4
     gen = torch.Generator(device=dev).manual_seed(200 + real)
     staged = torch.randint(-2**31, 2**31 - 1, (k * rowp,), dtype=torch.int32,
@@ -384,29 +326,15 @@ def check_seq_scatter(torch, rg, ring, dev, real: int) -> dict:
                               dtype=torch.int32)
     src = torch.arange(k, dtype=torch.int32, device=dev)
     scratch_slot = ring[-rowp:].clone()
-    errs, kept = {}, True
-    for chunk in CHUNKS + ("wrapper",):
-        plain = ring.clone()
-        if chunk == "wrapper":
-            rg.scatter_rows(src, dst, staged, ring, n=k, rowb=SEQ_ROWB,
-                            skip_row=SEQ_SCRATCH)
-        else:
-            rg.launch_scatter(src, dst, staged, ring, n=k, rowb=SEQ_ROWB,
-                              skip_row=SEQ_SCRATCH, chunk_bytes=chunk)
-        rg.scatter_rows_plain(src, dst, staged, plain, n=k, rowb=SEQ_ROWB)
-        torch.cuda.synchronize()
-        errs[chunk] = max_abs_err(torch, ring[:-rowp], plain[:-rowp])
-        kept = kept and bool(torch.equal(ring[-rowp:], scratch_slot))
-        del plain
-        torch.cuda.empty_cache()
-
-    def launch(chunk):
-        return lambda i: rg.launch_scatter(
-            src, dst, staged, ring, n=k, rowb=SEQ_ROWB, skip_row=SEQ_SCRATCH,
-            chunk_bytes=chunk)
-
-    fns = {f"chunk_{c}": launch(c) for c in CHUNKS}
-    turns = in_turns(torch, fns, parent_split_order(rg.SCATTER_CHUNK_BYTES))
+    plain = ring.clone()
+    rg.scatter_rows(src, dst, staged, ring, n=k, rowb=SEQ_ROWB,
+                    skip_row=SEQ_SCRATCH)
+    rg.scatter_rows_plain(src, dst, staged, plain, n=k, rowb=SEQ_ROWB)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, ring[:-rowp], plain[:-rowp])
+    kept = bool(torch.equal(ring[-rowp:], scratch_slot))
+    del plain
+    torch.cuda.empty_cache()
     ms, host_ms = time_ms(torch, lambda i: rg.scatter_rows(
         src, dst, staged, ring, n=k, rowb=SEQ_ROWB, skip_row=SEQ_SCRATCH))
     plain_ms = time_ms(torch, lambda i: rg.scatter_rows_plain(
@@ -420,28 +348,19 @@ def check_seq_scatter(torch, rg, ring, dev, real: int) -> dict:
     n_dst = int(torch.unique(dst[to_ring]).numel())
     nbytes = (n_src + n_dst) * SEQ_ROWB + 2 * k * 4
     return {"n": k, "rowb": SEQ_ROWB, "real_lanes": real,
-            "max_abs_err": max(errs.values()),
-            "max_abs_err_by_chunk": {str(c): v for c, v in errs.items()},
-            "scratch_slot_kept": kept,
-            "turns_ms": {c: [t[0] for t in v] for c, v in turns.items()},
-            "turns_host_ms": {c: [t[1] for t in v] for c, v in turns.items()},
+            "max_abs_err": err, "scratch_slot_kept": kept,
             "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bytes": nbytes,
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
 
 
-def seq_row(m: dict, chunk: int, empty_ms: float) -> dict:
+def seq_row(m: dict, empty_ms: float) -> dict:
     """A phase-3c measurement as the ``kernels`` line carries it: the
-    wrapper's time, the parent grid's and the chosen chunk's in turns, and
-    the yardsticks."""
+    wrapper's time and its yardsticks."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "host_ms",
             "max_abs_err", "bytes")
     return dict({k: m[k] for k in keys}, bound_by="bytes",
-                empty_kernel_ms=empty_ms, chunk_bytes=chunk,
-                parent_grid_ms=m["turns_ms"]["chunk_0"],
-                split_ms=m["turns_ms"][f"chunk_{chunk}"],
-                candidates_ms={k: v for k, v in m["turns_ms"].items()
-                               if k not in ("chunk_0", f"chunk_{chunk}")})
+                empty_kernel_ms=empty_ms)
 
 
 def r2d2_ring_kernels(torch, rg, dev, empty_ms: float) -> dict:
@@ -452,8 +371,7 @@ def r2d2_ring_kernels(torch, rg, dev, empty_ms: float) -> dict:
                          (SEQ_SLOTS * SEQ_ROWB // 4,), dtype=torch.int32,
                          device=dev, generator=gen)
     log(f"[3c] sequence ring: {SEQ_SLOTS} slots x {SEQ_W} rows x {ROWB} B "
-        f"= {ring.numel() * 4 / 1e9:.2f} GB; chunks: gather "
-        f"{rg.GATHER_CHUNK_BYTES} B, scatter {rg.SCATTER_CHUNK_BYTES} B")
+        f"= {ring.numel() * 4 / 1e9:.2f} GB")
     out = {"gather": [check_seq_gather(torch, rg, ring, dev, n)
                       for n in (64, 512)],
            "scatter": [check_seq_scatter(torch, rg, ring, dev, real)
@@ -938,8 +856,13 @@ def r2d2_cross_device_check(torch, config, SequenceSolver,
     weights, sequences and sampled batch. The rings must agree bitwise
     outside the scratch slot; the loss within 1e-4 relative, the
     priorities within 1e-3 relative plus 1e-5 (value_rescale_inv cancels
-    to 2ε, which magnifies a last-bit difference of sqrt), θ within 2·lr
-    (convolution algorithms differ; TF32 off)."""
+    to 2ε, which magnifies a last-bit difference of sqrt). The backward
+    (convolution and LSTM backward, the clip) is held through Adam's first
+    moment, (1 − β₁)·g after one step: each leaf within 1e-3 of its
+    largest element on the CPU. θ within 1e-6: one Adam step moves a leaf
+    by lr·g/(|g| + ε), so a gradient of the wrong sign, or a wrong size
+    where |g| is near ε, shows there (convolution algorithms differ; TF32
+    off)."""
     frame, lstm, seq_len = (36, 36), 16, 8
 
     def build(backend):
@@ -977,11 +900,21 @@ def r2d2_cross_device_check(torch, config, SequenceSolver,
     dtheta = max(float((a.detach().cpu() - b.detach()).abs().max())
                  for a, b in zip(sg.state.net.parameters(),
                                  sc.state.net.parameters()))
-    assert dtheta <= 2e-4, dtheta
+    assert dtheta <= 1e-6, dtheta
+    mu_g, mu_c = sg.state.opt_state["mu"], sc.state.opt_state["mu"]
+    assert mu_g.keys() == mu_c.keys()
+    dmu = {}
+    for name, c in mu_c.items():
+        scale = float(c.abs().max())
+        assert scale > 0, f"no gradient reached {name}"
+        dmu[name] = float((mu_g[name].cpu() - c).abs().max()) / scale
+    worst = max(dmu, key=dmu.get)
+    assert dmu[worst] <= 1e-3, (worst, dmu[worst])
     return {"loss_cuda": lg, "loss_cpu": lc,
             "priority_max_rel_diff": float(np.max(np.abs(pg - pc)
                                                   / np.abs(pc))),
-            "max_abs_dtheta": dtheta}
+            "max_abs_dtheta": dtheta,
+            "mu_max_rel_diff": {"leaf": worst, "value": dmu[worst]}}
 
 
 def check_path(summary: dict, grad_steps: int) -> None:
@@ -1219,23 +1152,23 @@ def main() -> int:
     kernels[0]["ok"] = kernels[0]["ok"] and g64["max_abs_err"] == 0 \
         and g512s["max_abs_err"] == 0
     kernels[0]["r2d2"] = dict(
-        seq_row(g64, rg.GATHER_CHUNK_BYTES, empty_ms),
+        seq_row(g64, empty_ms),
         shape="n=64 w=84 rowb=8192 (ring step)",
         launches=r_launches["gather_windows"], path="phase 7 (r2d2)",
         in_trace_us_per_launch=r2d2_in_trace.get(
             "gather_windows", {}).get("us_per_launch"),
-        chain8=dict(seq_row(g512s, rg.GATHER_CHUNK_BYTES, empty_ms),
+        chain8=dict(seq_row(g512s, empty_ms),
                     shape="n=512 w=84 rowb=8192 (chain 8)",
                     launches=f_launches["gather_windows"],
                     path="phase 7b (r2d2, device_per)"))
     kernels[1]["ok"] = kernels[1]["ok"] and s1["max_abs_err"] == 0 \
         and s4["max_abs_err"] == 0
     kernels[1]["r2d2"] = dict(
-        seq_row(s1, rg.SCATTER_CHUNK_BYTES, empty_ms),
+        seq_row(s1, empty_ms),
         shape="n=4 lanes, 1 real, rowb=688128 (sequence flush)",
         launches=r_launches["scatter_rows"], path="phase 7 (r2d2)",
         launches_phase_7b=f_launches["scatter_rows"],
-        real4=dict(seq_row(s4, rg.SCATTER_CHUNK_BYTES, empty_ms),
+        real4=dict(seq_row(s4, empty_ms),
                    shape="n=4 lanes, 4 real, rowb=688128"))
     in_trace = chained["fused_loss_trace"]["port_kernels"]
     for name, line, part, err in (

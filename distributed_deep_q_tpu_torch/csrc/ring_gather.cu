@@ -22,10 +22,10 @@
 //   windows of 84 × 8192 = 688,128 B per ring step: 64 blocks left 68 of
 //   the SMs idle and took 57 µs against a 26.3 µs bound (NVIDIA H100 80GB
 //   HBM3, 700 W power limit; all times here from that card). The
-//   grid's second dimension now cuts a window into chunks of `chunk_bytes`
-//   (64 KB from the wrapper), one block each: 11 per sequence window,
+//   grid's second dimension now cuts a window into chunks of
+//   kGatherChunkBytes = 64 KB, one block each: 11 per sequence window,
 //   34.7 µs. A 40 KB frame window is one chunk, so the Pong launches are
-//   unchanged (PERF.md §6).
+//   unchanged. 64 KB was chosen among 16-128 KB (PERF.md §6).
 //
 // scatter_rows — replaces the TPU kernel `_scatter_kernel` / `scatter_rows`
 //   in the same file (the replay flush). ring[dst[k]] ← staged[src[k]],
@@ -54,13 +54,15 @@
 //   The sequence flush has 4 lanes of one 688,128-byte sequence slot each,
 //   usually 1 real: a block per lane streamed it through one SM in 16.6 µs
 //   (bound 0.41 µs). Each lane's row is now cut into chunks of
-//   `chunk_bytes` (32 KB from the wrapper) on the grid's second dimension,
-//   one block each (22 per slot): 3.1 µs. A lane aimed at `skip_row`
-//   moves nothing in any of its chunks; an 8 KB frame row is one chunk.
+//   kScatterChunkBytes = 32 KB on the grid's second dimension, one block
+//   each (22 per slot): 3.1 µs. A lane aimed at `skip_row` moves nothing
+//   in any of its chunks; an 8 KB frame row is one chunk. 32 KB was chosen
+//   among 16-128 KB (PERF.md §6).
 //
 // Offsets: the Pong ring is 1,000,005 rows × 8192 B = 8.19 GB, so a row's
 // byte offset passes 2^31 from row 262,144 on; the r2d2 preset's sequence
-// ring is 12,501 × 688,128 B = 8.6 GB. Every offset is computed in 64 bits. A window or lane whose index falls outside its array is a caller
+// ring is 12,501 × 688,128 B = 8.6 GB. Every offset is computed in 64
+// bits. A window or lane whose index falls outside its array is a caller
 // bug: the gather writes zeros for it and the scatter skips it, instead of
 // faulting.
 //
@@ -76,6 +78,9 @@ constexpr int kThreads = 256;
 constexpr int kCopyUnroll = 4;     // 16-byte loads in flight per thread
 constexpr int64_t kMaxGrid = 1 << 20;
 constexpr int64_t kMaxChunks = 65535;   // gridDim.y's limit
+// bytes per block on the grid's second dimension
+constexpr int64_t kGatherChunkBytes = 64 * 1024;
+constexpr int64_t kScatterChunkBytes = 32 * 1024;
 
 // [lo, hi) of the 16-byte vectors of a `len_vec` run that block row
 // blockIdx.y copies: chunk c of `chunk_vec` vectors
@@ -156,12 +161,11 @@ scatter_rows_kernel(const int32_t* __restrict__ src_idx,
 }
 
 // (grid, chunk length in vectors) for n runs of len_vec vectors cut into
-// chunks of chunk_bytes (<= 0: one chunk per run, the design before the
-// split); the chunk grows if the run would need more than kMaxChunks
-inline dim3 grid_for(int64_t n, int64_t len_vec, long long chunk_bytes,
+// chunks of chunk_bytes; the chunk grows if the run would need more than
+// kMaxChunks
+inline dim3 grid_for(int64_t n, int64_t len_vec, int64_t chunk_bytes,
                      int64_t& chunk_vec) {
-  chunk_vec = chunk_bytes > 0 ? chunk_bytes / 16 : len_vec;
-  if (chunk_vec < 1) chunk_vec = 1;
+  chunk_vec = chunk_bytes / 16;
   int64_t chunks = (len_vec + chunk_vec - 1) / chunk_vec;
   if (chunks > kMaxChunks) {
     chunk_vec = (len_vec + kMaxChunks - 1) / kMaxChunks;
@@ -177,10 +181,11 @@ inline dim3 grid_for(int64_t n, int64_t len_vec, long long chunk_bytes,
 extern "C" int ddq_gather_windows(const void* idx, const void* ring,
                                   void* out, long long n, long long w,
                                   long long rowb, long long ring_rows,
-                                  long long chunk_bytes, void* stream) {
+                                  void* stream) {
   if (n <= 0) return 0;
   int64_t chunk_vec;
-  const dim3 grid = grid_for(n, w * (rowb / 16), chunk_bytes, chunk_vec);
+  const dim3 grid = grid_for(n, w * (rowb / 16), kGatherChunkBytes,
+                             chunk_vec);
   gather_windows_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(idx), static_cast<const int4*>(ring),
@@ -193,10 +198,10 @@ extern "C" int ddq_scatter_rows(const void* src_idx, const void* dst_idx,
                                 const void* staged, void* ring, long long n,
                                 long long rowb, long long staged_rows,
                                 long long ring_rows, long long skip_row,
-                                long long chunk_bytes, void* stream) {
+                                void* stream) {
   if (n <= 0) return 0;
   int64_t chunk_vec;
-  const dim3 grid = grid_for(n, rowb / 16, chunk_bytes, chunk_vec);
+  const dim3 grid = grid_for(n, rowb / 16, kScatterChunkBytes, chunk_vec);
   scatter_rows_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(src_idx),

@@ -71,18 +71,9 @@ def _check_aligned(*ts: torch.Tensor) -> None:
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 _GATHER = Entry("ring_gather", "ddq_gather_windows",
-                [_P, _P, _P, _I64, _I64, _I64, _I64, _I64])
+                [_P, _P, _P, _I64, _I64, _I64, _I64])
 _SCATTER = Entry("ring_gather", "ddq_scatter_rows",
-                 [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64])
-
-# Each kernel gives one block to each chunk of a window (gather) or of a
-# lane's row (scatter), on the grid's second dimension: the R2D2 sequence
-# ring's 688,128-byte windows and rows would otherwise leave one block, and
-# one SM, to each. The frame rings' 8 KB rows and 40 KB windows fit one
-# chunk, so their launches are those of the design before the split.
-# Chosen on an H100 among 16-128 KB (PERF.md §6).
-GATHER_CHUNK_BYTES = 64 * 1024
-SCATTER_CHUNK_BYTES = 32 * 1024
+                 [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64])
 
 
 # -- plain versions (the CPU path, and the card's reference) ----------------
@@ -131,24 +122,13 @@ def gather_windows(idx: torch.Tensor, ring: torch.Tensor, *, n: int, w: int,
         return gather_windows_plain(idx, ring, n=n, w=w, rowb=rowb)
     _check_aligned(ring)
     out = torch.empty(n * w * rowp, dtype=torch.int32, device=dev)
-    launch_gather(idx, ring, out, n=n, w=w, rowb=rowb,
-                  chunk_bytes=GATHER_CHUNK_BYTES)
-    gather_windows.launches += 1
-    return out
-
-
-def launch_gather(idx, ring, out, *, n: int, w: int, rowb: int,
-                  chunk_bytes: int) -> None:
-    """One launch of the gather kernel on checked CUDA tensors, with
-    ``chunk_bytes`` per block (0: one block per window). ``gather_windows``
-    launches it with ``GATHER_CHUNK_BYTES``; a measurement may time other
-    chunks here without counting a launch."""
-    err = _GATHER(ring.device, idx.data_ptr(), ring.data_ptr(),
-                  out.data_ptr(), n, w, rowb, ring.numel() // (rowb // 4),
-                  chunk_bytes)
+    err = _GATHER(dev, idx.data_ptr(), ring.data_ptr(), out.data_ptr(), n, w,
+                  rowb, ring.numel() // rowp)
     if err:
         raise RuntimeError(f"gather_windows kernel launch failed: CUDA "
                            f"error {err}")
+    gather_windows.launches += 1
+    return out
 
 
 def scatter_rows(src_idx: torch.Tensor, dst_idx: torch.Tensor,
@@ -187,25 +167,15 @@ def scatter_rows(src_idx: torch.Tensor, dst_idx: torch.Tensor,
         return scatter_rows_plain(src_idx, dst_idx, staged, ring, n=n,
                                   rowb=rowb)
     _check_aligned(staged, ring)
-    launch_scatter(src_idx, dst_idx, staged, ring, n=n, rowb=rowb,
-                   skip_row=skip_row, chunk_bytes=SCATTER_CHUNK_BYTES)
-    scatter_rows.launches += 1
-    return ring
-
-
-def launch_scatter(src_idx, dst_idx, staged, ring, *, n: int, rowb: int,
-                   skip_row: int | None, chunk_bytes: int) -> None:
-    """One launch of the scatter kernel on checked CUDA tensors, with
-    ``chunk_bytes`` per block (0: one block per lane); see
-    ``launch_gather``."""
-    rowp = rowb // 4
-    err = _SCATTER(ring.device, src_idx.data_ptr(), dst_idx.data_ptr(),
+    err = _SCATTER(dev, src_idx.data_ptr(), dst_idx.data_ptr(),
                    staged.data_ptr(), ring.data_ptr(), n, rowb,
-                   staged.numel() // rowp, ring.numel() // rowp,
-                   -1 if skip_row is None else skip_row, chunk_bytes)
+                   staged.numel() // rowp, ring_rows,
+                   -1 if skip_row is None else skip_row)
     if err:
         raise RuntimeError(f"scatter_rows kernel launch failed: CUDA "
                            f"error {err}")
+    scatter_rows.launches += 1
+    return ring
 
 
 gather_windows.launches = 0

@@ -28,12 +28,14 @@ on one device, so the reference's ``pmean`` over ``dp`` is the identity.
 
 from __future__ import annotations
 
+from collections.abc import Callable
 from typing import Any
 
 import numpy as np
 import torch
 
 from distributed_deep_q_tpu_torch.config import Config
+from distributed_deep_q_tpu_torch.models.qnet import R2d2QNet
 from distributed_deep_q_tpu_torch.ops.losses import (
     sequence_bellman_targets, sequence_dqn_loss)
 from distributed_deep_q_tpu_torch.ops.ring_gather import gather_windows
@@ -56,20 +58,21 @@ class SequenceLearner(Learner):
         self.burn_in = int(config.replay.burn_in)
 
     def _step_core(self, state: TrainState, batch: dict[str, torch.Tensor],
-                   features: str = "features_stacked"):
+                   features: Callable[[R2d2QNet, torch.Tensor],
+                                      torch.Tensor]):
         """Burn-in + train-window unroll + masked loss + optimizer on one
-        batch on the device. ``features`` names the nets' torso method for
-        ``obs``: ``features_stacked`` for the ring's ``[B, T+1, stack,
-        H·W]`` planes, ``features`` for the reference's layouts (a host
+        batch on the device. ``features(net, obs)`` is the torso method
+        for ``obs``'s layout (``R2d2QNet.features_stacked`` for the ring's
+        ``[B, T+1, stack, H·W]`` planes, ``R2d2QNet.features`` for a host
         batch). Updates ``state`` in place; returns (metrics, per-sequence
         priority)."""
         cfg, burn = self.cfg, self.burn_in
         net, target = state.net, state.target_net
         obs = batch["obs"]
         carry0 = (batch["init_c"], batch["init_h"])
-        f_on = getattr(net, features)(obs)
+        f_on = features(net, obs)
         with torch.no_grad():
-            f_tg = getattr(target, features)(obs)
+            f_tg = features(target, obs)
             if burn > 0:
                 # the online carry is cut at the burn-in seam
                 carry_on = net.burn_carry(f_on[:, :burn], carry0)
@@ -104,7 +107,7 @@ class SequenceLearner(Learner):
         reference's layout plus the sequence metadata. Returns (metrics,
         per-sequence priority [B])."""
         return self._step_core(state, self._to_device(batch),
-                               features="features")
+                               R2d2QNet.features)
 
     def train_step_from_ring(self, state: TrainState, replay,
                              batch: dict[str, Any]):
@@ -121,7 +124,7 @@ class SequenceLearner(Learner):
         meta["obs"] = compose_sequence_block(
             win.view(b, replay.W, replay.rowp), meta["mask"], replay.seq_len,
             replay.stack, replay._row_len)
-        return self._step_core(state, meta)
+        return self._step_core(state, meta, R2d2QNet.features_stacked)
 
     def train_steps_fused(self, state: TrainState, replay, batch_size: int,
                           sizes: torch.Tensor, betas: torch.Tensor,
@@ -156,7 +159,8 @@ class SequenceLearner(Learner):
             batch["obs"] = compose_sequence_block(
                 win[i], batch["mask"], replay.seq_len, replay.stack,
                 replay._row_len)
-            metrics, priority = self._step_core(state, batch)
+            metrics, priority = self._step_core(state, batch,
+                                                R2d2QNet.features_stacked)
             maxp = scatter_priorities(prio, maxp, idx[i], priority,
                                       replay.alpha, replay.eps)
             steps.append(metrics)

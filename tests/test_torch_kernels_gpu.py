@@ -109,7 +109,9 @@ def test_scatter_rows_flush_shapes_on_card(real, ghosts, skip):
 # the R2D2 sequence ring: windows of W = 84 rows of 8192 B, one 688,128-byte
 # slot per sequence; 3,200 slots put the ring past 2³¹ bytes
 SEQ_W, SEQ_SLOTS = 84, 3_200
-GC, SC = rg.GATHER_CHUNK_BYTES, rg.SCATTER_CHUNK_BYTES
+# the kernels' bytes per block (kGatherChunkBytes, kScatterChunkBytes in
+# csrc/ring_gather.cu)
+GC, SC = 64 * 1024, 32 * 1024
 
 
 @pytest.mark.gpu
