@@ -72,11 +72,34 @@ Phases (any failure exits non-zero and prints no result line):
    ``torch.profiler`` (ms per grad step, device busy share, launches per
    grad step, the top five kernels); then one small ring step on the card
    and on the CPU from the same weights and batch, compared;
-8. the ``kernels`` JSON line, the ``nvidia-smi`` line, and the last line
+8. Pong resume — the preset at full width with the fused loss
+   (``train.use_pallas_loss=true``), its ring cut to 131,072 rows (~1 GB
+   persisted) and ``learn_start`` to 5,000: ``main train`` with
+   ``train.checkpoint_dir`` and ``replay.persist_path`` (251 grad steps,
+   saved every 200 and at the end), then the resumed run
+   (``train.resume=true``, 100 more grad steps from the restored step and
+   ring). The loop's files restored into a fresh solver and replay on the
+   card and on the CPU: the train state, the replay's state and the ring
+   bytes bitwise; one fused dispatch from each and a chain-8 dispatch from
+   the card pairs, their sampled rows, window starts and B1 windows
+   bitwise, the losses within stated tolerances; save and load seconds and
+   the file sizes;
+8b. r2d2 resume — the same on the r2d2 preset's ring-step path at full
+   width, the sequence ring cut to 1,250 slots (0.86 GB): B1 reads the
+   restored ring and B2 flushes into it; the restored recurrent net's
+   ``bias_ih`` is still a zero buffer; the CPU pair's sample and plain
+   gather against the card's;
+8c. the r2d2 motion gate — the reference's memory-gate configuration
+   (``signal-vel-ep`` at stack 1, 16-step sequences, 4 of burn-in) through
+   ``train_recurrent`` on the card's device sequence ring:
+   ``eval_return`` must reach 16, printed beside the random policy's;
+9. the ``kernels`` JSON line (each kernel's launches on every path in
+   ``launches_by_path``), the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Every path run (phases 4, 6, 6b, 7, 7b) sets all kernel launch counters to
-0 just before it and reads them just after.
+Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, and 8c)
+sets all kernel launch counters to 0 just before it and reads them just
+after.
 """
 
 from __future__ import annotations
@@ -87,6 +110,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -917,6 +941,420 @@ def r2d2_cross_device_check(torch, config, SequenceSolver,
             "mu_max_rel_diff": {"leaf": worst, "value": dmu[worst]}}
 
 
+# -- phases 8, 8b and 8c: resume on the card, and the r2d2 motion gate ------
+
+# Phase 8: the Pong preset at full width with the fused loss, its ring cut to
+# 131,072 rows (a 1.07 GB padded int32 plane, so the persisted file stays
+# near 1 GB) and learn_start to 5,000; 6,000 env steps (251 grad steps),
+# checkpointed and persisted every 200 grad steps and at the end, then 400
+# resumed env steps (100 grad steps: the restored ring opens the learn gate
+# at once)
+PONG_RESUME_SET = ["env.kind=signal_atari", "env.id=signal",
+                   "replay.capacity=131072", "replay.learn_start=5000",
+                   "train.use_pallas_loss=true",
+                   "train.checkpoint_every=200"]
+PONG_RESUME_STEPS, PONG_RESUME_GRAD = (6000, 400), (251, 351)
+# Phase 8b: the r2d2 preset at full width, its sequence ring cut to 1,250
+# slots (0.86 GB) and learn_start to 64 sequences (env step 2,048); 2,448
+# env steps (101 grad steps), then 400 resumed (100 more)
+R2D2_RESUME_SET = ["env.kind=signal_atari", "env.id=signal",
+                   "replay.capacity=100000", "replay.learn_start=5120",
+                   "train.checkpoint_every=100"]
+R2D2_RESUME_STEPS, R2D2_RESUME_GRAD = (2448, 400), (101, 201)
+# Losses of a restored pair against the original, same card, cuDNN
+# deterministic: the chain's first step within 1e-6 relative (the same
+# weights and batch), every later step within 1e-3 (each depends on the
+# backward before it); the CPU against the card within 2e-2 (bf16
+# compute, other convolution algorithms)
+LOSS_RTOL_FIRST, LOSS_RTOL_CHAIN, LOSS_RTOL_CPU = 1e-6, 1e-3, 2e-2
+
+
+def run_counted(counters, fn):
+    """``fn()`` with every kernel launch counter set to 0 just before and
+    read just after. Returns (its result, launches, wall seconds)."""
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    return out, {name: f.launches for name, f in counters.items()}, wall
+
+
+def resume_files(name: str) -> tuple[str, str]:
+    """A fresh (checkpoint dir, replay file) pair under ``OUT_DIR``: a
+    stale checkpoint from an earlier run would be restored instead."""
+    d = os.path.join(OUT_DIR, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return os.path.join(d, "ckpt"), os.path.join(d, "replay.npz")
+
+
+@contextlib.contextmanager
+def capturing(module, name: str, keep):
+    """Wrap ``module.name`` so each call also appends ``keep(args,
+    result)`` to the yielded list (to hold what a dispatch sampled)."""
+    orig = getattr(module, name)
+    calls: list = []
+
+    def wrapped(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        calls.append(keep(args, out))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def train_state_diffs(torch, a, b) -> list[str]:
+    """The train-state leaves (θ, θ⁻, Adam's count, μ and ν, the step)
+    where solvers ``a`` and ``b`` differ, compared bit for bit on the
+    host."""
+    def leaves(s):
+        st = s.state
+        out = {f"params/{k}": p for k, p in st.net.named_parameters()}
+        out.update({f"target/{k}": p
+                    for k, p in st.target_net.named_parameters()})
+        for key in ("mu", "nu"):
+            out.update({f"{key}/{k}": t
+                        for k, t in st.opt_state[key].items()})
+        out["count"], out["step"] = st.opt_state["count"], st.step
+        return out
+
+    la, lb = leaves(a), leaves(b)
+    assert la.keys() == lb.keys(), (la.keys() ^ lb.keys())
+    return [k for k in la if not torch.equal(la[k].detach().cpu(),
+                                             lb[k].detach().cpu())]
+
+
+def replay_state_diffs(persistence, want: dict, replay) -> list[str]:
+    """The keys of ``replay``'s persisted state (host metadata, cursors,
+    RNG states, trees, the downloaded device planes) that differ from
+    ``want``."""
+    got = persistence.replay_state(replay)
+    assert got.keys() == want.keys(), (got.keys() ^ want.keys())
+    return [k for k in want if not np.array_equal(np.asarray(got[k]),
+                                                  np.asarray(want[k]))]
+
+
+def tensors_equal(torch, a, b) -> bool:
+    return bool(torch.equal(a.detach().cpu(), b.detach().cpu()))
+
+
+def rel_diff(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def timed_save_and_load(torch, persistence, checkpoint, solver, replay,
+                        ckdir: str, npz: str, restore_into):
+    """The loop's save (a checkpoint with ``wait=True``, then the replay
+    file) timed on its own into a scratch copy, the file sizes, and the
+    restore of the loop's own files into ``restore_into()``'s fresh
+    (solver, replay), timed. Returns (that solver, that replay, the times
+    and sizes)."""
+    scratch_ck, scratch_npz = ckdir + "_timed", npz + ".timed.npz"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.Checkpointer(scratch_ck).save(solver.state, wait=True)
+    ckpt_save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    persistence.save_replay(replay, scratch_npz)
+    replay_save_s = time.perf_counter() - t0
+    shutil.rmtree(scratch_ck)
+    os.remove(scratch_npz)
+    step = checkpoint.Checkpointer(ckdir).latest_step()
+    state_pt = os.path.join(ckdir, str(step), "state.pt")
+    s, r = restore_into()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.Checkpointer(ckdir).restore(s.state)
+    torch.cuda.synchronize()
+    ckpt_load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    persistence.load_replay(r, npz)
+    torch.cuda.synchronize()
+    replay_load_s = time.perf_counter() - t0
+    return s, r, {"checkpoint_save_s": ckpt_save_s,
+                  "replay_save_s": replay_save_s,
+                  "checkpoint_load_s": ckpt_load_s,
+                  "replay_load_s": replay_load_s,
+                  "checkpoint_MB": os.path.getsize(state_pt) / 1e6,
+                  "replay_file_GB": os.path.getsize(npz) / 1e9}
+
+
+def check_resume_runs(s1, l1, s2, l2, grad, ckpt_steps, fused_loss) -> None:
+    """The first run trained ``grad[0]`` steps; the resumed one started
+    from that step and trained to ``grad[1]``; every kernel of the path
+    launched in both."""
+    assert s1["grad_steps"] == grad[0] == ckpt_steps[0], (s1, ckpt_steps)
+    assert s2["grad_steps"] == grad[1] == ckpt_steps[1], (s2, ckpt_steps)
+    for s, launches, n in ((s1, l1, grad[0]), (s2, l2, grad[1] - grad[0])):
+        assert math.isfinite(s["loss"]) and math.isfinite(s["eval_return"])
+        assert launches["gather_windows"] >= n, launches
+        assert launches["scatter_rows"] > 0, launches
+        if fused_loss:
+            for name in ("fused_loss_fwd", "fused_loss_bwd"):
+                assert launches[name] >= n, launches
+
+
+def pong_resume(torch, config, cli_main, counters, modules) -> dict:
+    """Phase 8: ``main train`` with a checkpoint dir and a persist path,
+    then the resumed run (``train.resume=true``) through
+    ``train_single_process``, the function ``main train`` calls, which
+    hands back its solver and replay (the original: their state is the
+    one the run saved last). The loop's files restored into a fresh pair
+    on the card and on the CPU; states compared bit for bit; one fused
+    dispatch (chain 1) from each pair and one chain-8 dispatch on the
+    card pairs, their sampled rows, window starts and B1 windows bit for
+    bit, the losses within the stated tolerances."""
+    train, learner, persistence, checkpoint, metrics = modules
+    ckdir, npz = resume_files("pong_resume")
+    files = [f"train.checkpoint_dir={ckdir}", f"replay.persist_path={npz}"]
+    s1, l1, _ = run_cli(
+        cli_main, counters,
+        ["train", "--preset", "pong", "--backend", "cuda", "--log-every",
+         "50", "--set", *PONG_RESUME_SET, *files,
+         f"train.total_steps={PONG_RESUME_STEPS[0]}"],
+        "chip_smoke_pong_resume_1.jsonl")
+    step1 = checkpoint.Checkpointer(ckdir).latest_step()
+    cfg = config.pong_config()
+    cfg.mesh.backend = "cuda"
+    config.apply_overrides(cfg, PONG_RESUME_SET + files + [
+        f"train.total_steps={PONG_RESUME_STEPS[1]}", "train.resume=true"])
+    jsonl = os.path.join(OUT_DIR, "chip_smoke_pong_resume_2.jsonl")
+    s2, l2, wall2 = run_counted(counters, lambda: train.train_single_process(
+        cfg, metrics=metrics.Metrics(jsonl), log_every=50))
+    orig, orig_replay = s2.pop("solver"), s2.pop("replay")
+    step2 = checkpoint.Checkpointer(ckdir).latest_step()
+    check_resume_runs(s1, l1, s2, l2, PONG_RESUME_GRAD, (step1, step2),
+                      True)
+    assert orig.step == step2
+
+    env = train.make_env(cfg.env)
+
+    def fresh(backend):
+        s = train.Solver(cfg, backend=backend)
+        return s, train.make_replay(cfg, env, s.device)
+
+    restored, restored_replay, io_s = timed_save_and_load(
+        torch, persistence, checkpoint, orig, orig_replay, ckdir, npz,
+        lambda: fresh("cuda"))
+    t0 = time.perf_counter()
+    cpu, cpu_replay = fresh("cpu")
+    checkpoint.Checkpointer(ckdir).restore(cpu.state)
+    persistence.load_replay(cpu_replay, npz)
+    io_s["cpu_load_s"] = time.perf_counter() - t0
+
+    # the restored pairs against the original, before any dispatch
+    want = persistence.replay_state(orig_replay)
+    out = {"runs": [s1, {**s2, "wall_s": wall2}], "launches": [l1, l2],
+           "restored_step": step2, "io": io_s,
+           "state_diffs": train_state_diffs(torch, orig, restored),
+           "cpu_state_diffs": train_state_diffs(torch, orig, cpu),
+           "replay_diffs": replay_state_diffs(persistence, want,
+                                              restored_replay),
+           "cpu_replay_diffs": replay_state_diffs(persistence, want,
+                                                  cpu_replay),
+           "ring_bytes_equal": all(
+               torch.equal(orig_replay.dstate[k], restored_replay.dstate[k])
+               for k in orig_replay.dstate)}
+    del want
+
+    def keep(args, res):
+        metas, win, idx, ws = res
+        return {"idx": idx.clone(), "ws": ws.clone(), "win": win.clone(),
+                **{f"meta_{k}": v.clone() for k, v in metas.items()}}
+
+    with cudnn_deterministic(torch), \
+            capturing(learner, "fused_sample", keep) as calls:
+        losses = [orig.train_steps_device_per(orig_replay, chain=1),
+                  restored.train_steps_device_per(restored_replay, chain=1),
+                  cpu.train_steps_device_per(cpu_replay, chain=1),
+                  orig.train_steps_device_per(orig_replay, chain=8),
+                  restored.train_steps_device_per(restored_replay, chain=8)]
+    lo, lr_, lc, lo8, lr8 = (m["loss"].float().cpu().numpy().tolist()
+                             for m in losses)
+    co, cr, cc, co8, cr8 = calls
+    out["sample_diffs"] = {
+        "restored": [k for k in co if not tensors_equal(torch, co[k], cr[k])],
+        "cpu": [k for k in co if not tensors_equal(torch, co[k], cc[k])],
+        "restored_chain8": [k for k in co8
+                            if not tensors_equal(torch, co8[k], cr8[k])]}
+    out["sampled_rows"] = {"chain1": int(co["idx"].numel()),
+                           "chain8": int(co8["idx"].numel())}
+    out["losses"] = {"original": lo + lo8, "restored": lr_ + lr8,
+                     "cpu": lc}
+    out["loss_rel_diff"] = {
+        "restored_first": max(rel_diff(lr_[0], lo[0]),
+                              rel_diff(lr8[0], lo8[0])),
+        "restored_chain8": max(rel_diff(a, b) for a, b in zip(lr8, lo8)),
+        "cpu": rel_diff(lc[0], lo[0])}
+    del orig, orig_replay, restored, restored_replay, cpu, cpu_replay
+    shutil.rmtree(os.path.dirname(npz))
+    return out
+
+
+def check_resume(out: dict) -> None:
+    for key in ("state_diffs", "cpu_state_diffs", "replay_diffs",
+                "cpu_replay_diffs"):
+        assert not out.get(key), (key, out[key])
+    for key, diffs in out["sample_diffs"].items():
+        assert not diffs, (key, diffs)
+    rel = out["loss_rel_diff"]
+    assert rel["restored_first"] <= LOSS_RTOL_FIRST, rel
+    assert rel.get("restored_chain8", 0.0) <= LOSS_RTOL_CHAIN, rel
+    if "cpu" in rel:
+        assert rel["cpu"] <= LOSS_RTOL_CPU, rel
+
+
+def r2d2_resume(torch, config, cli_main, counters, modules, rg) -> dict:
+    """Phase 8b: phase 8's checks on the r2d2 preset's own path (ring
+    steps: B1 reads the restored sequence ring, B2 flushes into it). The
+    resumed run goes through ``train_recurrent``. One ring step from the
+    original and one from the restored pair: the host sample, B1's window
+    starts and windows bit for bit, the loss within 1e-6 relative. The
+    CPU pair's sample and the plain gather over its ring are compared
+    with the card's; its full-width step is not run (phase 7c holds the
+    ring step on the card to the CPU at a small size)."""
+    train, seq_learner, persistence, checkpoint, metrics = modules
+    ckdir, npz = resume_files("r2d2_resume")
+    files = [f"train.checkpoint_dir={ckdir}", f"replay.persist_path={npz}"]
+    s1, l1, _ = run_cli(
+        cli_main, counters,
+        ["train", "--preset", "r2d2", "--backend", "cuda", "--log-every",
+         "50", "--set", *R2D2_RESUME_SET, *files,
+         f"train.total_steps={R2D2_RESUME_STEPS[0]}"],
+        "chip_smoke_r2d2_resume_1.jsonl")
+    step1 = checkpoint.Checkpointer(ckdir).latest_step()
+    cfg = config.r2d2_config()
+    cfg.mesh.backend = "cuda"
+    config.apply_overrides(cfg, R2D2_RESUME_SET + files + [
+        f"train.total_steps={R2D2_RESUME_STEPS[1]}", "train.resume=true"])
+    jsonl = os.path.join(OUT_DIR, "chip_smoke_r2d2_resume_2.jsonl")
+    s2, l2, wall2 = run_counted(counters, lambda: train.train_recurrent(
+        cfg, metrics=metrics.Metrics(jsonl), log_every=50))
+    orig, orig_replay = s2.pop("solver"), s2.pop("replay")
+    step2 = checkpoint.Checkpointer(ckdir).latest_step()
+    check_resume_runs(s1, l1, s2, l2, R2D2_RESUME_GRAD, (step1, step2),
+                      False)
+    assert orig.step == step2
+    obs_shape = tuple(cfg.env.frame_shape) + (cfg.env.stack,)
+
+    def fresh():
+        s = train.SequenceSolver(cfg)
+        return s, train.make_sequence_replay(cfg, obs_shape, np.uint8,
+                                             s.device)
+
+    restored, restored_replay, io_s = timed_save_and_load(
+        torch, persistence, checkpoint, orig, orig_replay, ckdir, npz, fresh)
+    bias_ih = dict(restored.state.net.named_buffers())["lstm.bias_ih"]
+    t0 = time.perf_counter()
+    cpu_replay = train.make_sequence_replay(cfg, obs_shape, np.uint8,
+                                            torch.device("cpu"))
+    persistence.load_replay(cpu_replay, npz)
+    io_s["cpu_load_s"] = time.perf_counter() - t0
+
+    want = persistence.replay_state(orig_replay)
+    out = {"runs": [s1, {**s2, "wall_s": wall2}], "launches": [l1, l2],
+           "restored_step": step2, "io": io_s,
+           "state_diffs": train_state_diffs(torch, orig, restored),
+           "bias_ih_zero_buffer": not bool(bias_ih.any()) and "lstm.bias_ih"
+           not in dict(restored.state.net.named_parameters()),
+           "replay_diffs": replay_state_diffs(persistence, want,
+                                              restored_replay),
+           "cpu_replay_diffs": replay_state_diffs(persistence, want,
+                                                  cpu_replay),
+           "ring_bytes_equal": tensors_equal(torch, orig_replay.ring,
+                                             restored_replay.ring)}
+    del want
+    assert out["bias_ih_zero_buffer"]
+    b = cfg.replay.batch_size
+    batches = [r.sample(b) for r in (orig_replay, restored_replay,
+                                     cpu_replay)]
+    for batch in batches:
+        batch.pop("_sampled_at")
+    with cudnn_deterministic(torch), capturing(
+            seq_learner, "gather_windows",
+            lambda args, res: {"idx": args[0].clone(),
+                               "win": res.clone()}) as calls:
+        mo = orig.train_step_from_ring(orig_replay, batches[0])
+        mr = restored.train_step_from_ring(restored_replay, batches[1])
+    co, cr = calls
+    W = cpu_replay.W
+    cpu_idx = torch.from_numpy(batches[2]["seq_local"].astype(np.int32) * W)
+    cpu_win = rg.gather_windows(cpu_idx, cpu_replay.ring, n=b, w=W,
+                                rowb=cpu_replay.rowb)
+    out["sample_diffs"] = {
+        "restored": [k for k in batches[0] if not np.array_equal(
+            batches[0][k], batches[1][k])]
+        + [k for k in co if not tensors_equal(torch, co[k], cr[k])],
+        "cpu": [k for k in batches[0] if not np.array_equal(
+            batches[0][k], batches[2][k])]
+        + ([] if tensors_equal(torch, co["idx"], cpu_idx) else ["idx"])
+        + ([] if tensors_equal(torch, co["win"], cpu_win) else ["win"])}
+    lo, lr_ = float(mo["loss"]), float(mr["loss"])
+    out["losses"] = {"original": lo, "restored": lr_}
+    out["loss_rel_diff"] = {"restored_first": 0.0 if lo == lr_
+                            else rel_diff(lr_, lo)}
+    del orig, orig_replay, restored, restored_replay, cpu_replay
+    shutil.rmtree(os.path.dirname(npz))
+    return out
+
+
+def r2d2_gate_config(config):
+    """The reference's R2D2 memory gate (``tests/test_velocity_signal.py``):
+    ``signal-vel-ep`` at stack 1, 16-step sequences with 4 of burn-in, LSTM
+    128, float32 — the band's previous position can live only in the LSTM
+    carry. Through the device sequence ring (pixels, ``device_resident``)."""
+    cfg = config.Config()
+    cfg.mesh.backend = "cuda"
+    cfg.env = config.EnvConfig(id="signal-vel-ep", kind="signal_atari",
+                               frame_shape=(36, 36), stack=1,
+                               reward_clip=0.0)
+    cfg.net = config.NetConfig(kind="r2d2", num_actions=4,
+                               frame_shape=(36, 36), stack=1, lstm_size=128,
+                               compute_dtype="float32")
+    cfg.replay = config.ReplayConfig(capacity=16384, batch_size=16,
+                                     learn_start=640, sequence_length=16,
+                                     burn_in=4)
+    cfg.train = config.TrainConfig(lr=1e-3, adam_eps=1e-8, gamma=0.99,
+                                   target_tau=0.01, double_dqn=True,
+                                   total_steps=8000, train_every=2,
+                                   eval_episodes=10, seed=0)
+    cfg.actors.eps_decay_steps = 4000
+    cfg.actors.eps_end = 0.05
+    cfg.actors.eval_eps = 0.0
+    return cfg
+
+
+def r2d2_gate(config, counters, modules, make_env) -> dict:
+    """Phase 8c: the motion gate on the card, ``train_recurrent`` on the
+    gate's configuration; eval_return beside the random policy's."""
+    train, _, _, _, metrics = modules
+    cfg = r2d2_gate_config(config)
+    jsonl = os.path.join(OUT_DIR, "chip_smoke_r2d2_gate.jsonl")
+    s, launches, wall = run_counted(counters, lambda: train.train_recurrent(
+        cfg, metrics=metrics.Metrics(jsonl), log_every=500))
+    for key in ("solver", "replay"):
+        s.pop(key)
+    random_ret = random_policy_return(make_env, cfg.env,
+                                      cfg.train.eval_episodes)
+    return {"summary": {**s, "wall_s": wall}, "launches": launches,
+            "random_policy_return": random_ret, "bar": 16.0}
+
+
 def check_path(summary: dict, grad_steps: int) -> None:
     for key in ("loss", "q_mean", "grad_steps_per_s", "env_steps_per_s",
                 "eval_return"):
@@ -934,18 +1372,25 @@ def main() -> int:
         return 1
     try:
         from distributed_deep_q_tpu_torch import config
+        from distributed_deep_q_tpu_torch import metrics as metrics_mod
+        from distributed_deep_q_tpu_torch import train as train_mod
         from distributed_deep_q_tpu_torch.actors.game import make_env
         from distributed_deep_q_tpu_torch.main import main as cli_main
         from distributed_deep_q_tpu_torch.ops import cuda_build
         from distributed_deep_q_tpu_torch.ops import fused_loss as fl
         from distributed_deep_q_tpu_torch.ops import ring_gather as rg
+        from distributed_deep_q_tpu_torch.parallel import learner as learner_mod
+        from distributed_deep_q_tpu_torch.parallel import (
+            sequence_learner as seq_learner_mod)
         from distributed_deep_q_tpu_torch.parallel.sequence_learner import (
             SequenceSolver)
         from distributed_deep_q_tpu_torch.replay.device_per import (
             DevicePERFrameReplay)
+        from distributed_deep_q_tpu_torch.replay import persistence
         from distributed_deep_q_tpu_torch.replay.device_sequence import (
             DeviceSequenceReplay)
         from distributed_deep_q_tpu_torch.solver import Solver
+        from distributed_deep_q_tpu_torch.utils import checkpoint
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e}); run from "
               "the repository root", file=sys.stderr)
@@ -1109,7 +1554,40 @@ def main() -> int:
                                       DeviceSequenceReplay)
     log(f"[7c] card vs CPU r2d2 ring step: {json.dumps(r_cross)}")
 
-    # -- 8. result lines ------------------------------------------------------
+    # -- 8. Pong resume through the CLI, restored on the card and the CPU --
+    gc.collect()
+    torch.cuda.empty_cache()
+    p_resume = pong_resume(torch, config, cli_main, counters, (
+        train_mod, learner_mod, persistence, checkpoint, metrics_mod))
+    log(f"[8] pong resume: {json.dumps(p_resume)}")
+    check_resume(p_resume)
+    assert p_resume["ring_bytes_equal"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8b. r2d2 resume through the CLI, restored on the card ---------------
+    r_resume = r2d2_resume(torch, config, cli_main, counters, (
+        train_mod, seq_learner_mod, persistence, checkpoint, metrics_mod), rg)
+    log(f"[8b] r2d2 resume: {json.dumps(r_resume)}")
+    check_resume(r_resume)
+    assert r_resume["ring_bytes_equal"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8c. the r2d2 motion gate on the card ---------------------------------
+    gate = r2d2_gate(config, counters, (
+        train_mod, seq_learner_mod, persistence, checkpoint, metrics_mod),
+        make_env)
+    log(f"[8c] r2d2 motion gate: {json.dumps(gate)}")
+    g_sum = gate["summary"]
+    assert math.isfinite(g_sum["loss"]) and g_sum["grad_steps"] > 0, g_sum
+    assert gate["launches"]["gather_windows"] >= g_sum["grad_steps"], gate
+    assert gate["launches"]["scatter_rows"] > 0, gate
+    assert g_sum["eval_return"] >= gate["bar"], (
+        f"r2d2 motion gate: eval_return {g_sum['eval_return']} < "
+        f"{gate['bar']} (random {gate['random_policy_return']})")
+
+    # -- 9. result lines ------------------------------------------------------
     src = "distributed_deep_q_tpu_torch/csrc/ring_gather.cu"
     loss_src = "distributed_deep_q_tpu_torch/csrc/fused_loss.cu"
     g512, g4096 = gathers
@@ -1198,6 +1676,18 @@ def main() -> int:
     bwd_row["a18"].update({k: loss_k["a18"]["bwd"][k] for k in (
         "autograd_host_ms", "autograd_grad_host_ms")})
     bwd_row["widths_checked"] = sorted({c["a"] for c in loss_k["bwd_widths"]})
+    # every path's launches, each path's counts set to 0 just before it
+    by_path = {"4 pong": launches, "6 breakout host-sampled": b_launches,
+               "6b breakout host FrameStackReplay": h_launches,
+               "7 r2d2": r_launches, "7b r2d2 fused": f_launches,
+               "8 pong train": p_resume["launches"][0],
+               "8 pong resumed": p_resume["launches"][1],
+               "8b r2d2 train": r_resume["launches"][0],
+               "8b r2d2 resumed": r_resume["launches"][1],
+               "8c r2d2 motion gate": gate["launches"]}
+    for row in kernels:
+        row["launches_by_path"] = {path: counts[row["name"]]
+                                   for path, counts in by_path.items()}
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

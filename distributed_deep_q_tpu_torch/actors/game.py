@@ -4,11 +4,16 @@ Host-only numpy code, copied with its imports rewritten:
 
 - ``SignalAtari`` — reward is a function of what's on screen (the
   learnability probe for the CNN + device-ring path).
+- ``VelocitySignalAtari`` — reward is a function of the band's MOTION (the
+  ``-vel`` ids): the temporal-integration probe for frame stacks and the
+  recurrent net's memory.
 - ``FakeAtari`` — deterministic counter frames for byte-exact replay tests.
 - ``GymEnv`` — classic-control vector envs (the CartPole preset).
 - ``FrameStacker`` — the rolling ``[H, W, stack]`` uint8 observation.
 - ``NStepAccumulator`` — n-step transitions for the explicit-transition
   ``ReplayMemory`` (non-pixel envs).
+- ``StepLatencyEnv`` and ``make_envs`` — the actor processes' step timer
+  and per-row env builder.
 
 ``GymEnv`` and ``AtariEnv`` import ``gymnasium`` / ``ale_py`` only when they
 are built, and raise a clear ``ImportError`` when the package is missing.
@@ -19,6 +24,7 @@ episode_over)``; bootstrap discount is cut only on true termination.
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import Any, Protocol
 
@@ -150,6 +156,98 @@ class SignalAtari:
         return self._frame(), reward, done, done
 
 
+class VelocitySignalAtari:
+    """Pixel env whose reward is a function of MOTION, not appearance — the
+    temporal-integration probe.
+
+    One bright band drifts across the screen with a velocity drawn from
+    ``num_actions`` distinct values; acting with the velocity's index pays
+    +1. The band's POSITION is redrawn uniformly at every segment start,
+    independent of the velocity, so a single frame carries zero reward
+    information — Q* is constant over single frames. Beating random
+    requires comparing at least two consecutive frames: the frame-stack
+    path must read displacement across stack channels, and the stack=1
+    recurrent path must carry the previous position in LSTM state. That is
+    exactly the capability ``SignalAtari`` (static band ⇒ single-frame
+    pattern matching) cannot test.
+
+    Velocity changes every ``segment`` steps (with a fresh position), so
+    ~1/segment of steps — plus the first step after reset, when the stack
+    holds no prior same-segment frame — are unreadable even for a perfect
+    decoder; the achievable ceiling is ≈ (1 - 1/segment) + 1/(segment·A)
+    reward per step (~0.91 at segment=8, A=4) vs the 1/A = 0.25 random
+    floor.
+
+    Orientation "v": vertical band (spans all rows) drifting horizontally;
+    "h": horizontal band drifting vertically — two distinct "games" for
+    multi-game fleets, like SignalAtari's pair.
+    """
+
+    def __init__(self, episode_len: int = 32, num_actions: int = 4,
+                 frame_shape: tuple[int, int] = (84, 84), seed: int = 0,
+                 orientation: str = "v", segment: int = 8):
+        """``segment=0`` holds the velocity for the WHOLE episode (only the
+        reset redraws) — the easiest memory variant: read the motion once,
+        carry the answer. Positive ``segment`` redraws velocity+position
+        every that many steps."""
+        assert orientation in ("v", "h")
+        self.episode_len = int(episode_len)
+        self.num_actions = int(num_actions)
+        self.obs_shape = tuple(frame_shape)
+        self.obs_dtype = np.uint8
+        self.orientation = orientation
+        self.segment = int(segment) if segment else self.episode_len + 1
+        h, w = frame_shape
+        self._axis = w if orientation == "v" else h
+        self.band_width = max(3, self._axis // 8)
+        # symmetric speeds, zero excluded (a parked band needs no temporal
+        # integration to identify — it would reintroduce the single-frame
+        # shortcut this env exists to remove): A=4 → (-2, -1, 1, 2) × u px
+        u = max(2, self._axis // 16)
+        half = self.num_actions // 2
+        units = list(range(-half, 0)) + \
+            list(range(1, self.num_actions - half + 1))
+        self.velocities = tuple(int(u * m) for m in units)
+        self._rng = np.random.default_rng(seed)
+        self._t = 0
+        self._v_idx = 0
+        self._pos = 0
+
+    def _redraw(self) -> None:
+        self._v_idx = int(self._rng.integers(self.num_actions))
+        self._pos = int(self._rng.integers(self._axis))
+
+    def _frame(self) -> np.ndarray:
+        f = np.full(self.obs_shape, 20, np.uint8)
+        idx = (self._pos + np.arange(self.band_width)) % self._axis
+        if self.orientation == "v":
+            f[:, idx] = 220
+        else:
+            f[idx, :] = 220
+        return f
+
+    def reset(self) -> np.ndarray:
+        self._t = 0
+        self._redraw()
+        return self._frame()
+
+    def step(self, action: int):
+        # reward keys on the velocity in effect over the frames the agent
+        # just observed
+        reward = 1.0 if int(action) == self._v_idx else 0.0
+        self._t += 1
+        if self._t % self.segment == 0:
+            self._redraw()      # fresh velocity AND position: the new
+            #                     position is independent of both the old
+            #                     and new velocity, so boundary frames leak
+            #                     nothing
+        else:
+            self._pos = (self._pos + self.velocities[self._v_idx]) \
+                % self._axis
+        done = self._t >= self.episode_len
+        return self._frame(), reward, done, done
+
+
 # ---------------------------------------------------------------------------
 # Atari (ALE) with canonical DQN preprocessing
 # ---------------------------------------------------------------------------
@@ -255,6 +353,39 @@ class AtariEnv:
         return self._observe(), total, done, over
 
 
+class StepLatencyEnv:
+    """Transparent env wrapper timing each ``step()`` call (wall ms).
+
+    The remote actor loops drain the buffer into the ``tm_env_step_ms``
+    telemetry channel on every transition flush, giving the learner-side
+    ``fleet/env_step_ms`` histogram its samples. The buffer is bounded so
+    an actor that stops flushing (server gone, long episode) cannot grow
+    it without limit — old samples fall off, which is the right bias for
+    a latency distribution. Everything else delegates to the wrapped env.
+    """
+
+    def __init__(self, env: Env, maxlen: int = 512):
+        self._env = env
+        self._step_ms: deque = deque(maxlen=maxlen)
+
+    def step(self, action: int):
+        t0 = time.perf_counter()
+        out = self._env.step(action)
+        self._step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def reset(self) -> np.ndarray:
+        return self._env.reset()
+
+    def drain_step_ms(self) -> list[float]:
+        out = list(self._step_ms)
+        self._step_ms.clear()
+        return out
+
+    def __getattr__(self, name: str):
+        return getattr(self._env, name)
+
+
 def make_env(cfg: EnvConfig, seed: int = 0) -> Env:
     if cfg.kind == "gym":
         return GymEnv(cfg.id, seed, reward_clip=cfg.reward_clip)
@@ -263,15 +394,35 @@ def make_env(cfg: EnvConfig, seed: int = 0) -> Env:
     if cfg.kind == "fake_atari":
         return FakeAtari(frame_shape=cfg.frame_shape)
     if cfg.kind == "signal_atari":
-        # id "signal" = vertical bands, "signal-h" = horizontal
-        if "-vel" in cfg.id:
-            raise NotImplementedError(
-                "the moving-band SignalAtari ids (-vel) are not ported yet "
-                "(ROADMAP A6)")
+        # id "signal" = vertical bands, "signal-h" = horizontal — two
+        # distinct fake "games" for multi-game fleet tests; the "-vel"
+        # ids select the moving-band temporal-integration variant
         orientation = "h" if cfg.id.endswith("-h") else "v"
+        if "-vel" in cfg.id:
+            # "-ep" holds velocity for the whole episode (memory-gate
+            # difficulty tier); default redraws every 8 steps
+            return VelocitySignalAtari(frame_shape=cfg.frame_shape,
+                                       seed=seed, orientation=orientation,
+                                       segment=0 if "-ep" in cfg.id else 8)
         return SignalAtari(frame_shape=cfg.frame_shape, seed=seed,
                            orientation=orientation)
     raise ValueError(f"unknown env kind {cfg.kind!r}")
+
+
+def make_envs(cfgs, seeds) -> list[Env]:
+    """Vector-aware ``make_env``: one env per (cfg, seed) row.
+
+    ``cfgs`` is one EnvConfig (replicated across rows) or a per-row
+    sequence (multi-game fleets pass ``env_for_actor`` output per
+    global id). Building rows HERE keeps the per-row seeding discipline
+    identical to the per-process fleet, which is what the bitwise-parity
+    guarantee rides on.
+    """
+    if not isinstance(cfgs, (list, tuple)):
+        cfgs = [cfgs] * len(seeds)
+    if len(cfgs) != len(seeds):
+        raise ValueError(f"{len(cfgs)} env configs vs {len(seeds)} seeds")
+    return [make_env(c, seed=int(s)) for c, s in zip(cfgs, seeds)]
 
 
 class FrameStacker:

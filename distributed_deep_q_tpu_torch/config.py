@@ -146,7 +146,8 @@ class TrainConfig:
     # style model selection; DQN end-of-run policies oscillate)
     keep_best_eval: bool = False
     seed: int = 0
-    # use the fused TD-loss kernel (not ported yet: the port refuses it)
+    # the fused TD loss: hand-written CUDA kernels for its forward and
+    # backward (ops/fused_loss.py) instead of the plain tensor loss
     use_pallas_loss: bool = False
     # batch the online net's s and s' forwards into ONE conv application
     # (Double-DQN only): halves per-step weight reads and doubles conv
@@ -173,7 +174,7 @@ class TrainConfig:
     # documented budget delta and still zero host-comm ops
     learn_metrics: bool = False
     checkpoint_dir: str = ""
-    checkpoint_every: int = 0  # grad steps between Orbax snapshots
+    checkpoint_every: int = 0  # grad steps between checkpoints
     resume: bool = False       # restore newest snapshot before training
     # learner-restart survival (distributed topology): when set, the
     # ReplayFeed server binds actors.port (stable across restarts),

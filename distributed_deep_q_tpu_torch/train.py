@@ -23,11 +23,17 @@ settings, as in the reference:
   or a host ``SequenceReplay``).
 
 Host-sampled prioritized replay gets its priorities back through a
-``DelayedPriorityWriteback``. Configurations outside the port are refused
-with the ROADMAP item that will port them.
+``DelayedPriorityWriteback``. Both loops checkpoint the train state every
+``train.checkpoint_every`` grad steps and at the end
+(``utils/checkpoint.py``), save the replay beside it when
+``replay.persist_path`` is set (``replay/persistence.py``), and restore
+both before the first step on ``train.resume``. Configurations outside the
+port are refused with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -43,6 +49,8 @@ from distributed_deep_q_tpu_torch.replay.device_per import DevicePERFrameReplay
 from distributed_deep_q_tpu_torch.replay.device_ring import DeviceFrameReplay
 from distributed_deep_q_tpu_torch.replay.device_sequence import (
     DeviceSequenceReplay)
+from distributed_deep_q_tpu_torch.replay.persistence import (
+    load_replay, save_replay)
 from distributed_deep_q_tpu_torch.replay.prioritized import (
     make_writeback, maybe_prioritize)
 from distributed_deep_q_tpu_torch.replay.replay_memory import (
@@ -50,6 +58,7 @@ from distributed_deep_q_tpu_torch.replay.replay_memory import (
 from distributed_deep_q_tpu_torch.replay.sequence import (
     SequenceBuilder, SequenceReplay)
 from distributed_deep_q_tpu_torch.solver import FusedStepStream, Solver
+from distributed_deep_q_tpu_torch.utils.checkpoint import maybe_checkpointer
 
 
 def epsilon_at(step: int, cfg) -> float:
@@ -82,17 +91,31 @@ def evaluate(solver: Solver, cfg: Config, episodes: int | None = None,
 
 def check_slice(cfg: Config) -> None:
     """Refuse, by name, the settings this port does not run yet."""
-    refusals = [
-        (bool(cfg.train.checkpoint_dir) or cfg.train.resume,
-         "checkpoints (train.checkpoint_dir/resume; ROADMAP A7)"),
-        (bool(cfg.replay.persist_path),
-         "replay persistence (replay.persist_path; ROADMAP A10)"),
-        (bool(cfg.train.profile_dir) or bool(cfg.train.profile_port),
-         "profiling (train.profile_dir/profile_port; ROADMAP A9)"),
-    ]
-    for refused, what in refusals:
-        if refused:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if cfg.train.profile_dir or cfg.train.profile_port:
+        raise NotImplementedError(
+            "not ported yet: profiling (train.profile_dir/profile_port; "
+            "ROADMAP A9)")
+
+
+def restore_for_resume(cfg: Config, solver, replay):
+    """The resume points both loops share: the newest checkpoint into
+    ``solver`` and the persisted replay into ``replay``, each only on
+    ``train.resume`` and when there is one. Returns (the checkpointer or
+    None, the persist path or "", the grad-step count to continue
+    from)."""
+    gsteps = 0
+    ckpt = maybe_checkpointer(cfg.train)
+    if ckpt and cfg.train.resume and ckpt.latest_step() is not None:
+        # extra (env steps) is read and dropped, as in the reference: the
+        # ε schedule and the actor's RNG restart
+        solver.state, _ = ckpt.restore(solver.state)
+        gsteps = solver.step
+    persist = cfg.replay.persist_path
+    if persist and cfg.train.resume and os.path.exists(persist):
+        # restore the buffer's exact sampling state instead of
+        # warm-refilling
+        load_replay(replay, persist)
+    return ckpt, persist, gsteps
 
 
 def make_replay(cfg: Config, env, device: torch.device):
@@ -119,10 +142,10 @@ def make_replay(cfg: Config, env, device: torch.device):
 def train_single_process(cfg: Config, metrics: Metrics | None = None,
                          log_every: int = 1_000) -> dict:
     """Run the in-process loop; returns final summary metrics (and the
-    solver under ``"solver"``)."""
-    check_slice(cfg)
+    solver and the replay under ``"solver"`` and ``"replay"``)."""
     if cfg.net.kind == "r2d2":
         return train_recurrent(cfg, metrics, log_every)
+    check_slice(cfg)
     metrics = metrics or Metrics()
     env = make_env(cfg.env, seed=cfg.train.seed)
     cfg.net.num_actions = env.num_actions
@@ -144,11 +167,13 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
     writeback = (make_writeback(replay, cfg.replay)
                  if replay.prioritized and not fused_per else None)
     learn_live = False
-    gsteps = 0
     best_eval, best_params = float("-inf"), None
     timer = StepTimer()
     fused_stream = (FusedStepStream(solver, replay, cfg.replay.fused_chain,
                                     timer=timer) if fused_per else None)
+    # a resumed fused run draws the keys an unbroken run would: the key
+    # schedule anchors on the restored step at the first dispatch
+    ckpt, persist, gsteps = restore_for_resume(cfg, solver, replay)
 
     for t in range(1, cfg.train.total_steps + 1):
         eps = epsilon_at(t, cfg.actors)
@@ -209,6 +234,10 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
                     with timer.phase("writeback"):
                         writeback.push(m["index"], m["td_abs"], sampled_at)
                 metrics.count("grad_steps")
+                if ckpt and gsteps % cfg.train.checkpoint_every == 0:
+                    ckpt.save(solver.state, extra={"env_steps": t})
+                    if persist:
+                        save_replay(replay, persist)
                 if gsteps % log_every == 0:
                     timer.measure_device(m["loss"])
                     summary = {
@@ -238,11 +267,19 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
     summary["grad_steps"] = gsteps
     final_ret = evaluate(solver, cfg)
     if best_params is not None and best_eval > final_ret:
-        # model selection: the best-eval snapshot beats the final params
+        # model selection: the best-eval snapshot beats the final params;
+        # restored BEFORE the final checkpoint, so what is on disk is what
+        # eval_return reports
         solver.update(best_params)
         final_ret = evaluate(solver, cfg)
+    if ckpt:
+        ckpt.save(solver.state, extra={"env_steps": cfg.train.total_steps},
+                  wait=True)
+    if persist:
+        save_replay(replay, persist)
     summary["eval_return"] = final_ret
     summary["solver"] = solver
+    summary["replay"] = replay
     if solver.device.type == "cuda":
         torch.cuda.synchronize(solver.device)
     return summary
@@ -278,6 +315,27 @@ def evaluate_recurrent(solver, cfg: Config, episodes: int | None = None,
     return float(np.mean(returns))
 
 
+def make_sequence_replay(cfg: Config, obs_shape: tuple[int, ...], obs_dtype,
+                         device: torch.device):
+    """The sequence replay ``train_recurrent`` builds: a
+    ``DeviceSequenceReplay`` for (stacked) pixels with
+    ``replay.device_resident``, else a host ``SequenceReplay``. Its
+    capacity counts sequences: capacity ÷ sequence_length, at least 64."""
+    seq_len = cfg.replay.sequence_length
+    seq_capacity = max(cfg.replay.capacity // seq_len, 64)
+    per = dict(prioritized=cfg.replay.prioritized,
+               alpha=cfg.replay.priority_alpha,
+               beta0=cfg.replay.priority_beta0,
+               beta_steps=cfg.replay.priority_beta_steps,
+               eps=cfg.replay.priority_eps, seed=cfg.train.seed,
+               use_native=cfg.replay.use_native)
+    if obs_dtype == np.uint8 and cfg.replay.device_resident:
+        return DeviceSequenceReplay(seq_capacity, seq_len, obs_shape, device,
+                                    cfg.net.lstm_size, **per)
+    return SequenceReplay(seq_capacity, seq_len, obs_shape, obs_dtype,
+                          cfg.net.lstm_size, **per)
+
+
 def train_recurrent(cfg: Config, metrics: Metrics | None = None,
                     log_every: int = 1_000) -> dict:
     """R2D2 loop: recurrent actor → ``SequenceBuilder`` → sequence replay →
@@ -288,6 +346,7 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
     ring step, or, with ``replay.device_per`` and ``prioritized``, by the
     chained fused dispatch; otherwise a host ``SequenceReplay`` ships
     whole sequence batches."""
+    check_slice(cfg)
     metrics = metrics or Metrics()
     env = make_env(cfg.env, seed=cfg.train.seed)
     cfg.net.num_actions = env.num_actions
@@ -302,21 +361,8 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
     obs_dtype = np.uint8 if pixel else np.float32
 
     seq_len = cfg.replay.sequence_length
-    seq_capacity = max(cfg.replay.capacity // seq_len, 64)
-    per = dict(prioritized=cfg.replay.prioritized,
-               alpha=cfg.replay.priority_alpha,
-               beta0=cfg.replay.priority_beta0,
-               beta_steps=cfg.replay.priority_beta_steps,
-               eps=cfg.replay.priority_eps, seed=cfg.train.seed,
-               use_native=cfg.replay.use_native)
-    device_seq = pixel and cfg.replay.device_resident
-    if device_seq:
-        replay = DeviceSequenceReplay(seq_capacity, seq_len, obs_shape,
-                                      solver.device, cfg.net.lstm_size,
-                                      **per)
-    else:
-        replay = SequenceReplay(seq_capacity, seq_len, obs_shape, obs_dtype,
-                                cfg.net.lstm_size, **per)
+    replay = make_sequence_replay(cfg, obs_shape, obs_dtype, solver.device)
+    device_seq = isinstance(replay, DeviceSequenceReplay)
     builder = SequenceBuilder(seq_len, cfg.replay.burn_in, obs_shape,
                               obs_dtype, cfg.net.lstm_size, cfg.train.gamma)
     learn_start_seqs = max(cfg.replay.learn_start // seq_len, 2)
@@ -336,7 +382,7 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
     carry = solver.initial_state(1)
     ep_ret, ep_returns = 0.0, MovingAverage(100)
     summary: dict = {}
-    gsteps = 0
+    ckpt, persist, gsteps = restore_for_resume(cfg, solver, replay)
     for t in range(1, cfg.train.total_steps + 1):
         eps = epsilon_at(t, cfg.actors)
         carry_before = carry
@@ -385,6 +431,10 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
                 with timer.phase("writeback"):
                     writeback.push(m["index"], m["td_abs"], sampled_at)
             metrics.count("grad_steps")
+            if ckpt and gsteps % cfg.train.checkpoint_every == 0:
+                ckpt.save(solver.state, extra={"env_steps": t})
+                if persist:
+                    save_replay(replay, persist)
             if gsteps % log_every == 0:
                 timer.measure_device(m["loss"])
                 summary = {
@@ -402,6 +452,13 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
 
     if writeback is not None:
         writeback.drain()
+    if ckpt:
+        ckpt.save(solver.state, extra={"env_steps": cfg.train.total_steps},
+                  wait=True)
+    if persist:
+        # an end-of-run save without checkpointing too, as in the
+        # reference: the buffer must not go stale against the final θ
+        save_replay(replay, persist)
     summary["final_return_avg100"] = ep_returns.value
     summary["grad_steps"] = gsteps
     summary["eval_return"] = evaluate_recurrent(solver, cfg)

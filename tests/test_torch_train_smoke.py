@@ -69,13 +69,27 @@ def test_backend_cuda_raises_without_a_card():
     # r2d2 runs; its learner refuses the settings the port leaves out
     pytest.param("net.kind=r2d2 train.learn_metrics=true",
                  id="net.kind=r2d2"),
-    "train.checkpoint_dir=ckpt", "replay.persist_path=r.npz",
     "train.profile_dir=prof", "mesh.num_processes=2", "mesh.dp=2",
     "train.optimizer=rmsprop", "train.learn_metrics=true"])
 def test_out_of_slice_configs_are_refused(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["train", "--preset", "pong", "--backend", "cpu", "--set",
               *RECIPE, "train.total_steps=10", *override.split()])
+
+
+def test_train_recurrent_checks_the_slice_when_called_directly():
+    """``train_recurrent`` is an entry point of its own (the reference's
+    R2D2 tests call it directly): it refuses what the port leaves out
+    before it builds anything."""
+    from distributed_deep_q_tpu_torch.config import r2d2_config
+    from distributed_deep_q_tpu_torch.train import train_recurrent
+
+    cfg = r2d2_config()
+    cfg.mesh.backend = "cpu"
+    cfg.env.kind, cfg.env.id = "signal_atari", "signal"
+    cfg.train.profile_dir = "prof"
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        train_recurrent(cfg)
 
 
 def test_cli_trains_cartpole_preset_on_cpu():
@@ -148,7 +162,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     have imported jax in this process)."""
     files = sorted((REPO / "distributed_deep_q_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    for module in ("utils/checkpoint.py", "utils/durability.py",
+                   "replay/persistence.py", "actors/game.py", "main.py"):
+        assert f"distributed_deep_q_tpu_torch/{module}" in names, module
     banned = {"jax", "jaxlib", "flax", "optax", "distributed_deep_q_tpu"}
     for f in files:
         assert not (_imported_roots(f) & banned), f
