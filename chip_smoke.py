@@ -56,7 +56,8 @@ Phases (any failure exits non-zero and prints no result line):
    Double DQN, PER α = 0.6): several hundred grad steps through B3/B4;
 6b. the same preset with ``replay.device_resident=false`` (frames in a host
    ``FrameStackReplay``, pixel batches shipped per step), learn_start cut
-   to 5,000, a hundred grad steps;
+   to 5,000, a hundred grad steps; ``train.profile_dir`` set, so the loop's
+   ``TraceWindow`` writes a ``torch.profiler`` trace of its last step;
 7. the r2d2 preset — ``main train --preset r2d2 --backend cuda`` on the
    SignalAtari probe at full width (bf16 Nature torso at 84×84, LSTM 512,
    dueling, batch 64 × 80 steps with 40 of burn-in, an 8.6 GB sequence
@@ -93,11 +94,37 @@ Phases (any failure exits non-zero and prints no result line):
    (``signal-vel-ep`` at stack 1, 16-step sequences, 4 of burn-in) through
    ``train_recurrent`` on the card's device sequence ring:
    ``eval_return`` must reach 16, printed beside the random policy's;
+10. the replay feed — the Pong preset at full width (bf16, 84×84, batch
+   512, device PER, chain 8, the fused loss) with two cuts: the ring to
+   131,072 rows (1.07 GB) in four stream sub-rings, and the depth (4,096
+   rows per feeder; the learner trains 200 grad steps from learn_start
+   8,192 while the rest arrive). Four ``spawn``ed feeder processes (the port's
+   host modules only, no torch) step SignalAtari under a seeded random
+   policy and send 64-row batches through a ``ResilientReplayFeedClient``
+   with ``flush_seq``, pulling θ every 1,000 frames; the last one under a
+   ``ChaosPlan`` that drops some sends and replies. A port
+   ``ReplayFeedServer`` on loopback stages them and its ``IngestDrain``
+   thread flushes them into the card's ring through B2, while this thread
+   takes the server's replay lock around each fused dispatch (B1, B3, B4),
+   calls ``note_consumed`` and publishes θ every 50 grad steps. Tracing on
+   at sample rate 1; a ``TraceWindow`` over 4 dispatches under ingest
+   gives the launches per grad step and the busy share. Checks: every
+   acknowledged row landed exactly once (per actor, the server's env steps
+   = the feeder's acked rows = the stream's rows; duplicates absorbed on
+   the chaos feeder); each stream's frame plane and metadata, bitwise
+   against a CPU ring fed the same frames (regenerated from the seeds);
+   the drain flushed and did not die; all four kernels launched; a
+   snapshot warm-booted into a fresh server and ring gives back every
+   replay key, the dedup map and the θ version; the span export and the
+   trace directory; the θ a feeder pulled has the reference's leaves.
+   Printed: rows/s over the wire, grad steps/s under ingest, the
+   ``add_transitions`` p50/p99, the drain's counters, launches per grad
+   step and the busy share, ``train/mfu``, snapshot save and load seconds;
 9. the ``kernels`` JSON line (each kernel's launches on every path in
    ``launches_by_path``), the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, and 8c)
+Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, 8c and 10)
 sets all kernel launch counters to 0 just before it and reads them just
 after.
 """
@@ -123,8 +150,6 @@ ROWS, ROWB = 1_000_005, 8192       # Pong ring: 1M slots + 4 ghost + scratch
 SLOT_CAP, WINDOW = 1_000_000, 5    # stack 4 + n_step 1
 ITERS, WARMUP = 64, 5
 OUT_DIR = "chip_smoke_out"   # gitignored; the train loop's metrics JSONL
-PORT_KERNELS = ("gather_windows", "scatter_rows", "fused_loss_fwd",
-                "fused_loss_bwd")
 
 
 def log(msg: str) -> None:
@@ -681,48 +706,13 @@ def trace_empty_kernel(torch, launches: int = 64) -> float:
 
 
 def trace_dispatches(torch, solver, replay, chain: int, dispatches: int):
-    """Where a chained grad step's time goes: ``trace_steps`` over
-    ``dispatches`` dispatches of ``chain`` grad steps."""
-    return trace_steps(
-        torch, lambda: solver.train_steps_device_per(replay, chain=chain),
-        dispatches, chain * dispatches)
+    """Where a chained grad step's time goes: ``profiling.launch_census``
+    over ``dispatches`` dispatches of ``chain`` grad steps."""
+    from distributed_deep_q_tpu_torch.profiling import launch_census
 
-
-def trace_steps(torch, run, calls: int, steps: int, top_n: int = 8):
-    """A ``torch.profiler`` window over ``calls`` calls of ``run`` that
-    make ``steps`` grad steps. Device-busy share = the kernels' summed
-    device time over the window's wall time (one stream, so kernels do not
-    overlap); the top kernels by device time, in ms per grad step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
-    # the port's own kernels, by the name of their __global__ function
-    ours = {}
-    for name in PORT_KERNELS:
-        hits = [e for e in kernels if f"{name}_kernel" in e.key]
-        count = sum(e.count for e in hits)
-        if count:
-            ours[name] = {"launches": count, "us_per_launch": sum(
-                e.self_device_time_total for e in hits) / count}
-    return {"wall_ms_per_grad_step": wall_ms / steps,
-            "device_ms_per_grad_step": device_ms / steps,
-            "device_busy_share": device_ms / wall_ms,
-            "kernel_launches_per_grad_step":
-                sum(e.count for e in kernels) / steps,
-            "top_kernels_ms_per_grad_step": [
-                [e.key[:60], e.self_device_time_total / 1e3 / steps]
-                for e in top],
-            "port_kernels": ours}
+    return launch_census(
+        lambda: solver.train_steps_device_per(replay, chain=chain),
+        chain * dispatches, calls=dispatches)
 
 
 def cross_device_check(torch, config, Solver, DevicePERFrameReplay) -> dict:
@@ -835,7 +825,9 @@ def r2d2_ring_step_trace(torch, config, SequenceSolver,
     """Phase 7c, first half: the preset's ring step (host sample, one B1
     launch, the recurrent step) at full width on a filled 8.6 GB ring:
     ms per grad step by the host clock over 10 steps, then a profiler
-    window over 4."""
+    window over 4 (``profiling.launch_census``)."""
+    from distributed_deep_q_tpu_torch.profiling import launch_census
+
     cfg = r2d2_config(config)
     solver = SequenceSolver(cfg)
     rc = cfg.replay
@@ -865,7 +857,7 @@ def r2d2_ring_step_trace(torch, config, SequenceSolver,
     assert math.isfinite(float(m["loss"])) and float(m["loss"]) > 0, m
     torch.cuda.reset_peak_memory_stats()
     out = {"ms_per_grad_step": ms, "loss": float(m["loss"]),
-           "trace": trace_steps(torch, step, 4, 4, top_n=5),
+           "trace": launch_census(step, 4, calls=4, top_n=5),
            "max_memory_allocated_GB":
                torch.cuda.max_memory_allocated() / 1e9}
     del solver, replay
@@ -1355,6 +1347,369 @@ def r2d2_gate(config, counters, modules, make_env) -> dict:
             "random_policy_return": random_ret, "bar": 16.0}
 
 
+# -- phase 10: the replay feed ----------------------------------------------
+
+# The Pong preset at full width (bf16 Nature CNN, 84×84 SignalAtari, batch
+# 512, device PER, chain 8, the fused loss) fed over the v4 wire. Two cuts:
+# the ring to 131,072 rows (1.07 GB, as in phase 8) in four stream
+# sub-rings, and the depth: the learner trains FEED_GRAD_STEPS grad steps
+# from learn_start, while the feeders send the rest of their rows.
+FEED_SET = ["env.kind=signal_atari", "env.id=signal",
+            "replay.capacity=131072", "replay.learn_start=8192",
+            "train.use_pallas_loss=true"]
+FEED_STREAMS, FEED_ROWS, FEED_CHUNK = 4, 4_096, 64   # rows per feeder
+FEED_SEED0, FEED_PULL_EVERY, FEED_PUBLISH_EVERY = 100, 1_000, 50
+FEED_GRAD_STEPS, FEED_DEADLINE_S = 200, 400.0
+# the last feeder's plan: drops sends and replies (a reply lost after its
+# flush landed is resent and deduplicated; at 0.1 per socket operation a
+# feed of 64 flushes loses a reply with probability 1 - 0.9^64 > 0.998)
+FEED_CHAOS = "drop=0.1,seed=7"
+FEED_TRACE_START, FEED_TRACE_DISPATCHES = 2, 4
+# the reference's θ leaves for this net, in ``jax.tree_util.tree_leaves``
+# order (``tests/test_torch_replay_feed.py`` pins the port's get_weights
+# to the reference's on the CPU)
+FEED_THETA_SHAPES = [[4], [512, 4], [32], [8, 8, 4, 32], [64],
+                     [4, 4, 32, 64], [64], [3, 3, 64, 64], [512],
+                     [3136, 512]]
+FEED_SPANS = ("wire_recv", "crc_verify", "wire_decode", "ring_insert",
+              "ingest_drain", "sample", "train_step")
+
+
+def feeder_batches(seed: int, rows: int, chunk: int = FEED_CHUNK):
+    """The pixel batches feeder ``seed`` sends, in order: SignalAtari at
+    84×84 under a seeded random policy, ``chunk`` rows a batch (the frame
+    before each action, the action, reward, done and episode boundary, as
+    the in-process loop adds them), with the episode returns that ended
+    inside each batch. Regenerated from the seed for the CPU check."""
+    from distributed_deep_q_tpu_torch.actors.game import make_env
+    from distributed_deep_q_tpu_torch.config import EnvConfig
+
+    env = make_env(EnvConfig(kind="signal_atari", id="signal"), seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    frame, ep_ret = env.reset(), 0.0
+    for start in range(0, rows, chunk):
+        n = min(chunk, rows - start)
+        b = {"frame": np.empty((n, 84, 84), np.uint8),
+             "action": np.empty(n, np.int32),
+             "reward": np.empty(n, np.float32),
+             "done": np.empty(n, bool), "boundary": np.empty(n, bool)}
+        returns = []
+        for i in range(n):
+            a = int(rng.integers(env.num_actions))
+            nxt, r, done, over = env.step(a)
+            b["frame"][i], b["action"][i], b["reward"][i] = frame, a, r
+            b["done"][i], b["boundary"][i] = done, over
+            ep_ret += r
+            if over:
+                returns.append(ep_ret)
+                frame, ep_ret = env.reset(), 0.0
+            else:
+                frame = nxt
+        yield b, returns
+
+
+def feeder(actor_id: int, host: str, port: int, rows: int, chaos: str,
+           out) -> None:
+    """One feeder process (started with ``spawn``; it imports the port's
+    host modules only, never torch): ``feeder_batches`` through a
+    ``ResilientReplayFeedClient`` (``flush_seq`` on every flush), θ pulled
+    every ``FEED_PULL_EVERY`` frames. Puts its result (or its traceback)
+    on ``out``."""
+    try:
+        from distributed_deep_q_tpu_torch.rpc import faultinject
+        from distributed_deep_q_tpu_torch.rpc.resilience import (
+            ResilientReplayFeedClient)
+
+        plan = faultinject.install(chaos) if chaos else None
+        client = ResilientReplayFeedClient.connect(
+            host, port, actor_id=actor_id, seed=actor_id)
+        acked, version, pulls, shapes, next_pull = 0, 0, [], None, 0
+        t0 = time.perf_counter()
+        for batch, returns in feeder_batches(FEED_SEED0 + actor_id, rows):
+            if acked >= next_pull:
+                v, w = client.get_params(have_version=version)
+                if w is not None:
+                    version = v
+                    shapes = [list(x.shape) for x in w]
+                pulls.append(v)
+                next_pull += FEED_PULL_EVERY
+            r = client.add_transitions(
+                **batch, episodes=len(returns),
+                ep_returns=np.asarray(returns, np.float32))
+            if not r.get("ok"):
+                raise RuntimeError(f"flush refused: {r}")
+            acked += len(batch["action"])
+        wall = time.perf_counter() - t0
+        client.close()
+        out.put({"actor": actor_id, "acked": acked, "wall_s": wall,
+                 "sheds": client.sheds, "retries": client.retries,
+                 "pulls": pulls, "theta_version": version,
+                 "theta_shapes": shapes,
+                 "chaos": dict(plan.counters) if plan else {}})
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        out.put({"actor": actor_id, "error": traceback.format_exc()})
+
+
+def stream_diffs(torch, card, cpu) -> list[str]:
+    """Per stream (stream i owns slot i), the planes where the card's ring
+    and the CPU ring differ: the padded frame rows of the slot (ghost rows
+    included, the scratch row not), the device metadata rows, the host
+    slot's metadata and the cursors/sizes. Priorities are left out: they
+    depend on how the learner interleaved."""
+    out = []
+    frames = card.dstate["frames"].cpu()
+    rowp, pad, cap = card.rowp, card.slot_pad, card.slot_cap
+    for g in range(card.num_slots):
+        lo, hi = g * pad * rowp, (g + 1) * pad * rowp
+        if not torch.equal(frames[lo:hi], cpu.dstate["frames"][lo:hi]):
+            out.append(f"stream{g}/frames")
+        for k in ("action", "reward", "done", "boundary"):
+            a = card.dstate[k][g * cap:(g + 1) * cap].cpu()
+            if not torch.equal(a, cpu.dstate[k][g * cap:(g + 1) * cap]):
+                out.append(f"stream{g}/{k}")
+            if not np.array_equal(getattr(card.slots[g], k),
+                                  getattr(cpu.slots[g], k)):
+                out.append(f"stream{g}/host_{k}")
+    for a, b in zip(card.device_inputs(), cpu.device_inputs()):
+        if not np.array_equal(a, b):
+            out.append("cursors_sizes")
+    return out
+
+
+def replay_feed(torch, config, counters, modules) -> dict:
+    """Phase 10: four spawned feeders send pixel batches over the v4 wire
+    to a ``ReplayFeedServer`` whose ``IngestDrain`` flushes them into the
+    card's ring (B2), while this thread trains from the ring (B1, B3, B4)
+    under the server's replay lock; then the checks of the module
+    docstring."""
+    import multiprocessing as mp
+
+    (Solver, DevicePERFrameReplay, rs, tracing, profiling,
+     persistence) = modules
+    cfg = config.pong_config()
+    cfg.mesh.backend = "cuda"
+    config.apply_overrides(cfg, FEED_SET)
+    cfg.net.num_actions = 4
+    solver = Solver(cfg)
+    rc = cfg.replay
+
+    def ring(device):
+        return DevicePERFrameReplay(rc, device, (84, 84), cfg.env.stack,
+                                    cfg.train.gamma, seed=cfg.train.seed,
+                                    write_chunk=rc.write_chunk,
+                                    num_streams=FEED_STREAMS)
+
+    replay = ring(solver.device)
+    trace_dir = os.path.join(OUT_DIR, "feed_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    tracing.configure(enabled=True, sample_rate=1.0, lineage_rate=0.05,
+                      export_dir=os.path.join(OUT_DIR, "feed_spans"))
+    server = rs.ReplayFeedServer(replay)    # starts the drain on this stream
+    assert server._drain is not None, "the server started no ingest drain"
+    server.publish_params(solver.get_weights())
+    # FLOPs per grad step and the card's peak, before the counted path
+    flops = profiling.fused_train_flops(solver, replay)
+    peak = profiling.peak_flops_for(solver.device)
+    meter = profiling.MFUMeter(flops, peak)
+    window = profiling.TraceWindow(trace_dir, FEED_TRACE_START,
+                                   FEED_TRACE_DISPATCHES)
+    chain = rc.fused_chain
+    host, port = server.address
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(
+        target=feeder, args=(i, host, port, FEED_ROWS,
+                             FEED_CHAOS if i == FEED_STREAMS - 1 else "", q),
+        daemon=True) for i in range(FEED_STREAMS)]
+    results: dict[int, dict] = {}
+
+    def collect(block: bool) -> None:
+        while len(results) < len(procs):
+            try:
+                r = q.get(timeout=1.0 if block else 0.0)
+            except Exception:  # noqa: BLE001 — queue.Empty
+                if not block:
+                    return
+                if not any(p.is_alive() for p in procs):
+                    raise RuntimeError("a feeder exited without a result")
+                continue
+            if "error" in r:
+                raise RuntimeError(f"feeder {r['actor']}:\n{r['error']}")
+            results[r["actor"]] = r
+
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        while True:                       # the learn gate
+            with server.replay_lock:
+                ready = replay.ready(rc.learn_start)
+            if ready:
+                break
+            collect(block=False)
+            if time.perf_counter() - t0 > FEED_DEADLINE_S:
+                raise RuntimeError("the ring never reached learn_start")
+            time.sleep(0.01)
+        t_learn = time.perf_counter()
+        meter.update(0, t=t_learn)
+        gsteps = dispatches = published = 0
+        window_rows = None
+        with server.replay_lock:
+            rows_at_learn = replay.steps_added
+        while gsteps < FEED_GRAD_STEPS:
+            with server.replay_lock:
+                solver.train_steps_device_per(replay, chain=chain)
+                if dispatches + 1 == FEED_TRACE_START:
+                    window_rows = [replay.steps_added]
+                if dispatches + 1 == FEED_TRACE_START + FEED_TRACE_DISPATCHES:
+                    window_rows.append(replay.steps_added)
+            server.note_consumed(chain * rc.batch_size)
+            gsteps += chain
+            dispatches += 1
+            window.on_step(dispatches)
+            if gsteps // FEED_PUBLISH_EVERY > published:
+                published = gsteps // FEED_PUBLISH_EVERY
+                server.publish_params(solver.get_weights())
+            if time.perf_counter() - t0 > FEED_DEADLINE_S:
+                raise RuntimeError("the replay feed phase ran out of time")
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        with server.replay_lock:
+            rows_while_learning = replay.steps_added - rows_at_learn
+        window.close()
+        collect(block=True)
+        for p in procs:
+            p.join(timeout=60)
+        assert not any(p.is_alive() for p in procs), "a feeder did not exit"
+        mfu = meter.update(gsteps, t=t_end)
+        drain_counters = server._drain.counters()   # raises if it died
+        summary = server.telemetry_summary()
+        ids, steps = server.telemetry.per_actor_env_steps()
+        robust = server.telemetry.robustness_counters()
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        server.close()     # stop_drain: one last flush, or its death
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in counters.items()}
+    span_path = tracing.export()
+    tracing.disable()
+    with open(span_path) as f:
+        span_names = {e["name"] for e in json.load(f)["traceEvents"]}
+
+    acked = {r["actor"]: r["acked"] for r in results.values()}
+    census = window.census(chain * FEED_TRACE_DISPATCHES)
+    out = {
+        "feeders": [results[i] for i in sorted(results)],
+        "grad_steps": gsteps, "dispatches": dispatches,
+        "wall_s": wall,
+        "rows_per_s_over_wire": sum(acked.values()) / max(
+            r["wall_s"] for r in results.values()),
+        "grad_steps_per_s_under_ingest": gsteps / (t_end - t_learn),
+        "rows_ingested_while_learning": rows_while_learning,
+        "add_transitions_ms_p50": summary.get("rpc/add_transitions_ms_p50"),
+        "add_transitions_ms_p99": summary.get("rpc/add_transitions_ms_p99"),
+        "drain": drain_counters,
+        "server_env_steps_by_actor": dict(zip(ids.tolist(), steps.tolist())),
+        "robustness": robust,
+        "launches": launches,
+        "launches_per_grad_step_in_window":
+            census["kernel_launches_per_grad_step"],
+        "device_busy_share_in_window": census["device_busy_share"],
+        "window": {k: census[k] for k in (
+            "wall_ms_per_grad_step", "device_ms_per_grad_step",
+            "top_kernels_ms_per_grad_step", "port_kernels")},
+        "rows_ingested_in_window": (window_rows[1] - window_rows[0]
+                                    if window_rows and len(window_rows) == 2
+                                    else 0),
+        "trace_files": sorted(os.listdir(trace_dir))
+        if os.path.isdir(trace_dir) else [],
+        "spans_missing": sorted(set(FEED_SPANS) - span_names),
+        "train/mfu": mfu.get("train/mfu"), "train/steps_per_s":
+            mfu.get("train/steps_per_s"),
+        "fused_train_flops": flops, "peak_flops": peak,
+        "slot_steps_added": [m.steps_added for m in replay.slots],
+    }
+    out["exact_once"] = all(
+        out["server_env_steps_by_actor"].get(i) == acked[i]
+        == replay.slots[i].steps_added for i in range(FEED_STREAMS))
+
+    # the snapshot, taken after the feeders stopped, and its warm boot
+    snap = os.path.join(OUT_DIR, "feed_snapshot")
+    shutil.rmtree(snap, ignore_errors=True)
+    t_s = time.perf_counter()
+    server.snapshot(snap)
+    out["snapshot_save_s"] = time.perf_counter() - t_s
+    want = persistence.replay_state(replay)
+    dedup, version = dict(server._flush_seq), server._published_version()
+    env_steps = server.counters()["env_steps"]
+
+    # each stream against a CPU ring of the same geometry fed the same
+    # per-stream frames, regenerated from the feeders' seeds
+    cpu = ring(torch.device("cpu"))
+    for i in range(FEED_STREAMS):
+        for batch, _ in feeder_batches(FEED_SEED0 + i, FEED_ROWS):
+            cpu.add_batch(batch, stream=i)
+    cpu.flush()
+    out["stream_diffs"] = stream_diffs(torch, replay, cpu)
+    del cpu
+    del replay
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fresh = ring(solver.device)
+    t_l = time.perf_counter()
+    booted = rs.ReplayFeedServer(fresh, snapshot_path=snap)
+    torch.cuda.synchronize()
+    out["snapshot_load_s"] = time.perf_counter() - t_l
+    try:
+        out["warm_boot"] = {
+            "replay_diffs": replay_state_diffs(persistence, want, fresh),
+            "dedup_equal": booted._flush_seq == dedup,
+            "theta_version": [booted._published_version(), version],
+            "env_steps": [booted.counters()["env_steps"], env_steps]}
+    finally:
+        booted.close()
+    del want, fresh
+    shutil.rmtree(snap, ignore_errors=True)
+    return out
+
+
+def check_replay_feed(out: dict) -> None:
+    """Phase 10's checks (each failure raises)."""
+    feeders = out["feeders"]
+    assert len(feeders) == FEED_STREAMS, feeders
+    assert out["exact_once"], (out["server_env_steps_by_actor"],
+                               out["slot_steps_added"], feeders)
+    chaos = feeders[-1]
+    assert chaos["retries"] > 0 and out["robustness"][
+        "duplicate_flushes"] > 0, (chaos, out["robustness"])
+    assert not out["stream_diffs"], out["stream_diffs"]
+    d = out["drain"]
+    assert d["flushes"] >= 1 and d["rows"] > 0, d
+    for name in ("gather_windows", "scatter_rows", "fused_loss_fwd",
+                 "fused_loss_bwd"):
+        assert out["launches"][name] > 0, out["launches"]
+    assert out["launches"]["gather_windows"] == out["dispatches"]
+    assert out["launches"]["fused_loss_fwd"] >= out["grad_steps"]
+    wb = out["warm_boot"]
+    assert not wb["replay_diffs"], wb
+    assert wb["dedup_equal"], wb
+    assert wb["theta_version"][0] == wb["theta_version"][1] > 1, wb
+    assert wb["env_steps"][0] == wb["env_steps"][1], wb
+    assert not out["spans_missing"], out["spans_missing"]
+    assert out["trace_files"], "the TraceWindow wrote no trace"
+    assert out["rows_ingested_in_window"] > 0, \
+        "no row arrived while the trace window ran"
+    for f in feeders:
+        assert f["theta_shapes"] == FEED_THETA_SHAPES, f["theta_shapes"]
+        assert f["theta_version"] >= 1, f
+
+
 def check_path(summary: dict, grad_steps: int) -> None:
     for key in ("loss", "q_mean", "grad_steps_per_s", "env_steps_per_s",
                 "eval_return"):
@@ -1373,6 +1728,7 @@ def main() -> int:
     try:
         from distributed_deep_q_tpu_torch import config
         from distributed_deep_q_tpu_torch import metrics as metrics_mod
+        from distributed_deep_q_tpu_torch import profiling, tracing
         from distributed_deep_q_tpu_torch import train as train_mod
         from distributed_deep_q_tpu_torch.actors.game import make_env
         from distributed_deep_q_tpu_torch.main import main as cli_main
@@ -1389,6 +1745,7 @@ def main() -> int:
         from distributed_deep_q_tpu_torch.replay import persistence
         from distributed_deep_q_tpu_torch.replay.device_sequence import (
             DeviceSequenceReplay)
+        from distributed_deep_q_tpu_torch.rpc import replay_server
         from distributed_deep_q_tpu_torch.solver import Solver
         from distributed_deep_q_tpu_torch.utils import checkpoint
     except ImportError as e:
@@ -1500,19 +1857,28 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6b. Breakout with frames in a host FrameStackReplay --------------------
+    # train.profile_dir through the CLI on the card: a torch.profiler trace
+    # of the last grad step (step 101, after the last metrics record)
+    profile_dir = os.path.join(OUT_DIR, "profile_6b")
+    shutil.rmtree(profile_dir, ignore_errors=True)
     h_summary, h_launches, h_record = run_cli(
         cli_main, counters,
         BREAKOUT_ARGV[:-1] + ["train.total_steps=5400",
                               "replay.learn_start=5000",
-                              "replay.device_resident=false"],
+                              "replay.device_resident=false",
+                              f"train.profile_dir={profile_dir}",
+                              "train.profile_start_step=101",
+                              "train.profile_num_steps=5"],
         "chip_smoke_breakout_host.jsonl")
     log(f"[6b] breakout host FrameStackReplay summary: "
         f"{json.dumps(h_summary)}")
     log(f"[6b] last metrics record (100 grad steps): {json.dumps(h_record)}")
-    log(f"[6b] launches: {json.dumps(h_launches)}")
+    log(f"[6b] launches: {json.dumps(h_launches)}; train.profile_dir "
+        f"trace: {os.listdir(profile_dir)}")
     check_path(h_summary, 101)
     for name in ("fused_loss_fwd", "fused_loss_bwd"):
         assert h_launches[name] >= h_summary["grad_steps"], h_launches
+    assert os.listdir(profile_dir), "train.profile_dir wrote no trace"
 
     torch.cuda.empty_cache()
 
@@ -1586,6 +1952,32 @@ def main() -> int:
     assert g_sum["eval_return"] >= gate["bar"], (
         f"r2d2 motion gate: eval_return {g_sum['eval_return']} < "
         f"{gate['bar']} (random {gate['random_policy_return']})")
+
+    # -- 10. the replay feed: feeders over the wire, the drain, the learner --
+    gc.collect()
+    torch.cuda.empty_cache()
+    feed = replay_feed(torch, config, counters, (
+        Solver, DevicePERFrameReplay, replay_server, tracing, profiling,
+        persistence))
+    log(f"[10] replay feed: {json.dumps(feed)}")
+    log(f"[10] rows/s over the wire {feed['rows_per_s_over_wire']}; grad "
+        f"steps/s under ingest (host clock) "
+        f"{feed['grad_steps_per_s_under_ingest']} over "
+        f"{feed['grad_steps']} grad steps; add_transitions p50 "
+        f"{feed['add_transitions_ms_p50']} ms, p99 "
+        f"{feed['add_transitions_ms_p99']} ms")
+    log(f"[10] drain {json.dumps(feed['drain'])}; launches per grad step "
+        f"{feed['launches_per_grad_step_in_window']}, device busy share "
+        f"{feed['device_busy_share_in_window']} (trace window of "
+        f"{FEED_TRACE_DISPATCHES} dispatches, "
+        f"{feed['rows_ingested_in_window']} rows ingested in it)")
+    log(f"[10] train/mfu {feed['train/mfu']} (fused_train_flops "
+        f"{feed['fused_train_flops']} per grad step, peak "
+        f"{feed['peak_flops']}); snapshot save {feed['snapshot_save_s']} s, "
+        f"warm boot {feed['snapshot_load_s']} s")
+    check_replay_feed(feed)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 9. result lines ------------------------------------------------------
     src = "distributed_deep_q_tpu_torch/csrc/ring_gather.cu"
@@ -1684,7 +2076,8 @@ def main() -> int:
                "8 pong resumed": p_resume["launches"][1],
                "8b r2d2 train": r_resume["launches"][0],
                "8b r2d2 resumed": r_resume["launches"][1],
-               "8c r2d2 motion gate": gate["launches"]}
+               "8c r2d2 motion gate": gate["launches"],
+               "10 feed": feed["launches"]}
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}

@@ -186,8 +186,10 @@ class TrainConfig:
     # newest N checksummed generations; restore walks newest→oldest past
     # any torn/corrupt one (quarantined, not fatal)
     snapshot_keep: int = 3
-    # profiling (SURVEY §5.1): jax.profiler trace of a step window, and an
-    # optional live profiler server port (0 = off)
+    # profiling (SURVEY §5.1): a torch.profiler trace of a step window
+    # (profiling.TraceWindow); the live profiler server port (0 = off) is
+    # the reference's jax.profiler server, which torch has no counterpart
+    # of: the port refuses it
     profile_dir: str = ""
     profile_start_step: int = 100
     profile_num_steps: int = 20
@@ -328,8 +330,7 @@ class MeshConfig:
 
 @dataclass
 class TraceConfig:
-    """Distributed tracing plane (reference package's ``tracing.py``; not
-    ported yet).
+    """Distributed tracing plane (``tracing.py``).
 
     Off by default; when off the tracer costs a single module-flag branch
     per instrumented site. Context piggybacks on existing wire frames as
@@ -352,7 +353,7 @@ class TraceConfig:
 
 @dataclass
 class HealthConfig:
-    """Health plane (reference package's ``health.py``; not ported yet).
+    """Health plane (``health.py``).
 
     Off by default; when off every monitor entry point is a single
     module-flag branch returning preallocated constants. When on, each

@@ -29,6 +29,8 @@ _tried = False
 
 _c_double_p = ctypes.POINTER(ctypes.c_double)
 _c_int64_p = ctypes.POINTER(ctypes.c_int64)
+_c_u8p = ctypes.POINTER(ctypes.c_uint8)
+_c_u8pp = ctypes.POINTER(_c_u8p)
 
 
 def _library_path() -> Path:
@@ -73,6 +75,12 @@ def load() -> ctypes.CDLL | None:
             _c_double_p, ctypes.c_int64, _c_double_p, _c_int64_p,
             ctypes.c_int64]
         lib.st_sample_stratified.restype = None
+        lib.staged_append.argtypes = [
+            _c_u8pp, _c_u8pp, _c_int64_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64]
+        lib.staged_append.restype = ctypes.c_int64
+        lib.crc32c.argtypes = [ctypes.c_uint32, _c_u8p, ctypes.c_int64]
+        lib.crc32c.restype = ctypes.c_uint32
         _lib = lib
         return _lib
 
@@ -83,3 +91,14 @@ def as_double_p(a) -> _c_double_p:
 
 def as_int64_p(a) -> _c_int64_p:
     return a.ctypes.data_as(_c_int64_p)
+
+
+def as_uint8_p(a) -> _c_u8p:
+    return a.ctypes.data_as(_c_u8p)
+
+
+def uint8_pp(ptrs) -> _c_u8pp:
+    """Pack c_uint8 pointers into the pointer-array argument
+    ``staged_append`` takes for its dst/src column tables."""
+    arr = (_c_u8p * len(ptrs))(*ptrs)
+    return ctypes.cast(arr, _c_u8pp)

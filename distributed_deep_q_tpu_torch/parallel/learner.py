@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from distributed_deep_q_tpu_torch import tracing
 from distributed_deep_q_tpu_torch.config import TrainConfig
 from distributed_deep_q_tpu_torch.ops.fused_loss import FusedDqnLoss
 from distributed_deep_q_tpu_torch.ops.losses import bellman_targets, dqn_loss
@@ -227,9 +228,11 @@ class Learner:
     def train_step(self, state: TrainState, batch: dict[str, Any]):
         """One gradient step on a host batch (numpy ``obs``, ``action``,
         ``reward``, ``next_obs``, ``discount``, ``weight``; pixel ``obs`` in
-        the reference's ``[B, H, W, stack]``). Returns (metrics, |TD|)."""
-        return self._step_core(state, self._to_device(batch),
-                               forward="forward")
+        the reference's ``[B, H, W, stack]``). Returns (metrics, |TD|).
+        The ``train_step`` span times the host's enqueue, not the device."""
+        with tracing.span("train_step"):
+            return self._step_core(state, self._to_device(batch),
+                                   forward="forward")
 
     def train_step_from_ring(self, state: TrainState, ring: torch.Tensor,
                              batch: dict[str, Any],
@@ -263,11 +266,22 @@ class Learner:
 
         Updates ``state`` and ``rows["prio"]`` in place. Returns (new
         running max priority, metrics stacked over ``[chain]``)."""
-        (slot_cap, slot_pad, rowb, row_len, stack, n_step, gamma,
-         frame_shape, per_shard, alpha, eps, num_shards) = spec
-        chain = betas.shape[0]
-        metas, win, idxs, _ = fused_sample(rows, cursors, sizes, betas, u,
-                                           spec)
+        # the spans time the host's enqueue of the sample stage and of the
+        # train stage, not device execution (nothing here synchronizes)
+        with tracing.span("sample"):
+            metas, win, idxs, _ = fused_sample(rows, cursors, sizes, betas,
+                                               u, spec)
+        with tracing.span("train_step"):
+            return self._train_chain(state, rows, metas, win, idxs, spec)
+
+    def _train_chain(self, state: TrainState, rows: dict[str, torch.Tensor],
+                     metas: dict[str, torch.Tensor], win: torch.Tensor,
+                     idxs: torch.Tensor, spec: tuple):
+        """The train stage of a fused dispatch: ``len(idxs)`` optimizer
+        steps and priority scatters, in order."""
+        (_, _, rowb, row_len, stack, n_step, _, frame_shape, per_shard,
+         alpha, eps, _) = spec
+        chain = idxs.shape[0]
         # unpack int32 → pixel bytes, drop the row padding: [chain, B, w,
         # H·W] uint8, already the nets' NCHW order along (window, pixels)
         pix = win.view(torch.uint8).view(chain, per_shard, stack + n_step,

@@ -366,6 +366,26 @@ class DevicePERFrameReplay(DeviceFrameReplay):
             st[name][midx] = to_device(col[0][ok], dev)
         st["prio"][midx] = new_p
 
+    def reset_stream(self, stream: int) -> None:
+        """Seal the stream's current slot on the host AND on the device: the
+        fused sampler reads the device boundary ring, so a host-only seal
+        would let sampled windows straddle the dead writer's seam. Staged
+        rows flush first: they carry their pre-seal boundary values, and a
+        later flush would scatter them over the seal."""
+        if not (0 <= stream < self.num_streams):
+            return
+        self.flush()
+        cycle = self._slot_cycle[stream]
+        slot = cycle[self._stream_pos[stream] % len(cycle)]
+        m = self.slots[slot]
+        super().reset_stream(stream)
+        if len(m) == 0:
+            return
+        _, base = self._slot_base(slot)
+        row = base + (m._cursor - 1) % self.slot_cap
+        with self._writer_stream():
+            self.dstate["boundary"][row] = 1
+
     # -- learner-side inputs -------------------------------------------------
 
     def next_betas(self, k: int) -> np.ndarray:

@@ -21,15 +21,33 @@ so D = 1 (one shard); the bookkeeping stays generic over slots.
 
 ``DevicePERFrameReplay`` (``replay/device_per.py``) replaces the ring, its
 writer and the sampler with the fused device-PER ones.
+
+Host staging has two interchangeable backends, as in the reference: the
+columnar ``ColumnStage`` (default) and the legacy per-shard FIFO of array
+tuples behind ``replay.staging_columnar=false``, which the columnar one is
+pinned bit for bit against. Either is drained by ``flush``: inline when a
+writer crosses a chunk boundary, or by a background ``IngestDrain`` thread
+once ``start_drain`` attached one (the replay server does).
+
+**Streams.** Every device write of a ring (flushes and seals) is enqueued
+on one CUDA stream: the stream current on the thread that called
+``start_drain``, which must be the learner's. Writers (the server's serve
+threads, the drain thread) and the learner hold the replay lock while they
+enqueue, so their work reaches that one stream in the order in which they
+took the lock, and no sample can overtake the flush it depends on.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from distributed_deep_q_tpu_torch import tracing
 from distributed_deep_q_tpu_torch.config import ReplayConfig
-from distributed_deep_q_tpu_torch.replay.columnar import ColumnStage
+from distributed_deep_q_tpu_torch.replay.columnar import (
+    ColumnStage, IngestDrain)
 from distributed_deep_q_tpu_torch.replay.prioritized import (
     SumTree, allocate_proportional, beta_at, filter_stale,
     sample_valid_from_tree)
@@ -38,7 +56,10 @@ from distributed_deep_q_tpu_torch.replay.replay_memory import FrameStackReplay
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array → device tensor. On the card the copy goes through pinned
-    memory and does not block the host behind queued device work."""
+    memory and does not block the host behind queued device work: the
+    array is copied into a fresh pinned block first, so the caller may
+    reuse it at once, and PyTorch's pinned allocator hands that block out
+    again only after the copy that reads it has run."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
@@ -79,10 +100,6 @@ class DeviceFrameReplay:
         write_chunk: int = 64,
         num_streams: int = 1,
     ):
-        if not getattr(cfg, "staging_columnar", True):
-            raise NotImplementedError(
-                "replay.staging_columnar=false (the legacy staging FIFO) is "
-                "not ported (ROADMAP A10)")
         self.device = torch.device(device)
         d = self.num_shards = 1          # one device, one shard
         self.local_shards = [0]
@@ -126,14 +143,21 @@ class DeviceFrameReplay:
         self._row_len = int(np.prod(self.frame_shape))
         self._alloc_ring()
 
-        # host staging: one ColumnStage per shard; _stage_columns describes
-        # the staged payload columns' (tail shape, dtype) — subclasses widen
-        # it with metadata columns
+        # host staging: _stage_columns describes the staged payload
+        # columns' (tail shape, dtype) — subclasses widen it with metadata
+        # columns. Columnar: one ColumnStage per shard; legacy: a FIFO of
+        # (in-shard offsets, *columns) tuples per shard
         self._stage_columns: list[tuple[tuple[int, ...], type]] = [
             ((self._row_len,), np.uint8)]
+        self._columnar = bool(getattr(cfg, "staging_columnar", True))
         self._staging_depth = int(getattr(cfg, "staging_depth", 4096))
         self._stages: list | None = None  # built lazily: subclasses widen
+        self._pending: list[list[tuple]] = [[] for _ in range(d)]
         self._pending_rows = [0] * d
+        self._drain: IngestDrain | None = None   # start_drain attaches one
+        self._drain_enabled = bool(getattr(cfg, "ingest_drain", True))
+        self._drain_min = int(getattr(cfg, "drain_min_rows", 0))
+        self._stream = None   # the learner's CUDA stream, from start_drain
 
     def _alloc_ring(self) -> None:
         """The device frame plane: ``[capacity, H·W]`` uint8, one flattened
@@ -167,6 +191,13 @@ class DeviceFrameReplay:
         """Rows staged but not yet flushed to the device."""
         return sum(self._pending_rows)
 
+    def _staged_rows(self) -> int:
+        """Rows still in staging: the ``IngestDrain``'s backlog. The same
+        as ``pending_rows`` on one device, where no flush plane is
+        assembled ahead of its dispatch (the reference's multi-host
+        ``prepare_rounds``, ROADMAP A14)."""
+        return sum(self._pending_rows)
+
     @property
     def steps_added(self) -> int:
         return sum(m.steps_added for m in self.slots)
@@ -198,15 +229,25 @@ class DeviceFrameReplay:
 
     def _stage_rows(self, shard: int, idx: np.ndarray, cols: tuple) -> None:
         """Append one staged segment (in-shard offsets + payload columns)
-        to the shard's column stage."""
-        if self._stages is None:
-            self._stages = [None] * self.num_shards
-        st = self._stages[shard]
-        if st is None:
-            st = self._stages[shard] = ColumnStage(
-                [((), np.int32)] + list(self._stage_columns),
-                depth=self._staging_depth)
-        st.append(idx, *cols)
+        to the shard's staging backend. Columnar: one memcpy per column
+        into the preallocated stage (``staged_append``); legacy: FIFO of
+        array tuples. Callers hold the replay lock."""
+        if self._columnar:
+            if self._stages is None:
+                self._stages = [None] * self.num_shards
+            st = self._stages[shard]
+            if st is None:
+                st = self._stages[shard] = ColumnStage(
+                    [((), np.int32)] + list(self._stage_columns),
+                    depth=self._staging_depth,
+                    use_native=self._cfg.use_native)
+            with tracing.span("staged_append"):
+                st.append(idx, *cols)
+        else:
+            # copies, as the columnar stage's memcpy is: a caller may reuse
+            # its frame buffer before the flush
+            self._pending[shard].append(
+                (idx,) + tuple(np.array(c) for c in cols))
         self._pending_rows[shard] += len(idx)
 
     def _stage(self, slot: int, local: np.ndarray, frames: np.ndarray) -> None:
@@ -229,7 +270,7 @@ class DeviceFrameReplay:
         if done if boundary is None else boundary:
             # episode finished → move this stream to its next slot
             self._stream_pos[0] += 1
-        self._flush_if_full()
+        self._flush_or_notify()
         return int(self._global_index(slot, np.asarray(i)))
 
     def add_batch(self, batch, stream: int = 0) -> np.ndarray:
@@ -266,13 +307,66 @@ class DeviceFrameReplay:
             if boundary[s1 - 1]:
                 self._stream_pos[stream] += 1
             s0 = s1
-        self._flush_if_full()
+        self._flush_or_notify()
         return out
 
-    def _flush_if_full(self) -> None:
-        """Chunk-boundary flush gate."""
-        if max(self._pending_rows) >= self.write_chunk:
+    def _flush_or_notify(self) -> None:
+        """Chunk-boundary flush gate. With an ``IngestDrain`` attached the
+        writer only nudges the drain thread (the flush happens there, off
+        the writer's lock hold); otherwise the flush runs here."""
+        if max(self._pending_rows) < self.write_chunk:
+            return
+        if self._drain is not None:
+            self._drain.notify()
+        else:
             self.flush()
+
+    def start_drain(self, lock, min_rows: int | None = None):
+        """Attach a background staging→device drain thread sharing
+        ``lock`` (the caller's replay lock: mutual exclusion with writers
+        and the sampler is unchanged). Returns the drain, or None when
+        ``replay.ingest_drain`` is off. The drain waits for
+        ``min_rows`` staged rows (default: the larger of a write chunk
+        and ``replay.drain_min_rows``).
+
+        Call it from the learner's thread: on the card, the stream current
+        there becomes the stream every device write of this ring is
+        enqueued on (see the module docstring)."""
+        if self._drain is not None:
+            return self._drain
+        if not self._drain_enabled:
+            return None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.current_stream(self.device)
+        min_r = min_rows or max(self.write_chunk, self._drain_min)
+        self._drain = IngestDrain(self, lock, min_r)
+        return self._drain
+
+    def stop_drain(self) -> None:
+        """Stop the drain thread after one last flush; re-raises a death
+        the thread recorded."""
+        drain, self._drain = self._drain, None
+        if drain is not None:
+            drain.close()
+
+    def _writer_stream(self):
+        """The context every device write of the ring runs in: the
+        learner's stream once ``start_drain`` recorded it."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def reset_stream(self, stream: int) -> None:
+        """Seal the stream's current slot at a writer identity change (an
+        actor restart reusing the stream id): the slot's last written row
+        gets a truncation boundary, so no sampled stack or n-step window
+        straddles the dead actor's half-episode and the replacement's
+        first episode."""
+        if not (0 <= stream < self.num_streams):
+            return
+        cycle = self._slot_cycle[stream]
+        slot = cycle[self._stream_pos[stream] % len(cycle)]
+        self.slots[slot].seal_stream()
 
     def _assemble_round(self) -> tuple[np.ndarray, list, int]:
         """Build ONE padded write round from staging: ``write_chunk`` lanes
@@ -286,19 +380,38 @@ class DeviceFrameReplay:
                 for tail, dt in self._stage_columns]
         rows = 0
         for li, s in enumerate(shards):
-            st = self._stages[s] if self._stages is not None else None
-            if st is not None:
-                taken = st.take(k, [idx] + cols, li)
-                self._pending_rows[s] -= taken
-                rows += taken
+            if self._columnar:
+                st = self._stages[s] if self._stages is not None else None
+                if st is not None:
+                    taken = st.take(k, [idx] + cols, li)
+                    self._pending_rows[s] -= taken
+                    rows += taken
+                continue
+            fill = 0
+            while self._pending[s] and fill < k:
+                entry = self._pending[s][0]
+                i_arr = entry[0]
+                take = min(len(i_arr), k - fill)
+                idx[li, fill:fill + take] = i_arr[:take]
+                for col, arr in zip(cols, entry[1:]):
+                    col[li, fill:fill + take] = arr[:take]
+                fill += take
+                self._pending_rows[s] -= take
+                rows += take
+                if take == len(i_arr):
+                    self._pending[s].pop(0)
+                else:  # split the entry, preserving FIFO write order
+                    self._pending[s][0] = tuple(a[take:] for a in entry)
         return idx, cols, rows
 
     def flush(self) -> None:
-        """Push all staged rows to the device in fixed-shape chunks."""
+        """Push all staged rows to the device in fixed-shape chunks, on the
+        learner's stream (``_writer_stream``)."""
         rounds = -(-max(self._pending_rows) // self.write_chunk)
-        for _ in range(rounds):
-            idx, cols, _ = self._assemble_round()
-            self._apply_write(idx, cols)
+        with self._writer_stream():
+            for _ in range(rounds):
+                idx, cols, _ = self._assemble_round()
+                self._apply_write(idx, cols)
 
     def _apply_write(self, idx: np.ndarray, cols: list) -> None:
         """One padded write chunk (``[1, k]`` planes) → the device ring.

@@ -273,6 +273,7 @@ def _load_frame_ring(replay, z, kind: str) -> None:
              "ring geometry mismatch (capacity / slot layout)")
     # rows staged before the load would flush over the file's state
     replay._stages, replay._pending_rows = None, [0] * replay.num_shards
+    replay._pending = [[] for _ in range(replay.num_shards)]
     replay._stream_pos = [int(v) for v in z["stream_pos"]]
     replay.max_priority = float(z["max_priority"])
     replay._samples = int(z["samples"])

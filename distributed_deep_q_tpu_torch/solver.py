@@ -16,7 +16,8 @@ import torch
 
 from distributed_deep_q_tpu_torch.config import Config
 from distributed_deep_q_tpu_torch.convert import (
-    train_state_from_flax, train_state_to_flax)
+    params_from_flax, params_to_flax, train_state_from_flax,
+    train_state_to_flax)
 from distributed_deep_q_tpu_torch.models.qnet import build_qnet
 from distributed_deep_q_tpu_torch.parallel.learner import Learner, TrainState
 from distributed_deep_q_tpu_torch.replay.device_per import uniforms_for_keys
@@ -92,6 +93,23 @@ def next_fused_keys(owner, num_shards: int, chain: int) -> np.ndarray:
     return out
 
 
+def _tree_leaves(tree) -> list[np.ndarray]:
+    """The leaves of a nested dict in ``jax.tree_util.tree_leaves`` order:
+    keys sorted at every level."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def _tree_unflatten(skeleton, leaves):
+    """Rebuild ``skeleton``'s nesting from ``leaves`` (an iterator in
+    ``_tree_leaves`` order)."""
+    if isinstance(skeleton, dict):
+        return {k: _tree_unflatten(skeleton[k], leaves)
+                for k in sorted(skeleton)}
+    return np.asarray(next(leaves), skeleton.dtype)
+
+
 def _strip_host_keys(batch: dict[str, Any]) -> dict[str, Any]:
     """Drop host-only bookkeeping (slot indices, sample snapshots) before a
     batch goes to the device."""
@@ -109,7 +127,8 @@ class Solver:
     - ``train_steps_device_per(replay, chain)`` — the fused device-PER
       dispatch;
     - ``q_values(obs)`` / ``act(obs, ε, rng)`` — the actor-side forward;
-    - ``get_weights()`` / ``update(weights)`` — numpy weight IO;
+    - ``get_weights()`` / ``update(weights)`` — numpy weight IO in the
+      reference's layout and leaf order (the ``θ`` wire);
     - ``load_flax_state(...)`` / ``flax_state()`` — the train state in the
       reference's layout (``convert.py``).
 
@@ -243,15 +262,38 @@ class Solver:
 
     # -- weight IO ----------------------------------------------------------
 
+    def _flax_params(self) -> dict:
+        """θ as the reference's Flax param tree (numpy, Flax layouts)."""
+        return params_to_flax(
+            {k: p.detach().float().cpu().numpy()
+             for k, p in self.state.net.named_parameters()},
+            tuple(self.config.net.frame_shape))
+
     def get_weights(self) -> list[np.ndarray]:
-        return [p.detach().cpu().numpy()
-                for p in self.state.net.parameters()]
+        """θ as the reference's ``get_weights`` gives it: the leaves of the
+        Flax param tree in ``jax.tree_util.tree_leaves`` order (dict keys
+        sorted at every level), in Flax layouts. This is the ``θ`` wire
+        layout (``ReplayFeedServer.publish_params``), so a port learner
+        and a reference actor, or the reverse, exchange parameters."""
+        return _tree_leaves(self._flax_params())
 
     @torch.no_grad()
     def update(self, weights: list[np.ndarray]) -> None:
-        """Install new online parameters (``get_weights`` order)."""
-        for p, w in zip(self.state.net.parameters(), weights):
-            p.copy_(torch.as_tensor(np.asarray(w)))
+        """Install new online parameters given in ``get_weights`` order and
+        layout (the reference's ``Solver.update``)."""
+        skeleton = self._flax_params()
+        leaves = list(weights)
+        if len(leaves) != len(_tree_leaves(skeleton)):
+            raise ValueError(f"got {len(leaves)} weights, the net has "
+                             f"{len(_tree_leaves(skeleton))} leaves")
+        tree = _tree_unflatten(skeleton, iter(leaves))
+        named = params_from_flax(tree, tuple(self.config.net.frame_shape))
+        for name, p in self.state.net.named_parameters():
+            w = named[name]
+            if tuple(w.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(w.shape)} against "
+                                 f"the net's {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.ascontiguousarray(w)))
 
     @torch.no_grad()
     def load_flax_state(self, params, target_params, count, mu, nu,

@@ -44,7 +44,8 @@ from distributed_deep_q_tpu_torch.config import Config
 from distributed_deep_q_tpu_torch.metrics import Metrics, MovingAverage
 from distributed_deep_q_tpu_torch.parallel.sequence_learner import (
     SequenceSolver)
-from distributed_deep_q_tpu_torch.profiling import StepTimer
+from distributed_deep_q_tpu_torch.profiling import (
+    StepTimer, TraceWindow, check_profile_port)
 from distributed_deep_q_tpu_torch.replay.device_per import DevicePERFrameReplay
 from distributed_deep_q_tpu_torch.replay.device_ring import DeviceFrameReplay
 from distributed_deep_q_tpu_torch.replay.device_sequence import (
@@ -90,11 +91,15 @@ def evaluate(solver: Solver, cfg: Config, episodes: int | None = None,
 
 
 def check_slice(cfg: Config) -> None:
-    """Refuse, by name, the settings this port does not run yet."""
-    if cfg.train.profile_dir or cfg.train.profile_port:
-        raise NotImplementedError(
-            "not ported yet: profiling (train.profile_dir/profile_port; "
-            "ROADMAP A9)")
+    """Refuse, by name, the settings this port does not run."""
+    check_profile_port(cfg.train.profile_port)
+
+
+def trace_window(cfg: Config) -> TraceWindow:
+    """The loop's ``torch.profiler`` window (off unless
+    ``train.profile_dir`` is set), stepped once per grad step."""
+    return TraceWindow(cfg.train.profile_dir, cfg.train.profile_start_step,
+                       cfg.train.profile_num_steps)
 
 
 def restore_for_resume(cfg: Config, solver, replay):
@@ -171,6 +176,7 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
     timer = StepTimer()
     fused_stream = (FusedStepStream(solver, replay, cfg.replay.fused_chain,
                                     timer=timer) if fused_per else None)
+    trace = trace_window(cfg)
     # a resumed fused run draws the keys an unbroken run would: the key
     # schedule anchors on the restored step at the first dispatch
     ckpt, persist, gsteps = restore_for_resume(cfg, solver, replay)
@@ -228,6 +234,7 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
                             m = solver.train_step(batch)
                 gsteps += 1
                 timer.step_done()
+                trace.on_step(gsteps)
                 if writeback is not None:
                     # |TD| is copied to the host at dispatch and applied
                     # depth steps later: the loop never waits on it
@@ -261,6 +268,7 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
                 best_eval = ret
                 best_params = [w.copy() for w in solver.get_weights()]
 
+    trace.close()
     if writeback is not None:
         writeback.drain()  # apply the depth-queued priority tail
     summary["final_return_avg100"] = ep_returns.value
@@ -376,6 +384,7 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
                               timer=timer) if fused_seq else None)
     writeback = (make_writeback(replay, cfg.replay)
                  if replay.prioritized and not fused_seq else None)
+    trace = trace_window(cfg)
 
     frame = env.reset()
     obs = stacker.reset(frame) if pixel else frame
@@ -427,6 +436,7 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
                         m = solver.train_step(batch)
             gsteps += 1
             timer.step_done()
+            trace.on_step(gsteps)
             if writeback is not None:
                 with timer.phase("writeback"):
                     writeback.push(m["index"], m["td_abs"], sampled_at)
@@ -450,6 +460,7 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
                 metrics.log(gsteps, **summary, **timer.summary(),
                             **metrics.telemetry())
 
+    trace.close()
     if writeback is not None:
         writeback.drain()
     if ckpt:

@@ -69,7 +69,7 @@ def test_backend_cuda_raises_without_a_card():
     # r2d2 runs; its learner refuses the settings the port leaves out
     pytest.param("net.kind=r2d2 train.learn_metrics=true",
                  id="net.kind=r2d2"),
-    "train.profile_dir=prof", "mesh.num_processes=2", "mesh.dp=2",
+    "train.profile_port=6006", "mesh.num_processes=2", "mesh.dp=2",
     "train.optimizer=rmsprop", "train.learn_metrics=true"])
 def test_out_of_slice_configs_are_refused(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -87,7 +87,7 @@ def test_train_recurrent_checks_the_slice_when_called_directly():
     cfg = r2d2_config()
     cfg.mesh.backend = "cpu"
     cfg.env.kind, cfg.env.id = "signal_atari", "signal"
-    cfg.train.profile_dir = "prof"
+    cfg.train.profile_port = 6006
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         train_recurrent(cfg)
 
