@@ -92,8 +92,9 @@ Phases (any failure exits non-zero and prints no result line):
    gather against the card's;
 8c. the r2d2 motion gate — the reference's memory-gate configuration
    (``signal-vel-ep`` at stack 1, 16-step sequences, 4 of burn-in) through
-   ``train_recurrent`` on the card's device sequence ring:
-   ``eval_return`` must reach 16, printed beside the random policy's;
+   ``train_recurrent`` on the card's device sequence ring, cuDNN
+   deterministic (one reproducible run, as the reference's seeded CPU gate
+   is): ``eval_return`` must reach 16, printed beside the random policy's;
 10. the replay feed — the Pong preset at full width (bf16, 84×84, batch
    512, device PER, chain 8, the fused loss) with two cuts: the ring to
    131,072 rows (1.07 GB) in four stream sub-rings, and the depth (4,096
@@ -120,19 +121,48 @@ Phases (any failure exits non-zero and prints no result line):
    Printed: rows/s over the wire, grad steps/s under ingest, the
    ``add_transitions`` p50/p99, the drain's counters, launches per grad
    step and the busy share, ``train/mfu``, snapshot save and load seconds;
+11. the distributed topology — ``main train --distributed --preset pong
+   --backend cuda`` on SignalAtari at full width (bf16 Nature CNN at
+   84×84, batch 512, device PER with α = 0, chain 8, the fused loss), the
+   preset's 4 actor processes ``spawn``ed on the host and its uncut 1M-row
+   ring in four stream sub-rings; cuts: learn_start 8,192 and the depth,
+   800 grad steps. First a control: a spawned child that does make a CUDA
+   context, and what the checks see of it. While the learner trains, a
+   watcher samples the actor processes (this process's ``spawn``ed
+   children) and shows that none holds a CUDA context: by ``nvidia-smi``'s
+   compute-app pids where they are this namespace's, else by the card's
+   device files (``/dev/nvidia*``) being open in no actor and
+   ``nvidia-smi`` listing no context beyond the learner's (the CUDA build
+   of torch maps ``libcuda.so`` at import, so the maps are printed, not
+   held). Checks: the summary (as ``check_path`` holds it), env steps ≥
+   learn_start, no actor restart, no checksum or dispatch error, all four
+   kernels launched. Printed: grad steps/s, the fleet's env steps/s, the
+   ``StepTimer`` phases, ``add_transitions`` p50/p99,
+   ``learner/publish_params_ms``, eval_return beside the random policy's;
+11b. the Breakout preset host-sampled (``replay.device_resident=false
+   replay.prioritized=false``: a host ``MultiStreamFrameReplay`` through
+   the ``DeviceStager``'s pinned copies, the fused loss), 4 actors,
+   learn_start 8,192, 100 grad steps; the same checks, B3 and B4 launched;
+11c. the r2d2 preset on its ring-step path at full width (bf16 Nature
+   torso, LSTM 512, batch 64 × 80, burn-in 40, host sum trees with the
+   write-back under the server's lock), 2 recurrent actors, the sequence
+   ring cut to 1,250 slots as in 8b, learn_start 64 sequences, 100 grad
+   steps; the same checks (the fill counted in sequences), B1 and B2
+   launched;
 9. the ``kernels`` JSON line (each kernel's launches on every path in
    ``launches_by_path``), the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, 8c and 10)
-sets all kernel launch counters to 0 just before it and reads them just
-after.
+Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, 8c, 10, 11,
+11b and 11c) sets all kernel launch counters to 0 just before it and reads
+them just after.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import glob
 import io
 import json
 import math
@@ -140,6 +170,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -1331,14 +1362,20 @@ def r2d2_gate_config(config):
     return cfg
 
 
-def r2d2_gate(config, counters, modules, make_env) -> dict:
+def r2d2_gate(torch, config, counters, modules, make_env) -> dict:
     """Phase 8c: the motion gate on the card, ``train_recurrent`` on the
-    gate's configuration; eval_return beside the random policy's."""
+    gate's configuration; eval_return beside the random policy's. cuDNN
+    runs deterministic here, so the gate holds one reproducible run, as
+    the reference's seeded CPU gate does: with cuDNN's default algorithms
+    the seed-0 run's eval_return moved between 14.7 and 19.7 from run to
+    run on one card (PERF.md §6)."""
     train, _, _, _, metrics = modules
     cfg = r2d2_gate_config(config)
     jsonl = os.path.join(OUT_DIR, "chip_smoke_r2d2_gate.jsonl")
-    s, launches, wall = run_counted(counters, lambda: train.train_recurrent(
-        cfg, metrics=metrics.Metrics(jsonl), log_every=500))
+    with cudnn_deterministic(torch):
+        s, launches, wall = run_counted(
+            counters, lambda: train.train_recurrent(
+                cfg, metrics=metrics.Metrics(jsonl), log_every=500))
     for key in ("solver", "replay"):
         s.pop(key)
     random_ret = random_policy_return(make_env, cfg.env,
@@ -1710,6 +1747,244 @@ def check_replay_feed(out: dict) -> None:
         assert f["theta_version"] >= 1, f
 
 
+# -- phases 11, 11b and 11c: the distributed topology ------------------------
+
+# ``main train --distributed`` at full width on SignalAtari at 84×84: the
+# learner on the card, the presets' actor processes spawned on the host,
+# feeding it over the v4 wire. Phase 11, the Pong preset (bf16 Nature CNN,
+# batch 512, its uncut 1M-row ring in four stream sub-rings, device PER
+# with α = 0, chain 8, the fused loss: all four kernels); cuts: learn_start
+# 8,192 and the depth, 800 grad steps
+DIST_PONG_ARGV = ["train", "--distributed", "--preset", "pong",
+                  "--backend", "cuda", "--log-every", "200", "--set",
+                  "env.kind=signal_atari", "env.id=signal",
+                  "replay.learn_start=8192", "train.use_pallas_loss=true",
+                  "train.total_steps=800"]
+# Phase 11b, the Breakout preset host-sampled: frames in a host
+# MultiStreamFrameReplay (uniform), batches through the DeviceStager's
+# pinned copies, the fused loss; cuts: 4 actors (the preset has 16),
+# learn_start 8,192, 100 grad steps
+DIST_BREAKOUT_ARGV = ["train", "--distributed", "--preset", "breakout",
+                      "--backend", "cuda", "--log-every", "50", "--set",
+                      "env.kind=signal_atari", "env.id=signal",
+                      "replay.device_resident=false",
+                      "replay.prioritized=false", "actors.num_actors=4",
+                      "replay.learn_start=8192",
+                      "train.use_pallas_loss=true", "train.total_steps=100"]
+# Phase 11c, the r2d2 preset on its ring-step path (bf16 Nature torso, LSTM
+# 512, batch 64 × 80, burn-in 40, host sum trees with the write-back under
+# the server's lock); cuts: 2 recurrent actors (the preset has 256), the
+# sequence ring to 1,250 slots as in phase 8b, learn_start 64 sequences,
+# 100 grad steps
+DIST_R2D2_ARGV = ["train", "--distributed", "--preset", "r2d2",
+                  "--backend", "cuda", "--log-every", "50", "--set",
+                  "env.kind=signal_atari", "env.id=signal",
+                  "actors.num_actors=2", "replay.capacity=100000",
+                  "replay.learn_start=5120", "train.total_steps=100"]
+DIST_PRINTED = ("time_sample_ms", "time_dispatch_ms", "time_step_ms",
+                "time_device_ms", "rpc/add_transitions_ms_p50",
+                "rpc/add_transitions_ms_p99", "learner/publish_params_ms_p50",
+                "learner/publish_params_ms_max", "fleet/env_step_ms_p50",
+                "ingest/drained_rows", "ingest/drain_flushes")
+
+
+def child_pids() -> list[int]:
+    """This process's child processes: the tasks listed in
+    ``/proc/<pid>/task/*/children`` (a scan of ``/proc/*/stat`` where the
+    kernel keeps no such list) that lead their thread group: some kernels
+    (gVisor's, for one) list the children's threads there too."""
+    me, pids = os.getpid(), set()
+    paths = glob.glob(f"/proc/{me}/task/*/children")
+    for path in paths:
+        with contextlib.suppress(OSError):
+            with open(path) as f:
+                pids.update(int(x) for x in f.read().split())
+    if not paths:
+        for stat in glob.glob("/proc/[0-9]*/stat"):
+            with contextlib.suppress(OSError, ValueError, IndexError):
+                with open(stat) as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == me:
+                        pids.add(int(stat.split("/")[2]))
+    leaders = []
+    for pid in sorted(pids):
+        with contextlib.suppress(OSError):
+            with open(f"/proc/{pid}/status") as f:
+                tgid = [ln for ln in f if ln.startswith("Tgid:")]
+            if tgid and int(tgid[0].split()[1]) == pid:
+                leaders.append(pid)
+    return leaders
+
+
+def spawned_children() -> list[int]:
+    """The ``spawn``ed children (``spawn_main`` on their command line)."""
+    out = []
+    for pid in child_pids():
+        with contextlib.suppress(OSError):
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if b"spawn_main" in f.read():
+                    out.append(pid)
+    return out
+
+
+def card_files(pid: int) -> list[str]:
+    """The card's device files ``pid`` holds open (``/dev/nvidia0``,
+    ``/dev/nvidiactl``, ``/dev/nvidia-uvm``): a CUDA context opens them."""
+    out = set()
+    for fd in glob.glob(f"/proc/{pid}/fd/*"):
+        with contextlib.suppress(OSError):
+            target = os.readlink(fd)
+            if target.startswith("/dev/nvidia"):
+                out.add(target)
+    return sorted(out)
+
+
+def maps_libcuda(pid: int) -> bool:
+    with contextlib.suppress(OSError):
+        with open(f"/proc/{pid}/maps") as f:
+            return "libcuda.so" in f.read()
+    return False
+
+
+def compute_apps() -> list[int]:
+    """``nvidia-smi``'s compute-app pids, one entry per CUDA context."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return [int(x) for x in out.split() if x.isdigit()]
+
+
+def _hold_context(ready, stop) -> None:
+    """A spawned child that makes a CUDA context and holds it (the
+    positive control of the actors' context check)."""
+    import torch
+
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    ready.set()
+    stop.wait(120)
+
+
+def context_control() -> dict:
+    """What the context checks see for a spawned child that does hold a
+    CUDA context: its card files and the compute-app count with it alive
+    (this process holds one context too)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    ready, stop = ctx.Event(), ctx.Event()
+    p = ctx.Process(target=_hold_context, args=(ready, stop), daemon=True)
+    p.start()
+    try:
+        assert ready.wait(120), "the control child made no CUDA context"
+        out = {"card_files": card_files(p.pid),
+               "maps_libcuda": maps_libcuda(p.pid),
+               "compute_apps": len(compute_apps())}
+    finally:
+        stop.set()
+        p.join(30)
+    out["compute_apps_after"] = len(compute_apps())
+    return out
+
+
+class ActorWatch:
+    """Samples, every ``period`` seconds while a distributed run goes on:
+    the actor processes among this process's ``spawn``ed children, the
+    card files each holds open, whether each maps ``libcuda.so``, the
+    compute apps ``nvidia-smi`` lists, and whether the learner had logged
+    a grad step yet (its metrics JSONL)."""
+
+    def __init__(self, jsonl: str, period: float = 1.5):
+        self.jsonl, self.period = jsonl, period
+        self.samples: list[dict] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.period):
+            actors = spawned_children()
+            if not actors:
+                continue
+            self.samples.append({
+                "actors": actors,
+                "card_files": {p: f for p in actors if (f := card_files(p))},
+                "maps_libcuda": [p for p in actors if maps_libcuda(p)],
+                "compute_apps": compute_apps(),
+                "training": (os.path.exists(self.jsonl)
+                             and os.path.getsize(self.jsonl) > 0)})
+
+    def verdict(self, fleet: int) -> dict:
+        """Stops sampling; the check that ran and what it saw. Where
+        ``nvidia-smi`` lists this process's own pid, an actor holds a
+        context when it is listed too. Otherwise (a PID namespace, where
+        the list shows other pids) an actor holds one when it has a card
+        file open, and the list must never hold more entries than this
+        process's one context. ``libcuda.so`` in an actor's maps is
+        printed, not held: the CUDA build of torch maps it at import."""
+        self._stop.set()
+        self._thread.join(timeout=120)
+        me = os.getpid()
+        by_pid = any(me in s["compute_apps"] for s in self.samples)
+        if by_pid:
+            holding = {p for s in self.samples
+                       for p in set(s["actors"]) & set(s["compute_apps"])}
+        else:
+            holding = {p for s in self.samples for p in s["card_files"]}
+        return {"check": ("nvidia-smi pids" if by_pid else
+                          "card files open + nvidia-smi compute-app count"),
+                "samples": len(self.samples),
+                "samples_full_fleet_training": sum(
+                    len(s["actors"]) >= fleet and s["training"]
+                    for s in self.samples),
+                "actors_seen": sorted({p for s in self.samples
+                                       for p in s["actors"]}),
+                "actors_holding_cuda": sorted(holding),
+                "compute_apps_max": max(
+                    (len(s["compute_apps"]) for s in self.samples),
+                    default=0),
+                "actors_mapping_libcuda": sorted({
+                    p for s in self.samples for p in s["maps_libcuda"]})}
+
+
+def distributed_run(cli_main, counters, argv: list[str], jsonl: str,
+                    fleet: int) -> dict:
+    """One ``main train --distributed`` run through ``run_cli`` (counters
+    set to 0 just before, read just after) with an ``ActorWatch``
+    sampling the fleet meanwhile."""
+    path = os.path.join(OUT_DIR, jsonl)
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(path)
+    watch = ActorWatch(path)
+    try:
+        summary, launches, record = run_cli(cli_main, counters, argv, jsonl)
+    finally:
+        ctx = watch.verdict(fleet)
+    return {"summary": summary, "launches": launches,
+            "printed": {k: record.get(k) for k in DIST_PRINTED},
+            "cuda_context": ctx}
+
+
+def check_distributed_run(out: dict, grad_steps: int, fill: tuple[str, int],
+                          kernels: tuple[str, ...]) -> None:
+    """Phases 11, 11b and 11c's checks (each failure raises). ``fill`` is
+    the summary key and the count the learn gate waited for: env steps
+    for the frame replays, sequences (``replay_size``) for r2d2, whose
+    32-step SignalAtari episodes each give one padded 80-step sequence,
+    so its env steps fall short of the transition-counted learn_start."""
+    s = out["summary"]
+    check_path(s, grad_steps)
+    assert s[fill[0]] >= fill[1], (fill, s)
+    assert s["actor_restarts"] == 0, s
+    assert s["rpc_checksum_errors"] == 0, s
+    assert s["rpc_dispatch_errors"] == 0, s
+    for name in kernels:
+        assert out["launches"][name] > 0, out["launches"]
+    ctx = out["cuda_context"]
+    assert ctx["samples_full_fleet_training"] > 0, ctx
+    assert not ctx["actors_holding_cuda"], ctx
+    if not ctx["check"].startswith("nvidia-smi pids"):
+        assert ctx["compute_apps_max"] <= 1, ctx
+
 def check_path(summary: dict, grad_steps: int) -> None:
     for key in ("loss", "q_mean", "grad_steps_per_s", "env_steps_per_s",
                 "eval_return"):
@@ -1941,7 +2216,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 8c. the r2d2 motion gate on the card ---------------------------------
-    gate = r2d2_gate(config, counters, (
+    gate = r2d2_gate(torch, config, counters, (
         train_mod, seq_learner_mod, persistence, checkpoint, metrics_mod),
         make_env)
     log(f"[8c] r2d2 motion gate: {json.dumps(gate)}")
@@ -1978,6 +2253,45 @@ def main() -> int:
     check_replay_feed(feed)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 11. the distributed topology: Pong, all four kernels ---------------
+    control = context_control()
+    log(f"[11] a spawned child holding a CUDA context (the control of the "
+        f"actors' check): {json.dumps(control)}")
+    assert control["card_files"], control
+    assert control["compute_apps"] == control["compute_apps_after"] + 1, \
+        control
+    all_kernels = tuple(counters)
+    dist = {}
+    for tag, argv, jsonl, fleet, grad, fill, kernels in (
+            ("11", DIST_PONG_ARGV, "chip_smoke_dist_pong.jsonl", 4, 800,
+             ("env_steps", 8192), all_kernels),
+            ("11b", DIST_BREAKOUT_ARGV, "chip_smoke_dist_breakout.jsonl", 4,
+             100, ("env_steps", 8192), ("fused_loss_fwd", "fused_loss_bwd")),
+            ("11c", DIST_R2D2_ARGV, "chip_smoke_dist_r2d2.jsonl", 2, 100,
+             ("replay_size", 5120 // 80),
+             ("gather_windows", "scatter_rows"))):
+        out = distributed_run(cli_main, counters, argv, jsonl, fleet)
+        s = out["summary"]
+        log(f"[{tag}] summary: {json.dumps(s)}")
+        log(f"[{tag}] launches: {json.dumps(out['launches'])}; no actor "
+            f"holds a CUDA context ({out['cuda_context']['check']} check): "
+            f"{json.dumps(out['cuda_context'])}")
+        log(f"[{tag}] grad steps/s {s['grad_steps_per_s']} (last window), "
+            f"the fleet's env steps/s {s['env_steps_per_s']} ({fleet} actor "
+            f"processes on the host), wall {s['wall_s']:.1f} s; "
+            + json.dumps(out["printed"]))
+        check_distributed_run(out, grad, fill, kernels)
+        dist[tag] = out
+        gc.collect()
+        torch.cuda.empty_cache()
+    pcfg = config.pong_config()
+    pcfg.env.kind, pcfg.env.id = "signal_atari", "signal"
+    pong_random = random_policy_return(make_env, pcfg.env,
+                                       pcfg.train.eval_episodes)
+    log(f"[11] eval_return {dist['11']['summary']['eval_return']} beside "
+        f"the random policy's {pong_random} (printed, not held: a few "
+        "hundred grad steps at the preset's lr, as in phase 4)")
 
     # -- 9. result lines ------------------------------------------------------
     src = "distributed_deep_q_tpu_torch/csrc/ring_gather.cu"
@@ -2077,7 +2391,11 @@ def main() -> int:
                "8b r2d2 train": r_resume["launches"][0],
                "8b r2d2 resumed": r_resume["launches"][1],
                "8c r2d2 motion gate": gate["launches"],
-               "10 feed": feed["launches"]}
+               "10 feed": feed["launches"],
+               "11 pong distributed": dist["11"]["launches"],
+               "11b breakout distributed host-sampled":
+                   dist["11b"]["launches"],
+               "11c r2d2 distributed": dist["11c"]["launches"]}
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}

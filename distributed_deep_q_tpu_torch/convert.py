@@ -2,7 +2,9 @@
 
 Inputs and outputs are nested dicts of numpy arrays (what
 ``jax.tree.map(np.asarray, tree)`` gives for a Flax param tree), so this
-module never needs jax.
+module never needs jax. ``flax_leaves``/``load_flax_leaves`` read and
+write a port net's parameters as the reference's flat leaf list, the θ
+wire layout.
 
 Reference leaf names (as ``NatureCnnQNet`` / ``MlpQNet`` build them):
 
@@ -38,6 +40,7 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 
 from distributed_deep_q_tpu_torch.models.qnet import conv_out_hw
 
@@ -130,6 +133,56 @@ def params_to_flax(params: dict[str, Any], frame_shape=None,
         tree.setdefault(port_to_flax[scope], {}).setdefault(layer, {})[
             leaf] = np.array(a, order="C")
     return tree
+
+
+def tree_leaves(tree) -> list[np.ndarray]:
+    """The leaves of a nested dict in ``jax.tree_util.tree_leaves`` order:
+    keys sorted at every level."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def tree_unflatten(skeleton, leaves):
+    """Rebuild ``skeleton``'s nesting from ``leaves`` (an iterator in
+    ``tree_leaves`` order), each leaf cast to its skeleton leaf's dtype."""
+    if isinstance(skeleton, dict):
+        return {k: tree_unflatten(skeleton[k], leaves)
+                for k in sorted(skeleton)}
+    return np.asarray(next(leaves), skeleton.dtype)
+
+
+def _net_flax_tree(net, frame_shape) -> dict:
+    return params_to_flax({k: p.detach().float().cpu().numpy()
+                           for k, p in net.named_parameters()}, frame_shape)
+
+
+def flax_leaves(net, frame_shape=None) -> list[np.ndarray]:
+    """θ of a port net as the reference's ``get_weights`` gives it: the
+    leaves of the Flax param tree in ``jax.tree_util.tree_leaves`` order,
+    in Flax layouts. This is the θ wire layout
+    (``ReplayFeedServer.publish_params``)."""
+    return tree_leaves(_net_flax_tree(net, frame_shape))
+
+
+def load_flax_leaves(net, leaves, frame_shape=None) -> None:
+    """Install ``leaves`` (``flax_leaves`` order and layout, e.g. θ pulled
+    over the wire) into ``net``'s parameters, in place."""
+    skeleton = _net_flax_tree(net, frame_shape)
+    leaves = list(leaves)
+    want = len(tree_leaves(skeleton))
+    if len(leaves) != want:
+        raise ValueError(f"got {len(leaves)} weights, the net has {want} "
+                         "leaves")
+    named = params_from_flax(tree_unflatten(skeleton, iter(leaves)),
+                             frame_shape)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            w = named[name]
+            if tuple(w.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(w.shape)} against "
+                                 f"the net's {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.ascontiguousarray(w)))
 
 
 def train_state_from_flax(params: dict, target_params: dict, count, mu: dict,

@@ -10,6 +10,8 @@ Examples:
     python -m distributed_deep_q_tpu_torch.main train --preset r2d2 --backend cuda \\
         --set env.kind=signal_atari env.id=signal
     python -m distributed_deep_q_tpu_torch.main train --preset cartpole --backend cpu
+    python -m distributed_deep_q_tpu_torch.main train --distributed --preset pong \\
+        --backend cuda --set env.kind=signal_atari env.id=signal
     python -m distributed_deep_q_tpu_torch.main eval --preset pong --backend cpu \\
         --set env.kind=signal_atari env.id=signal
     python -m distributed_deep_q_tpu_torch.main train --preset cartpole --backend cpu \\
@@ -22,7 +24,9 @@ Examples:
         --set train.checkpoint_dir=ckpt
 
 ``--backend`` defaults to ``cuda`` and raises without a card; ``--backend
-cpu`` runs on the host. ``eval`` and ``play`` restore the newest checkpoint
+cpu`` runs on the host. ``--distributed`` runs the learner on the backend
+and the actors as spawned processes on the host CPU (by design: they never
+touch the card). ``eval`` and ``play`` restore the newest checkpoint
 under ``train.checkpoint_dir`` when there is one.
 """
 
@@ -76,14 +80,11 @@ def main(argv: list[str] | None = None) -> int:
                         help="grad steps between metric records (the last "
                              "record's rates go into the summary)")
     parser.add_argument("--distributed", action="store_true",
-                        help="the actor/learner RPC topology (not ported)")
+                        help="train: the actor/learner RPC topology "
+                             "(spawned CPU actor processes feed the "
+                             "learner over the v4 wire)")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
-
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed (the actor/learner RPC topology) is not ported "
-            "yet (ROADMAP A10)")
 
     # imported past flag parsing so --help stays cheap
     from distributed_deep_q_tpu_torch.metrics import Metrics
@@ -91,9 +92,12 @@ def main(argv: list[str] | None = None) -> int:
         check_slice, evaluate, evaluate_recurrent, train_single_process)
 
     if args.mode == "train":
-        summary = train_single_process(
-            cfg, metrics=Metrics(args.metrics_jsonl or None),
-            log_every=args.log_every)
+        train = train_single_process
+        if args.distributed:
+            from distributed_deep_q_tpu_torch.actors.supervisor import (
+                train_distributed as train)
+        summary = train(cfg, metrics=Metrics(args.metrics_jsonl or None),
+                        log_every=args.log_every)
         summary.pop("solver", None)
         summary.pop("replay", None)
         print(json.dumps({"mode": "train", **{

@@ -5,6 +5,7 @@
   conv(64,4,2) → conv(64,3,1) → FC512 → FC|A|; optional dueling head.
 - ``R2d2QNet``      — recurrent Q-net: Nature CNN or MLP torso → LSTM →
   (dueling) head over ``[B, T, ...]`` sequences.
+- ``QNet``          — the numpy-facing wrapper the actors act with.
 
 Layers follow Flax's ``dtype`` semantics: parameters stay float32 and each
 layer casts its input, weight and bias to the compute dtype (``bfloat16``
@@ -29,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -336,3 +338,76 @@ def build_qnet(cfg: NetConfig, obs_dim: int = 4, seed: int = 0) -> nn.Module:
                         tuple(cfg.hidden), cfg.dueling, cfg.stack,
                         tuple(cfg.frame_shape), obs_dim, dtype, seed)
     raise ValueError(f"unknown net kind: {cfg.kind!r}")
+
+
+class QNet:
+    """The reference's numpy-facing net wrapper (its ``models/qnet.py``
+    ``QNet``): what the actors act with and what θ crosses the wire into.
+
+    Holds the ``nn.Module`` that ``build_qnet`` makes, on the CPU unless the
+    caller names a device, in eval mode. Numpy in, numpy out; every forward
+    runs under ``torch.inference_mode()``.
+
+    - ``forward(obs)`` — Q-values for a batch (a batch axis is added when
+      ``obs`` is one observation, and dropped again); for r2d2,
+      ``forward(obs [B, T, ...], carry)`` → ``(q [B, T, A], carry)`` with
+      the carry ``(c, h)``, each ``[B, H]``, in the order the reference's
+      Flax LSTM carry has;
+    - ``argmax_action(obs)``, ``initial_state(batch_size)``;
+    - ``get_weights()`` / ``set_weights(leaves)`` — θ as the reference's
+      Flax leaves in ``jax.tree_util.tree_leaves`` order and layouts (the θ
+      wire, ``convert.flax_leaves``); ``num_params()``.
+    """
+
+    def __init__(self, cfg: NetConfig, seed: int = 0, obs_dim: int = 4,
+                 device: torch.device | str = "cpu"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.module = build_qnet(cfg, obs_dim, seed).to(self.device).eval()
+        self._frame_shape = tuple(cfg.frame_shape)
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # -- forward -----------------------------------------------------------
+
+    @torch.inference_mode()
+    def forward(self, obs: np.ndarray, carry=None):
+        """Q-values (numpy) for a batch of observations; r2d2 also takes
+        and returns the carry (see the class docstring)."""
+        obs = np.asarray(obs)
+        if self.cfg.kind == "r2d2":
+            if carry is None:
+                carry = self.initial_state(obs.shape[0])
+            q, (c, h) = self.module(
+                self._tensor(obs), (self._tensor(carry[0]),
+                                    self._tensor(carry[1])))
+            return q.cpu().numpy(), (c.cpu().numpy(), h.cpu().numpy())
+        expected = 2 if self.cfg.kind == "mlp" else 4
+        squeeze = obs.ndim == expected - 1
+        if squeeze:
+            obs = obs[None]
+        q = self.module(self._tensor(obs)).cpu().numpy()
+        return q[0] if squeeze else q
+
+    def argmax_action(self, obs: np.ndarray) -> int:
+        return int(np.argmax(self.forward(obs)))
+
+    def initial_state(self, batch_size: int):
+        """The zero carry ``(c, h)``, each ``[batch_size, lstm_size]``."""
+        assert self.cfg.kind == "r2d2"
+        z = np.zeros((batch_size, self.cfg.lstm_size), np.float32)
+        return (z, z.copy())
+
+    # -- weight IO (numpy; the θ wire) --------------------------------------
+
+    def get_weights(self) -> list[np.ndarray]:
+        from distributed_deep_q_tpu_torch.convert import flax_leaves
+        return flax_leaves(self.module, self._frame_shape)
+
+    def set_weights(self, flat: list[np.ndarray]) -> None:
+        from distributed_deep_q_tpu_torch.convert import load_flax_leaves
+        load_flax_leaves(self.module, flat, self._frame_shape)
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.module.parameters())

@@ -222,7 +222,10 @@ class Learner:
         return metrics, td_abs
 
     def _to_device(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
-        return {k: to_device(np.asarray(v), self.device)
+        """Host arrays through ``to_device``; tensors (a ``DeviceStager``
+        batch, already on the device) pass through."""
+        return {k: (v.to(self.device) if isinstance(v, torch.Tensor)
+                    else to_device(np.asarray(v), self.device))
                 for k, v in batch.items()}
 
     def train_step(self, state: TrainState, batch: dict[str, Any]):

@@ -18,6 +18,7 @@ max priority (optimistic: every transition is seen at least once).
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 
 import numpy as np
@@ -297,11 +298,19 @@ class DelayedPriorityWriteback:
     tolerance — and ``filter_stale`` (via the replay's ``sampled_at``
     snapshots) still drops updates for recycled rows exactly as in the
     synchronous path.
+
+    ``to_host`` maps the landed host tensor to what ``update_priorities``
+    takes (default: its numpy view; the reference's multi-host callers map
+    it to their local rows). ``lock`` (e.g. the ``ReplayFeedServer``'s
+    ``replay_lock``) is held around each applied update, and only around
+    it: the wait for the copy and ``to_host`` run outside.
     """
 
-    def __init__(self, replay, depth: int = 8):
+    def __init__(self, replay, depth: int = 8, to_host=None, lock=None):
         self.replay = replay
         self.depth = max(int(depth), 1)
+        self._to_host = to_host or (lambda t: t.numpy())
+        self._lock = lock if lock is not None else contextlib.nullcontext()
         self._q: deque = deque()
 
     def push(self, index, td_abs: torch.Tensor, sampled_at) -> None:
@@ -315,8 +324,11 @@ class DelayedPriorityWriteback:
         index, (host, done), sampled_at = item
         if done is not None:
             done.synchronize()
-        self.replay.update_priorities(index, host.numpy(),
-                                      sampled_at=sampled_at)
+        td = self._to_host(host)  # outside the lock
+        # positional: the second parameter is named td_abs on the
+        # transition replays but priority on SequenceReplay
+        with self._lock:
+            self.replay.update_priorities(index, td, sampled_at=sampled_at)
 
     def drain(self) -> None:
         """Apply everything still queued (end of training)."""
@@ -324,8 +336,10 @@ class DelayedPriorityWriteback:
             self._apply(self._q.popleft())
 
 
-def make_writeback(replay, replay_cfg) -> DelayedPriorityWriteback:
+def make_writeback(replay, replay_cfg, lock=None, to_host=None,
+                   ) -> DelayedPriorityWriteback:
     """The write-back every host-sampled prioritized loop uses, at the
-    configured depth."""
+    configured depth, with the optional server lock and host mapper."""
     return DelayedPriorityWriteback(
-        replay, depth=replay_cfg.priority_writeback_delay)
+        replay, depth=replay_cfg.priority_writeback_delay,
+        to_host=to_host, lock=lock)

@@ -16,7 +16,7 @@ import torch
 
 from distributed_deep_q_tpu_torch.config import Config
 from distributed_deep_q_tpu_torch.convert import (
-    params_from_flax, params_to_flax, train_state_from_flax,
+    flax_leaves, load_flax_leaves, train_state_from_flax,
     train_state_to_flax)
 from distributed_deep_q_tpu_torch.models.qnet import build_qnet
 from distributed_deep_q_tpu_torch.parallel.learner import Learner, TrainState
@@ -91,23 +91,6 @@ def next_fused_keys(owner, num_shards: int, chain: int) -> np.ndarray:
         num_shards, chain)
     owner._fused_steps_issued += chain
     return out
-
-
-def _tree_leaves(tree) -> list[np.ndarray]:
-    """The leaves of a nested dict in ``jax.tree_util.tree_leaves`` order:
-    keys sorted at every level."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
-    return [np.asarray(tree)]
-
-
-def _tree_unflatten(skeleton, leaves):
-    """Rebuild ``skeleton``'s nesting from ``leaves`` (an iterator in
-    ``_tree_leaves`` order)."""
-    if isinstance(skeleton, dict):
-        return {k: _tree_unflatten(skeleton[k], leaves)
-                for k in sorted(skeleton)}
-    return np.asarray(next(leaves), skeleton.dtype)
 
 
 def _strip_host_keys(batch: dict[str, Any]) -> dict[str, Any]:
@@ -262,38 +245,18 @@ class Solver:
 
     # -- weight IO ----------------------------------------------------------
 
-    def _flax_params(self) -> dict:
-        """θ as the reference's Flax param tree (numpy, Flax layouts)."""
-        return params_to_flax(
-            {k: p.detach().float().cpu().numpy()
-             for k, p in self.state.net.named_parameters()},
-            tuple(self.config.net.frame_shape))
-
     def get_weights(self) -> list[np.ndarray]:
-        """θ as the reference's ``get_weights`` gives it: the leaves of the
-        Flax param tree in ``jax.tree_util.tree_leaves`` order (dict keys
-        sorted at every level), in Flax layouts. This is the ``θ`` wire
-        layout (``ReplayFeedServer.publish_params``), so a port learner
-        and a reference actor, or the reverse, exchange parameters."""
-        return _tree_leaves(self._flax_params())
+        """θ as the reference's ``get_weights`` gives it (``flax_leaves``:
+        Flax leaves in ``jax.tree_util.tree_leaves`` order, Flax layouts),
+        so a port learner and a reference actor, or the reverse, exchange
+        parameters."""
+        return flax_leaves(self.state.net, tuple(self.config.net.frame_shape))
 
-    @torch.no_grad()
     def update(self, weights: list[np.ndarray]) -> None:
         """Install new online parameters given in ``get_weights`` order and
         layout (the reference's ``Solver.update``)."""
-        skeleton = self._flax_params()
-        leaves = list(weights)
-        if len(leaves) != len(_tree_leaves(skeleton)):
-            raise ValueError(f"got {len(leaves)} weights, the net has "
-                             f"{len(_tree_leaves(skeleton))} leaves")
-        tree = _tree_unflatten(skeleton, iter(leaves))
-        named = params_from_flax(tree, tuple(self.config.net.frame_shape))
-        for name, p in self.state.net.named_parameters():
-            w = named[name]
-            if tuple(w.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(w.shape)} against "
-                                 f"the net's {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.ascontiguousarray(w)))
+        load_flax_leaves(self.state.net, weights,
+                         tuple(self.config.net.frame_shape))
 
     @torch.no_grad()
     def load_flax_state(self, params, target_params, count, mu, nu,
@@ -342,12 +305,20 @@ class FusedStepStream:
     """Per-grad-step metrics from chained fused-PER dispatches: dispatch a
     chunk of ``min(chain, steps_left)`` steps whenever the previous chunk
     is exhausted, then hand out its stacked metrics row by row.
-    ``timer`` is the train loop's ``StepTimer`` (dispatch phase)."""
 
-    def __init__(self, solver: Solver, replay, chain: int, timer=None):
+    ``dispatch_lock`` (optional, e.g. the ``ReplayFeedServer``'s
+    ``replay_lock``) is held across the dispatch only: the drain's and the
+    serve threads' writes into the ring (B2) and this dispatch's reads of
+    it (B1) are enqueued on one stream in lock order, and writers get the
+    lock back while the chunk runs on the device. ``timer`` is the train
+    loop's ``StepTimer`` (dispatch phase)."""
+
+    def __init__(self, solver: Solver, replay, chain: int,
+                 dispatch_lock=None, timer=None):
         self._solver = solver
         self._replay = replay
         self.chain = max(int(chain), 1)
+        self._lock = dispatch_lock or contextlib.nullcontext()
         self._timer = timer
         self._chunk: dict[str, Any] | None = None
         self._len = 0
@@ -363,7 +334,7 @@ class FusedStepStream:
             self._len = min(self.chain, int(steps_left))
             phase = (self._timer.phase("dispatch") if self._timer
                      else contextlib.nullcontext())
-            with phase:
+            with self._lock, phase:
                 self._chunk = self._solver.train_steps_device_per(
                     self._replay, chain=self._len)
             self._pending = self._len

@@ -33,6 +33,7 @@ port are refused with the ROADMAP item that will port them.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -88,6 +89,33 @@ def evaluate(solver: Solver, cfg: Config, episodes: int | None = None,
             ep_ret += r
         returns.append(ep_ret)
     return float(np.mean(returns))
+
+
+def evaluate_per_game(solver, cfg: Config, episodes: int | None = None,
+                      seed: int = 10_000, recurrent: bool = False,
+                      ) -> dict[str, float]:
+    """Greedy eval on every configured game (multi-game fleets):
+    ``{game_id: mean return}``; single-game configs return one entry."""
+    fn = evaluate_recurrent if recurrent else evaluate
+    out = {}
+    for g in (cfg.env.games or (cfg.env.id,)):
+        gcfg = cfg.replace(env=dataclasses.replace(cfg.env, id=g))
+        out[g] = fn(solver, gcfg, episodes, seed)
+    return out
+
+
+def log_final_eval(solver, cfg: Config, metrics: Metrics, summary: dict,
+                   recurrent: bool = False) -> float:
+    """Final greedy eval across all configured games: fills ``summary``
+    (``eval_return`` mean, ``eval_per_game`` when multi-game) and logs
+    per-game metrics. Shared by the distributed loops."""
+    per_game = evaluate_per_game(solver, cfg, recurrent=recurrent)
+    summary["eval_return"] = float(np.mean(list(per_game.values())))
+    if len(per_game) > 1:
+        summary["eval_per_game"] = per_game
+        metrics.log(cfg.train.total_steps,
+                    **{f"eval_return/{g}": v for g, v in per_game.items()})
+    return summary["eval_return"]
 
 
 def check_slice(cfg: Config) -> None:
