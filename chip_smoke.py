@@ -149,13 +149,37 @@ Phases (any failure exits non-zero and prints no result line):
    ring cut to 1,250 slots as in 8b, learn_start 64 sequences, 100 grad
    steps; the same checks (the fill counted in sequences), B1 and B2
    launched;
+12a. ``BatchedPolicy`` on the card at the Pong preset's net (bf16 Nature
+   CNN, 84×84×4, 4 actions, buckets 8, 32, 128 and 256), at each bucket
+   with 3 rows of padding: the real rows bitwise beside zero and random
+   padding; Q within 2e-2 of the port's ``QNet`` at batch 1 on the card
+   and of the same forward on the CPU, actions equal to the card's
+   batch-1 argmax wherever the top two Q-values differ by more than
+   4e-2; two θ generations swapped between forwards each give their own
+   replies (bitwise). Timed on full buckets: the forward's device ms
+   (CUDA events on the policy's stream), host ms per call with the
+   observations' staging and copies, the copy's device and host ms and
+   its share, rows/s, beside the bound (bytes or operations); an actor's
+   batch-1 forward on one CPU thread, the local baseline;
+12b. the served fleet — phase 11's run with ``inference.enabled=true
+   actors.vector_envs=8`` (4 actor processes × 8 envs = 32 replay streams
+   in the uncut ring, every greedy action from the ``InferenceServer``
+   on the learner's card), the health plane on and the autoscaler with
+   its executor in ``dry_run``; phase 11's checks (no actor holds a CUDA
+   context, all four kernels launched) and: ``infer`` requests made, no
+   θ pulled, at most 4 bucket shapes run, no scale action, and the
+   metrics JSONL passes ``telemetry_report.elastic_problems``. Printed:
+   the fleet's env steps/s and grad steps/s beside phase 11's, the infer
+   reply p50/p99, rows per forward, the forward's ms, sheds,
+   ``learner/publish_params_ms`` (which now includes the install),
+   eval_return beside the random policy's;
 9. the ``kernels`` JSON line (each kernel's launches on every path in
    ``launches_by_path``), the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, 8c, 10, 11,
-11b and 11c) sets all kernel launch counters to 0 just before it and reads
-them just after.
+11b, 11c and 12b) sets all kernel launch counters to 0 just before it and
+reads them just after.
 """
 
 from __future__ import annotations
@@ -1992,6 +2016,188 @@ def check_path(summary: dict, grad_steps: int) -> None:
     assert summary["grad_steps"] == grad_steps, summary["grad_steps"]
 
 
+# -- phases 12a and 12b: the served fleet -----------------------------------
+
+# Phase 12a: ``BatchedPolicy`` on the card at the Pong preset's net (bf16
+# Nature CNN, 84×84×4, SignalAtari's 4 actions, the preset's buckets).
+# Q of a real row against the port's ``QNet`` on the card at batch 1 and
+# on the CPU: within 2e-2 absolute (bf16 Q-values carry 8 significant
+# bits; cuDNN picks its algorithm per batch shape, the CPU another
+# library); actions equal wherever the top two Q-values differ by more
+# than twice that. Within one bucket every comparison is bitwise.
+POLICY_Q_TOL = 2e-2
+POLICY_ITERS = 32
+
+# Phase 12b: phase 11's run with the inference plane on and 8 envs per
+# actor process (4 × 8 = 32 replay streams in the uncut 1M-row ring), the
+# health plane and the autoscaler with its executor in dry_run (the fleet
+# stays 4); the same cuts (learn_start 8,192, 800 grad steps)
+SERVED_SET = ["inference.enabled=true", "actors.vector_envs=8",
+              "health.enabled=true", "autoscale.enabled=true",
+              "autoscale.execute=true", "autoscale.dry_run=true"]
+SERVED_PRINTED = ("inference/latency_ms_p50", "inference/latency_ms_p99",
+                  "inference/batch_rows_mean", "inference/batch_rows_p50",
+                  "inference/forward_ms_p50", "inference/forward_ms_p99",
+                  "inference/sheds", "inference/requests",
+                  "actor/infer_rtt_ms_p50", "actor/infer_rtt_ms_p99",
+                  "actor/vector_rows_mean", "actor/vector_step_ms_p50",
+                  "health/findings", "autoscale/target_actors",
+                  "autoscale/applied_actors")
+
+
+def nature_macs_per_row(frame=(84, 84), stack=4, actions=4) -> int:
+    """Multiply-adds of one Nature-CNN forward row (convs VALID, fc4 512,
+    the Q head): 9.35 M at 84×84×4 with 4 actions."""
+    h, w = frame
+    macs, cin = 0, stack
+    for k, st, cout in ((8, 4, 32), (4, 2, 64), (3, 1, 64)):
+        h, w = (h - k) // st + 1, (w - k) // st + 1
+        macs += h * w * cout * k * k * cin
+        cin = cout
+    return macs + h * w * cin * 512 + 512 * actions
+
+
+def policy_bound(bucket: int, params: int,
+                 actions: int = 4) -> tuple[float, str]:
+    """The least time of one bucket's forward and what bounds it: the
+    larger of its bytes (the uint8 batch in, θ in float32 read once, Q
+    out) over 3.35 TB/s and its operations (2 per multiply-add) over
+    989.4 TFLOP/s bf16."""
+    nbytes = bucket * 84 * 84 * 4 + 4 * params + 4 * bucket * actions
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * 2 * nature_macs_per_row() * bucket / 989.4e12
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def batched_policy(torch, config) -> dict:
+    """Phase 12a: ``BatchedPolicy`` on the card, checked and timed at each
+    bucket (see ``POLICY_Q_TOL``)."""
+    from distributed_deep_q_tpu_torch.models.policy import BatchedPolicy
+    from distributed_deep_q_tpu_torch.models.qnet import QNet
+
+    dev = torch.device("cuda", 0)
+    cfg = config.pong_config()
+    net = cfg.net
+    net.num_actions = 4
+    qnet = QNet(net, seed=0, device=dev)
+    theta = qnet.get_weights()
+    cpu = QNet(net, seed=0)
+    cpu.set_weights(theta)
+    policy = BatchedPolicy(net, seed=1, buckets=cfg.inference.buckets,
+                           device=dev)
+    t0 = time.perf_counter()
+    policy.set_weights(theta)
+    torch.cuda.synchronize()
+    install_ms = 1e3 * (time.perf_counter() - t0)
+    theta_b = QNet(net, seed=2).get_weights()
+    params = sum(int(np.prod(np.shape(w))) for w in theta)
+    rng = np.random.default_rng(0)
+    rows = []
+    for bucket in policy.buckets:
+        n = bucket - 3
+        obs = rng.integers(0, 256, (bucket, 84, 84, 4), dtype=np.uint8)
+        a_pad, q_pad = policy.forward(obs[:n])
+        a_rand, q_rand = policy.forward(obs)
+        q_one = np.concatenate([qnet.forward(obs[i:i + 1])
+                                for i in range(n)])
+        q_cpu = cpu.forward(obs[:n])
+        top2 = np.sort(q_one, axis=-1)[:, -2:]
+        sure = top2[:, 1] - top2[:, 0] > 2 * POLICY_Q_TOL
+        # two generations swapped between forwards, each its own replies
+        policy.set_weights(theta_b)
+        _, q_b = policy.forward(obs[:n])
+        policy.set_weights(theta)
+        _, q_a = policy.forward(obs[:n])
+        gen_b = policy.unflatten(theta_b)
+        _, q_b2 = policy.forward(obs[:n], params=gen_b)
+        row = {
+            "bucket": bucket, "real_rows": n,
+            "padding_bitwise": bool(np.array_equal(q_rand[:n], q_pad)
+                                    and np.array_equal(a_rand[:n], a_pad)),
+            "q_vs_qnet_card_batch1": float(np.abs(q_pad - q_one).max()),
+            "q_vs_qnet_cpu": float(np.abs(q_pad - q_cpu).max()),
+            "action_rows_checked": int(sure.sum()),
+            "actions_equal": bool(np.array_equal(a_pad[sure],
+                                                 q_one[sure].argmax(-1))),
+            "generations_own_replies": bool(
+                np.array_equal(q_a, q_pad) and np.array_equal(q_b2, q_b)
+                and not np.array_equal(q_b, q_pad))}
+        # timed on full buckets: device ms of the forward alone (events on
+        # the policy stream), host ms per call (staging, the copies and
+        # the argmax included) and of the observation's staging and copy
+        with torch.cuda.stream(policy.stream):
+            x = policy.stage(obs, bucket)
+            fwd_ms, _ = time_ms(
+                torch, lambda i: policy.q_values(x, policy.params),
+                POLICY_ITERS)
+            copy_ms, copy_host_ms = time_ms(
+                torch, lambda i: policy.stage(obs, bucket),
+                POLICY_ITERS)
+        for _ in range(WARMUP):
+            policy.forward(obs)
+        t0 = time.perf_counter()
+        for _ in range(POLICY_ITERS):
+            policy.forward(obs)
+        host_ms = 1e3 * (time.perf_counter() - t0) / POLICY_ITERS
+        bound_ms, bound_by = policy_bound(bucket, params)
+        row.update({
+            "device_ms": fwd_ms, "host_ms": host_ms,
+            "obs_copy_device_ms": copy_ms,
+            "obs_copy_host_ms": copy_host_ms,
+            "obs_copy_share_of_host_ms": copy_host_ms / host_ms,
+            "rows_per_s": bucket / (host_ms / 1e3),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        rows.append(row)
+    # the local baseline: an actor's batch-1 forward on one CPU thread
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = rng.integers(0, 256, (1, 84, 84, 4), dtype=np.uint8)
+        for _ in range(3):
+            cpu.forward(one)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            cpu.forward(one)
+        actor_ms = 1e3 * (time.perf_counter() - t0) / 20
+    finally:
+        torch.set_num_threads(threads)
+    return {"buckets": rows, "params": params,
+            "macs_per_row": nature_macs_per_row(), "install_ms": install_ms,
+            "compiled_buckets": policy.compiled_buckets(),
+            "actor_batch1_cpu_one_thread_ms": actor_ms,
+            "q_tolerance": POLICY_Q_TOL}
+
+
+def check_batched_policy(out: dict, buckets) -> None:
+    for row in out["buckets"]:
+        assert row["padding_bitwise"], row
+        assert row["q_vs_qnet_card_batch1"] <= POLICY_Q_TOL, row
+        assert row["q_vs_qnet_cpu"] <= POLICY_Q_TOL, row
+        assert row["actions_equal"] and row["action_rows_checked"] > 0, row
+        assert row["generations_own_replies"], row
+    assert out["compiled_buckets"] == sorted(buckets), out
+
+
+def check_served_fleet(out: dict, jsonl: str, report) -> dict:
+    """Phase 12b's checks beyond phase 11's (``report`` is the port's
+    ``telemetry_report``); returns what it read."""
+    s = out["summary"]
+    assert s["inference_requests"] > 0, s
+    assert s["inference_param_pulls"] == 0, s
+    assert 1 <= s["inference_compiled_buckets"] <= 4, s
+    assert s["actor_scale_terminations"] == 0, s
+    records = report.load_records(os.path.join(OUT_DIR, jsonl))
+    found = report.elastic_problems(records)
+    assert not found, found
+    return {"records": len(records), "last_record": records[-1],
+            "elastic_problems": found,
+            "decisions": [d for r in records
+                          for d in r.get("autoscale/decision", [])],
+            "verdicts": [r["health/verdict"].get("status") for r in records
+                         if isinstance(r.get("health/verdict"), dict)]}
+
+
 def main() -> int:
     import torch
 
@@ -2004,6 +2210,7 @@ def main() -> int:
         from distributed_deep_q_tpu_torch import config
         from distributed_deep_q_tpu_torch import metrics as metrics_mod
         from distributed_deep_q_tpu_torch import profiling, tracing
+        from distributed_deep_q_tpu_torch import telemetry_report
         from distributed_deep_q_tpu_torch import train as train_mod
         from distributed_deep_q_tpu_torch.actors.game import make_env
         from distributed_deep_q_tpu_torch.main import main as cli_main
@@ -2293,6 +2500,51 @@ def main() -> int:
         f"the random policy's {pong_random} (printed, not held: a few "
         "hundred grad steps at the preset's lr, as in phase 4)")
 
+    # -- 12a. BatchedPolicy on the card ---------------------------------------
+    pol = batched_policy(torch, config)
+    for row in pol["buckets"]:
+        log(f"[12a] bucket {json.dumps(row)}")
+    log(f"[12a] θ install {pol['install_ms']} ms; {pol['params']} "
+        f"parameters, {pol['macs_per_row']} multiply-adds per row; an "
+        f"actor's batch-1 forward on one CPU thread "
+        f"{pol['actor_batch1_cpu_one_thread_ms']} ms; compiled buckets "
+        f"{pol['compiled_buckets']}")
+    check_batched_policy(pol, pcfg.inference.buckets)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 12b. the served fleet: phase 11 with the inference plane ----------
+    served_jsonl = "chip_smoke_dist_pong_served.jsonl"
+    served = distributed_run(cli_main, counters, DIST_PONG_ARGV + SERVED_SET,
+                             served_jsonl, 4)
+    s = served["summary"]
+    log(f"[12b] summary: {json.dumps(s)}")
+    log(f"[12b] launches: {json.dumps(served['launches'])}; no actor holds "
+        f"a CUDA context ({served['cuda_context']['check']} check): "
+        f"{json.dumps(served['cuda_context'])}")
+    check_distributed_run(served, 800, ("env_steps", 8192), all_kernels)
+    served_read = check_served_fleet(served, served_jsonl, telemetry_report)
+    last = served_read.pop("last_record")
+    log(f"[12b] the fleet's env steps/s {s['env_steps_per_s']} (4 actor "
+        f"processes × 8 envs, served) beside phase 11's "
+        f"{dist['11']['summary']['env_steps_per_s']} (4 × 1, local); grad "
+        f"steps/s {s['grad_steps_per_s']} beside phase 11's "
+        f"{dist['11']['summary']['grad_steps_per_s']} (last window); wall "
+        f"{s['wall_s']:.1f} s")
+    infer_keys = {k: last.get(k) for k in SERVED_PRINTED}
+    log(f"[12b] inference: {json.dumps(infer_keys)}; requests "
+        f"{s['inference_requests']}, sheds {s['inference_sheds']}, compiled "
+        f"buckets "
+        f"{s['inference_compiled_buckets']}, θ pulls "
+        f"{s['inference_param_pulls']}")
+    log(f"[12b] {json.dumps(served['printed'])}; eval_return "
+        f"{s['eval_return']} beside the random policy's {pong_random}; "
+        f"health verdicts {served_read['verdicts']}, autoscale decisions "
+        f"{served_read['decisions']}, elastic_problems "
+        f"{served_read['elastic_problems']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 9. result lines ------------------------------------------------------
     src = "distributed_deep_q_tpu_torch/csrc/ring_gather.cu"
     loss_src = "distributed_deep_q_tpu_torch/csrc/fused_loss.cu"
@@ -2395,7 +2647,8 @@ def main() -> int:
                "11 pong distributed": dist["11"]["launches"],
                "11b breakout distributed host-sampled":
                    dist["11b"]["launches"],
-               "11c r2d2 distributed": dist["11c"]["launches"]}
+               "11c r2d2 distributed": dist["11c"]["launches"],
+               "12b pong served fleet": served["launches"]}
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}

@@ -11,15 +11,24 @@ wire. Actors never touch the card: each builds its ``QNet`` on
 design, not a fallback. The supervisor thread restarts a dead or silent
 actor (actors are stateless).
 
+With ``inference.enabled`` the learner process also serves actions: an
+``InferenceServer`` whose ``BatchedPolicy`` runs on the learner's card
+answers every greedy action of the fleet (``_RemoteInference``), and the
+actors pull no θ. With ``actors.vector_envs > 1`` each actor process
+steps that many envs behind one batched policy call per tick
+(``_vector_actor_loop``), one replay stream per env row. With
+``autoscale.enabled`` (and the health plane on) the health verdict is
+folded through an ``Autoscaler`` and, with ``autoscale.execute``, its
+``ScaleExecutor`` grows and retires actors.
+
 Ape-X ε ladder: actor i uses ε_i = base^(1 + i·α/(N-1)), a fixed spread of
 exploration rates across the fleet.
 
 Refused by name, before any process is spawned (``check_distributed``):
-``inference.enabled`` and ``actors.vector_envs > 1`` (the inference and
-vector acting planes, ROADMAP A11), ``autoscale.enabled`` (A14),
 ``train.learn_metrics`` (A12), more than one process or shard (A14), and
 ``replay.persist_path`` (the distributed topology warm-refills from its
-fleet, as in the reference).
+fleet, as in the reference); vector acting on an env that is not pixels
+(``train_distributed``, as in the reference).
 """
 
 from __future__ import annotations
@@ -82,18 +91,6 @@ def check_distributed(cfg: Config) -> None:
             "replay paths; the distributed topology warm-refills from its "
             "actor fleet on restart (the reference behavior) — unset it "
             "for --distributed runs")
-    if cfg.inference.enabled:
-        raise NotImplementedError(
-            "inference.enabled (the batched inference plane) is not ported "
-            "yet (ROADMAP A11)")
-    if int(cfg.actors.vector_envs) > 1:
-        raise NotImplementedError(
-            f"actors.vector_envs={cfg.actors.vector_envs} (vectorized "
-            "acting) is not ported yet (ROADMAP A11)")
-    if cfg.autoscale.enabled:
-        raise NotImplementedError(
-            "autoscale.enabled (the autoscaler and its executor) is not "
-            "ported yet (ROADMAP A14)")
     if cfg.train.learn_metrics:
         raise NotImplementedError(
             "train.learn_metrics=true (the learning-dynamics plane) is not "
@@ -242,6 +239,88 @@ class _ActorComms:
         return out
 
 
+class _RemoteInference:
+    """Exploit-action source for remote inference: the actor ships
+    observations to the ``InferenceServer`` and receives argmax actions —
+    zero steady-state θ pulls, staleness gone by construction (every
+    action is computed against the server's live θ). ε-greedy stays OUT
+    of this class, on the actor's own seeded rng, so the exploration
+    stream is bitwise identical to local inference. Nothing here touches
+    ``torch``.
+
+    Transport rides the resilient wrapper (reconnect/backoff, credit
+    grants feed its token bucket) and honors explicit shed replies with
+    the server's retry hint. An infer is a pure function of (θ, obs), so
+    a re-send after a shed or an ambiguous transport failure is
+    idempotent for free — no flush_seq machinery needed."""
+
+    def __init__(self, cfg: Config, stop_event, actor_id: int, gid: int,
+                 touch=None):
+        from distributed_deep_q_tpu_torch.rpc.inference_server import (
+            InferenceClient)
+        from distributed_deep_q_tpu_torch.rpc.resilience import (
+            ResilientReplayFeedClient, RetryPolicy)
+
+        policy = RetryPolicy(base_delay=cfg.actors.rpc_retry_base,
+                             max_delay=cfg.actors.rpc_retry_max,
+                             deadline=cfg.actors.rpc_retry_deadline)
+        # retries on the INITIAL connect too: the inference server comes
+        # up with the rest of the learner plane, maybe after this child
+        seed = cfg.train.seed + 60217 * (gid + 1)
+        rng = np.random.default_rng(seed)
+        stub = policy.run(
+            lambda: InferenceClient(cfg.inference.host, cfg.inference.port,
+                                    actor_id=actor_id,
+                                    timeout=cfg.actors.rpc_call_timeout),
+            rng=rng, should_abort=stop_event.is_set)
+        self._client = ResilientReplayFeedClient(
+            stub, policy, should_abort=stop_event.is_set, seed=seed)
+        self._client.on_backpressure = touch
+        self._rng = rng
+        self._seq = 0
+        self.version = -1
+        self.sheds = 0
+
+    def action(self, obs) -> int:
+        """One remote argmax action for a single observation."""
+        return int(self.actions(np.asarray(obs)[None])[0])
+
+    def actions(self, obs) -> np.ndarray:
+        """Batched remote argmax actions: ONE ``infer`` RPC for a whole
+        row batch — the vector actor's one-RPC-per-tick path. A shed sheds
+        the WHOLE batch (the server admits whole requests only), so retry
+        keeps the rows together and row order is preserved end to end. An
+        ``error`` reply (a failed forward) raises ``RPCError``."""
+        from distributed_deep_q_tpu_torch.rpc.resilience import RPCError
+
+        batch = np.ascontiguousarray(np.asarray(obs))
+        seq = self._seq
+        self._seq += 1
+        while True:
+            with tracing.span("rpc_call"):
+                resp = self._client.call("infer", obs=batch, seq=seq)
+            if resp.get("error"):
+                raise RPCError(f"infer rejected: {resp['error']}")
+            if resp.get("shed"):
+                self.sheds += 1
+                tracing.instant(
+                    "shed", plane="inference",
+                    retry_after_ms=float(resp.get("retry_after_ms", 0)))
+                delay = max(float(resp.get("retry_after_ms", 100)),
+                            10.0) / 1e3
+                # decorrelate the fleet's re-sends a little
+                delay *= 1.0 + 0.25 * float(self._rng.random())
+                self._client._sleep_backpressure(delay)
+                continue
+            self._client._note_reply(resp)
+            if resp.get("version") is not None:
+                self.version = int(resp["version"])
+            return np.asarray(resp["actions"]).astype(np.int64)
+
+    def close(self) -> None:
+        self._client.close()
+
+
 # ---------------------------------------------------------------------------
 # Actor process
 # ---------------------------------------------------------------------------
@@ -263,10 +342,12 @@ def actor_main(cfg: Config, host: str, port: int, actor_id: int,
     # tracing config rides the pickled cfg into the spawned child; spans
     # from this process export as their own shard (trace-<pid>.json)
     tracing.configure_from(cfg.trace)
-    if int(cfg.actors.vector_envs) > 1 or cfg.inference.enabled:
-        raise NotImplementedError(
-            "vectorized acting and remote inference are not ported yet "
-            "(ROADMAP A11)")
+    if int(cfg.actors.vector_envs) > 1 and cfg.net.kind != "r2d2":
+        # this process drives vector_envs stacked env copies behind one
+        # batched step — same identities, same wire path, V streams
+        _vector_actor_loop(cfg, host, port, actor_id, stop_event,
+                           max_env_steps)
+        return
     from distributed_deep_q_tpu_torch.models.qnet import QNet
     from distributed_deep_q_tpu_torch.rpc.resilience import (
         ResilientReplayFeedClient, RetryPolicy)
@@ -363,13 +444,28 @@ def actor_main(cfg: Config, host: str, port: int, actor_id: int,
     comms = _ActorComms(cfg, client, qnet, rng)
     # credit throttling / SHED waits advance the liveness watermark
     client.on_backpressure = comms.touch
+    remote = None
+    if cfg.inference.enabled:
+        # exploit actions come from the batched inference plane; this
+        # actor never pulls θ
+        remote = _RemoteInference(cfg, stop_event, actor_id, gid,
+                                  touch=comms.touch)
     try:
         while not stop_event.is_set():
             if max_env_steps and steps >= max_env_steps:
                 break
-            comms.maybe_pull(steps)
+            if remote is None:
+                comms.maybe_pull(steps)
+            else:
+                comms.touch()  # loop progress for the heartbeat gate
+            # ε-greedy stays local either way: the SAME rng draws in the
+            # SAME order, so the exploration stream is bitwise identical
+            # between local and remote inference
             if rng.random() < eps:
                 a = int(rng.integers(env.num_actions))
+            elif remote is not None:
+                with tracing.span_sampled("remote_infer"):
+                    a = remote.action(obs)
             else:
                 a = qnet.argmax_action(np.asarray(obs))
             with tracing.span_sampled("env_step"):
@@ -419,6 +515,8 @@ def actor_main(cfg: Config, host: str, port: int, actor_id: int,
         pass  # learner gone; supervisor owns our lifecycle
     finally:
         comms.close()
+        if remote is not None:
+            remote.close()
         client.close()
         if tracing.ENABLED:
             tracing.export()
@@ -427,12 +525,208 @@ def actor_main(cfg: Config, host: str, port: int, actor_id: int,
 def _liveness_id(cfg: Config, actor_id: int) -> int:
     """The ``last_seen`` key an actor's heartbeat lane uses.
 
-    With vectorized acting (ROADMAP A11) the replay STREAM ids are
-    ``process*V + row``, so a process's heartbeat signs in on a lane
-    beyond the stream range (``num_actors*V + process``); with one env per
-    process the lane is the actor id."""
+    With vectorized acting the replay STREAM ids are ``process*V + row``,
+    so process p's row-r stream would alias process ``p*V + r``'s liveness
+    key — a live process 0 could mask a dead process 1 forever. The
+    heartbeat client therefore signs in on a lane BEYOND the stream range
+    (``num_actors*V + process``); with one env per process the lane is the
+    actor id."""
     v = max(int(cfg.actors.vector_envs), 1)
     return cfg.actors.num_actors * v + actor_id if v > 1 else actor_id
+
+
+def _vector_actor_loop(cfg: Config, host: str, port: int, actor_id: int,
+                       stop_event, max_env_steps: int = 0) -> None:
+    """Vectorized actor process body (the Sebulba half of the Podracer
+    split): V stacked envs, one batched policy call per wall tick — a
+    local CPU ``QNet`` forward, or ONE ``infer`` RPC to the learner's card
+    with ``inference.enabled`` — and V per-row replay streams down the
+    columnar wire path. Nothing here touches the card.
+
+    Identity discipline is what makes this a MODE and not a fork: row j
+    of process i plays fleet-global id ``base*V + j`` (``base`` = this
+    process's gid), with exactly the per-env fleet's seeds — env seed
+    ``seed + 1000*(gid+1)``, ε rng ``seed + 7777*(gid+1)``, ε ladder
+    slot ``gid`` of ``num_actors*V`` — and ships on replay stream
+    ``actor_id*V + j``. Same seeds → same actions → same transitions
+    (``tests/test_torch_vector_env.py`` pins it on both torsos).
+    """
+    from distributed_deep_q_tpu_torch.actors.vector import (
+        VectorActing, VectorEnv, VectorStepLatencyEnv)
+    from distributed_deep_q_tpu_torch.models.qnet import QNet
+    from distributed_deep_q_tpu_torch.rpc.resilience import (
+        ResilientReplayFeedClient, RetryPolicy)
+
+    v = int(cfg.actors.vector_envs)
+    base = (cfg.actors.actor_gids[actor_id] if cfg.actors.actor_gids
+            else actor_id + cfg.actors.actor_id_offset)
+    gids = [base * v + j for j in range(v)]
+    fleet = cfg.actors.fleet_size or cfg.actors.num_actors * v
+    venv = VectorStepLatencyEnv(VectorEnv(game.make_envs(
+        [env_for_actor(cfg.env, g) for g in gids],
+        [cfg.train.seed + 1000 * (g + 1) for g in gids])))
+    cfg.net.num_actions = venv.num_actions
+    # ONE shared θ copy: every per-env actor seeds its QNet with
+    # cfg.train.seed, so one net IS all of them
+    qnet = QNet(cfg.net, seed=cfg.train.seed,
+                obs_dim=int(np.prod(venv.obs_shape)), device="cpu")
+
+    def _policy() -> RetryPolicy:
+        return RetryPolicy(base_delay=cfg.actors.rpc_retry_base,
+                           max_delay=cfg.actors.rpc_retry_max,
+                           deadline=cfg.actors.rpc_retry_deadline)
+
+    # per-row stream clients: stream id actor_id*V + j keeps the
+    # server-side contract intact — flush_seq dedup, slot ownership and
+    # per-stream telemetry all key on it, exactly as V processes
+    clients = []
+    for j, g in enumerate(gids):
+        c = ResilientReplayFeedClient.connect(
+            host, port, actor_id=actor_id * v + j, policy=_policy(),
+            timeout=cfg.actors.rpc_call_timeout,
+            should_abort=stop_event.is_set,
+            seed=cfg.train.seed + 31337 * (g + 1))
+        c.call("reset_stream")
+        clients.append(c)
+    # heartbeat/θ lane on its own liveness id (see _liveness_id) with a
+    # DEDICATED rng: _ActorComms draws its pull phase at construction,
+    # and that draw must not perturb any row's ε stream
+    comms_client = ResilientReplayFeedClient.connect(
+        host, port, actor_id=_liveness_id(cfg, actor_id), policy=_policy(),
+        timeout=cfg.actors.rpc_call_timeout,
+        should_abort=stop_event.is_set,
+        seed=cfg.train.seed + 31337 * (fleet + actor_id + 1))
+    comms = _ActorComms(cfg, comms_client, qnet,
+                        np.random.default_rng(
+                            cfg.train.seed + 4242 * (actor_id + 1)))
+    comms_client.on_backpressure = comms.touch
+    for c in clients:
+        c.on_backpressure = comms.touch
+
+    rngs = [np.random.default_rng(cfg.train.seed + 7777 * (g + 1))
+            for g in gids]
+    epsilons = [actor_epsilon(g, fleet, cfg.actors.eps_base,
+                              cfg.actors.eps_alpha) for g in gids]
+    acting = VectorActing(venv, cfg.env.stack, rngs, epsilons)
+
+    remote = None
+    if cfg.inference.enabled:
+        remote = _RemoteInference(cfg, stop_event, actor_id * v, base,
+                                  touch=comms.touch)
+
+    infer_ms: list[float] = []
+    infer_rows: list[float] = []
+
+    def greedy_fn(rows: np.ndarray) -> np.ndarray:
+        if remote is not None:
+            with tracing.span_sampled("vector_infer"):
+                t0 = time.perf_counter()
+                out = remote.actions(rows)
+            infer_ms.append(1e3 * (time.perf_counter() - t0))
+            infer_rows.append(float(len(rows)))
+            return out
+        return np.argmax(np.asarray(qnet.forward(rows)), axis=-1)
+
+    chunks = [{k: [] for k in ("frame", "action", "reward", "done",
+                               "boundary")} for _ in range(v)]
+    births: list[list[float]] = [[] for _ in range(v)]
+    ep_rets: list[list[float]] = [[] for _ in range(v)]
+    episodes = [0] * v
+    resets_sent = 0
+
+    def flush(j: int) -> None:
+        nonlocal resets_sent
+        ch = chunks[j]
+        if not ch["action"]:
+            return
+        payload = {
+            "frame": np.stack(ch["frame"]).astype(np.uint8),
+            "action": np.asarray(ch["action"], np.int32),
+            "reward": np.asarray(ch["reward"], np.float32),
+            "done": np.asarray(ch["done"], bool),
+            "boundary": np.asarray(ch["boundary"], bool),
+            "episodes": episodes[j],
+            "ep_returns": np.asarray(ep_rets[j], np.float32),
+        }
+        # process-level telemetry rides whichever stream flushes next
+        # (drain semantics — each sample ships exactly once)
+        payload.update(comms.drain_telemetry())
+        step_ms = venv.drain_step_ms()
+        if step_ms:
+            tick_ms = np.asarray(step_ms, np.float32)
+            payload["tm_vector_step_ms"] = tick_ms
+            # amortized per-env step cost feeds the SAME fleet histogram
+            # the per-env actors populate, so the two modes compare on
+            # one axis
+            payload["tm_env_step_ms"] = tick_ms / v
+        if infer_ms:
+            payload["tm_vector_infer_ms"] = np.asarray(infer_ms, np.float32)
+            infer_ms.clear()
+        if infer_rows:
+            payload["tm_vector_rows"] = np.asarray(infer_rows, np.float32)
+            infer_rows.clear()
+        new_resets = acting.auto_resets - resets_sent
+        if new_resets:
+            payload["tm_vector_resets"] = np.asarray(
+                [new_resets], np.float32)
+            resets_sent = acting.auto_resets
+        if births[j]:
+            if tracing.lineage_sample():
+                payload[tracing.KEY_BIRTH] = tracing.to_server_clock(
+                    np.asarray(births[j], np.float64))
+            births[j].clear()
+        resp = clients[j].add_transitions(**payload)
+        comms.note_published(resp.get("params_version"))
+        for q in ch.values():
+            q.clear()
+        ep_rets[j].clear()
+        episodes[j] = 0
+
+    ticks = 0
+    steps = 0
+    try:
+        while not stop_event.is_set():
+            if max_env_steps and steps >= max_env_steps:
+                break
+            if remote is None:
+                comms.maybe_pull(ticks)
+            else:
+                comms.touch()
+            with tracing.span_sampled("vector_step"):
+                frames, actions, rewards, dones, overs = \
+                    acting.tick(greedy_fn)
+            now = tracing.now() if tracing.ENABLED else 0.0
+            for j in range(v):
+                ch = chunks[j]
+                ch["frame"].append(frames[j])
+                ch["action"].append(int(actions[j]))
+                ch["reward"].append(float(rewards[j]))
+                ch["done"].append(bool(dones[j]))
+                ch["boundary"].append(bool(overs[j]))
+                if tracing.ENABLED:
+                    births[j].append(now)
+                if overs[j]:
+                    episodes[j] += 1
+            for j, ret in acting.drain_completed():
+                ep_rets[j].append(ret)
+            ticks += 1
+            steps += v
+            for j in range(v):
+                if len(chunks[j]["action"]) >= cfg.actors.send_batch:
+                    flush(j)
+        for j in range(v):
+            flush(j)
+    except (ConnectionError, OSError):
+        pass  # learner gone; supervisor owns our lifecycle
+    finally:
+        comms.close()
+        if remote is not None:
+            remote.close()
+        for c in clients:
+            c.close()
+        comms_client.close()
+        if tracing.ENABLED:
+            tracing.export()
 
 
 def _recurrent_actor_loop(cfg: Config, env, qnet, client, rng, eps: float,
@@ -558,13 +852,12 @@ def _recurrent_actor_loop(cfg: Config, env, qnet, client, rng, eps: float,
 class ActorSupervisor:
     """Spawns the actor fleet and restarts dead or silent actors.
 
-    The process map moves under ``_procs_lock`` (``grow``/``retire`` are
-    the elastic surface the reference's autoscale executor drives; the
-    port refuses autoscaling, ROADMAP A14, but keeps the surface): the
-    watch loop re-checks membership under it before acting, so a
-    concurrent retirement is never respawned. Retirements are counted in
-    ``executor_terminations``, separate from ``kill_escalations``
-    (SIGKILL escalations of crashed or hung actors).
+    The fleet is elastic: the autoscale executor grows and retires actors
+    at run time through ``grow``/``retire``, so the process map moves
+    under ``_procs_lock``: the watch loop re-checks membership under it
+    before acting, so a concurrent retirement is never respawned.
+    Retirements are counted in ``executor_terminations``, separate from
+    ``kill_escalations`` (SIGKILL escalations of crashed or hung actors).
     """
 
     def __init__(self, cfg: Config, host: str, port: int,
@@ -734,14 +1027,22 @@ class ActorSupervisor:
 # ---------------------------------------------------------------------------
 
 
-def _bring_up_rpc_plane(cfg: Config, replay):
+def _bring_up_rpc_plane(cfg: Config, replay, obs_dim: int = 4,
+                        device: torch.device | str = "cuda"):
     """Server + supervised fleet, with the fault-tolerance plumbing: chaos
     spec exported for the spawned actors to inherit, warm boot from
     ``train.server_snapshot_path`` (stable port when snapshotting — a
     restarted learner must come back where the fleet expects it), and the
     membership registry seeded with this host. Call it from the learner's
     thread: the server starts the device ring's ingest drain, whose writes
-    go on the stream current here. Returns ``(server, sup)``."""
+    go on the stream current here.
+
+    With ``inference.enabled`` (feed-forward nets only) the batched
+    inference plane comes up too, its ``BatchedPolicy`` on ``device`` (the
+    solver's): its bound address is written into ``cfg.inference`` BEFORE
+    the supervisor is made, because the fleet learns it through the cfg
+    pickled into each spawned child. Returns ``(server, sup,
+    infer_server or None)``."""
     import os
 
     from distributed_deep_q_tpu_torch.actors.membership import (
@@ -763,6 +1064,27 @@ def _bring_up_rpc_plane(cfg: Config, replay):
                               port=cfg.actors.port if snap else 0,
                               snapshot_path=snap, flow=flow,
                               snapshot_keep=cfg.train.snapshot_keep)
+    infer_server = None
+    if cfg.inference.enabled and cfg.net.kind != "r2d2":
+        from distributed_deep_q_tpu_torch.models.policy import BatchedPolicy
+        from distributed_deep_q_tpu_torch.rpc.inference_server import (
+            InferenceServer)
+        policy = BatchedPolicy(cfg.net, seed=cfg.train.seed,
+                               obs_dim=obs_dim,
+                               buckets=cfg.inference.buckets,
+                               device=device)
+        infer_server = InferenceServer(
+            policy, host=cfg.inference.host, port=cfg.inference.port,
+            max_batch=cfg.inference.max_batch,
+            cutoff_us=cfg.inference.cutoff_us,
+            flow=FlowConfig(
+                staged_high_watermark=cfg.inference.queue_high_watermark,
+                shed_policy=cfg.replay.shed_policy),
+            tenants=cfg.inference.tenants,
+            shed_shadow_frac=cfg.inference.shed_shadow_frac,
+            shed_ab_frac=cfg.inference.shed_ab_frac,
+            ladder_burn_s=cfg.inference.ladder_burn_s)
+        cfg.inference.host, cfg.inference.port = infer_server.address
     host, port = server.address
     registry = MembershipRegistry()
     registry.join(f"host-{cfg.mesh.process_id}", host, port)
@@ -770,20 +1092,25 @@ def _bring_up_rpc_plane(cfg: Config, replay):
     sup = ActorSupervisor(cfg, host, port)
     sup.start()
     sup.watch(server.last_seen)
-    return server, sup
+    return server, sup, infer_server
 
 
-def _publish_weights(server, weights) -> int:
-    """One θ publish: the replay feed's cached wire frame the actors pull.
-    (The reference also installs θ in its inference server, ROADMAP A11.)
-    Returns the version."""
-    return server.publish_params(weights)
+def _publish_weights(server, infer_server, weights) -> int:
+    """One θ publish across both planes: the replay feed's cached wire
+    frame (local-inference pulls) and the inference server's in-process
+    install, tied to the SAME version number so actors on either plane
+    agree on what "current" means. Returns the version."""
+    version = server.publish_params(weights)
+    if infer_server is not None:
+        infer_server.set_params(weights, version=version)
+    return version
 
 
-def _bring_up_health_plane(cfg: Config, server, solver=None, replay=None,
-                           fused: bool = False):
-    """Fleet health aggregator + live MFU meter. The server's
-    ``health_scrape`` registers with one ``FleetHealth``. The MFU meter
+def _bring_up_health_plane(cfg: Config, server, infer_server=None,
+                           solver=None, replay=None, fused: bool = False):
+    """Fleet health aggregator + live MFU meter. Each server's
+    ``health_scrape`` (the replay feed's, and the inference plane's when
+    it is up) registers with one ``FleetHealth``. The MFU meter
     gets a FLOPs-per-step count only on the fused device-PER path and only
     while the health plane is on (the count runs one extra dispatch).
     Returns ``(fleet, meter)``; both are inert while ``health.ENABLED`` is
@@ -793,6 +1120,8 @@ def _bring_up_health_plane(cfg: Config, server, solver=None, replay=None,
 
     fleet = health.FleetHealth()
     fleet.register("replay", server.health_scrape)
+    if infer_server is not None:
+        fleet.register("inference", infer_server.health_scrape)
     flops = peak = None
     if health.ENABLED and solver is not None:
         peak = peak_flops_for(solver.device)
@@ -801,12 +1130,57 @@ def _bring_up_health_plane(cfg: Config, server, solver=None, replay=None,
     return fleet, MFUMeter(flops, peak)
 
 
-def _health_tick(fleet, meter, server, gstep: int,
-                 scrape: bool = True) -> dict:
+def _bring_up_autoscaler(cfg: Config, sup=None, server=None):
+    """Health-driven autoscaler + its executor. Returns ``(autoscaler,
+    executor)`` — ``(None, None)`` unless BOTH the health plane and
+    ``cfg.autoscale`` are enabled (the scaler's only input is the fleet
+    verdict). The executor also needs ``autoscale.execute`` and a
+    supervisor to drive; it drains and evicts through the replay server
+    and checks spawn-grace heartbeats against its contact map."""
+    if not (health.ENABLED and cfg.autoscale.enabled):
+        return None, None
+    from distributed_deep_q_tpu_torch.actors.autoscaler import Autoscaler
+    a = cfg.autoscale
+    boot = cfg.actors.fleet_size or cfg.actors.num_actors
+    scaler = Autoscaler(
+        min_actors=min(a.min_actors, boot),
+        max_actors=a.max_actors or boot,
+        min_inference=a.min_inference, max_inference=a.max_inference,
+        step=a.step, cooldown_s=a.cooldown_s,
+        recover_ticks=a.recover_ticks)
+    executor = None
+    if a.execute and sup is not None:
+        from distributed_deep_q_tpu_torch.actors.executor import (
+            ScaleExecutor)
+        hb = seq = evict = None
+        if server is not None:
+            spawned = sup.spawned_at
+
+            def hb(i: int) -> bool:  # noqa: E306 — grace-window check
+                return (server.last_seen.get(_liveness_id(cfg, i), 0.0)
+                        > spawned.get(i, 0.0))
+
+            seq = server.stream_seq_of
+            evict = server.retire_stream
+        executor = ScaleExecutor(
+            sup, rate_limit_s=a.rate_limit_s, drain_s=a.drain_s,
+            spawn_grace_s=a.spawn_grace_s, dry_run=a.dry_run,
+            heartbeat_ok=hb, stream_seq=seq, retire_stream=evict)
+    return scaler, executor
+
+
+def _health_tick(fleet, meter, server, gstep: int, scrape: bool = True,
+                 autoscaler=None, executor=None) -> dict:
     """Per-log-tick health record: live MFU + ingest utilization gauges,
     fleet self-accounting and the aggregated verdict (JSON-able; empty
-    while disabled). The reference also folds the verdict through its
-    autoscaler here (ROADMAP A14)."""
+    while disabled).
+
+    With an autoscaler attached, each FRESH scrape is folded through it
+    (a stale ``last()`` verdict would double-count into the recovery
+    streak) and its decisions ride the record under
+    ``autoscale/decision``; with an executor, they are applied here, on
+    this thread, and every action lands under ``autoscale/applied`` naming
+    the decision's rule."""
     if not health.ENABLED:
         return {}
     fc = server.flow_counters()
@@ -816,6 +1190,17 @@ def _health_tick(fleet, meter, server, gstep: int,
     out.update(fleet.gauges())
     if server.membership is not None:
         out.update(server.membership.gauges())
+    if autoscaler is not None and scrape:
+        decisions = autoscaler.observe(v)
+        out.update(autoscaler.gauges())
+        if decisions:
+            out["autoscale/decision"] = [d.to_jsonable()
+                                         for d in decisions]
+        if executor is not None:
+            applied = executor.apply(decisions)
+            out.update(executor.gauges())
+            if applied:
+                out["autoscale/applied"] = applied
     out["health/verdict"] = v.to_jsonable()
     return out
 
@@ -828,8 +1213,10 @@ def _fleet_rate(server, first: tuple[float, int]) -> float:
             / max(time.monotonic() - t0, 1e-9))
 
 
-def _tear_down_rpc_plane(cfg: Config, server, sup) -> None:
+def _tear_down_rpc_plane(cfg: Config, server, sup, infer_server=None) -> None:
     sup.stop()
+    if infer_server is not None:
+        infer_server.close()
     snap = cfg.train.server_snapshot_path
     if snap:
         server.shutdown(snap)  # quiesce + snapshot for the next warm boot
@@ -867,9 +1254,10 @@ def _log_record(server, sup, metrics: Metrics, m: dict) -> dict:
 
 
 def _finish_summary(summary: dict, server, sup, solver, replay,
-                    fleet_rate: float) -> dict:
-    """The end-of-run keys both loops report (the reference's), plus
-    ``grad_steps`` and the fleet's ``env_steps_per_s`` (``fleet_rate``)."""
+                    fleet_rate: float, infer_server=None) -> dict:
+    """The end-of-run keys both loops report (the reference's, the
+    inference plane's when it is up), plus ``grad_steps`` and the fleet's
+    ``env_steps_per_s`` (``fleet_rate``)."""
     summary["env_steps"] = server.counters()["env_steps"]
     summary["env_steps_per_s"] = fleet_rate
     summary["grad_steps"] = solver.step
@@ -883,6 +1271,17 @@ def _finish_summary(summary: dict, server, sup, solver, replay,
     summary["rpc_checksum_errors"] = rpc["checksum_errors"]
     summary["snapshot_quarantined"] = rpc["snapshot_quarantined"]
     summary["flow_degraded_trips"] = server.flow_counters()["degraded_trips"]
+    if infer_server is not None:
+        itm = infer_server.telemetry_summary()
+        summary["inference_requests"] = int(itm["inference/requests"])
+        summary["inference_sheds"] = int(itm["inference/sheds"])
+        summary["inference_compiled_buckets"] = int(
+            itm["inference/compiled_buckets"])
+        # the mode's whole point: actors pulled actions, not parameters
+        # (get_params never fires once the plane is up)
+        with server.telemetry._lock:
+            summary["inference_param_pulls"] = int(
+                server.telemetry.method_calls.get("get_params", 0))
     summary["solver"] = solver
     summary["replay"] = replay
     if solver.device.type == "cuda":
@@ -912,7 +1311,11 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
       through a ``DeviceStager``;
     - ``net.kind=r2d2``: ``_train_distributed_recurrent``.
 
-    Every device ring is built with one stream per actor.
+    Every replay is built with one stream per env row: ``num_actors``
+    times ``actors.vector_envs`` when actors are vectorized. With
+    ``inference.enabled`` the actors' greedy actions come from the
+    inference plane on the solver's device (summary keys
+    ``inference_*``).
     """
     check_distributed(cfg)
     if cfg.net.kind == "r2d2":
@@ -940,6 +1343,15 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
     cfg.net.num_actions = probe.num_actions
     obs_shape = probe.obs_shape
     pixel = probe.obs_dtype == np.uint8
+    if int(cfg.actors.vector_envs) > 1 and not pixel:
+        # fail HERE, not in the actor subprocess: VectorActing rejects
+        # non-uint8 frames at construction, and a dead actor fleet
+        # leaves the learner waiting on learn_start forever
+        raise ValueError(
+            "actors.vector_envs > 1 is the pixel acting path (uint8 "
+            f"frames); env {cfg.env.kind}/{cfg.env.id} observes "
+            f"{np.dtype(probe.obs_dtype).name} — use a pixel env or "
+            "vector_envs=1")
     del probe
 
     # β anneal is denominated in sample() calls; this topology samples once
@@ -948,7 +1360,9 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
         cfg.replay, priority_beta_steps=cfg.train.total_steps)
     solver = Solver(cfg, obs_dim=int(np.prod(obs_shape)))
     batch_size = cfg.replay.batch_size
-    streams = cfg.actors.num_actors
+    # every stacked env row is its own replay stream (slot ownership and
+    # flush_seq dedup key on it)
+    streams = cfg.actors.num_actors * max(int(cfg.actors.vector_envs), 1)
     if pixel and cfg.replay.device_resident:
         cls = (DevicePERFrameReplay
                if cfg.replay.prioritized and cfg.replay.device_per
@@ -971,13 +1385,16 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
                          seed=cfg.train.seed),
             replay_cfg, seed=cfg.train.seed)
 
-    server, sup = _bring_up_rpc_plane(cfg, replay)
-    _publish_weights(server, solver.get_weights())
+    server, sup, infer_server = _bring_up_rpc_plane(
+        cfg, replay, obs_dim=int(np.prod(obs_shape)), device=solver.device)
+    _publish_weights(server, infer_server, solver.get_weights())
 
     fused_per = isinstance(replay, DevicePERFrameReplay)
     ring = isinstance(replay, DeviceFrameReplay) and not fused_per
     fleet_health, mfu_meter = _bring_up_health_plane(
-        cfg, server, solver=solver, replay=replay, fused=fused_per)
+        cfg, server, infer_server, solver=solver, replay=replay,
+        fused=fused_per)
+    autoscaler, scale_executor = _bring_up_autoscaler(cfg, sup, server)
     writeback = None
     if replay.prioritized and not fused_per:
         writeback = make_writeback(replay, cfg.replay,
@@ -989,7 +1406,7 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
     ckpt = maybe_checkpointer(cfg.train)
     if ckpt and cfg.train.resume and ckpt.latest_step() is not None:
         solver.state, _ = ckpt.restore(solver.state)
-        _publish_weights(server, solver.get_weights())
+        _publish_weights(server, infer_server, solver.get_weights())
     stager = None
     try:
         first = _wait_for_fill(
@@ -1050,7 +1467,7 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
 
             if gstep % cfg.actors.param_sync_period == 0:
                 t0 = time.perf_counter()
-                _publish_weights(server, solver.get_weights())
+                _publish_weights(server, infer_server, solver.get_weights())
                 metrics.observe("learner/publish_params_ms",
                                 1e3 * (time.perf_counter() - t0))
 
@@ -1063,19 +1480,22 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
             if gstep % log_every == 0:
                 timer.measure_device(m["loss"])
                 summary = _log_record(server, sup, metrics, m)
+                infer_tm = (infer_server.telemetry_summary()
+                            if infer_server is not None else {})
                 hk = _health_tick(
                     fleet_health, mfu_meter, server, gstep,
                     scrape=(gstep // log_every)
-                    % max(cfg.health.scrape_every, 1) == 0)
+                    % max(cfg.health.scrape_every, 1) == 0,
+                    autoscaler=autoscaler, executor=scale_executor)
                 metrics.log(gstep, **summary, **timer.summary(),
-                            **server.telemetry_summary(),
+                            **server.telemetry_summary(), **infer_tm,
                             **metrics.telemetry(), **hk)
         fleet_rate = _fleet_rate(server, first)
     finally:
         trace.close()
         if stager is not None:
             stager.close()
-        _tear_down_rpc_plane(cfg, server, sup)
+        _tear_down_rpc_plane(cfg, server, sup, infer_server)
         if tracing.ENABLED:
             tracing.export()  # learner-process shard (actors wrote theirs)
 
@@ -1083,7 +1503,8 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
     if writeback:
         writeback.drain()
     log_final_eval(solver, cfg, metrics, summary)
-    return _finish_summary(summary, server, sup, solver, replay, fleet_rate)
+    return _finish_summary(summary, server, sup, solver, replay, fleet_rate,
+                           infer_server)
 
 
 def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
@@ -1144,12 +1565,13 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
     learn_start_seqs = max(cfg.replay.learn_start // seq_len, 2)
 
     # no inference plane: recurrent actors carry per-episode LSTM state
-    server, sup = _bring_up_rpc_plane(cfg, replay)
-    _publish_weights(server, solver.get_weights())
+    # that cannot be microbatched across actors (BatchedPolicy refuses it)
+    server, sup, _ = _bring_up_rpc_plane(cfg, replay)
+    _publish_weights(server, None, solver.get_weights())
     ckpt = maybe_checkpointer(cfg.train)
     if ckpt and cfg.train.resume and ckpt.latest_step() is not None:
         solver.state, _ = ckpt.restore(solver.state)
-        _publish_weights(server, solver.get_weights())
+        _publish_weights(server, None, solver.get_weights())
 
     # the chained fused path samples from the device priority row, so it
     # runs prioritized only
@@ -1158,6 +1580,7 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
     # no FLOPs count on the sequence program: live MFU is absent here;
     # steps/s + ingest utilization still emit
     fleet_health, mfu_meter = _bring_up_health_plane(cfg, server)
+    autoscaler, scale_executor = _bring_up_autoscaler(cfg, sup, server)
     writeback = None
     if replay.prioritized and not fused_seq:
         writeback = make_writeback(replay, cfg.replay,
@@ -1208,7 +1631,7 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
 
             if gstep % cfg.actors.param_sync_period == 0:
                 t0 = time.perf_counter()
-                _publish_weights(server, solver.get_weights())
+                _publish_weights(server, None, solver.get_weights())
                 metrics.observe("learner/publish_params_ms",
                                 1e3 * (time.perf_counter() - t0))
             if ckpt and gstep % cfg.train.checkpoint_every == 0:
@@ -1222,7 +1645,8 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
                 hk = _health_tick(
                     fleet_health, mfu_meter, server, gstep,
                     scrape=(gstep // log_every)
-                    % max(cfg.health.scrape_every, 1) == 0)
+                    % max(cfg.health.scrape_every, 1) == 0,
+                    autoscaler=autoscaler, executor=scale_executor)
                 metrics.log(gstep, **summary, **timer.summary(),
                             **server.telemetry_summary(),
                             **metrics.telemetry(), **hk)

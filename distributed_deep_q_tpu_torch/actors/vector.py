@@ -1,0 +1,247 @@
+"""Vectorized acting plane: N stacked envs behind one batched step (port
+of the reference's ``actors/vector.py``; numpy only).
+
+The Sebulba half of the Podracer split (arXiv:2104.06272):
+instead of one Python process per environment, one process drives a
+``VectorEnv`` — N copies of any ``game.py`` env stepped in a fixed order
+behind a single ``reset()/step(actions)`` — and cuts bucket-sized
+observation batches into the ``infer`` verb, one RPC per wall tick
+instead of N. The contract that makes this safe to adopt is BITWISE
+parity: a ``VectorEnv`` over envs ``e_0..e_{N-1}`` produces exactly the
+frames/rewards/dones that stepping each ``e_j`` sequentially would, and
+``VectorFrameStacker`` row ``j`` is byte-identical to a per-env
+``FrameStacker`` — same seeds → same actions → same transitions
+(``tests/test_torch_vector_env.py`` pins this on mlp and nature_cnn
+torsos, and the port's against the reference's).
+
+Auto-reset semantics mirror the supervisor's single-env loop: the actor
+appends the PRE-step frame to its chunk and, on episode end, discards
+the post-step frame in favor of the reset frame — so ``step`` returns
+the NEW episode's first frame for rows whose episode just ended, and
+the per-row done/over flags still describe the step that ended it.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Callable, Sequence
+
+import numpy as np
+
+from distributed_deep_q_tpu_torch.actors.game import Env, make_envs
+
+
+class VectorEnv:
+    """N independent ``game.py`` envs behind one batched step.
+
+    Envs are stepped in index order (each env owns its own rng, so the
+    order is only about determinism of the Python loop, not coupling).
+    ``step`` auto-resets: for rows where the episode ended (``over``),
+    the returned frame is the NEW episode's first frame — exactly the
+    frame the single-env actor loop would hold after its
+    ``env.reset()`` call.
+    """
+
+    def __init__(self, envs: Sequence[Env]):
+        if not envs:
+            raise ValueError("VectorEnv needs at least one env")
+        self.envs = list(envs)
+        self.num_envs = len(self.envs)
+        e0 = self.envs[0]
+        self.num_actions = e0.num_actions
+        self.obs_shape = tuple(e0.obs_shape)
+        self.obs_dtype = e0.obs_dtype
+        for e in self.envs[1:]:
+            if (e.num_actions != self.num_actions
+                    or tuple(e.obs_shape) != self.obs_shape):
+                raise ValueError(
+                    "VectorEnv requires a homogeneous action/obs space: "
+                    f"{(e.num_actions, tuple(e.obs_shape))} vs "
+                    f"{(self.num_actions, self.obs_shape)}")
+
+    def reset(self) -> np.ndarray:
+        return np.stack([e.reset() for e in self.envs])
+
+    def step(self, actions: np.ndarray):
+        """-> (frames [N, *obs_shape], rewards f32[N], dones bool[N],
+        overs bool[N]); frames for ``over`` rows are reset frames."""
+        n = self.num_envs
+        frames = np.empty((n,) + self.obs_shape, self.obs_dtype)
+        rewards = np.empty(n, np.float32)
+        dones = np.empty(n, bool)
+        overs = np.empty(n, bool)
+        for j, env in enumerate(self.envs):
+            f, r, d, o = env.step(int(actions[j]))
+            if o:
+                f = env.reset()
+            frames[j] = f
+            rewards[j], dones[j], overs[j] = r, d, o
+        return frames, rewards, dones, overs
+
+
+class VectorFrameStacker:
+    """``FrameStacker`` generalized to a batch axis: [N, H, W, stack].
+
+    Row ``j`` evolves byte-identically to a standalone ``FrameStacker``
+    fed env ``j``'s frames (same roll axis, same zero-fill reset), so a
+    vectorized actor's observations match the per-env fleet bit-for-bit.
+    """
+
+    def __init__(self, num_envs: int, frame_shape: tuple[int, ...],
+                 stack: int):
+        self._buf = np.zeros(
+            (num_envs,) + tuple(frame_shape) + (stack,), np.uint8)
+
+    def reset(self, frames: np.ndarray) -> np.ndarray:
+        self._buf[:] = 0
+        self._buf[..., -1] = frames
+        return self._buf
+
+    def reset_row(self, row: int, frame: np.ndarray) -> None:
+        self._buf[row] = 0
+        self._buf[row, ..., -1] = frame
+
+    def push(self, frames: np.ndarray) -> np.ndarray:
+        self._buf = np.roll(self._buf, -1, axis=-1)
+        self._buf[..., -1] = frames
+        return self._buf
+
+    @property
+    def obs(self) -> np.ndarray:
+        return self._buf
+
+
+class VectorStepLatencyEnv:
+    """Batched counterpart of ``StepLatencyEnv``: times the WHOLE vector
+    tick (all N envs), not just env 0 — wrapping env 0 of a stack would
+    silently report 1/N of the acting cost. ``drain_step_ms`` returns
+    whole-tick samples; callers divide by ``num_envs`` for the per-env
+    amortized figure."""
+
+    def __init__(self, env: VectorEnv, maxlen: int = 512):
+        self._env = env
+        self._step_ms: deque = deque(maxlen=maxlen)
+
+    def step(self, actions: np.ndarray):
+        t0 = time.perf_counter()
+        out = self._env.step(actions)
+        self._step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def reset(self) -> np.ndarray:
+        return self._env.reset()
+
+    def drain_step_ms(self) -> list[float]:
+        out = list(self._step_ms)
+        self._step_ms.clear()
+        return out
+
+    def __getattr__(self, name: str):
+        return getattr(self._env, name)
+
+
+def make_vector_env(env_cfgs, seeds: Sequence[int],
+                    latency: bool = False):
+    """Build a ``VectorEnv`` from per-row (EnvConfig, seed) pairs.
+
+    ``env_cfgs`` is either one EnvConfig (replicated) or a sequence of
+    per-row configs (the multi-game fleet case — ``env_for_actor``
+    output per global id). Seeding stays the fleet's discipline: caller
+    passes exactly the seeds the per-env processes would have used.
+    """
+    venv = VectorEnv(make_envs(env_cfgs, seeds))
+    return VectorStepLatencyEnv(venv) if latency else venv
+
+
+def select_actions(obs: np.ndarray, rngs: Sequence[np.random.Generator],
+                   epsilons: Sequence[float], num_actions: int,
+                   greedy_fn: Callable[[np.ndarray], np.ndarray],
+                   ) -> np.ndarray:
+    """Per-env ε-greedy over a batched greedy policy.
+
+    The ε draws replicate the single-env actor loop exactly — env j's
+    rng draws ``random()`` and (on the explore branch) ``integers`` in
+    row order, consuming the same stream positions as N sequential
+    actors would. Greedy rows are gathered into ONE ``greedy_fn`` call
+    (batched local forward or one remote ``infer`` RPC); row k of its
+    result must equal the single-row forward of row k's obs, which the
+    parity tests pin for both torsos.
+    """
+    n = len(rngs)
+    actions = np.empty(n, np.int64)
+    greedy: list[int] = []
+    for j in range(n):
+        if rngs[j].random() < float(epsilons[j]):
+            actions[j] = int(rngs[j].integers(num_actions))
+        else:
+            greedy.append(j)
+    if greedy:
+        picked = np.asarray(greedy_fn(obs[np.asarray(greedy)]))
+        for k, j in enumerate(greedy):
+            actions[j] = int(picked[k])
+    return actions
+
+
+class VectorActing:
+    """The RPC-free core of the vectorized actor loop.
+
+    Owns the stacked env, the batched frame stacker, and the per-env
+    ε-greedy rng streams; each ``tick(greedy_fn)`` selects N actions,
+    steps the stack once, and returns the per-env transition records
+    the supervisor flushes down the wire. Factored out of the
+    supervisor so the bitwise-parity tests (and the bench) can drive
+    the exact production tick without sockets.
+    """
+
+    def __init__(self, env, stack: int,
+                 rngs: Sequence[np.random.Generator],
+                 epsilons: Sequence[float]):
+        if env.obs_dtype != np.uint8:
+            raise ValueError("vector acting is the pixel path "
+                             f"(uint8 frames), got {env.obs_dtype}")
+        self.env = env
+        self.num_envs = env.num_envs
+        if len(rngs) != self.num_envs or len(epsilons) != self.num_envs:
+            raise ValueError("need one rng and one epsilon per env")
+        self.rngs = list(rngs)
+        self.epsilons = [float(e) for e in epsilons]
+        self.stacker = VectorFrameStacker(
+            self.num_envs, env.obs_shape, stack)
+        self.frames = env.reset()
+        self.obs = self.stacker.reset(self.frames)
+        self.ep_return = np.zeros(self.num_envs, np.float64)
+        self.auto_resets = 0
+        # (row, episode return) pairs, drained by the supervisor so each
+        # row's returns ship on that row's replay stream
+        self.completed: list[tuple[int, float]] = []
+
+    def tick(self, greedy_fn):
+        """One wall tick: N actions, one batched env step.
+
+        Returns ``(frames, actions, rewards, dones, overs)`` where
+        ``frames`` is the PRE-step frame batch — exactly what the
+        single-env loop appends to its chunk before stepping.
+        """
+        actions = select_actions(self.obs, self.rngs, self.epsilons,
+                                 self.env.num_actions, greedy_fn)
+        pre = self.frames
+        nxt, rewards, dones, overs = self.env.step(actions)
+        self.frames = nxt
+        self.obs = self.stacker.push(nxt)
+        self.ep_return += rewards
+        for j in np.flatnonzero(overs):
+            # env auto-reset already returned the new episode's first
+            # frame for this row; re-anchor its stack the same way the
+            # single-env loop does (push-then-reset ≡ reset: the row is
+            # overwritten wholesale)
+            self.stacker.reset_row(int(j), nxt[j])
+            self.completed.append((int(j), float(self.ep_return[j])))
+            self.ep_return[j] = 0.0
+            self.auto_resets += 1
+        return pre, actions, rewards, dones, overs
+
+    def drain_completed(self) -> list[tuple[int, float]]:
+        out = self.completed
+        self.completed = []
+        return out

@@ -165,9 +165,11 @@ def flax_leaves(net, frame_shape=None) -> list[np.ndarray]:
     return tree_leaves(_net_flax_tree(net, frame_shape))
 
 
-def load_flax_leaves(net, leaves, frame_shape=None) -> None:
-    """Install ``leaves`` (``flax_leaves`` order and layout, e.g. θ pulled
-    over the wire) into ``net``'s parameters, in place."""
+def named_from_flax_leaves(net, leaves,
+                           frame_shape=None) -> dict[str, np.ndarray]:
+    """``leaves`` (``flax_leaves`` order and layout, e.g. θ pulled over the
+    wire) as ``{parameter name: array}`` in ``net``'s layouts, each shape
+    checked against the net's."""
     skeleton = _net_flax_tree(net, frame_shape)
     leaves = list(leaves)
     want = len(tree_leaves(skeleton))
@@ -176,13 +178,21 @@ def load_flax_leaves(net, leaves, frame_shape=None) -> None:
                          "leaves")
     named = params_from_flax(tree_unflatten(skeleton, iter(leaves)),
                              frame_shape)
+    for name, p in net.named_parameters():
+        if tuple(named[name].shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(named[name].shape)} "
+                             f"against the net's {tuple(p.shape)}")
+    return {name: np.ascontiguousarray(named[name])
+            for name, _ in net.named_parameters()}
+
+
+def load_flax_leaves(net, leaves, frame_shape=None) -> None:
+    """Install ``leaves`` (``flax_leaves`` order and layout) into ``net``'s
+    parameters, in place."""
+    named = named_from_flax_leaves(net, leaves, frame_shape)
     with torch.no_grad():
         for name, p in net.named_parameters():
-            w = named[name]
-            if tuple(w.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(w.shape)} against "
-                                 f"the net's {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.ascontiguousarray(w)))
+            p.copy_(torch.from_numpy(named[name]))
 
 
 def train_state_from_flax(params: dict, target_params: dict, count, mu: dict,

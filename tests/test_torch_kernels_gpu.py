@@ -363,3 +363,49 @@ def test_fused_loss_autograd_on_card():
     assert torch.equal(dq, want)
     with pytest.raises(ValueError, match="different devices"):
         fl.fused_loss_fwd(q.detach(), actions.cpu(), targets, weights, 1.0)
+
+
+@pytest.mark.gpu
+def test_batched_policy_on_card_matches_qnet_on_card():
+    """``BatchedPolicy`` on the card at the Pong preset's net (bf16 Nature
+    CNN, 84×84×4, 4 actions) at every bucket: padding never leaks (real
+    rows bitwise beside zero and random padding), Q within 2e-2 absolute
+    of the port's ``QNet`` forward at batch 1 on the card (bf16 Q-values
+    carry 8 significant bits, and cuDNN picks its algorithm per batch
+    shape), actions equal wherever the top two Q-values differ by more
+    than 4e-2; a second generation swapped in between forwards gives its
+    own replies and leaves the installed one's unchanged."""
+    import numpy as np
+
+    from distributed_deep_q_tpu_torch.config import NetConfig
+    from distributed_deep_q_tpu_torch.models.policy import BatchedPolicy
+    from distributed_deep_q_tpu_torch.models.qnet import QNet
+
+    dev = _need_card()
+    tol = 2e-2
+    net = NetConfig(kind="nature_cnn", num_actions=4,
+                    compute_dtype="bfloat16")
+    qnet = QNet(net, seed=0, device=dev)
+    policy = BatchedPolicy(net, seed=1, buckets=(8, 32, 128, 256),
+                           device=dev)
+    policy.set_weights(qnet.get_weights())
+    other = QNet(net, seed=2, device=dev)
+    rng = np.random.default_rng(0)
+    for bucket in policy.buckets:
+        n = bucket - 3
+        obs = rng.integers(0, 256, (bucket, 84, 84, 4), dtype=np.uint8)
+        a_pad, q_pad = policy.forward(obs[:n])
+        _, q_rand = policy.forward(obs)
+        assert np.array_equal(q_rand[:n], q_pad)
+        q_one = np.concatenate([qnet.forward(obs[i:i + 1])
+                                for i in range(n)])
+        assert np.abs(q_pad - q_one).max() <= tol
+        top2 = np.sort(q_one, axis=-1)[:, -2:]
+        sure = top2[:, 1] - top2[:, 0] > 2 * tol
+        assert np.array_equal(a_pad[sure], q_one[sure].argmax(-1))
+        gen = policy.unflatten(other.get_weights())
+        _, q_other = policy.forward(obs[:n], params=gen)
+        assert np.abs(q_other - other.forward(obs[:n])).max() <= tol
+        assert np.array_equal(policy.forward(obs[:n])[1], q_pad)
+    assert policy.compiled_buckets() == [8, 32, 128, 256]
+    torch.cuda.synchronize()
