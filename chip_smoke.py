@@ -173,13 +173,52 @@ Phases (any failure exits non-zero and prints no result line):
    reply p50/p99, rows per forward, the forward's ms, sheds,
    ``learner/publish_params_ms`` (which now includes the install),
    eval_return beside the random policy's;
+13. the learning-dynamics plane — ``main train --preset breakout --backend
+   cuda`` at full width (bf16 Nature CNN, 84×84×4, batch 512, 1M-row
+   device-PER ring, α = 0.6, n-step 3, Double DQN, the fused loss) with
+   ``train.learn_metrics=true train.stack_forwards=on`` (the reference's
+   plane gate on), learn_start cut to 8,192, 301 grad steps: the JSONL
+   carries every ``learn/*`` gauge and the ``learn/td_error`` summary, the
+   plane's steps are the grad steps and its histogram holds every sample,
+   all four kernels launched. Then, from one filled replay, a chain-8
+   dispatch with the gate off and one with it on from equal states
+   (deterministic cuDNN and index writes): θ, θ⁻, the Adam state and the
+   priorities bitwise equal; the card's plane against ``lm_update`` on the
+   CPU over the card's own per-step inputs (counts exact, sums within
+   1e-5 relative, extrema bitwise but the max priority, whose ``pow``
+   rounds its own way on each device: within 2 ulp); ms per chain-8
+   dispatch with the gate off and on, and the overhead;
+13b. RMSProp — ``main train --preset pong --backend cuda`` with
+   ``train.optimizer=rmsprop`` at full width, learn_start cut to 8,192,
+   301 grad steps (finite losses; eval_return printed beside the random
+   policy's); one small fused step on the card and on the CPU from the
+   same weights and batch (θ within 1e-6, ``mu``/``nu`` within 1e-3 of
+   each leaf's largest element); a checkpoint of the card's RMSProp state
+   restored bitwise into a fresh card solver;
+14. Anakin — the reference test's configuration (16 envs, 10×10×2, MLP
+   32×32, batch 16, chain 2, 8 ticks, capacity 256): three supersteps
+   against the host-driven twin (batched ``act_tick``, ``add_batch(stream
+   =g)``, ``train_steps_device_per``), bitwise (every real and ghost ring
+   row, action, reward, done, boundary, priority, maxp, θ, θ⁻ and the Adam
+   state); 40 supersteps at lr 3e-3 through ``run_anakin``: act_reward >
+   0.30. B2 at the superstep's insert shape (2,048 lanes) against its
+   plain version, timed beside the byte bound and ``index_copy_``. Then
+   the Pong preset's geometry on signal_atari (bf16 Nature CNN 84×84×4,
+   batch 512, 1M-row ring, α = 0, chain 8, the fused loss), 64 envs × 16
+   ticks, 300 supersteps: all four kernels launched; 20 supersteps under
+   ``torch.cuda.set_sync_debug_mode("warn")`` make no synchronizing call;
+   a ``torch.profiler`` window of 2 supersteps gives the act / insert /
+   sample / train stages' device ms, launches per superstep and
+   threefry's share, B1 and B2 per launch; the synced solver's greedy
+   eval beats the random policy's. Printed: env and grad steps/s, ms per
+   superstep;
 9. the ``kernels`` JSON line (each kernel's launches on every path in
    ``launches_by_path``), the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, 8c, 10, 11,
-11b, 11c and 12b) sets all kernel launch counters to 0 just before it and
-reads them just after.
+11b, 11c, 12b, 13, 13b and 14) sets all kernel launch counters to 0 just
+before it and reads them just after.
 """
 
 from __future__ import annotations
@@ -1077,7 +1116,9 @@ def train_state_diffs(torch, a, b) -> list[str]:
         for key in ("mu", "nu"):
             out.update({f"{key}/{k}": t
                         for k, t in st.opt_state[key].items()})
-        out["count"], out["step"] = st.opt_state["count"], st.step
+        if "count" in st.opt_state:        # Adam's; RMSProp keeps none
+            out["count"] = st.opt_state["count"]
+        out["step"] = st.step
         return out
 
     la, lb = leaves(a), leaves(b)
@@ -2189,13 +2230,566 @@ def check_served_fleet(out: dict, jsonl: str, report) -> dict:
     assert s["actor_scale_terminations"] == 0, s
     records = report.load_records(os.path.join(OUT_DIR, jsonl))
     found = report.elastic_problems(records)
-    assert not found, found
+    decisions = [d for r in records for d in r.get("autoscale/decision", [])]
+    # the decisions name the rule and finding behind any scale action
+    assert not found, (found, decisions)
     return {"records": len(records), "last_record": records[-1],
-            "elastic_problems": found,
-            "decisions": [d for r in records
-                          for d in r.get("autoscale/decision", [])],
+            "elastic_problems": found, "decisions": decisions,
             "verdicts": [r["health/verdict"].get("status") for r in records
                          if isinstance(r.get("health/verdict"), dict)]}
+
+
+
+# -- phases 13, 13b and 14: the learning-dynamics plane, RMSProp, Anakin -------
+
+# Phase 13: the Breakout preset's fused device-PER path at full width (bf16
+# Nature CNN, 84×84×4, batch 512, 1M-row ring, α = 0.6, n-step 3, Double
+# DQN, the fused loss) with the plane on and the reference's gate on
+# (stack_forwards=on): learn_start cut to 8,192 as in phase 11, 301 grad
+# steps. Phase 13b: the Pong preset the same way under RMSProp.
+LM_ARGV = BREAKOUT_ARGV[:-1] + ["train.total_steps=9392",
+                                "replay.learn_start=8192",
+                                "train.learn_metrics=true",
+                                "train.stack_forwards=on"]
+RMS_ARGV = PONG_ARGV[:-1] + ["train.total_steps=9392",
+                             "replay.learn_start=8192",
+                             "train.optimizer=rmsprop"]
+CUT_GRAD_STEPS = (9392 - 8192) // 4 + 1
+LEARN_GAUGES = ("learn/loss", "learn/grad_norm", "learn/grad_norm_clipped",
+                "learn/q_mean", "learn/q_max", "learn/td_mean",
+                "learn/td_max", "learn/prio_mean", "learn/prio_max",
+                "learn/is_weight_mean", "learn/is_weight_min",
+                "learn/target_refreshes", "learn/loss_nonfinite",
+                "learn/steps")
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """cuDNN's deterministic algorithms and PyTorch's deterministic index
+    writes (the priority scatter's duplicate rows), so two runs of one
+    computation on the card give the same bits."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with cudnn_deterministic(torch):
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def ulps_apart(torch, a, b) -> int:
+    """Largest distance in float32 units in the last place."""
+    ia = a.float().cpu().view(torch.int32).long()
+    ib = b.float().cpu().view(torch.int32).long()
+    return int((ia - ib).abs().max())
+
+
+def learn_plane_gate(torch, config, Solver, DevicePERFrameReplay,
+                     learning) -> dict:
+    """Phase 13's second half, from one filled replay at the Breakout
+    preset: a chain-8 dispatch with the gate off and one with it on, from
+    equal states (two solvers of one seed; the priorities, maxp and β
+    counter put back between them), cuDNN and index writes deterministic:
+    θ, θ⁻, the Adam state and the priorities bitwise equal. Then the card's
+    plane against ``lm_update`` run on the CPU over the card's own per-step
+    inputs. Then the dispatch timed with the gate off and on."""
+    def solver_for(learn: bool):
+        cfg = config.breakout_config()
+        cfg.mesh.backend = "cuda"
+        cfg.env.kind, cfg.env.id = "signal_atari", "signal"
+        cfg.train.use_pallas_loss = True
+        cfg.train.stack_forwards = "on"
+        cfg.train.learn_metrics = learn
+        return Solver(cfg)
+
+    off, on = solver_for(False), solver_for(True)
+    cfg = on.config
+    replay = DevicePERFrameReplay(cfg.replay, on.device, (84, 84),
+                                  cfg.env.stack, cfg.train.gamma,
+                                  write_chunk=cfg.replay.write_chunk)
+    fill_replay(replay, 30_000)
+    saved = (replay.dstate["prio"].clone(), replay.dstate["maxp"].clone(),
+             replay._samples)
+    calls: list[dict] = []
+    orig = learning.lm_update
+
+    def recording(plane, **kw):
+        calls.append({k: (v.detach().clone() if hasattr(v, "detach")
+                          else v) for k, v in kw.items()})
+        return orig(plane, **kw)
+
+    with deterministic(torch):
+        m_off = off.train_steps_device_per(replay, chain=8)
+        prio_off = replay.dstate["prio"].clone()
+        maxp_off = replay.dstate["maxp"].clone()
+        replay.dstate["prio"].copy_(saved[0])
+        replay.dstate["maxp"] = saved[1].clone()
+        replay._samples = saved[2]
+        learning.lm_update = recording
+        try:
+            m_on = on.train_steps_device_per(replay, chain=8)
+        finally:
+            learning.lm_update = orig
+        torch.cuda.synchronize()
+    diffs = train_state_diffs(torch, off, on)
+    plane = m_on.pop("learn_plane")
+    out = {"state_diffs": diffs,
+           "prio_equal": tensors_equal(torch, prio_off,
+                                       replay.dstate["prio"]),
+           "maxp_equal": tensors_equal(torch, maxp_off,
+                                       replay.dstate["maxp"]),
+           "metrics_equal": all(tensors_equal(torch, m_off[k], m_on[k])
+                                for k in m_off),
+           "plane_calls": len(calls)}
+    cpu = learning.lm_init("cpu")
+    for kw in calls:
+        learning.lm_update(cpu, **{k: (v.cpu() if hasattr(v, "cpu") else v)
+                                   for k, v in kw.items()})
+    card = plane.cpu().double().numpy()
+    host = cpu.double().numpy()
+    counts = list(range(learning.N_HIST)) + [
+        learning.I_SAMPLES, learning.I_REFRESH, learning.I_NONFINITE,
+        learning.I_STEPS]
+    sums = [i for i in range(learning.N_HIST, learning._MAX)
+            if i not in counts]
+    ext = plane[learning._MAX:].cpu()
+    ext_cpu = cpu[learning._MAX:]
+    out.update({
+        "counts_equal": bool((card[counts] == host[counts]).all()),
+        "sums_max_rel_err": float(np.max(np.abs(card[sums] - host[sums])
+                                         / np.maximum(np.abs(host[sums]),
+                                                      1e-30))),
+        # max |TD|, max Q, min IS weight, min |TD| bitwise; the max
+        # priority is (|TD|+ε)^α, whose pow rounds its own way on each
+        # device
+        "extrema_bitwise": bool(torch.equal(ext[[0, 1, 3, 4]],
+                                            ext_cpu[[0, 1, 3, 4]])),
+        "prio_max_ulps": ulps_apart(torch, ext[2:3], ext_cpu[2:3]),
+        "plane_steps": float(card[learning.I_STEPS]),
+        "plane_samples": float(card[learning.I_SAMPLES]),
+        "hist_total": float(card[:learning.N_HIST].sum())})
+    # ms per chain-8 dispatch, off and on in turns (off, on, on, off)
+    times = {"off": [], "on": []}
+    for name, solver in (("off", off), ("on", on), ("on", on),
+                         ("off", off)):
+        ms, _ = time_chain(torch, solver, replay, 8, 16)
+        times[name].append(8 * ms)
+    ms_off, ms_on = min(times["off"]), min(times["on"])
+    out.update({"ms_per_chain8_dispatch_gate_off": times["off"],
+                "ms_per_chain8_dispatch_gate_on": times["on"],
+                "learn_overhead_pct": 100.0 * (ms_on - ms_off) / ms_off})
+    return out
+
+
+def check_learn_plane_run(summary: dict, record: dict, launches: dict
+                          ) -> dict:
+    """Phase 13's CLI run: every ``learn/*`` gauge and the ``learn/td_error``
+    summary in the last record; the plane's steps are the grad steps the
+    record was logged at, its histogram holds every sample."""
+    check_path(summary, CUT_GRAD_STEPS)
+    missing = [k for k in LEARN_GAUGES if k not in record]
+    assert not missing, f"learn gauges missing from the JSONL: {missing}"
+    hist = {k: v for k, v in record.items()
+            if k.startswith("learn/td_error")}
+    assert "learn/td_error_count" in hist, sorted(record)
+    assert record["learn/steps"] == record["step"], record
+    assert hist["learn/td_error_count"] == 512 * record["learn/steps"], hist
+    for name in ("gather_windows", "scatter_rows", "fused_loss_fwd",
+                 "fused_loss_bwd"):
+        assert launches[name] > 0, (name, launches)
+    return hist
+
+
+def rmsprop_cross_device(torch, config, Solver, DevicePERFrameReplay,
+                         checkpoint) -> dict:
+    """Phase 13b's card-vs-CPU step: the same small fused dispatch under
+    RMSProp (float32, 52×52, batch 16, chain 1) from the same weights and
+    data on the card and on the CPU — θ within 1e-6, ``mu``/``nu`` within
+    1e-3 of each leaf's largest element. Then a checkpoint of the card's
+    state restored into a fresh card solver, bitwise."""
+    def build(backend):
+        cfg = config.Config()
+        cfg.mesh.backend = backend
+        cfg.net = config.NetConfig(kind="nature_cnn", num_actions=4,
+                                   frame_shape=(52, 52))
+        cfg.replay = config.ReplayConfig(
+            capacity=512, batch_size=16, n_step=2, prioritized=True,
+            priority_alpha=0.0, device_per=True, write_chunk=16)
+        cfg.train = config.TrainConfig(lr=1e-4, double_dqn=True,
+                                       target_update_period=2,
+                                       optimizer="rmsprop")
+        s = Solver(cfg)
+        r = DevicePERFrameReplay(cfg.replay, s.device, (52, 52), 4, 0.99,
+                                 write_chunk=16)
+        rng = np.random.default_rng(3)
+        for i in range(600):
+            r.add(rng.integers(0, 256, (52, 52), dtype=np.uint8),
+                  int(rng.integers(4)), float(rng.standard_normal()),
+                  i % 11 == 10)
+        m = s.train_step_device_per(r)
+        return s, m
+
+    (sg, mg), (sc, mc) = build("cuda"), build("cpu")
+    dtheta = max(float((a.detach().cpu() - b.detach()).abs().max())
+                 for a, b in zip(
+                     list(sg.state.net.parameters())
+                     + list(sg.state.target_net.parameters()),
+                     list(sc.state.net.parameters())
+                     + list(sc.state.target_net.parameters())))
+    moment_err = 0.0
+    for key in ("mu", "nu"):
+        for name, t in sc.state.opt_state[key].items():
+            g = sg.state.opt_state[key][name].cpu()
+            scale = float(t.abs().max()) or 1.0
+            moment_err = max(moment_err, float((g - t).abs().max()) / scale)
+    ckdir = os.path.join(OUT_DIR, "ckpt_13b")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = checkpoint.Checkpointer(ckdir)
+    ck.save(sg.state, wait=True)
+    fresh = Solver(sg.config)
+    ck.restore(fresh.state)
+    return {"loss_cuda": float(mg["loss"]), "loss_cpu": float(mc["loss"]),
+            "max_abs_dtheta": dtheta,
+            "moments_max_err_over_leaf_max": moment_err,
+            "restore_diffs": train_state_diffs(torch, sg, fresh),
+            "optimizer": fresh.state.opt_state["name"]}
+
+
+# Phase 14, the pin: the reference test's configuration (tests/test_anakin.py:
+# 16 envs, 10×10×2 signal frames, MLP 32×32, batch 16, chain 2, 8 ticks,
+# capacity 256) on the card, one shard.
+def anakin_pin_config(config, capacity=256, lr=None):
+    cfg = config.Config(
+        env=config.EnvConfig(id="signal", kind="signal_atari",
+                             frame_shape=(10, 10), stack=2),
+        net=config.NetConfig(kind="mlp", num_actions=4, hidden=(32, 32),
+                             frame_shape=(10, 10), stack=2),
+        replay=config.ReplayConfig(capacity=capacity, batch_size=16,
+                                   fused_chain=2, n_step=1, learn_start=0,
+                                   device_resident=True, write_chunk=32,
+                                   prioritized=True, device_per=True),
+        train=config.TrainConfig(optimizer="adam", seed=3,
+                                 stack_forwards="on"),
+        actors=config.ActorConfig(anakin_envs=16, anakin_ticks=8),
+        mesh=config.MeshConfig(backend="cuda"))
+    if lr is not None:
+        cfg.train.lr = lr
+    return cfg
+
+
+def anakin_host_twin(torch, cfg, supersteps, Solver, DevicePERFrameReplay,
+                     anakin, threefry, make_device_env, actor_epsilon):
+    """The superstep driven from the host on the card: the batched
+    ``act_tick`` one tick at a time over all envs, the rows through
+    ``add_batch(stream=g)``, then ``train_steps_device_per``."""
+    n, ticks = cfg.actors.anakin_envs, cfg.actors.anakin_ticks
+    h, w = cfg.env.frame_shape
+    stack = cfg.env.stack
+    solver = Solver(cfg, obs_dim=h * w * stack)
+    dev = solver.device
+    replay = DevicePERFrameReplay(cfg.replay, dev, (h, w), stack,
+                                  cfg.train.gamma, seed=cfg.train.seed,
+                                  write_chunk=cfg.replay.write_chunk,
+                                  num_streams=n)
+    reset_fn, step_fn = make_device_env(cfg.env)
+    base = threefry.prng_key(cfg.train.seed, dev)
+    g = torch.arange(n, device=dev)
+    st, frames = reset_fn(threefry.fold_in(base, 1000 * (g + 1)))
+    buf = torch.zeros((n, stack, h * w), dtype=torch.uint8, device=dev)
+    buf[:, -1] = frames.reshape(n, -1)
+    akeys = threefry.fold_in(base, 7777 * (g + 1))
+    eps = torch.tensor([actor_epsilon(i, n, cfg.actors.eps_base,
+                                      cfg.actors.eps_alpha)
+                        for i in range(n)], dtype=torch.float32, device=dev)
+    for _ in range(supersteps):
+        recs = []
+        for _t in range(ticks):
+            st, buf, akeys, rec = anakin.act_tick(
+                solver.state.net, step_fn, (h, w), eps, st, buf, akeys)
+            recs.append({k: v.cpu().numpy() for k, v in rec.items()})
+        for s in range(n):
+            done = np.array([r["done"][s] for r in recs], bool)
+            replay.add_batch({
+                "frame": np.stack([r["frame"][s].reshape(h, w)
+                                   for r in recs]),
+                "action": np.array([r["action"][s] for r in recs], np.int64),
+                "reward": np.array([r["reward"][s] for r in recs],
+                                   np.float32),
+                "done": done, "boundary": done}, stream=s)
+        solver.train_steps_device_per(replay, cfg.replay.fused_chain)
+    return solver, replay
+
+
+def anakin_pin(torch, config, modules) -> dict:
+    """Phase 14's pin: three supersteps against the host twin, bitwise
+    (every real and ghost ring row, action, reward, done, boundary,
+    priority and maxp, θ and θ⁻); then 40 supersteps at lr 3e-3 through
+    ``run_anakin`` must give act_reward > 0.30."""
+    (Solver, DevicePERFrameReplay, anakin, threefry, make_device_env,
+     actor_epsilon) = modules
+    cfg = anakin_pin_config(config)
+    with deterministic(torch):
+        runner = anakin.AnakinRunner(cfg)
+        for _ in range(3):
+            runner.superstep()
+        runner.sync_solver()
+        solver, replay = anakin_host_twin(
+            torch, cfg, 3, Solver, DevicePERFrameReplay, anakin, threefry,
+            make_device_env, actor_epsilon)
+        torch.cuda.synchronize()
+    rp = runner.replay
+    a, h = rp.dstate, replay.dstate
+    real = rp.cap_local_pad
+    diffs = [] if tensors_equal(
+        torch, a["frames"].view(-1, rp.rowp)[:real],
+        h["frames"].view(-1, rp.rowp)[:real]) else ["frames"]
+    diffs += [f for f in ("action", "reward", "done", "boundary", "prio",
+                          "maxp") if not tensors_equal(torch, a[f], h[f])]
+    diffs += train_state_diffs(torch, runner.solver, solver)
+    t0 = time.perf_counter()
+    out = anakin.run_anakin(anakin_pin_config(config, 2048, 3e-3), 40)
+    smoke_s = time.perf_counter() - t0
+    return {"pin_diffs": diffs, "grad_steps": int(solver.state.step),
+            "act_reward_40": out["act_reward"],
+            "loss_40": out["loss"].tolist(), "smoke_wall_s": smoke_s}
+
+
+# Phase 14 at full width: the Pong preset's geometry (bf16 Nature CNN at
+# 84×84×4, batch 512, 1M-row ring = 8.19 GB, α = 0, chain 8, the fused
+# loss) on signal_atari, 64 envs × 16 ticks = 1,024 env steps and 8 grad
+# steps per superstep; 300 supersteps, the first 20 of them warm-up
+ANAKIN_ENVS, ANAKIN_TICKS, ANAKIN_SUPERSTEPS = 64, 16, 300
+ANAKIN_PROFILED = 2     # each holds ~38,000 launches for the profiler
+
+
+def anakin_full_config(config):
+    cfg = config.pong_config()
+    cfg.mesh.backend = "cuda"
+    cfg.env.kind, cfg.env.id = "signal_atari", "signal"
+    cfg.net.num_actions = 4
+    cfg.train.use_pallas_loss = True
+    cfg.actors.anakin_envs = ANAKIN_ENVS
+    cfg.actors.anakin_ticks = ANAKIN_TICKS
+    return cfg
+
+
+def _subtree_kernels(ev) -> tuple[int, float]:
+    """(kernel launches, their device µs) under a profiler event."""
+    n = len(ev.kernels)
+    us = sum(k.duration for k in ev.kernels)
+    for c in ev.cpu_children:
+        cn, cus = _subtree_kernels(c)
+        n, us = n + cn, us + cus
+    return n, us
+
+
+def anakin_full(torch, config, counters, modules, make_env, train_mod
+                ) -> dict:
+    """Phase 14 at full width through ``run_anakin``'s runner: the counts
+    set to 0 just before the supersteps and read just after; a window of
+    supersteps under ``torch.cuda.set_sync_debug_mode("warn")`` must raise
+    no synchronizing call (nothing read back inside a superstep); a
+    ``torch.profiler`` window gives the act / insert / sample / train
+    stages, launches per superstep and the threefry share of them, and B1
+    and B2's device time per launch at these shapes; then the synced
+    solver's greedy eval beside the random policy's."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    anakin, threefry = modules
+    cfg = anakin_full_config(config)
+    runner = anakin.AnakinRunner(cfg)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = 20
+    for _ in range(warm):
+        runner.superstep()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    syncs = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(20):
+                runner.superstep()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        # each synchronizing call warns "called a synchronizing CUDA
+        # operation"; the mode's own prototype notice is not one
+        syncs = [str(w.message)[:200] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    timed = ANAKIN_SUPERSTEPS - warm - 20 - ANAKIN_PROFILED
+    t2 = time.perf_counter()
+    for _ in range(timed):
+        runner.superstep()
+    ev1.record()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    device_ms = ev0.elapsed_time(ev1) / timed
+    wall_s = t3 - t2
+    # the profiler window: each stage and threefry under a named range
+    stages = {"act": ("_act", runner), "insert": ("_insert", runner)}
+    saved = {}
+
+    def ranged(name, fn):
+        def inner(*a, **kw):
+            with record_function(f"anakin/{name}"):
+                return fn(*a, **kw)
+        return inner
+
+    for name, (attr, obj) in stages.items():
+        saved[(obj, attr)] = getattr(obj, attr)
+        setattr(obj, attr, ranged(name, getattr(obj, attr)))
+    saved[(anakin, "fused_sample")] = anakin.fused_sample
+    anakin.fused_sample = ranged("sample", anakin.fused_sample)
+    learner = runner.solver.learner
+    saved[(learner, "_train_chain")] = learner._train_chain
+    learner._train_chain = ranged("train", learner._train_chain)
+    saved[(threefry, "threefry2x32")] = threefry.threefry2x32
+    threefry.threefry2x32 = ranged("threefry", threefry.threefry2x32)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tp = time.perf_counter()
+            for _ in range(ANAKIN_PROFILED):
+                runner.superstep()
+            torch.cuda.synchronize()
+            prof_wall_ms = 1e3 * (time.perf_counter() - tp)
+    finally:
+        for (obj, attr), fn in saved.items():
+            if obj is runner or obj is learner:
+                delattr(obj, attr)     # back to the class's method
+            else:
+                setattr(obj, attr, fn)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    events = prof.events()
+    stage_ms, stage_host_ms, stage_launches = {}, {}, {}
+    for name in ("act", "insert", "sample", "train", "threefry"):
+        hits = [e for e in events if e.name == f"anakin/{name}"
+                and e.device_type == torch.autograd.DeviceType.CPU]
+        n_us = [_subtree_kernels(e) for e in hits]
+        stage_launches[name] = sum(n for n, _ in n_us) / ANAKIN_PROFILED
+        stage_ms[name] = sum(us for _, us in n_us) / 1e3 / ANAKIN_PROFILED
+        stage_host_ms[name] = sum(e.cpu_time_total for e in hits) / 1e3 \
+            / ANAKIN_PROFILED
+    census = profiling_census(torch, prof, prof_wall_ms)
+    all_launches = census["kernel_launches"] / ANAKIN_PROFILED
+    steps = runner.supersteps_run
+    assert steps == ANAKIN_SUPERSTEPS, steps
+    state = runner.sync_solver()
+    ret = train_mod.evaluate(runner.solver, cfg)
+    random_ret = random_policy_return(make_env, cfg.env,
+                                      cfg.train.eval_episodes)
+    metrics = {k: v.float().cpu().numpy().tolist()
+               for k, v in runner.last_metrics.items()}
+    return {
+        "supersteps": steps, "grad_steps": int(state.step),
+        "env_steps": runner.env_steps,
+        "launches": launches, "sync_warnings": syncs,
+        "env_steps_per_s": timed * ANAKIN_TICKS * ANAKIN_ENVS / wall_s,
+        "grad_steps_per_s": timed * runner.chain / wall_s,
+        "ms_per_superstep_device": device_ms,
+        "ms_per_superstep_wall": 1e3 * wall_s / timed,
+        "profiled_supersteps": ANAKIN_PROFILED,
+        "profiled_wall_ms_per_superstep": prof_wall_ms / ANAKIN_PROFILED,
+        "stage_device_ms": stage_ms, "stage_launches": stage_launches,
+        "stage_host_ms_in_profiled_window": stage_host_ms,
+        "launches_per_superstep": all_launches,
+        "threefry_share_of_launches":
+            stage_launches["threefry"] / max(all_launches, 1e-9),
+        "device_busy_share": census["device_ms"] / max(prof_wall_ms, 1e-9),
+        "port_kernels": census["port_kernels"],
+        "act_reward": float(runner.last_act_reward),
+        "last_loss": metrics["loss"], "eval_return": ret,
+        "random_policy_return": random_ret, "wall_s": total_s,
+        "first_20_supersteps_s": t1 - t0}
+
+
+def profiling_census(torch, prof, wall_ms: float) -> dict:
+    """Kernel launches, their device ms and the port's kernels' device
+    time per launch in a finished profile."""
+    # the device-side copies of the anakin/* ranges are annotations, not
+    # kernels
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("anakin/")]
+    ours = {}
+    for name in ("gather_windows", "scatter_rows", "fused_loss_fwd",
+                 "fused_loss_bwd"):
+        hits = [e for e in kernels if f"{name}_kernel" in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            ours[name] = {"launches": count, "us_per_launch": sum(
+                e.self_device_time_total for e in hits) / count}
+    return {"kernel_launches": sum(e.count for e in kernels),
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "port_kernels": ours}
+
+
+def anakin_kernel_shapes(torch, rg, dev, empty_ms: float) -> dict:
+    """B2 at the superstep's insert shape (2·T·E = 2,048 lanes: 1,024 main
+    rows, ghost lanes real only where local < window − 1, the rest on the
+    scratch row) on a 1M-row ring laid out as the superstep's (64 sub-rings
+    of 15,625 + 4 ghost rows), bitwise against the plain version, timed
+    beside the byte bound, the plain version and ``index_copy_``."""
+    subs, slot_cap, window = ANAKIN_ENVS, 1_000_000 // ANAKIN_ENVS, WINDOW
+    slot_pad = slot_cap + window - 1
+    scratch = subs * slot_pad
+    rows = scratch + 1
+    rowp = ROWB // 4
+    ring = torch.zeros(rows * rowp, dtype=torch.int32, device=dev)
+    k = ANAKIN_ENVS * ANAKIN_TICKS
+    gen = torch.Generator(device=dev).manual_seed(1)
+    staged = torch.randint(-2**31, 2**31 - 1, (k * rowp,), dtype=torch.int32,
+                           device=dev, generator=gen)
+    # a superstep that starts at cursor 0: every ghost lane is real for
+    # local < window - 1 = 4, the rest aim at the scratch row
+    t_i = torch.arange(ANAKIN_TICKS, device=dev)[:, None]
+    e_i = torch.arange(subs, device=dev)[None, :]
+    local = t_i.expand(-1, subs)
+    main = (e_i * slot_pad + local).reshape(-1)
+    ghost = torch.where(local < window - 1, e_i * slot_pad + slot_cap + local,
+                        torch.full_like(local, scratch)).reshape(-1)
+    didx = torch.cat([main, ghost]).to(torch.int32)
+    sidx = torch.arange(k, dtype=torch.int32, device=dev).repeat(2)
+    real = int((didx != scratch).sum())
+    plain_ring = ring.clone()
+    rg.scatter_rows(sidx, didx, staged, ring, n=2 * k, rowb=ROWB,
+                    skip_row=scratch)
+    rg.scatter_rows_plain(sidx, didx, staged, plain_ring, n=2 * k, rowb=ROWB)
+    ok = bool(torch.equal(ring.view(rows, rowp)[:scratch],
+                          plain_ring.view(rows, rowp)[:scratch]))
+    del plain_ring
+    kernel_ms = time_ms(torch, lambda i: rg.scatter_rows(
+        sidx, didx, staged, ring, n=2 * k, rowb=ROWB, skip_row=scratch))[0]
+    plain_ms = time_ms(torch, lambda i: rg.scatter_rows_plain(
+        sidx, didx, staged, ring, n=2 * k, rowb=ROWB))[0]
+    keep = didx != scratch
+    dst_l, src_l = didx[keep].long(), sidx[keep].long()
+    ring2 = ring.view(rows, rowp)
+    st2 = staged.view(k, rowp)
+    lib_ms = time_ms(torch, lambda i: ring2.index_copy_(
+        0, dst_l, st2.index_select(0, src_l)))[0]
+    # bytes the data needs: each staged row read once (a ghost lane re-sends
+    # its main lane's row), each real lane's ring row written once, and the
+    # two index arrays
+    nbytes = (k + real) * ROWB + 2 * 4 * 2 * k
+    out = {"lanes": 2 * k, "real_lanes": real, "max_abs_err": 0 if ok else 1,
+           "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+           "empty_kernel_ms": empty_ms}
+    del ring, ring2, staged
+    return out
 
 
 def main() -> int:
@@ -2207,12 +2801,18 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 1
     try:
-        from distributed_deep_q_tpu_torch import config
+        from distributed_deep_q_tpu_torch import config, learning
         from distributed_deep_q_tpu_torch import metrics as metrics_mod
         from distributed_deep_q_tpu_torch import profiling, tracing
         from distributed_deep_q_tpu_torch import telemetry_report
         from distributed_deep_q_tpu_torch import train as train_mod
         from distributed_deep_q_tpu_torch.actors.game import make_env
+        from distributed_deep_q_tpu_torch.actors.supervisor import (
+            actor_epsilon)
+        from distributed_deep_q_tpu_torch.ops import threefry
+        from distributed_deep_q_tpu_torch.ops.device_envs import (
+            make_device_env)
+        from distributed_deep_q_tpu_torch.parallel import anakin
         from distributed_deep_q_tpu_torch.main import main as cli_main
         from distributed_deep_q_tpu_torch.ops import cuda_build
         from distributed_deep_q_tpu_torch.ops import fused_loss as fl
@@ -2545,6 +3145,92 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 13. the learning-dynamics plane on the card ---------------------------
+    lm_summary, lm_launches, lm_record = run_cli(
+        cli_main, counters, LM_ARGV, "chip_smoke_learn_plane.jsonl")
+    log(f"[13] breakout fused path, learn_metrics on: "
+        f"{json.dumps(lm_summary)}")
+    lm_hist = check_learn_plane_run(lm_summary, lm_record, lm_launches)
+    log(f"[13] launches: {json.dumps(lm_launches)}; learn gauges: "
+        + json.dumps({k: lm_record[k] for k in LEARN_GAUGES})
+        + f"; {json.dumps(lm_hist)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_gate = learn_plane_gate(torch, config, Solver, DevicePERFrameReplay,
+                               learning)
+    log(f"[13] gate off vs on, plane vs CPU lm_update: "
+        f"{json.dumps(lm_gate)}")
+    assert not lm_gate["state_diffs"], lm_gate["state_diffs"]
+    assert lm_gate["prio_equal"] and lm_gate["maxp_equal"], lm_gate
+    assert lm_gate["metrics_equal"] and lm_gate["plane_calls"] == 8, lm_gate
+    assert lm_gate["counts_equal"], "plane counts differ from lm_update"
+    assert lm_gate["sums_max_rel_err"] <= 1e-5, lm_gate
+    assert lm_gate["extrema_bitwise"] and lm_gate["prio_max_ulps"] <= 2, \
+        lm_gate
+    assert lm_gate["plane_steps"] == 8, lm_gate
+    assert lm_gate["hist_total"] == lm_gate["plane_samples"] == 8 * 512
+    log(f"[13] ms per chain-8 dispatch: gate off "
+        f"{lm_gate['ms_per_chain8_dispatch_gate_off']}, gate on "
+        f"{lm_gate['ms_per_chain8_dispatch_gate_on']}; learn_overhead_pct "
+        f"{lm_gate['learn_overhead_pct']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13b. RMSProp on the card ------------------------------------------
+    rm_summary, rm_launches, rm_record = run_cli(
+        cli_main, counters, RMS_ARGV, "chip_smoke_rmsprop.jsonl")
+    log(f"[13b] pong fused path under rmsprop: {json.dumps(rm_summary)}")
+    log(f"[13b] launches: {json.dumps(rm_launches)}; eval_return "
+        f"{rm_summary['eval_return']} beside the random policy's "
+        f"{pong_random} (printed, not held)")
+    check_path(rm_summary, CUT_GRAD_STEPS)
+    assert rm_launches["gather_windows"] >= CUT_GRAD_STEPS, rm_launches
+    rm_cross = rmsprop_cross_device(torch, config, Solver,
+                                    DevicePERFrameReplay, checkpoint)
+    log(f"[13b] card vs CPU rmsprop step, checkpoint restore: "
+        f"{json.dumps(rm_cross)}")
+    assert rm_cross["max_abs_dtheta"] <= 1e-6, rm_cross
+    assert rm_cross["moments_max_err_over_leaf_max"] <= 1e-3, rm_cross
+    assert not rm_cross["restore_diffs"], rm_cross
+    assert rm_cross["optimizer"] == "rmsprop", rm_cross
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 14. Anakin on the card ----------------------------------------------
+    pin = anakin_pin(torch, config, (Solver, DevicePERFrameReplay, anakin,
+                                     threefry, make_device_env,
+                                     actor_epsilon))
+    log(f"[14] pin against the host twin, and the learning smoke: "
+        f"{json.dumps(pin)}")
+    assert not pin["pin_diffs"], pin["pin_diffs"]
+    assert pin["grad_steps"] == 6, pin
+    assert pin["act_reward_40"] > 0.30, pin
+    a_shape = anakin_kernel_shapes(torch, rg, dev, empty_ms)
+    log(f"[14] scatter_rows at the superstep's insert shape: "
+        f"{json.dumps(a_shape)}")
+    assert a_shape["max_abs_err"] == 0, a_shape
+    gc.collect()
+    torch.cuda.empty_cache()
+    ana = anakin_full(torch, config, counters, (anakin, threefry), make_env,
+                      train_mod)
+    log(f"[14] anakin at full width: {json.dumps(ana)}")
+    log(f"[14] env steps/s {ana['env_steps_per_s']}, grad steps/s "
+        f"{ana['grad_steps_per_s']}; ms per superstep {ana['ms_per_superstep_wall']} "
+        f"(wall), {ana['ms_per_superstep_device']} (CUDA events); stages "
+        f"(device ms) {json.dumps(ana['stage_device_ms'])}; launches per "
+        f"superstep {ana['launches_per_superstep']}, threefry's share "
+        f"{ana['threefry_share_of_launches']}; B1/B2 per launch "
+        f"{json.dumps(ana['port_kernels'])}; eval_return "
+        f"{ana['eval_return']} beside the random policy's "
+        f"{ana['random_policy_return']}")
+    for name in counters:
+        assert ana["launches"][name] > 0, (name, ana["launches"])
+    assert not ana["sync_warnings"], ana["sync_warnings"]
+    assert ana["eval_return"] > ana["random_policy_return"], ana
+    assert all(math.isfinite(x) for x in ana["last_loss"]), ana
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 9. result lines ------------------------------------------------------
     src = "distributed_deep_q_tpu_torch/csrc/ring_gather.cu"
     loss_src = "distributed_deep_q_tpu_torch/csrc/fused_loss.cu"
@@ -2606,6 +3292,26 @@ def main() -> int:
         launches_phase_7b=f_launches["scatter_rows"],
         real4=dict(seq_row(s4, empty_ms),
                    shape="n=4 lanes, 4 real, rowb=688128"))
+    # the Anakin superstep's shapes (phase 14): B1's sample stage draws
+    # chain 8 × 512 windows of 5 rows, phase 3's n = 4096 shape; B2's
+    # insert is 2·T·E = 2,048 lanes
+    ana_k = ana["port_kernels"]
+    kernels[0]["anakin"] = dict(
+        {k: g4096[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                               "max_abs_err", "host_ms")},
+        shape="n=4096 w=5 rowb=8192 (superstep sample stage)",
+        launches=ana["launches"]["gather_windows"], path="phase 14 (anakin)",
+        in_trace_us_per_launch=ana_k.get("gather_windows", {}).get(
+            "us_per_launch"))
+    kernels[1]["ok"] = kernels[1]["ok"] and a_shape["max_abs_err"] == 0
+    kernels[1]["anakin"] = dict(
+        {k: a_shape[k] for k in ("lanes", "real_lanes", "ms", "plain_ms",
+                                 "bound_ms", "library_ms", "max_abs_err")},
+        shape=f"n={a_shape['lanes']} lanes, {a_shape['real_lanes']} real "
+              "(superstep insert), rowb=8192",
+        launches=ana["launches"]["scatter_rows"], path="phase 14 (anakin)",
+        in_trace_us_per_launch=ana_k.get("scatter_rows", {}).get(
+            "us_per_launch"))
     in_trace = chained["fused_loss_trace"]["port_kernels"]
     for name, line, part, err in (
             ("fused_loss_fwd", 100, "fwd", loss_k["td_max_abs_err"]),
@@ -2648,7 +3354,10 @@ def main() -> int:
                "11b breakout distributed host-sampled":
                    dist["11b"]["launches"],
                "11c r2d2 distributed": dist["11c"]["launches"],
-               "12b pong served fleet": served["launches"]}
+               "12b pong served fleet": served["launches"],
+               "13 breakout learn plane": lm_launches,
+               "13b pong rmsprop": rm_launches,
+               "14 anakin": ana["launches"]}
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}

@@ -24,11 +24,16 @@ folded through an ``Autoscaler`` and, with ``autoscale.execute``, its
 Ape-X ε ladder: actor i uses ε_i = base^(1 + i·α/(N-1)), a fixed spread of
 exploration rates across the fleet.
 
+With ``train.learn_metrics`` on the fused device-PER path the learner folds
+each chunk's learning-dynamics plane (``learning.py``) into ``learn/*``
+gauges at log cadence and registers itself as the fleet-health member
+``"learner"`` (``default_learn_rules``/``default_learn_trends``).
+
 Refused by name, before any process is spawned (``check_distributed``):
-``train.learn_metrics`` (A12), more than one process or shard (A14), and
-``replay.persist_path`` (the distributed topology warm-refills from its
-fleet, as in the reference); vector acting on an env that is not pixels
-(``train_distributed``, as in the reference).
+more than one process or shard (A14), and ``replay.persist_path`` (the
+distributed topology warm-refills from its fleet, as in the reference);
+vector acting on an env that is not pixels (``train_distributed``, as in
+the reference).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from distributed_deep_q_tpu_torch import health, tracing
+from distributed_deep_q_tpu_torch import health, learning, tracing
 from distributed_deep_q_tpu_torch.actors import game
 from distributed_deep_q_tpu_torch.config import Config, env_for_actor
 from distributed_deep_q_tpu_torch.metrics import Metrics
@@ -91,10 +96,6 @@ def check_distributed(cfg: Config) -> None:
             "replay paths; the distributed topology warm-refills from its "
             "actor fleet on restart (the reference behavior) — unset it "
             "for --distributed runs")
-    if cfg.train.learn_metrics:
-        raise NotImplementedError(
-            "train.learn_metrics=true (the learning-dynamics plane) is not "
-            "ported yet (ROADMAP A12)")
     check_single_device(cfg)
     check_slice(cfg)
 
@@ -1423,6 +1424,16 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
                                         dispatch_lock=server.replay_lock,
                                         timer=timer)
                         if fused_per else None)
+        # the learning-dynamics plane: one plane per fused chunk, folded at
+        # log cadence; the learner joins the fleet verdict as a member
+        learn_acc = None
+        if cfg.train.learn_metrics and fused_per:
+            learn_acc = learning.LearnAccumulator()
+            learn_monitor = health.HealthMonitor(
+                rules=health.default_learn_rules(),
+                trends=health.default_learn_trends(), name="learner")
+            fleet_health.register(
+                "learner", learning.learn_scrape_fn(learn_acc, learn_monitor))
         for gstep in range(1, cfg.train.total_steps + 1):
             if fused_per:
                 # the fused chunk flushes staged actor rows and dispatches
@@ -1482,6 +1493,9 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
                 summary = _log_record(server, sup, metrics, m)
                 infer_tm = (infer_server.telemetry_summary()
                             if infer_server is not None else {})
+                if learn_acc is not None:
+                    learning.publish_planes(
+                        learn_acc, fused_stream.drain_planes(), metrics)
                 hk = _health_tick(
                     fleet_health, mfu_meter, server, gstep,
                     scrape=(gstep // log_every)

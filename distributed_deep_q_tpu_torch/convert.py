@@ -30,9 +30,16 @@ not a parameter.
 Port names are the ``named_parameters()`` of ``models/qnet.py``:
 ``torso.conv1.weight``, ``head.q.bias``, ``lstm.weight_ih``, ...
 
-A train state is ``{"params", "target_params", "opt_state": {"count", "mu",
-"nu"}, "step"}``: θ, θ⁻, the Adam state as optax's ``ScaleByAdamState``
-holds it (``mu``/``nu`` have the params' structure) and the step counter.
+A train state is ``{"params", "target_params", "opt_state": {"name",
+"count", "mu", "nu"}, "step"}``: θ, θ⁻, the optimizer state and the step
+counter. For ``adam`` it is what optax's ``ScaleByAdamState`` holds; for
+``rmsprop`` what its ``ScaleByRStdDevState`` holds, with no ``count``
+(``mu``/``nu`` have the params' structure either way). In the reference
+that state sits in optax's chain — ``(EmptyState, (ScaleByRStdDevState(mu,
+nu), EmptyState, EmptyState))`` for RMSProp with the clip, its inner tuple
+without — and ``optax_opt_leaves``/``opt_state_from_optax_leaves`` convert
+it through the tree's leaves, which are the same list with the clip and
+without (the ``EmptyState`` nodes hold none).
 """
 
 from __future__ import annotations
@@ -195,28 +202,77 @@ def load_flax_leaves(net, leaves, frame_shape=None) -> None:
             p.copy_(torch.from_numpy(named[name]))
 
 
+def opt_state_from_flax(name: str, mu: dict, nu: dict, count=None,
+                        frame_shape=None) -> dict:
+    """Flax-layout moment trees → the port's optimizer-state dict (numpy);
+    ``count`` is Adam's and ignored for RMSProp."""
+    out = {"name": name, "mu": params_from_flax(mu, frame_shape),
+           "nu": params_from_flax(nu, frame_shape)}
+    if name == "adam":
+        out["count"] = np.int32(count)
+    return out
+
+
 def train_state_from_flax(params: dict, target_params: dict, count, mu: dict,
-                          nu: dict, step, frame_shape=None) -> dict:
-    """Reference ``TrainState`` pieces → the port's train-state dict."""
+                          nu: dict, step, frame_shape=None,
+                          optimizer: str = "adam") -> dict:
+    """Reference ``TrainState`` pieces → the port's train-state dict
+    (``count`` is ignored for RMSProp, whose state has none)."""
     return {
         "params": params_from_flax(params, frame_shape),
         "target_params": params_from_flax(target_params, frame_shape),
-        "opt_state": {"count": np.int32(count),
-                      "mu": params_from_flax(mu, frame_shape),
-                      "nu": params_from_flax(nu, frame_shape)},
+        "opt_state": opt_state_from_flax(optimizer, mu, nu, count,
+                                         frame_shape),
         "step": np.int32(step),
     }
 
 
 def train_state_to_flax(state: dict, frame_shape=None) -> dict:
     """The port's train-state dict → ``{"params", "target_params",
-    "count", "mu", "nu", "step"}`` with Flax-layout nested dicts."""
+    "optimizer", "count", "mu", "nu", "step"}`` with Flax-layout nested
+    dicts (``count`` for Adam only)."""
     opt = state["opt_state"]
-    return {
+    out = {
         "params": params_to_flax(state["params"], frame_shape),
         "target_params": params_to_flax(state["target_params"], frame_shape),
-        "count": np.int32(opt["count"]),
+        "optimizer": opt.get("name", "adam"),
         "mu": params_to_flax(opt["mu"], frame_shape),
         "nu": params_to_flax(opt["nu"], frame_shape),
         "step": np.int32(state["step"]),
     }
+    if "count" in opt:
+        out["count"] = np.int32(opt["count"])
+    return out
+
+
+def optax_opt_leaves(opt: dict, frame_shape=None) -> list[np.ndarray]:
+    """The port's optimizer-state dict as the leaves of the reference's
+    optax state tree, in ``jax.tree_util.tree_leaves`` order: Adam's
+    ``count``, then ``mu``'s leaves, then ``nu``'s; RMSProp's ``mu`` then
+    ``nu``. The list is the same with the clip and without, so
+    ``tree_unflatten`` of either structure takes it."""
+    out = [np.asarray(opt["count"], np.int32)] if opt["name"] == "adam" \
+        else []
+    for key in ("mu", "nu"):
+        out += tree_leaves(params_to_flax(
+            {k: np.asarray(v) for k, v in opt[key].items()}, frame_shape))
+    return out
+
+
+def opt_state_from_optax_leaves(leaves, name: str, params: dict,
+                                frame_shape=None) -> dict:
+    """Inverse of ``optax_opt_leaves``: the leaves of a reference optax
+    state (either structure) → the port's optimizer-state dict (numpy).
+    ``params`` (``{port name: array}``) gives the Flax skeleton."""
+    skeleton = params_to_flax({k: np.asarray(v) for k, v in params.items()},
+                              frame_shape)
+    leaves = list(leaves)
+    want = 2 * len(tree_leaves(skeleton)) + (name == "adam")
+    if len(leaves) != want:
+        raise ValueError(f"{len(leaves)} leaves for a {name} state of this "
+                         f"net, which has {want}")
+    it = iter(leaves)
+    count = next(it) if name == "adam" else None
+    mu = tree_unflatten(skeleton, it)
+    nu = tree_unflatten(skeleton, it)
+    return opt_state_from_flax(name, mu, nu, count, frame_shape)

@@ -197,6 +197,11 @@ class MlpQNet(nn.Module):
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         return self.head(self.torso(obs))
 
+    def forward_nchw(self, frames: torch.Tensor) -> torch.Tensor:
+        """``[B, stack, H, W]`` frames (the ring paths' layout), flattened
+        in the reference's ``[B, H, W, stack]`` order."""
+        return self.forward(frames.permute(0, 2, 3, 1))
+
 
 def lstm_cell(x: torch.Tensor, carry, w_ih: torch.Tensor,
               w_hh: torch.Tensor, b_hh: torch.Tensor):

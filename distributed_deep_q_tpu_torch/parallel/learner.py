@@ -18,7 +18,12 @@ What the port computes differently from the reference, on purpose:
   too.
 - The optimizer is the reference's tree-form ``fused_adam_target_step``;
   its flat "plane-carry" variant is an XLA op-schedule device (it computes
-  the same per-element update) and is not ported.
+  the same per-element update) and is not ported. Which body the reference
+  would have taken still matters in one place: only its plane-carry body
+  emits the learning-dynamics plane (``plane_gate``).
+- ``train.optimizer=rmsprop`` is optax's centered RMSProp behind the
+  reference's ``clip_grads``, written out in the same order
+  (``rmsprop_target_step``).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from distributed_deep_q_tpu_torch import tracing
+from distributed_deep_q_tpu_torch import learning, tracing
 from distributed_deep_q_tpu_torch.config import TrainConfig
 from distributed_deep_q_tpu_torch.ops.fused_loss import FusedDqnLoss
 from distributed_deep_q_tpu_torch.ops.losses import bellman_targets, dqn_loss
@@ -43,14 +48,21 @@ from distributed_deep_q_tpu_torch.replay.device_ring import (
     compose_stacks, to_device)
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
+# optax.rmsprop(lr, decay=0.95, eps=1e-2, centered=True): the reference's
+# make_optimizer
+RMSPROP_DECAY, RMSPROP_EPS = 0.95, 1e-2
+OPTIMIZERS = ("adam", "rmsprop")
 _INT32_MAX = 2**31 - 1
 
 
 @dataclasses.dataclass
 class TrainState:
-    """θ and θ⁻ as modules; the Adam state ``{"count": int32 [],
-    "mu": {name: tensor}, "nu": {name: tensor}}`` keyed like
-    ``net.named_parameters()``; ``step`` an int32 [] tensor."""
+    """θ and θ⁻ as modules; the optimizer state keyed like
+    ``net.named_parameters()`` with the optimizer's name beside it —
+    ``{"name": "adam", "count": int32 [], "mu": {...}, "nu": {...}}``
+    (optax's ``ScaleByAdamState``) or ``{"name": "rmsprop", "mu": {...},
+    "nu": {...}}`` (its ``ScaleByRStdDevState``); ``step`` an int32 []
+    tensor."""
 
     net: nn.Module
     target_net: nn.Module
@@ -89,11 +101,7 @@ def fused_adam_target_step(cfg: TrainConfig, grads: dict[str, torch.Tensor],
     c = count.float()
     bc1 = 1.0 - torch.pow(b1, c)
     bc2 = 1.0 - torch.pow(b2, c)
-    if cfg.grad_clip_norm > 0:
-        scale = torch.clamp(cfg.grad_clip_norm / torch.clamp(gnorm, min=1e-12),
-                            max=1.0)
-    else:
-        scale = 1.0
+    scale = clip_scale(cfg, gnorm)
     lr, eps = cfg.lr, cfg.adam_eps
     mu_dtype = getattr(torch, cfg.adam_mu_dtype)
     refresh = None
@@ -117,6 +125,108 @@ def fused_adam_target_step(cfg: TrainConfig, grads: dict[str, torch.Tensor],
             else:
                 t.copy_(torch.where(refresh, p2, t))
     opt_state["count"] = count
+
+
+def clip_scale(cfg: TrainConfig, gnorm: torch.Tensor):
+    """``min(1, clip/max(gnorm, 1e-12))``, or 1 with the clip off."""
+    if cfg.grad_clip_norm > 0:
+        return torch.clamp(cfg.grad_clip_norm / torch.clamp(gnorm, min=1e-12),
+                           max=1.0)
+    return 1.0
+
+
+def refresh_target(cfg: TrainConfig, params: dict[str, torch.Tensor],
+                   target_params: dict[str, torch.Tensor],
+                   step: torch.Tensor) -> None:
+    """θ⁻ update IN PLACE: Polyak ``τ·p + (1−τ)·t`` every step when
+    ``target_tau`` > 0, else the copy ``where(step % C == 0, p, t)`` with
+    ``step`` already incremented."""
+    if cfg.target_tau > 0:
+        tau = cfg.target_tau
+        for name, t in target_params.items():
+            t.copy_(tau * params[name] + (1.0 - tau) * t)
+        return
+    refresh = step % cfg.target_update_period == 0
+    for name, t in target_params.items():
+        t.copy_(torch.where(refresh, params[name], t))
+
+
+@torch.no_grad()
+def rmsprop_target_step(cfg: TrainConfig, grads: dict[str, torch.Tensor],
+                        opt_state: dict[str, Any],
+                        params: dict[str, torch.Tensor],
+                        target_params: dict[str, torch.Tensor],
+                        gnorm: torch.Tensor, step: torch.Tensor) -> None:
+    """The reference's non-Adam step, IN PLACE, in its order:
+
+    1. ``clip_grads``: g·min(1, clip/max(gnorm, 1e-12)) from the norm the
+       caller computed (the reported ``grad_norm`` is that, pre-clip);
+    2. with the clip on, the optimizer chain's own
+       ``clip_by_global_norm`` again, on the clipped tree:
+       ``select(norm < clip, t, (t / norm)·clip)``;
+    3. centered RMSProp: ``mu ← (1−d)·g + d·mu``, ``nu ← (1−d)·g² + d·nu``,
+       ``u = rsqrt(nu − mu² + eps)·g``, ``u·(−lr)``, ``p + u``;
+    4. ``refresh_target`` on the updated θ.
+    """
+    scale = clip_scale(cfg, gnorm)
+    grads = {k: g * scale for k, g in grads.items()}
+    clip = cfg.grad_clip_norm
+    if clip > 0:
+        norm = global_norm(grads)
+        keep = norm < clip
+        grads = {k: torch.where(keep, g, (g / norm) * clip)
+                 for k, g in grads.items()}
+    d, eps, neg_lr = RMSPROP_DECAY, RMSPROP_EPS, -1 * cfg.lr
+    mu, nu = opt_state["mu"], opt_state["nu"]
+    for name, p in params.items():
+        g = grads[name]
+        mu[name] = (1 - d) * g + d * mu[name]
+        nu[name] = (1 - d) * g.square() + d * nu[name]
+        u = torch.rsqrt(nu[name] - mu[name].square() + eps) * g
+        p.copy_(p + u * neg_lr)
+    refresh_target(cfg, params, target_params, step)
+
+
+def apply_optimizer(cfg: TrainConfig, grads: dict[str, torch.Tensor],
+                    opt_state: dict[str, Any], params: dict[str, torch.Tensor],
+                    target_params: dict[str, torch.Tensor],
+                    gnorm: torch.Tensor, step: torch.Tensor) -> None:
+    """The optimizer + target refresh of ``_step_core`` for either
+    optimizer, in place."""
+    if opt_state["name"] == "adam":
+        fused_adam_target_step(cfg, grads, opt_state, params, target_params,
+                               gnorm, step)
+    else:
+        rmsprop_target_step(cfg, grads, opt_state, params, target_params,
+                            gnorm, step)
+
+
+def init_opt_state(cfg: TrainConfig, net: nn.Module,
+                   device: torch.device) -> dict[str, Any]:
+    """A fresh optimizer state for ``net`` (see ``TrainState``)."""
+    params = dict(net.named_parameters())
+    if cfg.optimizer == "rmsprop":
+        # optax's scale_by_stddev: mu zeros, nu at initial_scale = 0
+        return {"name": "rmsprop",
+                "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+                "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+    mu_dtype = getattr(torch, cfg.adam_mu_dtype)
+    return {"name": "adam",
+            "count": torch.zeros((), dtype=torch.int32, device=device),
+            "mu": {k: torch.zeros_like(p, dtype=mu_dtype)
+                   for k, p in params.items()},
+            "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+
+def plane_gate(cfg: TrainConfig, per_shard: int) -> bool:
+    """Whether the reference's fused chain returns a learning-dynamics
+    plane: only its plane-carry body does, which it takes with stacked
+    forwards (``stack_forwards=on``, or ``auto`` at a per-shard batch of
+    at most 128), Adam and no model axis (the port has none). Its tree
+    body, taken otherwise, never calls ``lm_update``."""
+    stacked = (cfg.stack_forwards == "on"
+               or (cfg.stack_forwards == "auto" and per_shard <= 128))
+    return bool(cfg.learn_metrics) and stacked and cfg.optimizer == "adam"
 
 
 def q_step_loss(cfg: TrainConfig, q: torch.Tensor,
@@ -162,14 +272,8 @@ class Learner:
     """Owns the train step for feed-forward Q-nets on one device."""
 
     def __init__(self, cfg: TrainConfig, device: torch.device):
-        if cfg.optimizer != "adam":
-            raise NotImplementedError(
-                f"train.optimizer={cfg.optimizer!r}: only adam is ported "
-                "(ROADMAP A4)")
-        if cfg.learn_metrics:
-            raise NotImplementedError(
-                "train.learn_metrics=true (the learning-dynamics plane) is "
-                "not ported yet (ROADMAP A12)")
+        if cfg.optimizer not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         self.cfg = cfg
         self.device = device
 
@@ -177,18 +281,10 @@ class Learner:
 
     def init_state(self, net: nn.Module) -> TrainState:
         target = copy.deepcopy(net).requires_grad_(False)
-        mu_dtype = getattr(torch, self.cfg.adam_mu_dtype)
-        params = dict(net.named_parameters())
         return TrainState(
             net=net,
             target_net=target,
-            opt_state={
-                "count": torch.zeros((), dtype=torch.int32,
-                                     device=self.device),
-                "mu": {k: torch.zeros_like(p, dtype=mu_dtype)
-                       for k, p in params.items()},
-                "nu": {k: torch.zeros_like(p) for k, p in params.items()},
-            },
+            opt_state=init_opt_state(self.cfg, net, self.device),
             step=torch.zeros((), dtype=torch.int32, device=self.device))
 
     # -- train step --------------------------------------------------------
@@ -199,7 +295,8 @@ class Learner:
         device. ``forward`` names the nets' method for ``obs``/``next_obs``:
         ``forward_nchw`` for ``[B, stack, H, W]`` frames (the ring paths),
         ``forward`` for the reference's layouts (a host batch). Updates
-        ``state`` in place; returns (metrics, |TD|)."""
+        ``state`` in place; returns (metrics, |TD|, the online Q
+        ``[B, A]``)."""
         cfg = self.cfg
         net, target = state.net, state.target_net
         q = getattr(net, forward)(batch["obs"])
@@ -214,12 +311,11 @@ class Learner:
                                                      list(params.values()))))
         gnorm = global_norm(grads)
         state.step = state.step + 1
-        fused_adam_target_step(cfg, grads, state.opt_state, params,
-                               dict(target.named_parameters()), gnorm,
-                               state.step)
+        apply_optimizer(cfg, grads, state.opt_state, params,
+                        dict(target.named_parameters()), gnorm, state.step)
         metrics = {"loss": loss.detach(), "q_mean": q.detach().mean(),
                    "grad_norm": gnorm}
-        return metrics, td_abs
+        return metrics, td_abs, q.detach()
 
     def _to_device(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
         """Host arrays through ``to_device``; tensors (a ``DeviceStager``
@@ -235,7 +331,7 @@ class Learner:
         The ``train_step`` span times the host's enqueue, not the device."""
         with tracing.span("train_step"):
             return self._step_core(state, self._to_device(batch),
-                                   forward="forward")
+                                   forward="forward")[:2]
 
     def train_step_from_ring(self, state: TrainState, ring: torch.Tensor,
                              batch: dict[str, Any],
@@ -253,7 +349,7 @@ class Learner:
             "discount": b["discount"],
             "weight": b["weight"],
         }
-        return self._step_core(state, composed)
+        return self._step_core(state, composed)[:2]
 
     def train_steps_device_per(self, state: TrainState,
                                rows: dict[str, torch.Tensor],
@@ -268,22 +364,26 @@ class Learner:
         reference).
 
         Updates ``state`` and ``rows["prio"]`` in place. Returns (new
-        running max priority, metrics stacked over ``[chain]``)."""
+        running max priority, metrics stacked over ``[chain]``, with the
+        dispatch's ``learn_plane`` where ``plane_gate`` holds)."""
         # the spans time the host's enqueue of the sample stage and of the
         # train stage, not device execution (nothing here synchronizes)
         with tracing.span("sample"):
             metas, win, idxs, _ = fused_sample(rows, cursors, sizes, betas,
                                                u, spec)
         with tracing.span("train_step"):
-            return self._train_chain(state, rows, metas, win, idxs, spec)
+            return self._train_chain(state, rows, metas, win, idxs, spec,
+                                     plane_gate(self.cfg, spec[8]))
 
     def _train_chain(self, state: TrainState, rows: dict[str, torch.Tensor],
                      metas: dict[str, torch.Tensor], win: torch.Tensor,
-                     idxs: torch.Tensor, spec: tuple):
+                     idxs: torch.Tensor, spec: tuple, with_plane: bool):
         """The train stage of a fused dispatch: ``len(idxs)`` optimizer
-        steps and priority scatters, in order."""
+        steps and priority scatters, in order, and, ``with_plane``, the
+        learning-dynamics plane carried across them."""
         (_, _, rowb, row_len, stack, n_step, _, frame_shape, per_shard,
          alpha, eps, _) = spec
+        lmp = learning.lm_init(win.device) if with_plane else None
         chain = idxs.shape[0]
         # unpack int32 → pixel bytes, drop the row padding: [chain, B, w,
         # H·W] uint8, already the nets' NCHW order along (window, pixels)
@@ -306,9 +406,17 @@ class Learner:
                 "discount": metas["discount"][i],
                 "weight": metas["weight"][i],
             }
-            metrics, td_abs = self._step_core(state, batch)
+            metrics, td_abs, q = self._step_core(state, batch)
             maxp = scatter_priorities(prio, maxp, idxs[i], td_abs, alpha,
                                       eps)
+            if lmp is not None:
+                learning.lm_update(
+                    lmp, cfg=self.cfg, td_abs=td_abs,
+                    weight=batch["weight"], loss=metrics["loss"], q=q,
+                    q_mean=metrics["q_mean"], gnorm=metrics["grad_norm"],
+                    step=state.step, alpha=alpha, eps=eps)
             steps.append(metrics)
         stacked = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        if lmp is not None:
+            stacked["learn_plane"] = learning.lm_finalize(lmp)
         return maxp, stacked

@@ -11,15 +11,18 @@ One grad step (``SequenceLearner._step_core``):
 3. the train window: θ, then θ⁻, unroll over the remaining steps;
 4. per-step Double-DQN targets with value rescaling, the masked loss and
    the per-sequence priority η·max|TD| + (1−η)·mean|TD|;
-5. autograd, the global norm, and the clip + Adam + target refresh of
-   ``parallel/learner.py``.
+5. autograd, the global norm, and the optimizer + target refresh of
+   ``parallel/learner.py`` (clip + Adam, or the clipped RMSProp).
 
 Three ways in, as in the reference: a host batch of stacked observations
 (``train_step``), an index batch into the device sequence ring whose
 windows one ``gather_windows`` launch copies (``train_step_from_ring``),
 and the chained fused path (``train_steps_fused``): sampling, metadata,
 pixels and priorities all on the device, ``chain`` steps per dispatch,
-one ``gather_windows`` launch for all of their windows.
+one ``gather_windows`` launch for all of their windows. With
+``train.learn_metrics`` the fused path also carries the learning-dynamics
+plane (``learning.py``) across the chain, fed with the per-sequence
+priority as |TD| (the reference's R2D2 chain has no ``use_plane`` gate).
 
 The reference's ``stack_forwards`` route changes XLA's op schedule only;
 the port computes the same function one net at a time. It runs one shard
@@ -34,13 +37,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from distributed_deep_q_tpu_torch import learning
 from distributed_deep_q_tpu_torch.config import Config
 from distributed_deep_q_tpu_torch.models.qnet import R2d2QNet
 from distributed_deep_q_tpu_torch.ops.losses import (
     sequence_bellman_targets, sequence_dqn_loss)
 from distributed_deep_q_tpu_torch.ops.ring_gather import gather_windows
 from distributed_deep_q_tpu_torch.parallel.learner import (
-    Learner, TrainState, fused_adam_target_step, global_norm)
+    Learner, TrainState, apply_optimizer, global_norm)
 from distributed_deep_q_tpu_torch.replay.device_per import (
     build_cdf, draw_from_cdf, scatter_priorities, stratified_is_weights)
 from distributed_deep_q_tpu_torch.replay.device_ring import to_device
@@ -95,11 +99,13 @@ class SequenceLearner(Learner):
                                                      list(params.values()))))
         gnorm = global_norm(grads)
         state.step = state.step + 1
-        fused_adam_target_step(cfg, grads, state.opt_state, params,
-                               dict(target.named_parameters()), gnorm,
-                               state.step)
+        apply_optimizer(cfg, grads, state.opt_state, params,
+                        dict(target.named_parameters()), gnorm, state.step)
         metrics = {"loss": loss.detach(), "q_mean": q.detach().mean(),
                    "grad_norm": gnorm}
+        if cfg.learn_metrics:
+            # the recurrent step's Q extreme, the plane's q input
+            metrics["q_max"] = q.detach().max()
         return metrics, priority
 
     def train_step(self, state: TrainState, batch: dict[str, Any]):
@@ -135,7 +141,8 @@ class SequenceLearner(Learner):
         with ONE ``gather_windows`` launch; then the steps in order, each
         scattering its priorities into ``replay.dmeta["prio"]`` in place.
         Returns (new running max priority, metrics stacked over
-        ``[chain]``)."""
+        ``[chain]``, with the dispatch's ``learn_plane`` under
+        ``learn_metrics``)."""
         chain, cap = betas.shape[0], replay.capacity
         dmeta, W = replay.dmeta, replay.W
         filled = (torch.arange(cap, device=self.device) < sizes[0]).float()
@@ -153,6 +160,7 @@ class SequenceLearner(Learner):
         # a zero-mass draw writes no priority (scatter_priorities drops it)
         idx = torch.where(mass > 0, idx, torch.full_like(idx, cap))
         prio, maxp = dmeta["prio"], replay.dmaxp
+        lmp = learning.lm_init(self.device) if self.cfg.learn_metrics else None
         steps = []
         for i in range(chain):
             batch = {key: metas[key][i] for key in metas}
@@ -163,8 +171,17 @@ class SequenceLearner(Learner):
                                                 R2d2QNet.features_stacked)
             maxp = scatter_priorities(prio, maxp, idx[i], priority,
                                       replay.alpha, replay.eps)
+            if lmp is not None:
+                learning.lm_update(
+                    lmp, cfg=self.cfg, td_abs=priority,
+                    weight=batch["weight"], loss=metrics["loss"],
+                    q=metrics["q_max"], q_mean=metrics["q_mean"],
+                    gnorm=metrics["grad_norm"], step=state.step,
+                    alpha=replay.alpha, eps=replay.eps)
             steps.append(metrics)
         stacked = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        if lmp is not None:
+            stacked["learn_plane"] = learning.lm_finalize(lmp)
         return maxp, stacked
 
 

@@ -32,6 +32,7 @@ dispatches draw.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -237,6 +238,39 @@ def insert_meta_pack(staged_u8: torch.Tensor, maxp: torch.Tensor, *, k: int,
     rows = staged_u8.reshape(k, row_len)
     rows = F.pad(rows, (0, rowb - row_len))
     return rows.view(torch.int32).reshape(-1), maxp ** alpha
+
+
+class DeviceReplayState(NamedTuple):
+    """The device rows of a ``DevicePERFrameReplay`` as the reference's
+    ``DeviceReplayState``: the padded frame plane, the metadata and
+    priority rows, and the running max priority. The tensors are the
+    replay's own (a view, not a copy); the Anakin runner owns them while
+    ``replay.dstate`` is None (``take_device_state``)."""
+
+    frames: torch.Tensor
+    action: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    boundary: torch.Tensor
+    prio: torch.Tensor
+    maxp: torch.Tensor
+
+
+def take_device_state(replay) -> DeviceReplayState:
+    """Hand ``replay``'s device rows to one new owner: returns them as a
+    ``DeviceReplayState`` and sets ``replay.dstate = None`` until
+    ``give_device_state`` puts them back (the single-owner handoff)."""
+    if replay.dstate is None:
+        raise RuntimeError("the replay's device rows are already owned "
+                           "elsewhere (replay.dstate is None)")
+    ds = DeviceReplayState(**replay.dstate)
+    replay.dstate = None
+    return ds
+
+
+def give_device_state(replay, ds: DeviceReplayState) -> None:
+    """Put device rows back into ``replay`` (the end of the handoff)."""
+    replay.dstate = ds._asdict()
 
 
 # ---------------------------------------------------------------------------

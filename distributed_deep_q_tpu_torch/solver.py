@@ -93,6 +93,18 @@ def next_fused_keys(owner, num_shards: int, chain: int) -> np.ndarray:
     return out
 
 
+def fused_spec(config: Config, replay) -> tuple:
+    """The static geometry of a fused dispatch on ``replay``: (slot_cap,
+    slot_pad, rowb, row_len, stack, n_step, gamma, frame_shape, per-shard
+    batch, α, ε, shards)."""
+    return (replay.slot_cap, replay.slot_pad, replay.rowb, replay._row_len,
+            replay.stack, replay.n_step, replay.gamma,
+            tuple(replay.frame_shape),
+            config.replay.batch_size // replay.num_shards,
+            float(config.replay.priority_alpha),
+            float(config.replay.priority_eps), replay.num_shards)
+
+
 def _strip_host_keys(batch: dict[str, Any]) -> dict[str, Any]:
     """Drop host-only bookkeeping (slot indices, sample snapshots) before a
     batch goes to the device."""
@@ -192,7 +204,13 @@ class Solver:
     def train_step_device_per(self, replay) -> dict[str, Any]:
         """One fused prioritized step; metrics as device scalars."""
         m = self.train_steps_device_per(replay, chain=1)
-        return {k: v[0] for k, v in m.items()}
+        # the learning-dynamics plane is per dispatch (no chain axis): it
+        # must not be sliced like the per-step rows
+        plane = m.pop("learn_plane", None)
+        out = {k: v[0] for k, v in m.items()}
+        if plane is not None:
+            out["learn_plane"] = plane
+        return out
 
     def train_steps_device_per(self, replay,
                                chain: int | None = None) -> dict[str, Any]:
@@ -210,13 +228,7 @@ class Solver:
         betas = replay.next_betas(chain)
         spec = self._dp_spec
         if spec is None or self._dp_spec_replay is not replay:
-            spec = (replay.slot_cap, replay.slot_pad, replay.rowb,
-                    replay._row_len, replay.stack, replay.n_step,
-                    replay.gamma, tuple(replay.frame_shape),
-                    self.config.replay.batch_size // replay.num_shards,
-                    float(self.config.replay.priority_alpha),
-                    float(self.config.replay.priority_eps),
-                    replay.num_shards)
+            spec = fused_spec(self.config, replay)
             self._dp_spec, self._dp_spec_replay = spec, replay
         keys = next_fused_keys(self, replay.num_shards, chain)
         u = self.draw_uniforms(keys[0], spec[8], self.device)
@@ -261,41 +273,56 @@ class Solver:
     @torch.no_grad()
     def load_flax_state(self, params, target_params, count, mu, nu,
                         step) -> None:
-        """Install a reference train state (Flax-layout numpy trees)."""
+        """Install a reference train state (Flax-layout numpy trees; the
+        moments are the optimizer's, ``count`` Adam's and ignored for
+        RMSProp)."""
         fs = tuple(self.config.net.frame_shape)
+        st = self.state
         s = train_state_from_flax(params, target_params, count, mu, nu, step,
-                                  fs)
-        dev, st = self.device, self.state
+                                  fs, optimizer=st.opt_state["name"])
         for module, tree in ((st.net, s["params"]),
                              (st.target_net, s["target_params"])):
             for name, p in module.named_parameters():
                 p.copy_(torch.from_numpy(tree[name]))
+        self.load_opt_state(s["opt_state"])
+        st.step = torch.tensor(int(step), dtype=torch.int32,
+                               device=self.device)
+
+    def load_opt_state(self, opt: dict) -> None:
+        """Install an optimizer-state dict of numpy arrays in the port's
+        layouts (``convert.opt_state_from_flax`` or
+        ``opt_state_from_optax_leaves``), onto the state's devices and
+        dtypes."""
+        st, dev = self.state, self.device
+        if opt["name"] != st.opt_state["name"]:
+            raise ValueError(f"a {opt['name']} optimizer state cannot be "
+                             f"installed into a {st.opt_state['name']} one")
         for key in ("mu", "nu"):
             for name, t in st.opt_state[key].items():
                 st.opt_state[key][name] = torch.from_numpy(
-                    s["opt_state"][key][name]).to(dev, t.dtype)
-        st.opt_state["count"] = torch.tensor(int(count), dtype=torch.int32,
-                                             device=dev)
-        st.step = torch.tensor(int(step), dtype=torch.int32, device=dev)
+                    np.asarray(opt[key][name])).to(dev, t.dtype)
+        if "count" in st.opt_state:
+            st.opt_state["count"] = torch.tensor(
+                int(opt["count"]), dtype=torch.int32, device=dev)
 
     def flax_state(self) -> dict:
         """The train state in the reference's layout (numpy trees): keys
-        params, target_params, count, mu, nu, step."""
+        params, target_params, optimizer, mu, nu, step, and count for
+        Adam."""
         st = self.state
 
-        def host(module):
+        def host(tensors):
             return {k: p.detach().float().cpu().numpy()
-                    for k, p in module.named_parameters()}
+                    for k, p in tensors.items()}
 
+        opt = {"name": st.opt_state["name"],
+               "mu": host(st.opt_state["mu"]), "nu": host(st.opt_state["nu"])}
+        if "count" in st.opt_state:
+            opt["count"] = int(st.opt_state["count"])
         state = {
-            "params": host(st.net),
-            "target_params": host(st.target_net),
-            "opt_state": {
-                "count": int(st.opt_state["count"]),
-                "mu": {k: v.float().cpu().numpy()
-                       for k, v in st.opt_state["mu"].items()},
-                "nu": {k: v.cpu().numpy()
-                       for k, v in st.opt_state["nu"].items()}},
+            "params": host(dict(st.net.named_parameters())),
+            "target_params": host(dict(st.target_net.named_parameters())),
+            "opt_state": opt,
             "step": int(st.step),
         }
         return train_state_to_flax(state, tuple(self.config.net.frame_shape))
@@ -323,6 +350,13 @@ class FusedStepStream:
         self._chunk: dict[str, Any] | None = None
         self._len = 0
         self._pending = 0
+        self._planes: list[torch.Tensor] = []
+
+    def drain_planes(self) -> list[torch.Tensor]:
+        """Hand back (and clear) the planes kept so far — still device
+        tensors; ``LearnAccumulator.ingest`` copies them to the host."""
+        out, self._planes = self._planes, []
+        return out
 
     def next(self, steps_left: int) -> dict[str, Any]:
         """Metrics for one grad step; dispatches a fresh chunk as needed.
@@ -337,6 +371,9 @@ class FusedStepStream:
             with self._lock, phase:
                 self._chunk = self._solver.train_steps_device_per(
                     self._replay, chain=self._len)
+            plane = self._chunk.pop("learn_plane", None)
+            if plane is not None:
+                self._planes.append(plane)
             self._pending = self._len
         m = {k: v[self._len - self._pending]
              for k, v in self._chunk.items()}

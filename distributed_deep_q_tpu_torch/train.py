@@ -39,6 +39,7 @@ import os
 import numpy as np
 import torch
 
+from distributed_deep_q_tpu_torch import learning
 from distributed_deep_q_tpu_torch.actors.game import (
     FrameStacker, NStepAccumulator, make_env)
 from distributed_deep_q_tpu_torch.config import Config
@@ -204,6 +205,11 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
     timer = StepTimer()
     fused_stream = (FusedStepStream(solver, replay, cfg.replay.fused_chain,
                                     timer=timer) if fused_per else None)
+    # the learning-dynamics plane: the fused chunks' planes fold into
+    # learn/* gauges at log cadence (the health-plane registration is the
+    # distributed learner's)
+    learn_acc = (learning.LearnAccumulator()
+                 if cfg.train.learn_metrics and fused_per else None)
     trace = trace_window(cfg)
     # a resumed fused run draws the keys an unbroken run would: the key
     # schedule anchors on the restored step at the first dispatch
@@ -286,6 +292,9 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
                     pending = getattr(replay, "pending_rows", None)
                     if pending is not None:
                         metrics.gauge("queue/staged_rows", pending())
+                    if learn_acc is not None:
+                        learning.publish_planes(
+                            learn_acc, fused_stream.drain_planes(), metrics)
                     metrics.log(gsteps, **summary, **timer.summary(),
                                 **metrics.telemetry())
 

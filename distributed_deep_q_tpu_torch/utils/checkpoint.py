@@ -1,8 +1,9 @@
 """Checkpoint / resume of the learner's train state (port of the reference
 ``utils/checkpoint.py``, which writes through Orbax; the port needs none).
 
-One snapshot carries the complete learner state — θ, θ⁻, Adam's count, μ
-and ν, and the step — so a resumed run continues exactly (optimizer
+One snapshot carries the complete learner state — θ, θ⁻, the optimizer's
+name and state (Adam's count, μ and ν, or RMSProp's μ and ν), and the
+step — so a resumed run continues exactly (optimizer
 moments and the θ⁻ refresh phase included). The replay buffer is not in
 it: that is ``replay/persistence.py``, behind ``replay.persist_path``.
 
@@ -57,12 +58,15 @@ def _host(tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 def _snapshot(state) -> dict[str, Any]:
     """The host copy of a ``TrainState`` that ``state.pt`` holds."""
     opt = state.opt_state
+    snap_opt = {"name": opt["name"], "mu": _host(opt["mu"]),
+                "nu": _host(opt["nu"])}
+    if "count" in opt:
+        snap_opt["count"] = int(opt["count"])
     return {
         "step": int(state.step),
         "params": _host(dict(state.net.named_parameters())),
         "target_params": _host(dict(state.target_net.named_parameters())),
-        "opt_state": {"count": int(opt["count"]),
-                      "mu": _host(opt["mu"]), "nu": _host(opt["nu"])},
+        "opt_state": snap_opt,
     }
 
 
@@ -84,22 +88,32 @@ def _check_leaves(want: dict[str, torch.Tensor],
 def _install(state, snap: dict[str, Any]) -> None:
     """Write ``snap`` into ``state`` in place, onto its tensors' devices
     and dtypes. Buffers are not touched (the recurrent net's zero
-    ``bias_ih`` stays a zero buffer)."""
+    ``bias_ih`` stays a zero buffer). A snapshot of another optimizer's
+    state raises before anything is written (snapshots that name no
+    optimizer hold Adam's)."""
+    opt = state.opt_state
+    saved = snap["opt_state"].get("name", "adam")
+    if saved != opt["name"]:
+        raise ValueError(
+            f"checkpoint holds {saved} optimizer state; the train state "
+            f"uses {opt['name']} (train.optimizer must match the run that "
+            "saved it)")
     for module, key in ((state.net, "params"),
                         (state.target_net, "target_params")):
         params = dict(module.named_parameters())
         _check_leaves(params, snap[key], key)
         for name, p in params.items():
             p.copy_(snap[key][name])
-    opt = state.opt_state
     for key in ("mu", "nu"):
-        _check_leaves(opt[key], snap["opt_state"][key], f"Adam {key}")
+        _check_leaves(opt[key], snap["opt_state"][key],
+                      f"{opt['name']} {key}")
         opt[key] = {name: snap["opt_state"][key][name].to(
             device=t.device, dtype=t.dtype, copy=True)
             for name, t in opt[key].items()}
-    opt["count"] = torch.tensor(int(snap["opt_state"]["count"]),
-                                dtype=opt["count"].dtype,
-                                device=opt["count"].device)
+    if "count" in opt:
+        opt["count"] = torch.tensor(int(snap["opt_state"]["count"]),
+                                    dtype=opt["count"].dtype,
+                                    device=opt["count"].device)
     state.step = torch.tensor(int(snap["step"]), dtype=state.step.dtype,
                               device=state.step.device)
 

@@ -217,10 +217,19 @@ def test_port_chain3_equals_three_single_dispatches_bitwise():
 @pytest.mark.parametrize("setting, value", [
     ("learn_metrics", True), ("optimizer", "rmsprop")])
 def test_out_of_slice_train_settings_are_refused(setting, value):
+    """Both settings were refused until the port had them (ROADMAP A4,
+    A12); now each runs through the same fused dispatch. Under this
+    file's ``stack_forwards=off`` the reference takes its tree body,
+    which returns no learning-dynamics plane, and neither does the port
+    (``tests/test_torch_learning.py`` holds the plane where it appears;
+    ``tests/test_torch_rmsprop.py`` RMSProp against optax)."""
     cfg = _cfg(port_config)
     setattr(cfg.train, setting, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver = Solver(cfg, backend="cpu")
-        rep = _port_replay(solver.config)
-        _stream([rep], 300, seed=0)
-        solver.train_steps_device_per(rep, chain=1)
+    solver = Solver(cfg, backend="cpu")
+    rep = _port_replay(solver.config)
+    _stream([rep], 300, seed=0)
+    m = solver.train_step_device_per(rep)
+    assert "learn_plane" not in m
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert solver.state.opt_state["name"] == cfg.train.optimizer
+    assert int(solver.state.step) == 1

@@ -275,8 +275,16 @@ def test_cli_evaluates_r2d2_preset_on_cpu(capsys):
 
 @pytest.mark.parametrize("setting, value", [
     ("learn_metrics", True), ("optimizer", "rmsprop")])
-def test_out_of_slice_r2d2_settings_are_refused(setting, value):
-    cfg = _cfg(port_config)
-    setattr(cfg.train, setting, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SequenceSolver(cfg, backend="cpu")
+def test_out_of_slice_r2d2_settings_are_refused(setting, value, capsys):
+    """Both settings were refused until the port had them (ROADMAP A4,
+    A12); now the r2d2 preset trains with each through ``main train`` on
+    the chained fused path (the plane's values against the reference's
+    are in ``tests/test_torch_learning.py``, RMSProp's in
+    ``tests/test_torch_rmsprop.py``)."""
+    torch.set_num_threads(1)
+    rc, summary = _run(["train", "--preset", "r2d2", "--backend", "cpu",
+                        "--log-every", "3", "--set", *R2D2_SMALL,
+                        "replay.device_per=true", "replay.fused_chain=4",
+                        f"train.{setting}={str(value).lower()}"], capsys)
+    assert rc == 0 and summary["grad_steps"] == (600 - 176) // 16 + 1
+    assert math.isfinite(summary["loss"])
