@@ -11,6 +11,8 @@ batch shape, as ``vmap`` over the jax function does:
 - ``split(key, n)``         — ``jax.random.split(key, n)`` → ``[..., n, 2]``;
 - ``fold_in(key, data)``    — ``jax.random.fold_in(key, data)``;
 - ``uniform(key)``          — scalar ``jax.random.uniform(key)`` (float32);
+- ``uniforms(key, n)``      — ``jax.random.uniform(key, (n,))`` → ``[..., n]``
+  (the fused samplers' draws);
 - ``randint(key, lo, hi)``  — scalar ``jax.random.randint(key, (), lo, hi)``
   (int32), with jax's two-draw construction.
 
@@ -82,12 +84,28 @@ def random_bits(key: torch.Tensor) -> torch.Tensor:
     return a ^ b
 
 
-def uniform(key: torch.Tensor) -> torch.Tensor:
-    """Scalar ``jax.random.uniform(key)`` per key: float32 in [0, 1) from
-    the top 23 bits as the mantissa of a float in [1, 2), minus 1."""
-    bits = (random_bits(key) >> 9) | 0x3F800000
+def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """32 random bits → float32 in [0, 1): the top 23 bits as the mantissa
+    of a float in [1, 2), minus 1 (jax's ``_uniform`` for float32)."""
+    bits = (bits >> 9) | 0x3F800000
     f = bits.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp(f, min=0.0)
+
+
+def uniform(key: torch.Tensor) -> torch.Tensor:
+    """Scalar ``jax.random.uniform(key)`` per key (float32 in [0, 1))."""
+    return _bits_to_unit(random_bits(key))
+
+
+def uniforms(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,))`` per key: ``[..., 2]`` → ``[..., n]``
+    float32. Draw i hashes the counters ``(0, i)`` and xors the two output
+    words: the partitionable layout's ``iota_2x32_shape`` for a 1-D shape,
+    whose high counter word is 0 below 2³² draws."""
+    i = torch.arange(int(n), dtype=torch.int64, device=key.device)
+    a, b = threefry2x32(key[..., 0, None], key[..., 1, None],
+                        torch.zeros_like(i), i)
+    return _bits_to_unit(a ^ b)
 
 
 def randint(key: torch.Tensor, lo: int, hi: int) -> torch.Tensor:

@@ -54,6 +54,34 @@ from distributed_deep_q_tpu_torch.solver import (
     Solver, _strip_host_keys, next_fused_keys)
 
 
+def fused_sequence_sample(replay, batch_size: int, sizes: torch.Tensor,
+                          betas: torch.Tensor, u: torch.Tensor):
+    """The sample stage of a fused sequence dispatch: draw every step's
+    sequences from the chunk-start priorities by inverse CDF over the
+    uniforms ``u`` [chain, B], gather their metadata and IS weights, and
+    copy all their windows with ONE ``gather_windows`` launch. Returns
+    (metas [chain, B, ...] with ``weight``, windows ``[chain, B, W,
+    rowp]`` int32, sampled slots [chain, B], set to the capacity (out of
+    range) when the mass is 0)."""
+    chain, cap = betas.shape[0], replay.capacity
+    dmeta, W = replay.dmeta, replay.W
+    filled = (torch.arange(cap, device=u.device) < sizes[0]).float()
+    pm = dmeta["prio"] * filled
+    cdf, mass = build_cdf(pm)
+    n_glob = filled.sum()
+    idx, p = draw_from_cdf(u, cdf, pm, mass)               # [chain, B]
+    flat = idx.reshape(-1)
+    metas = {key: dmeta[key][flat].reshape(
+        (chain, batch_size) + dmeta[key].shape[1:]) for key in META_KEYS}
+    metas["weight"] = stratified_is_weights(p, mass, n_glob, betas, 1)
+    win = gather_windows((flat * W).to(torch.int32), replay.ring,
+                         n=chain * batch_size, w=W, rowb=replay.rowb)
+    win = win.view(chain, batch_size, W, replay.rowp)
+    # a zero-mass draw writes no priority (scatter_priorities drops it)
+    idx = torch.where(mass > 0, idx, torch.full_like(idx, cap))
+    return metas, win, idx
+
+
 class SequenceLearner(Learner):
     """Owns the R2D2 train step on one device."""
 
@@ -135,31 +163,17 @@ class SequenceLearner(Learner):
     def train_steps_fused(self, state: TrainState, replay, batch_size: int,
                           sizes: torch.Tensor, betas: torch.Tensor,
                           u: torch.Tensor):
-        """``len(betas)`` fused sequence steps: draw every step's sequences
-        from the chunk-start priorities by inverse CDF over the uniforms
-        ``u`` [chain, B], gather their metadata, copy all their windows
-        with ONE ``gather_windows`` launch; then the steps in order, each
+        """``len(betas)`` fused sequence steps: the sample stage
+        (``fused_sequence_sample``) from the chunk-start priorities and
+        the uniforms ``u`` [chain, B], then the steps in order, each
         scattering its priorities into ``replay.dmeta["prio"]`` in place.
         Returns (new running max priority, metrics stacked over
         ``[chain]``, with the dispatch's ``learn_plane`` under
         ``learn_metrics``)."""
-        chain, cap = betas.shape[0], replay.capacity
-        dmeta, W = replay.dmeta, replay.W
-        filled = (torch.arange(cap, device=self.device) < sizes[0]).float()
-        pm = dmeta["prio"] * filled
-        cdf, mass = build_cdf(pm)
-        n_glob = filled.sum()
-        idx, p = draw_from_cdf(u, cdf, pm, mass)           # [chain, B]
-        flat = idx.reshape(-1)
-        metas = {key: dmeta[key][flat].reshape(
-            (chain, batch_size) + dmeta[key].shape[1:]) for key in META_KEYS}
-        metas["weight"] = stratified_is_weights(p, mass, n_glob, betas, 1)
-        win = gather_windows((flat * W).to(torch.int32), replay.ring,
-                             n=chain * batch_size, w=W, rowb=replay.rowb)
-        win = win.view(chain, batch_size, W, replay.rowp)
-        # a zero-mass draw writes no priority (scatter_priorities drops it)
-        idx = torch.where(mass > 0, idx, torch.full_like(idx, cap))
-        prio, maxp = dmeta["prio"], replay.dmaxp
+        chain = betas.shape[0]
+        metas, win, idx = fused_sequence_sample(replay, batch_size, sizes,
+                                                betas, u)
+        prio, maxp = replay.dmeta["prio"], replay.dmaxp
         lmp = learning.lm_init(self.device) if self.cfg.learn_metrics else None
         steps = []
         for i in range(chain):

@@ -17,16 +17,12 @@ nothing. Per dispatch (``Learner.train_steps_device_per``):
 - train, and scatter ``(|TD|+ε)^α`` back into the priority row
   (``scatter_priorities``).
 
-The reference runs these per mesh shard under ``shard_map``; the port runs
-on one device, so D = 1 and the reference's ``psum``/``pmax`` over ``dp``
-are the identity.
-
-Randomness: the reference draws ``jax.random.uniform(key, (B,))`` from raw
-``uint32[2]`` keys. The port does not reproduce threefry: each key seeds a
-``torch.Generator`` (``uniforms_for_keys``) and the draw functions take the
-uniforms as an argument, so a test can feed both packages the reference's
-own uniforms. A ``chain=k`` chunk draws exactly what k single-step
-dispatches draw.
+Randomness: the reference draws ``jax.random.uniform(key, (B/D,))`` per
+shard from raw ``uint32[2]`` keys; ``uniforms_for_keys`` draws the same
+numbers bit for bit (``ops/threefry.py``), so a port run and a reference run
+from one seed sample the same rows. The draw functions take the uniforms
+as an argument, so a test may still feed in its own. A ``chain=k`` chunk
+draws exactly what k single-step dispatches draw.
 """
 
 from __future__ import annotations
@@ -38,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distributed_deep_q_tpu_torch.ops import threefry
 from distributed_deep_q_tpu_torch.ops.ring_gather import (
     padded_row_bytes, scatter_rows)
 from distributed_deep_q_tpu_torch.replay.device_ring import (
@@ -45,16 +42,18 @@ from distributed_deep_q_tpu_torch.replay.device_ring import (
 
 
 def uniforms_for_keys(keys: np.ndarray, per_shard: int,
-                      device: torch.device) -> torch.Tensor:
-    """``[chain, per_shard]`` float32 uniforms in [0, 1), row i from a
-    ``torch.Generator`` seeded with key i's two uint32 words. Drawn on the
-    host, so the CPU and the card get the same numbers."""
-    keys = np.asarray(keys, np.uint32).reshape(-1, 2)
-    rows = []
-    for k0, k1 in keys:
-        gen = torch.Generator().manual_seed((int(k0) << 32) | int(k1))
-        rows.append(torch.rand(per_shard, generator=gen))
-    u = torch.stack(rows)
+                      device: torch.device,
+                      on_device: bool = False) -> torch.Tensor:
+    """``jax.random.uniform(key, (per_shard,))`` for every key of ``keys``
+    (``[..., 2]`` uint32): float32 ``[..., per_shard]`` in [0, 1) on
+    ``device``, bitwise the reference's draws. The hash is integer
+    arithmetic, so where it runs does not change the numbers: on the host
+    by default (then one pinned copy), or ``on_device`` (the keys copied,
+    then about 170 elementwise launches)."""
+    k = torch.from_numpy(np.asarray(keys, np.uint32).astype(np.int64))
+    if on_device:
+        return threefry.uniforms(to_device(k.numpy(), device), per_shard)
+    u = threefry.uniforms(k, per_shard)
     if device.type == "cuda":
         return u.pin_memory().to(device, non_blocking=True)
     return u

@@ -18,6 +18,8 @@ reference test's configuration (``tests/test_anakin.py``: 16 envs on
    unless the row's top two Q-values lie within twice its Q error (the
    margin rule of ``tests/test_torch_policy.py``; Q within 1e-5 here), and
    θ within 1e-5.
+   With no uniforms injected, the first superstep of each samples the
+   same rows bitwise.
 3. ``train.learn_metrics`` off is bitwise the gate on; it trains
    (the twin of the reference's learning smoke); the construction
    refusals.
@@ -39,6 +41,7 @@ from distributed_deep_q_tpu_torch.ops.device_envs import make_device_env
 from distributed_deep_q_tpu_torch.parallel import anakin as anakin_mod
 from distributed_deep_q_tpu_torch.parallel.anakin import (
     AnakinRunner, act_tick, run_anakin)
+from distributed_deep_q_tpu_torch.replay import device_per as dp_mod
 from distributed_deep_q_tpu_torch.replay.device_per import (
     DevicePERFrameReplay)
 from distributed_deep_q_tpu_torch.solver import Solver
@@ -195,6 +198,78 @@ def test_runner_matches_reference_runner(monkeypatch):
             np.testing.assert_allclose(g, np.asarray(leaf), rtol=0,
                                        atol=1e-5, err_msg=name)
     assert got["step"] == int(ref.solver.state.step) == 6
+
+
+def _recording_ref_sample_stage(monkeypatch, record):
+    """Record, per superstep and shard, what the reference superstep's
+    sample stage drew (indices, IS weights) and gathered (B1 windows):
+    host callbacks traced into its program."""
+    from jax import lax
+
+    from distributed_deep_q_tpu.parallel import anakin as ref_anakin
+
+    draw, gather = (ref_anakin.fused_sample_draw_packed,
+                    ref_anakin.gather_windows)
+
+    def put(kind, shard, *arrays):
+        record.setdefault(kind, []).append(
+            (int(shard),) + tuple(np.asarray(a) for a in arrays))
+
+    def recording_draw(*args, **kw):
+        meta, ws, idx = draw(*args, **kw)
+        jax.debug.callback(lambda s, i, w: put("draw", s, i, w),
+                           lax.axis_index("dp"), idx, meta["weight"])
+        return meta, ws, idx
+
+    def recording_gather(*args, **kw):
+        win = gather(*args, **kw)
+        jax.debug.callback(lambda s, w: put("win", s, w),
+                           lax.axis_index("dp"), win)
+        return win
+
+    monkeypatch.setattr(ref_anakin, "fused_sample_draw_packed",
+                        recording_draw)
+    monkeypatch.setattr(ref_anakin, "gather_windows", recording_gather)
+
+
+def test_superstep_draws_the_references_rows(monkeypatch):
+    """No uniforms injected: the first superstep of each package, from the
+    same weights, samples the same rows (``ops/threefry.py`` draws
+    ``jax.random.uniform``'s own numbers from the shared key schedule).
+    Indices, IS weights and the B1 windows: bitwise. (The first
+    superstep's priorities are all ``maxp^α`` = 1; later ones follow each
+    package's |TD|, which agree within tolerance, not bitwise.)"""
+    from distributed_deep_q_tpu.parallel.anakin import (
+        AnakinRunner as RefRunner)
+    from distributed_deep_q_tpu.parallel.learner import _locate_adam_state
+
+    torch.set_num_threads(1)
+    record: dict = {}
+    _recording_ref_sample_stage(monkeypatch, record)
+    ref = RefRunner(_anakin_config(ref_config))
+    runner = AnakinRunner(_anakin_config())
+    assert runner.solver.draw_uniforms is dp_mod.uniforms_for_keys
+    st = jax.tree.map(np.asarray, ref.solver.state)
+    adam, _ = _locate_adam_state(st.opt_state)
+    runner.solver.load_flax_state(st.params, st.target_params, adam.count,
+                                  adam.mu, adam.nu, st.step)
+    drawn, fused_sample = [], anakin_mod.fused_sample
+
+    def recording_sample(*args):
+        out = fused_sample(*args)
+        drawn.append(out)
+        return out
+
+    monkeypatch.setattr(anakin_mod, "fused_sample", recording_sample)
+    ref.superstep()
+    runner.superstep()
+    jax.effects_barrier()
+    meta, win, idx, _ = drawn[0]
+    (_, idx_r, w_r), = record["draw"]
+    (_, win_r), = record["win"]
+    np.testing.assert_array_equal(idx.numpy(), idx_r)
+    np.testing.assert_array_equal(meta["weight"].numpy(), w_r)
+    np.testing.assert_array_equal(win.numpy(), win_r.reshape(-1))
 
 
 def test_gate_off_is_bitwise_gate_on():

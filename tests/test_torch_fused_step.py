@@ -25,7 +25,9 @@ Pins and their reasons:
   (Measured on this input: |Δθ| ≤ 1.5e-8 = 1.5e-4·lr, and mu/nu within
   2.2e-6 of their leaves' largest magnitude — no sign flip occurs.)
 
-Also: the port's chain=3 dispatch equals three chain=1 dispatches bitwise.
+Also: with no uniforms injected the port samples the reference's rows
+bit for bit; the port's chain=3 dispatch equals three chain=1 dispatches
+bitwise.
 """
 
 import copy
@@ -45,6 +47,7 @@ from distributed_deep_q_tpu.solver import Solver as RefSolver
 
 from distributed_deep_q_tpu_torch import config as port_config
 from distributed_deep_q_tpu_torch.parallel import learner as learner_mod
+from distributed_deep_q_tpu_torch.replay import device_per as dp_mod
 from distributed_deep_q_tpu_torch.replay.device_per import (
     DevicePERFrameReplay)
 from distributed_deep_q_tpu_torch.solver import Solver
@@ -184,6 +187,63 @@ def _check_fused_dispatch(alpha, pallas, monkeypatch):
                        rtol=0, atol=2 * LR)
     _assert_tree_close(got["mu"], adam.mu, "mu", rtol=1e-3, atol_rel=1e-4)
     _assert_tree_close(got["nu"], adam.nu, "nu", rtol=1e-3, atol_rel=1e-4)
+
+
+def _recording_ref_sample(monkeypatch, learner, record):
+    """Record every (metas, windows, indices) the reference learner's
+    sample program returns."""
+    build = learner._build_device_per_step
+
+    def wrapped(spec, chain, donate=True):
+        sample, train = build(spec, chain, donate)
+
+        def recording(*args):
+            out = sample(*args)
+            record.append(jax.tree.map(np.asarray, out))
+            return out
+        return recording, train
+
+    monkeypatch.setattr(learner, "_build_device_per_step", wrapped)
+
+
+def test_fused_dispatch_draws_the_references_rows(monkeypatch):
+    """No uniforms injected: the port draws ``jax.random.uniform``'s own
+    numbers from the shared key schedule (``ops/threefry.py``), so two
+    chained dispatches of each package from the same seed and state sample
+    the same rows. Indices, IS weights (α = 0, the Pong preset's: every
+    weight is exactly 1) and the B1 windows: bitwise."""
+    torch.set_num_threads(1)
+    ref = RefSolver(_cfg(ref_config))
+    ref_rep = RefReplay(ref.config.replay, ref.mesh, FRAME, stack=4,
+                        gamma=0.99, seed=0, write_chunk=16)
+    port = _port_from(ref, 0.0)
+    assert port.draw_uniforms is dp_mod.uniforms_for_keys
+    rep = _port_replay(port.config)
+    drawn_ref, drawn = [], []
+    _recording_ref_sample(monkeypatch, ref.learner, drawn_ref)
+    fused_sample = learner_mod.fused_sample
+
+    def recording_sample(*args):
+        out = fused_sample(*args)
+        drawn.append(out)
+        return out
+
+    monkeypatch.setattr(learner_mod, "fused_sample", recording_sample)
+    _stream([ref_rep, rep], 300, seed=0)
+    ref.train_steps_device_per(ref_rep, chain=3)
+    port.train_steps_device_per(rep, chain=3)
+    _stream([ref_rep, rep], 40, seed=1)
+    ref.train_steps_device_per(ref_rep, chain=3)
+    port.train_steps_device_per(rep, chain=3)
+    assert len(drawn) == len(drawn_ref) == 2
+    for (meta, win, idx, _), (meta_r, win_r, idx_r) in zip(drawn, drawn_ref):
+        np.testing.assert_array_equal(idx.numpy(), idx_r)
+        np.testing.assert_array_equal(meta["weight"].numpy(),
+                                      meta_r["weight"])
+        np.testing.assert_array_equal(win.numpy(), win_r.reshape(-1))
+        for name in ("action", "discount", "ovalid", "nvalid"):
+            np.testing.assert_array_equal(meta[name].numpy(), meta_r[name],
+                                          err_msg=name)
 
 
 def test_port_chain3_equals_three_single_dispatches_bitwise():

@@ -13,7 +13,8 @@ three grad steps:
   and both write back the REFERENCE's priorities, so the three steps see
   the same batches;
 - the chained fused dispatch (``train_steps_device_per``, chain 3), the
-  port drawing from the reference's own uniforms.
+  port drawing from the reference's own uniforms; and, with nothing
+  injected, the same dispatch sampling the reference's sequences bitwise.
 
 Tolerances are the ones the reference holds its dp=1 and dp=8 runs to
 (``tests/test_sequence.py``): the loss within 1e-5 relative, the
@@ -43,6 +44,8 @@ from distributed_deep_q_tpu.replay.sequence import SequenceBuilder
 
 from distributed_deep_q_tpu_torch import config as port_config
 from distributed_deep_q_tpu_torch.main import main
+from distributed_deep_q_tpu_torch.parallel import (
+    sequence_learner as seq_learner_mod)
 from distributed_deep_q_tpu_torch.parallel.sequence_learner import (
     SequenceSolver)
 from distributed_deep_q_tpu_torch.replay import device_sequence as ds
@@ -173,6 +176,48 @@ def test_fused_chained_steps_match_reference():
     np.testing.assert_allclose(float(port_rep.dmaxp),
                                float(np.asarray(ref_rep.dmaxp)), rtol=1e-4)
     _assert_states_close(port, ref, 3)
+
+
+def test_fused_chained_dispatch_draws_the_references_sequences(monkeypatch):
+    """No uniforms injected: one chain=3 dispatch of each package from the
+    same sequences and weights samples the same slots (``ops/threefry.py``
+    draws ``jax.random.uniform``'s own numbers). Slots, IS weights (every
+    fresh priority is the same, so each weight is exactly 1) and the B1
+    windows: bitwise."""
+    torch.set_num_threads(1)
+    ref, port, ref_rep, port_rep = _pair(device_per=True)
+    drawn_ref, drawn = [], []
+    build = ref.learner._build_fused_steps
+
+    def wrapped(spec, chain):
+        sample, train = build(spec, chain)
+
+        def recording(*args):
+            out = sample(*args)
+            drawn_ref.append(jax.tree.map(np.asarray, out))
+            return out
+        return recording, train
+
+    monkeypatch.setattr(ref.learner, "_build_fused_steps", wrapped)
+    sample = seq_learner_mod.fused_sequence_sample
+
+    def recording_sample(*args):
+        out = sample(*args)
+        drawn.append(out)
+        return out
+
+    monkeypatch.setattr(seq_learner_mod, "fused_sequence_sample",
+                        recording_sample)
+    ref.train_steps_device_per(ref_rep, chain=3)
+    port.train_steps_device_per(port_rep, chain=3)
+    (meta, win, idx), = drawn
+    (meta_r, win_r, idx_r), = drawn_ref
+    np.testing.assert_array_equal(idx.numpy(), idx_r)
+    np.testing.assert_array_equal(meta["weight"].numpy(), meta_r["weight"])
+    np.testing.assert_array_equal(win.numpy(), win_r)
+    for name in ds.META_KEYS:
+        np.testing.assert_array_equal(meta[name].numpy(), meta_r[name],
+                                      err_msg=name)
 
 
 def test_host_batch_step_matches_reference():

@@ -86,3 +86,40 @@ def test_batched_shapes_follow_vmap(keys):
     np.testing.assert_array_equal(
         threefry.randint(k, 0, 6).reshape(-1).numpy(),
         threefry.randint(tk[:12], 0, 6).numpy())
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 512])
+def test_shaped_uniform_matches_jax_bitwise(keys, n):
+    """``uniforms(key, n)`` is ``jax.random.uniform(key, (n,))``: the fused
+    samplers' draws (n = 1 and an odd n included)."""
+    ref, tk = keys
+    ref, tk = ref[::10], tk[::10]     # 30 keys, both kinds
+    want = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (n,)))(ref))
+    got = threefry.uniforms(tk, n)
+    assert got.shape == (len(ref), n) and got.dtype == torch.float32
+    np.testing.assert_array_equal(want.view(np.int32),
+                                  got.numpy().view(np.int32))
+    # a [a, b, 2] batch of keys gives what the flat batch gives
+    np.testing.assert_array_equal(
+        threefry.uniforms(tk[:6].view(2, 3, 2), n).reshape(6, n).numpy(),
+        got[:6].numpy())
+
+
+@pytest.mark.parametrize("on_device", [False, True])
+def test_fused_sampler_uniforms_are_the_references(on_device):
+    """``uniforms_for_keys`` over a ``[D, chain, 2]`` key schedule draws
+    what the reference's samplers draw, ``jax.random.uniform(keys[s, i],
+    (B/D,))``, bitwise, wherever the hash runs."""
+    from distributed_deep_q_tpu_torch.replay.device_per import (
+        uniforms_for_keys)
+    from distributed_deep_q_tpu_torch.solver import sample_key_schedule
+
+    keys = sample_key_schedule(seed=5, start_step=40, num_shards=2, chain=3)
+    got = uniforms_for_keys(keys, 33, torch.device("cpu"), on_device)
+    assert got.shape == (2, 3, 33)
+    for s in range(2):
+        for i in range(3):
+            want = np.asarray(jax.random.uniform(jnp.asarray(keys[s, i]),
+                                                 (33,)))
+            np.testing.assert_array_equal(want.view(np.int32),
+                                          got[s, i].numpy().view(np.int32))
