@@ -778,7 +778,74 @@ def run_chained(torch, config, Solver, DevicePERFrameReplay) -> dict:
     out["trace"] = trace_dispatches(torch, plain, replay, chain, 4)
     out["fused_loss_trace"] = trace_dispatches(torch, fused, replay, chain, 4)
     out["empty_kernel_trace_us"] = trace_empty_kernel(torch)
+    out["uniform_draw"] = time_uniform_draws(torch, plain, replay, chain,
+                                             dispatches)
     return out
+
+
+def time_uniform_draws(torch, solver, replay, chain: int,
+                       dispatches: int) -> dict:
+    """Where to draw the fused sampler's uniforms (``uniforms_for_keys``):
+    one chain-8 dispatch's [8, 512] from its keys on the host (then one
+    pinned copy) or on the card (the keys copied, then the hash's
+    elementwise launches). The numbers are the same bits either way
+    (checked); host ms per call over 64 calls ending in a synchronize, and
+    ms per chain-8 grad step with each, in turns (host, card, card,
+    host)."""
+    from functools import partial
+
+    from distributed_deep_q_tpu_torch.replay.device_per import (
+        uniforms_for_keys)
+    from distributed_deep_q_tpu_torch.solver import sample_key_schedule
+
+    dev = solver.device
+    keys = sample_key_schedule(0, 0, 1, chain).reshape(-1, 2)
+    equal = bool(torch.equal(uniforms_for_keys(keys, 512, dev),
+                             uniforms_for_keys(keys, 512, dev, True)))
+    out = {"bitwise_equal": equal}
+    for where, on_device in (("host", False), ("card", True)):
+        out[f"{where}_ms_per_call"] = time_ms(
+            torch, lambda i: uniforms_for_keys(keys, 512, dev, on_device))[1]
+    grad: dict[str, list[float]] = {"host": [], "card": []}
+    for where in ("host", "card", "card", "host"):
+        solver.draw_uniforms = partial(uniforms_for_keys,
+                                       on_device=where == "card")
+        grad[where].append(time_chain(torch, solver, replay, chain,
+                                      dispatches)[0])
+    solver.draw_uniforms = uniforms_for_keys
+    out.update({f"{w}_ms_per_grad_step": v for w, v in grad.items()})
+    return out
+
+
+# ``python3 chip_smoke.py --phase5 DIR [DIR ...]``: phase 5's chained
+# dispatch run from each checkout DIR of the repository in turn (its own
+# package and kernels, built there), in one process each, so two trees
+# are compared on one card in one call (parent, change, change, parent)
+PHASE5_CODE = """
+import json, torch, chip_smoke
+from distributed_deep_q_tpu_torch import config
+from distributed_deep_q_tpu_torch.replay.device_per import DevicePERFrameReplay
+from distributed_deep_q_tpu_torch.solver import Solver
+out = chip_smoke.run_chained(torch, config, Solver, DevicePERFrameReplay)
+print(json.dumps({k: out[k] for k in ("ms_per_grad_step",
+                                      "fused_loss_ms_per_grad_step")}))
+"""
+
+
+def phase5_trees(dirs: list[str]) -> int:
+    log(nvidia_smi_line())
+    for d in dirs:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", PHASE5_CODE],
+                             cwd=d, capture_output=True, text=True,
+                             timeout=900)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr)
+            return run.returncode
+        row = json.loads(run.stdout.strip().splitlines()[-1])
+        log(json.dumps({"tree": d, **row,
+                        "wall_s": time.perf_counter() - t0}))
+    return 0
 
 
 def trace_empty_kernel(torch, launches: int = 64) -> float:
@@ -2531,21 +2598,23 @@ def anakin_host_twin(torch, cfg, supersteps, Solver, DevicePERFrameReplay,
     h, w = cfg.env.frame_shape
     stack = cfg.env.stack
     solver = Solver(cfg, obs_dim=h * w * stack)
-    dev = solver.device
+    dev, d = solver.device, solver.num_shards
     replay = DevicePERFrameReplay(cfg.replay, dev, (h, w), stack,
                                   cfg.train.gamma, seed=cfg.train.seed,
                                   write_chunk=cfg.replay.write_chunk,
-                                  num_streams=n)
+                                  num_streams=n, num_shards=d)
     reset_fn, step_fn = make_device_env(cfg.env)
     base = threefry.prng_key(cfg.train.seed, dev)
-    g = torch.arange(n, device=dev)
+    # with D shards the env at position p = s·E + e is stream e·D + s
+    gids = [(p % (n // d)) * d + p // (n // d) for p in range(n)]
+    g = torch.tensor(gids, device=dev)
     st, frames = reset_fn(threefry.fold_in(base, 1000 * (g + 1)))
     buf = torch.zeros((n, stack, h * w), dtype=torch.uint8, device=dev)
     buf[:, -1] = frames.reshape(n, -1)
     akeys = threefry.fold_in(base, 7777 * (g + 1))
     eps = torch.tensor([actor_epsilon(i, n, cfg.actors.eps_base,
                                       cfg.actors.eps_alpha)
-                        for i in range(n)], dtype=torch.float32, device=dev)
+                        for i in gids], dtype=torch.float32, device=dev)
     for _ in range(supersteps):
         recs = []
         for _t in range(ticks):
@@ -2560,19 +2629,21 @@ def anakin_host_twin(torch, cfg, supersteps, Solver, DevicePERFrameReplay,
                 "action": np.array([r["action"][s] for r in recs], np.int64),
                 "reward": np.array([r["reward"][s] for r in recs],
                                    np.float32),
-                "done": done, "boundary": done}, stream=s)
+                "done": done, "boundary": done}, stream=gids[s])
         solver.train_steps_device_per(replay, cfg.replay.fused_chain)
     return solver, replay
 
 
-def anakin_pin(torch, config, modules) -> dict:
-    """Phase 14's pin: three supersteps against the host twin, bitwise
-    (every real and ghost ring row, action, reward, done, boundary,
-    priority and maxp, θ and θ⁻); then 40 supersteps at lr 3e-3 through
-    ``run_anakin`` must give act_reward > 0.30."""
+def anakin_pin(torch, config, modules, dp: int = 1) -> dict:
+    """Phase 14's pin (15d at ``dp`` = 8 shards): three supersteps against
+    the host twin, bitwise (every shard's real and ghost ring rows, action,
+    reward, done, boundary, priority and maxp, θ and θ⁻); then, at one
+    shard, 40 supersteps at lr 3e-3 through ``run_anakin`` must give
+    act_reward > 0.30."""
     (Solver, DevicePERFrameReplay, anakin, threefry, make_device_env,
      actor_epsilon) = modules
     cfg = anakin_pin_config(config)
+    cfg.mesh.dp = dp
     with deterministic(torch):
         runner = anakin.AnakinRunner(cfg)
         for _ in range(3):
@@ -2584,13 +2655,18 @@ def anakin_pin(torch, config, modules) -> dict:
         torch.cuda.synchronize()
     rp = runner.replay
     a, h = rp.dstate, replay.dstate
-    real = rp.cap_local_pad
+    real = rp.cap_local_pad     # each shard's rows but its scratch row
+    shape = (rp.num_shards, rp.shard_rows, rp.rowp)
     diffs = [] if tensors_equal(
-        torch, a["frames"].view(-1, rp.rowp)[:real],
-        h["frames"].view(-1, rp.rowp)[:real]) else ["frames"]
+        torch, a["frames"].view(shape)[:, :real],
+        h["frames"].view(shape)[:, :real]) else ["frames"]
     diffs += [f for f in ("action", "reward", "done", "boundary", "prio",
                           "maxp") if not tensors_equal(torch, a[f], h[f])]
     diffs += train_state_diffs(torch, runner.solver, solver)
+    if dp > 1:
+        return {"pin_diffs": diffs, "grad_steps": int(solver.state.step),
+                "shards": rp.num_shards, "envs_per_shard":
+                    runner.envs_per_shard}
     t0 = time.perf_counter()
     out = anakin.run_anakin(anakin_pin_config(config, 2048, 3e-3), 40)
     smoke_s = time.perf_counter() - t0
@@ -2815,8 +2891,8 @@ def anakin_kernel_shapes(torch, rg, dev, empty_ms: float) -> dict:
     ok = bool(torch.equal(ring.view(rows, rowp)[:scratch],
                           plain_ring.view(rows, rowp)[:scratch]))
     del plain_ring
-    kernel_ms = time_ms(torch, lambda i: rg.scatter_rows(
-        sidx, didx, staged, ring, n=2 * k, rowb=ROWB, skip_row=scratch))[0]
+    kernel_ms, host_ms = time_ms(torch, lambda i: rg.scatter_rows(
+        sidx, didx, staged, ring, n=2 * k, rowb=ROWB, skip_row=scratch))
     plain_ms = time_ms(torch, lambda i: rg.scatter_rows_plain(
         sidx, didx, staged, ring, n=2 * k, rowb=ROWB))[0]
     keep = didx != scratch
@@ -2830,10 +2906,309 @@ def anakin_kernel_shapes(torch, rg, dev, empty_ms: float) -> dict:
     # two index arrays
     nbytes = (k + real) * ROWB + 2 * 4 * 2 * k
     out = {"lanes": 2 * k, "real_lanes": real, "max_abs_err": 0 if ok else 1,
-           "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+           "ms": kernel_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
            "empty_kernel_ms": empty_ms}
     del ring, ring2, staged
+    return out
+
+
+# -- phase 15: the sharded ring, mesh.dp = 8 ----------------------------------
+
+# 15a: the Pong preset at full width with mesh.dp=8: bf16 Nature CNN, batch
+# 512 (64 per shard), the uncut 1M-row ring as 8 shards of 125,000 rows,
+# device PER α = 0, chain 8; cuts: learn_start 8,192 (as in phases 11-13)
+# and the depth, 201 grad steps
+D8 = 8
+D8_ARGV = PONG_ARGV[:-1] + ["train.total_steps=8992",
+                            "replay.learn_start=8192", f"mesh.dp={D8}"]
+D8_GRAD_STEPS = (8992 - 8192) // 4 + 1
+# the Pong ring at D = 8: each shard one sub-ring of 125,000 rows + 4
+# ghost rows + its scratch row
+D8_SLOT_CAP = 1_000_000 // D8
+PONG_STACK = 4                    # WINDOW = stack 4 + n_step 1
+D8_SLOT_PAD = D8_SLOT_CAP + WINDOW - 1
+D8_SHARD_ROWS = D8_SLOT_PAD + 1
+
+
+def sharded_main_path(torch, cli_main, counters, train_mod) -> dict:
+    """15a: ``main train --preset pong --backend cuda --set mesh.dp=8`` in
+    process, its launches counted; the solver and the replay it built kept
+    (through ``restore_for_resume``, which the loop calls with both), then
+    ms per chain-8 grad step on them (24 dispatches after 2, host clock to
+    a synchronize) and a ``launch_census`` of 4 dispatches."""
+    with capturing(train_mod, "restore_for_resume",
+                   lambda args, out: args[1:3]) as pairs:
+        summary, launches, record = run_cli(cli_main, counters, D8_ARGV,
+                                            "chip_smoke_pong_d8.jsonl")
+    (solver, replay), = pairs
+    ms, _ = time_chain(torch, solver, replay, 8, 24)
+    census = trace_dispatches(torch, solver, replay, 8, 4)
+    return {"summary": summary, "launches": launches, "record": record,
+            "solver": solver, "replay": replay,
+            "shards": [solver.num_shards, replay.num_shards,
+                       replay.subs_per_shard, replay.slot_cap],
+            "ms_per_grad_step_chain8": ms, "census": census}
+
+
+def sharded_cross_device_check(torch, config, Solver, DevicePERFrameReplay,
+                               learner_mod) -> dict:
+    """15a's card-vs-CPU check at D = 8 on a small ring (float32, 52×52,
+    batch 16 = 2 per shard, 1,024 rows in 8 shards, chain 3), the same
+    weights and rows on both, no uniforms injected: every fused dispatch's
+    sampled rows, window starts, B1 windows, metadata and IS weights
+    bitwise, and the ring bytes (each shard's scratch row left out) and
+    priorities after it. Twice: 8 streams filled alike (equal shard
+    masses) and 1 stream (unequal): there the weights' ``pow`` may round
+    its own way on each device, so they are held within 2 ulp and the
+    largest difference printed."""
+    def build(backend, streams):
+        cfg = config.Config()
+        cfg.mesh.backend, cfg.mesh.dp = backend, D8
+        cfg.net = config.NetConfig(kind="nature_cnn", num_actions=4,
+                                   frame_shape=(52, 52))
+        cfg.replay = config.ReplayConfig(
+            capacity=1024, batch_size=16, n_step=2, prioritized=True,
+            priority_alpha=0.0, device_per=True, write_chunk=16)
+        cfg.train = config.TrainConfig(lr=1e-4, double_dqn=True,
+                                       target_update_period=2)
+        s = Solver(cfg)
+        r = DevicePERFrameReplay(cfg.replay, s.device, (52, 52), 4, 0.99,
+                                 write_chunk=16, num_streams=streams,
+                                 num_shards=D8)
+        rng = np.random.default_rng(3)
+        for c in range(96):
+            done = np.zeros(13, bool)
+            done[-1] = True
+            r.add_batch({
+                "frame": rng.integers(0, 256, (13, 52, 52), dtype=np.uint8),
+                "action": rng.integers(0, 4, 13).astype(np.int32),
+                "reward": rng.standard_normal(13).astype(np.float32),
+                "done": done}, stream=c % streams)
+        return s, r
+
+    def keep(args, res):
+        metas, win, idx, ws = res
+        return {"idx": idx.cpu(), "ws": ws.cpu(), "win": win.cpu(),
+                **{f"meta_{k}": v.cpu() for k, v in metas.items()}}
+
+    out = {}
+    for streams in (D8, 1):
+        pairs = [build(b, streams) for b in ("cuda", "cpu")]
+        with capturing(learner_mod, "fused_sample", keep) as calls:
+            for s, r in pairs:
+                s.train_steps_device_per(r, chain=3)
+        card, cpu = calls
+        (_, rg_), (_, rc) = pairs
+        shape = (D8, rc.shard_rows, rc.rowp)
+        w_ulps = int((card["meta_weight"].view(torch.int32).long()
+                      - cpu["meta_weight"].view(torch.int32).long())
+                     .abs().max())
+        out[f"streams_{streams}"] = {
+            "sizes": rc.device_inputs()[1].tolist(),
+            "diffs": [k for k in card if k != "meta_weight"
+                      and not torch.equal(card[k], cpu[k])],
+            "weight_max_ulps": w_ulps,
+            "weights_all_one": bool((card["meta_weight"] == 1).all()),
+            "ring_equal": tensors_equal(
+                torch, rg_.dstate["frames"].view(shape)[:, :-1],
+                rc.dstate["frames"].view(shape)[:, :-1]),
+            "prio_equal": tensors_equal(torch, rg_.dstate["prio"],
+                                        rc.dstate["prio"]),
+            "sampled_rows": int(card["idx"].numel())}
+    return out
+
+
+def check_sharded_cross(out: dict) -> None:
+    for key, o in out.items():
+        assert not o["diffs"], (key, o)
+        assert o["ring_equal"] and o["prio_equal"], (key, o)
+    assert out[f"streams_{D8}"]["weight_max_ulps"] == 0, out
+    assert out["streams_1"]["weight_max_ulps"] <= 2, out
+
+
+def _gather_row(torch, rg, ring, idx_sets, n: int) -> dict:
+    """B1 at one shape: the first index set against the plain version
+    (bitwise), then all 8 cycled (cold windows) for the kernel, the plain
+    version and ``index_select``, device and host ms."""
+    dev = ring.device
+    idx = idx_sets[0]
+    got = rg.gather_windows(idx, ring, n=n, w=WINDOW, rowb=ROWB)
+    want = rg.gather_windows_plain(idx, ring, n=n, w=WINDOW, rowb=ROWB)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    del got, want
+    ring2d = ring.view(-1, ROWB // 4)
+    lib_rows = [(i.long()[:, None] + torch.arange(WINDOW, device=dev)
+                 ).reshape(-1) for i in idx_sets]
+    ms, host_ms = time_ms(torch, lambda i: rg.gather_windows(
+        idx_sets[i % 8], ring, n=n, w=WINDOW, rowb=ROWB))
+    plain_ms = time_ms(torch, lambda i: rg.gather_windows_plain(
+        idx_sets[i % 8], ring, n=n, w=WINDOW, rowb=ROWB))[0]
+    library_ms = time_ms(torch, lambda i: torch.index_select(
+        ring2d, 0, lib_rows[i % 8]))[0]
+    nbytes = n * 4 + 2 * n * WINDOW * ROWB
+    return {"n": n, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def _scatter_row(torch, rg, ring, shards: int, skip: int) -> dict:
+    """B2 at a pre-dispatch flush over ``shards`` shards: each shard's 64
+    main lanes (4 real: the rows staged since the last flush, at its row
+    100,000) and 64 ghost lanes (all padding), one launch,
+    padding aimed at ``skip``, as ``DevicePERFrameReplay._apply_write``
+    builds it; against the plain version (bitwise but the skip row, which
+    the kernel leaves), then timed beside ``index_copy_``."""
+    dev, rowp, k, real = ring.device, ROWB // 4, 64, 4
+    gen = torch.Generator(device=dev).manual_seed(shards)
+    staged = torch.randint(-2**31, 2**31 - 1, (shards * k * rowp,),
+                           dtype=torch.int32, device=dev, generator=gen)
+    main = torch.full((shards, k), skip, dtype=torch.int32, device=dev)
+    base = torch.arange(shards, device=dev)[:, None] * D8_SHARD_ROWS
+    main[:, :real] = (base + 100_000 + torch.arange(real, device=dev)
+                      ).to(torch.int32)
+    ghost = torch.full_like(main, skip)
+    src = torch.arange(shards * k, dtype=torch.int32,
+                       device=dev).view(shards, k).repeat(1, 2).reshape(-1)
+    dst = torch.cat([main, ghost], dim=1).reshape(-1)
+    n = 2 * k * shards
+    plain = ring.clone()
+    skip_row = ring.view(-1, rowp)[skip].clone()
+    rg.scatter_rows(src, dst, staged, ring, n=n, rowb=ROWB, skip_row=skip)
+    rg.scatter_rows_plain(src, dst, staged, plain, n=n, rowb=ROWB)
+    torch.cuda.synchronize()
+    r2, p2 = ring.view(-1, rowp), plain.view(-1, rowp)
+    err = max(max_abs_err(torch, r2[:skip], p2[:skip]),
+              max_abs_err(torch, r2[skip + 1:], p2[skip + 1:]))
+    kept = bool(torch.equal(r2[skip], skip_row))
+    del plain, p2
+    torch.cuda.empty_cache()
+    to_ring = dst != skip
+    dst_l = dst[to_ring].long()
+    rows_src = staged.view(-1, rowp)[src[to_ring].long()]
+    ms, host_ms = time_ms(torch, lambda i: rg.scatter_rows(
+        src, dst, staged, ring, n=n, rowb=ROWB, skip_row=skip))
+    plain_ms = time_ms(torch, lambda i: rg.scatter_rows_plain(
+        src, dst, staged, ring, n=n, rowb=ROWB))[0]
+    library_ms = time_ms(torch, lambda i: r2.index_copy_(
+        0, dst_l, rows_src))[0]
+    n_real = int(to_ring.sum())
+    nbytes = 2 * n_real * ROWB + 2 * n * 4
+    return {"shards": shards, "lanes": n, "real_lanes": n_real,
+            "max_abs_err": err, "skip_row_kept": kept, "ms": ms,
+            "host_ms": host_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bytes": nbytes,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def sharded_ring_kernels(torch, rg, dev, empty_ms: float) -> dict:
+    """15b: B1 and B2 at the D = 8 shapes on a ring of the D = 8 Pong
+    geometry (8 × 125,005 rows × 8192 B = 8.19 GB), each bitwise against
+    its plain version and timed beside the D = 1 shape on the same ring:
+    B1's chain-8 draw (n = 4096: 512 windows in each shard, from each
+    shard's own rows, against 4096 anywhere in the first 1,000,000), B2's
+    pre-dispatch flush of 8 shards in one launch (1,024 lanes, 32 real)
+    against one shard's (128 lanes, 4 real)."""
+    rowp = ROWB // 4
+    rows = D8 * D8_SHARD_ROWS
+    gen = torch.Generator(device=dev).manual_seed(15)
+    ring = torch.randint(-2**31, 2**31 - 1, (rows * rowp,),
+                         dtype=torch.int32, device=dev, generator=gen)
+    n = 4096
+    shard = torch.arange(n, device=dev) // (n // D8)
+
+    def d8_starts():
+        local = torch.randint(0, D8_SLOT_CAP, (n,), device=dev,
+                              generator=gen)
+        return (shard * D8_SHARD_ROWS + (local - (PONG_STACK - 1))
+                % D8_SLOT_CAP).to(torch.int32)
+
+    d8_sets = [d8_starts() for _ in range(8)]
+    d8_sets[0][n // D8 - 1] = D8_SLOT_CAP - 1     # a shard's last window
+    d1_sets = [torch.randint(0, SLOT_CAP, (n,), dtype=torch.int32,
+                             device=dev, generator=gen) for _ in range(8)]
+    out = {"ring_GB": ring.numel() * 4 / 1e9, "empty_kernel_ms": empty_ms,
+           "gather_d8": _gather_row(torch, rg, ring, d8_sets, n),
+           "gather_d1": _gather_row(torch, rg, ring, d1_sets, n),
+           "scatter_d8": _scatter_row(torch, rg, ring, D8, D8_SLOT_PAD),
+           "scatter_d1": _scatter_row(torch, rg, ring, 1, D8_SLOT_PAD)}
+    del ring
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_sharded_kernels(out: dict) -> None:
+    for key in ("gather_d8", "gather_d1", "scatter_d8", "scatter_d1"):
+        assert out[key]["max_abs_err"] == 0, (key, out[key])
+    for key in ("scatter_d8", "scatter_d1"):
+        assert out[key]["skip_row_kept"], (key, out[key])
+
+
+def sharded_resume(torch, persistence, train_mod, learner_mod, solver,
+                   replay) -> dict:
+    """15c: 15a's replay saved at D = 8 (its 8.19 GB frame plane and
+    metadata), loaded into a fresh D = 8 replay on the card; the device
+    planes, the cursors and sizes, β's counter and every slot's host
+    metadata equal, and the next sampled rows, window starts, B1 windows,
+    metadata and IS weights of both (the same keys and β) bitwise. Save and
+    load seconds (host clock, the load ending in a synchronize) and the
+    file's size."""
+    d = os.path.join(OUT_DIR, "pong_d8")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    npz = os.path.join(d, "replay.npz")
+    cfg = solver.config
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    persistence.save_replay(replay, npz)
+    save_s = time.perf_counter() - t0
+    size_gb = os.path.getsize(npz) / 1e9
+    fresh = train_mod.make_replay(cfg, train_mod.make_env(cfg.env),
+                                  solver.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    persistence.load_replay(fresh, npz)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(d)
+    diffs = [k for k in replay.dstate
+             if not tensors_equal(torch, replay.dstate[k], fresh.dstate[k])]
+    for a, b, name in ((replay.device_inputs(), fresh.device_inputs(),
+                        "cursors/sizes"),
+                       ([replay._samples, replay._stream_pos],
+                        [fresh._samples, fresh._stream_pos], "counters")):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            diffs.append(name)
+    for i, (m, f) in enumerate(zip(replay.slots, fresh.slots)):
+        if not all(np.array_equal(getattr(m, k), getattr(f, k))
+                   for k in ("action", "reward", "done", "boundary")) \
+                or (m._cursor, len(m)) != (f._cursor, len(f)):
+            diffs.append(f"slot{i}")
+    from distributed_deep_q_tpu_torch.replay.device_per import (
+        uniforms_for_keys)
+    from distributed_deep_q_tpu_torch.solver import (
+        fused_spec, sample_key_schedule)
+    spec = fused_spec(cfg, replay)
+    keys = sample_key_schedule(cfg.train.seed, solver.step, D8, 8)
+    u = uniforms_for_keys(keys.reshape(-1, 2), spec[8], solver.device)
+    betas = torch.full((8,), 0.5, device=solver.device)
+    draws = []
+    for r in (replay, fresh):
+        cursors, sizes = (torch.from_numpy(a).to(solver.device)
+                          for a in r.device_inputs())
+        metas, win, idx, ws = learner_mod.fused_sample(
+            r.dstate, cursors, sizes, betas, u, spec)
+        draws.append({"idx": idx, "ws": ws, "win": win, **{
+            f"meta_{k}": v for k, v in metas.items()}})
+    a, b = draws
+    sample_diffs = [k for k in a if not torch.equal(a[k], b[k])]
+    out = {"save_s": save_s, "load_s": load_s, "replay_file_GB": size_gb,
+           "state_diffs": diffs, "sample_diffs": sample_diffs,
+           "sampled_rows": int(a["idx"].numel()),
+           "shards_sampled": int(torch.unique(
+               a["idx"].long() // replay.cap_local).numel())}
+    del fresh, draws, a, b
     return out
 
 
@@ -3276,6 +3651,50 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 15. the sharded ring: mesh.dp = 8 -----------------------------------
+    d8 = sharded_main_path(torch, cli_main, counters, train_mod)
+    d8_solver, d8_replay = d8.pop("solver"), d8.pop("replay")
+    d8_summary, d8_launches = d8["summary"], d8["launches"]
+    log(f"[15a] pong mesh.dp=8 summary: {json.dumps(d8_summary)}")
+    log(f"[15a] (solver shards, replay shards, sub-rings per shard, rows "
+        f"per sub-ring) {d8['shards']}; launches: {json.dumps(d8_launches)}")
+    log(f"[15a] grad steps/s {d8_summary['grad_steps_per_s']} (phase 4, "
+        f"one shard: {summary['grad_steps_per_s']}); ms per chain-8 grad "
+        f"step {d8['ms_per_grad_step_chain8']} (phase 5, one shard: "
+        f"{chained['ms_per_grad_step']}); census of 4 dispatches: "
+        f"{json.dumps(d8['census'])}")
+    check_path(d8_summary, D8_GRAD_STEPS)
+    assert d8["shards"][:2] == [D8, D8], d8["shards"]
+    assert d8_launches["gather_windows"] >= d8_summary["grad_steps"], \
+        d8_launches
+    assert d8_launches["scatter_rows"] > 0, d8_launches
+    d8_cross = sharded_cross_device_check(torch, config, Solver,
+                                          DevicePERFrameReplay, learner_mod)
+    log(f"[15a] card vs CPU at D=8, no uniforms injected: "
+        f"{json.dumps(d8_cross)}")
+    check_sharded_cross(d8_cross)
+    d8_resume = sharded_resume(torch, persistence, train_mod, learner_mod,
+                               d8_solver, d8_replay)
+    log(f"[15c] the 15a replay saved at D=8 and loaded into a fresh one: "
+        f"{json.dumps(d8_resume)}")
+    assert not d8_resume["state_diffs"], d8_resume
+    assert not d8_resume["sample_diffs"], d8_resume
+    assert d8_resume["shards_sampled"] == D8, d8_resume
+    del d8_solver, d8_replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    d8_k = sharded_ring_kernels(torch, rg, dev, empty_ms)
+    log(f"[15b] B1 and B2 at the D=8 shapes beside D=1's: {json.dumps(d8_k)}")
+    check_sharded_kernels(d8_k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    d8_pin = anakin_pin(torch, config, (Solver, DevicePERFrameReplay, anakin,
+                                        threefry, make_device_env,
+                                        actor_epsilon), dp=D8)
+    log(f"[15d] anakin at D=8 against its host twin: {json.dumps(d8_pin)}")
+    assert not d8_pin["pin_diffs"], d8_pin["pin_diffs"]
+    assert d8_pin["shards"] == D8 and d8_pin["grad_steps"] == 6, d8_pin
+
     # -- 9. result lines ------------------------------------------------------
     src = "distributed_deep_q_tpu_torch/csrc/ring_gather.cu"
     loss_src = "distributed_deep_q_tpu_torch/csrc/fused_loss.cu"
@@ -3350,13 +3769,41 @@ def main() -> int:
             "us_per_launch"))
     kernels[1]["ok"] = kernels[1]["ok"] and a_shape["max_abs_err"] == 0
     kernels[1]["anakin"] = dict(
-        {k: a_shape[k] for k in ("lanes", "real_lanes", "ms", "plain_ms",
-                                 "bound_ms", "library_ms", "max_abs_err")},
+        {k: a_shape[k] for k in ("lanes", "real_lanes", "ms", "host_ms",
+                                 "plain_ms", "bound_ms", "library_ms",
+                                 "max_abs_err")},
         shape=f"n={a_shape['lanes']} lanes, {a_shape['real_lanes']} real "
               "(superstep insert), rowb=8192",
         launches=ana["launches"]["scatter_rows"], path="phase 14 (anakin)",
         in_trace_us_per_launch=ana_k.get("scatter_rows", {}).get(
             "us_per_launch"))
+    # the D = 8 shapes (phase 15b) and 15a's launches
+    d8_trace = d8["census"]["port_kernels"]
+    kernels[0]["ok"] = kernels[0]["ok"] and \
+        d8_k["gather_d8"]["max_abs_err"] == 0
+    kernels[0]["d8"] = dict(
+        {k: d8_k["gather_d8"][k] for k in (
+            "ms", "host_ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err")},
+        shape="n=4096 w=5 rowb=8192, 512 windows in each of 8 shards "
+              "(chain 8)", launches=d8_launches["gather_windows"],
+        path="phase 15a (pong, mesh.dp=8)",
+        in_trace_us_per_launch=d8_trace.get("gather_windows", {}).get(
+            "us_per_launch"),
+        d1_same_ring={k: d8_k["gather_d1"][k] for k in (
+            "ms", "host_ms", "plain_ms", "library_ms")})
+    kernels[1]["ok"] = kernels[1]["ok"] and \
+        d8_k["scatter_d8"]["max_abs_err"] == 0
+    kernels[1]["d8"] = dict(
+        {k: d8_k["scatter_d8"][k] for k in (
+            "lanes", "real_lanes", "ms", "host_ms", "plain_ms", "bound_ms",
+            "library_ms", "max_abs_err")},
+        shape="n=1024 lanes over 8 shards, 32 real (pre-dispatch flush of "
+              "8 shards), rowb=8192", launches=d8_launches["scatter_rows"],
+        path="phase 15a (pong, mesh.dp=8)",
+        d1_same_ring={k: d8_k["scatter_d1"][k] for k in (
+            "lanes", "real_lanes", "ms", "host_ms", "plain_ms",
+            "library_ms")})
     in_trace = chained["fused_loss_trace"]["port_kernels"]
     for name, line, part, err in (
             ("fused_loss_fwd", 100, "fwd", loss_k["td_max_abs_err"]),
@@ -3402,7 +3849,8 @@ def main() -> int:
                "12b pong served fleet": served["launches"],
                "13 breakout learn plane": lm_launches,
                "13b pong rmsprop": rm_launches,
-               "14 anakin": ana["launches"]}
+               "14 anakin": ana["launches"],
+               "15a pong mesh.dp=8": d8_launches}
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
@@ -3415,7 +3863,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--phase5"]:
+            code = phase5_trees(sys.argv[2:])
+        else:
+            code = main()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

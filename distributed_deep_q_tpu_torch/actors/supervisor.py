@@ -30,7 +30,7 @@ gauges at log cadence and registers itself as the fleet-health member
 ``"learner"`` (``default_learn_rules``/``default_learn_trends``).
 
 Refused by name, before any process is spawned (``check_distributed``):
-more than one process or shard (A14), and ``replay.persist_path`` (the
+more than one process or a model axis (A14b), and ``replay.persist_path`` (the
 distributed topology warm-refills from its fleet, as in the reference);
 vector acting on an env that is not pixels (``train_distributed``, as in
 the reference).
@@ -1370,7 +1370,8 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
                else DeviceFrameReplay)
         replay = cls(replay_cfg, solver.device, obs_shape, cfg.env.stack,
                      cfg.train.gamma, seed=cfg.train.seed,
-                     write_chunk=cfg.replay.write_chunk, num_streams=streams)
+                     write_chunk=cfg.replay.write_chunk, num_streams=streams,
+                     num_shards=solver.num_shards)
     elif pixel:
         if cfg.replay.prioritized:
             raise ValueError(
@@ -1572,7 +1573,8 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
     device_seq = pixel and cfg.replay.device_resident
     if device_seq:
         replay = DeviceSequenceReplay(seq_capacity, seq_len, obs_shape,
-                                      solver.device, cfg.net.lstm_size, **per)
+                                      solver.device, cfg.net.lstm_size,
+                                      num_shards=solver.num_shards, **per)
     else:
         replay = SequenceReplay(seq_capacity, seq_len, obs_shape, obs_dtype,
                                 cfg.net.lstm_size, **per)

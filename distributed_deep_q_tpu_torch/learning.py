@@ -20,8 +20,9 @@ Plane layout (one float32 vector, ``PLANE_SIZE`` elements)::
     maxes           max |TD|, max Q, max priority
     mins            min IS weight, min |TD|
 
-The port runs one shard, so ``lm_finalize``'s reductions over shards are
-the identity; the segments keep the reference's layout. Everything sits
+The port's D shards share one device and the learner steps over the whole
+batch of B rows, so ``lm_finalize``'s reductions over shards are the
+identity; the segments keep the reference's layout. Everything sits
 behind ``cfg.train.learn_metrics``: with it off no plane code runs and no
 plane is allocated.
 
@@ -150,10 +151,13 @@ def lm_update(plane: torch.Tensor, *, cfg, td_abs, weight, loss, q, q_mean,
 
 
 def lm_finalize(plane: torch.Tensor, num_shards: int = 1) -> torch.Tensor:
-    """The per-dispatch reduction over shards: sum the shard segment, pass
-    the replicated one through, max/min the extrema. The port runs one
-    shard, where each of these is the identity."""
-    assert num_shards == 1, "the port runs one shard on one device"
+    """The per-dispatch reduction over the ``num_shards`` shards: the
+    reference psums the shard segment, passes the replicated one through
+    and pmax/pmins the extrema. The port folds each grad step over the
+    whole batch of B rows, all D shards' draws at once, so its shard
+    segment already sums every row and its extrema already run over every
+    shard: at any D the reduction is the identity."""
+    del num_shards
     return torch.cat([plane[:_REPL], plane[_REPL:_MAX], plane[_MAX:_MIN],
                       plane[_MIN:]])
 

@@ -30,9 +30,11 @@ Superstep, in order, issued eagerly on the device's stream::
                     the learning-dynamics plane under train.learn_metrics
 
 Env↔slot identity: with ``num_envs == num_slots`` every env owns one
-sub-ring, so ``cursor = (cursor + T) % slot_cap``. The port runs one shard,
-so env ``p`` is stream ``p`` (the reference's ``gid = sub·D + d`` with
-``D = 1``), the routing ``add_batch(stream=gid)`` follows.
+sub-ring, so ``cursor = (cursor + T) % slot_cap``. The D shards
+(``mesh.dp``) hold ``E = num_envs / D`` envs each: env ``p = s·E + e`` is
+shard s's sub-ring e, which is stream ``e·D + s`` (the reference's ``gid``),
+the routing ``add_batch(stream=gid)`` follows. The reference inserts shard
+by shard; the port inserts every shard's rows with one launch.
 
 Nothing is read back inside a superstep: the metrics and ``act_reward``
 stay device tensors the caller reads at its own cadence.
@@ -130,7 +132,7 @@ class AnakinRunner:
         assert cfg.train.optimizer == "adam", (
             "Anakin reuses the plane-carry train body, which requires "
             "adam and no model-parallel axis (learner.py use_plane)")
-        d = 1   # the port runs one shard
+        d = self.solver.num_shards
         n = int(cfg.actors.anakin_envs) or d
         assert n % d == 0, f"anakin_envs={n} must divide over {d} dp shards"
         self.num_envs, self.num_shards = n, d
@@ -139,7 +141,7 @@ class AnakinRunner:
         self.replay = replay or DevicePERFrameReplay(
             cfg.replay, dev, self.frame_shape, stack, cfg.train.gamma,
             seed=cfg.train.seed, write_chunk=cfg.replay.write_chunk,
-            num_streams=n)
+            num_streams=n, num_shards=d)
         rp = self.replay
         assert rp.num_slots == n and rp.subs_per_shard == n // d, (
             "env↔slot identity needs one slot per env: raise anakin_envs "
@@ -153,8 +155,8 @@ class AnakinRunner:
         assert cfg.replay.batch_size % d == 0
         self._spec = fused_spec(cfg, rp)
 
-        # env at plane position p = shard·E + e is stream e·D + d — the
-        # routing add_batch(stream=gid) follows (the identity at D = 1)
+        # env at plane position p = shard·E + e is stream e·D + shard —
+        # the routing add_batch(stream=gid) follows (the identity at D = 1)
         e_per = self.envs_per_shard
         self.stream_ids = np.array(
             [(p % e_per) * d + (p // e_per) for p in range(n)], np.int64)
@@ -177,14 +179,21 @@ class AnakinRunner:
         self._cursors = torch.zeros(n, dtype=torch.int32, device=dev)
         self._sizes = torch.zeros(n, dtype=torch.int32, device=dev)
         # the insert's constant lanes: source rows 0..k-1 twice (main,
-        # ghost), the tick and env offsets of the [T, E] targets
-        k = self.ticks * e_per
+        # ghost), the tick offsets, and each env's first metadata row and
+        # first padded frame row (shard s, sub-ring e)
+        k = self.ticks * n
         self._sidx = torch.arange(k, dtype=torch.int32,
                                   device=dev).repeat(2)
         self._t_i = torch.arange(self.ticks, dtype=torch.int32,
                                  device=dev)[:, None]
-        self._e_i = torch.arange(e_per, dtype=torch.int32,
-                                 device=dev)[None, :]
+        p = np.arange(n)
+        shard, e = p // e_per, p % e_per
+        self._row0 = to_device(
+            (shard * rp.cap_local + e * rp.slot_cap)[None, :].astype(
+                np.int64), dev)
+        self._pad0 = to_device(
+            (shard * rp.shard_rows + e * rp.slot_pad)[None, :].astype(
+                np.int32), dev)
         if self.solver._fused_key_base is None:
             # anchor the key schedule now (its one read of the step), so
             # no superstep reads the device
@@ -212,19 +221,17 @@ class AnakinRunner:
         return {key: torch.stack([r[key] for r in recs]) for key in recs[0]}
 
     def _insert(self, recs) -> None:
-        """The device twin of the flush: T·E rows through one meta pack and
+        """The device twin of the flush: T·N rows through one meta pack and
         ONE ``scatter_rows`` launch (main lanes, ghost lanes where
-        ``local < window − 1``, the rest aimed at the scratch row), then
-        the metadata, priority, cursor and size updates."""
+        ``local < window − 1``, the rest aimed at shard 0's scratch row),
+        then the metadata, priority, cursor and size updates."""
         rp, ds = self.replay, self.ring
-        slot_cap, slot_pad, window = rp.slot_cap, rp.slot_pad, rp.window
-        scratch = rp.cap_local_pad
-        k = self.ticks * self.envs_per_shard
-        local = (self._cursors[None, :] + self._t_i) % slot_cap     # [T, E]
-        midx = (self._e_i * slot_cap + local).reshape(-1).long()
-        main = self._e_i * slot_pad + local
-        ghost = torch.where(local < window - 1,
-                            self._e_i * slot_pad + slot_cap + local,
+        slot_cap, window, scratch = rp.slot_cap, rp.window, rp.cap_local_pad
+        k = self.ticks * self.num_envs
+        local = (self._cursors[None, :] + self._t_i) % slot_cap     # [T, N]
+        midx = (self._row0 + local).reshape(-1)
+        main = self._pad0 + local
+        ghost = torch.where(local < window - 1, main + slot_cap,
                             torch.full_like(local, scratch))
         didx = torch.cat([main.reshape(-1), ghost.reshape(-1)])
         packed, new_p = insert_meta_pack(
@@ -249,7 +256,7 @@ class AnakinRunner:
         if self.ring is None:   # handed back by sync_solver: take it again
             self.ring = take_device_state(self.replay)
         keys = next_fused_keys(solver, self.num_shards, chain)
-        u = solver.draw_uniforms(keys[0], spec[8], self.device)
+        u = solver.draw_uniforms(keys.reshape(-1, 2), spec[8], self.device)
         betas = to_device(self.replay.next_betas(chain), self.device)
         # the span times the host's issue of the superstep, not the device
         with tracing.span("anakin_superstep"):

@@ -5,9 +5,10 @@ host batch (``train_step``), on index batches into the device frame ring
 (``train_steps_device_per``).
 
 The reference compiles each step into one XLA program under ``shard_map``
-over a ``dp`` mesh; the port runs eagerly on one device, so the gradient
-``pmean`` over ``dp`` is the identity and the step is the plain full-batch
-mean. The train state is two ``nn.Module``s (θ, θ⁻) plus plain dicts of
+over a ``dp`` mesh: each shard takes the mean loss of its B/D rows and the
+gradients are ``pmean``'d. The port runs eagerly on one device and takes
+one step over the whole batch of B rows, D shards' draws concatenated:
+at equal B/D per shard that is the same mean, up to float order. The train state is two ``nn.Module``s (θ, θ⁻) plus plain dicts of
 tensors (the Adam state) and a step counter, all updated in place.
 
 What the port computes differently from the reference, on purpose:
@@ -248,18 +249,20 @@ def fused_sample(rows: dict[str, torch.Tensor], cursors: torch.Tensor,
                  sizes: torch.Tensor, betas: torch.Tensor, u: torch.Tensor,
                  spec: tuple):
     """The sample stage of a fused dispatch, against the priorities as of
-    chunk start: prep + meta pack + ``chain × B`` draws from the uniforms
-    ``u`` [chain, B] + ONE ``gather_windows`` launch for every sample's
-    obs+next-obs window. Returns (meta dict [chain, B, ...], windows
-    ``[chain · B · window · rowb/4]`` int32, sampled row indices
-    [chain, B], window-start rows [chain, B])."""
+    chunk start: prep + meta pack + ``chain × B/D`` draws per shard from
+    its uniforms (``u`` ``[D, chain, B/D]``; a ``[chain, B]`` at one shard
+    reads the same) + ONE ``gather_windows`` launch for every sample's
+    obs+next-obs window. Returns, in batch order (the shards' draws
+    concatenated), (meta dict [chain, B, ...], windows ``[chain · B ·
+    window · rowb/4]`` int32, sampled row indices [chain, B], window-start
+    rows [chain, B])."""
     (slot_cap, slot_pad, rowb, row_len, stack, n_step, gamma,
      frame_shape, per_shard, alpha, eps, num_shards) = spec
-    assert num_shards == 1, "the port runs one shard on one device"
     pm, cdf, mass, n_glob = fused_sample_prep(
-        rows, cursors, sizes, slot_cap, stack, n_step)
+        rows, cursors, sizes, slot_cap, stack, n_step, num_shards)
     pack = build_meta_pack(rows["action"], rows["reward"], rows["done"],
                            rows["boundary"], slot_cap, stack, n_step, gamma)
+    u = u.reshape(num_shards, -1, per_shard)
     metas, ws, idxs = fused_sample_draw_packed(
         u, pack, pm, cdf, mass, n_glob, per_shard, slot_cap, slot_pad,
         stack, n_step, betas, num_shards)
@@ -381,13 +384,13 @@ class Learner:
         """The train stage of a fused dispatch: ``len(idxs)`` optimizer
         steps and priority scatters, in order, and, ``with_plane``, the
         learning-dynamics plane carried across them."""
-        (_, _, rowb, row_len, stack, n_step, _, frame_shape, per_shard,
-         alpha, eps, _) = spec
+        (_, _, rowb, row_len, stack, n_step, _, frame_shape, _,
+         alpha, eps, num_shards) = spec
         lmp = learning.lm_init(win.device) if with_plane else None
-        chain = idxs.shape[0]
+        chain, batch_rows = idxs.shape
         # unpack int32 → pixel bytes, drop the row padding: [chain, B, w,
         # H·W] uint8, already the nets' NCHW order along (window, pixels)
-        pix = win.view(torch.uint8).view(chain, per_shard, stack + n_step,
+        pix = win.view(torch.uint8).view(chain, batch_rows, stack + n_step,
                                          rowb)[..., :row_len]
 
         # the train stage
@@ -398,9 +401,9 @@ class Learner:
             nv = metas["nvalid"][i][..., None]
             batch = {
                 "obs": (pix[i, :, :stack] * ov).view(
-                    per_shard, stack, *frame_shape),
+                    batch_rows, stack, *frame_shape),
                 "next_obs": (pix[i, :, n_step:n_step + stack] * nv).view(
-                    per_shard, stack, *frame_shape),
+                    batch_rows, stack, *frame_shape),
                 "action": metas["action"][i],
                 "reward": metas["reward"][i],
                 "discount": metas["discount"][i],
@@ -418,5 +421,5 @@ class Learner:
             steps.append(metrics)
         stacked = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
         if lmp is not None:
-            stacked["learn_plane"] = learning.lm_finalize(lmp)
+            stacked["learn_plane"] = learning.lm_finalize(lmp, num_shards)
         return maxp, stacked

@@ -25,8 +25,10 @@ plane (``learning.py``) across the chain, fed with the per-sequence
 priority as |TD| (the reference's R2D2 chain has no ``use_plane`` gate).
 
 The reference's ``stack_forwards`` route changes XLA's op schedule only;
-the port computes the same function one net at a time. It runs one shard
-on one device, so the reference's ``pmean`` over ``dp`` is the identity.
+the port computes the same function one net at a time. The reference's D
+shards each step over B/D sequences and ``pmean`` the gradients; the port
+draws per shard, then steps once over all B sequences (the same mean at
+equal B/D per shard, up to float order).
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from distributed_deep_q_tpu_torch.ops.ring_gather import gather_windows
 from distributed_deep_q_tpu_torch.parallel.learner import (
     Learner, TrainState, apply_optimizer, global_norm)
 from distributed_deep_q_tpu_torch.replay.device_per import (
-    build_cdf, draw_from_cdf, scatter_priorities, stratified_is_weights)
+    build_cdf, draw_from_cdf, scatter_priorities, stratified_is_weights,
+    to_batch_order)
 from distributed_deep_q_tpu_torch.replay.device_ring import to_device
 from distributed_deep_q_tpu_torch.replay.device_sequence import (
     META_KEYS, compose_sequence_block)
@@ -56,29 +59,39 @@ from distributed_deep_q_tpu_torch.solver import (
 
 def fused_sequence_sample(replay, batch_size: int, sizes: torch.Tensor,
                           betas: torch.Tensor, u: torch.Tensor):
-    """The sample stage of a fused sequence dispatch: draw every step's
-    sequences from the chunk-start priorities by inverse CDF over the
-    uniforms ``u`` [chain, B], gather their metadata and IS weights, and
-    copy all their windows with ONE ``gather_windows`` launch. Returns
-    (metas [chain, B, ...] with ``weight``, windows ``[chain, B, W,
-    rowp]`` int32, sampled slots [chain, B], set to the capacity (out of
-    range) when the mass is 0)."""
-    chain, cap = betas.shape[0], replay.capacity
+    """The sample stage of a fused sequence dispatch: per shard, draw
+    every step's B/D sequences from that shard's chunk-start priorities by
+    inverse CDF over its uniforms (``u`` ``[D, chain, B/D]``; a ``[chain,
+    B]`` at one shard reads the same), gather their metadata and IS
+    weights (normalized over every shard), and copy all their windows with
+    ONE ``gather_windows`` launch. Returns, in batch order (the shards'
+    draws concatenated), (metas [chain, B, ...] with ``weight``, windows
+    ``[chain, B, W, rowp]`` int32, sampled global slots [chain, B], set to
+    the capacity (out of range) on a shard whose mass is 0)."""
+    d, caps = replay.num_shards, replay.caps_local
     dmeta, W = replay.dmeta, replay.W
-    filled = (torch.arange(cap, device=u.device) < sizes[0]).float()
-    pm = dmeta["prio"] * filled
+    chain, dev = betas.shape[0], u.device
+    u = u.reshape(d, chain, batch_size // d)
+    filled = (torch.arange(caps, device=dev)[None, :]
+              < sizes.view(d, 1)).float()                 # [D, caps]
+    pm = dmeta["prio"].view(d, caps) * filled
     cdf, mass = build_cdf(pm)
     n_glob = filled.sum()
-    idx, p = draw_from_cdf(u, cdf, pm, mass)               # [chain, B]
-    flat = idx.reshape(-1)
+    li, p = draw_from_cdf(u, cdf, pm, mass)               # [D, chain, b]
+    shard = torch.arange(d, device=dev).view(d, 1, 1)
+    flat = to_batch_order(shard * caps + li).reshape(-1)
     metas = {key: dmeta[key][flat].reshape(
         (chain, batch_size) + dmeta[key].shape[1:]) for key in META_KEYS}
-    metas["weight"] = stratified_is_weights(p, mass, n_glob, betas, 1)
-    win = gather_windows((flat * W).to(torch.int32), replay.ring,
+    metas["weight"] = to_batch_order(
+        stratified_is_weights(p, mass, n_glob, betas, d))
+    slots = to_batch_order(replay.ring_slot(shard, li)).reshape(-1)
+    win = gather_windows((slots * W).to(torch.int32), replay.ring,
                          n=chain * batch_size, w=W, rowb=replay.rowb)
     win = win.view(chain, batch_size, W, replay.rowp)
     # a zero-mass draw writes no priority (scatter_priorities drops it)
-    idx = torch.where(mass > 0, idx, torch.full_like(idx, cap))
+    dead = to_batch_order((~(mass > 0)).view(d, 1, 1).expand(li.shape))
+    idx = flat.view(chain, batch_size)
+    idx = torch.where(dead, torch.full_like(idx, replay.capacity), idx)
     return metas, win, idx
 
 
@@ -146,12 +159,15 @@ class SequenceLearner(Learner):
     def train_step_from_ring(self, state: TrainState, replay,
                              batch: dict[str, Any]):
         """One step on an index batch into ``replay``'s device ring
-        (``DeviceSequenceReplay.sample``): ONE ``gather_windows`` launch
+        (``DeviceSequenceReplay.sample``, B/D rows per shard in shard
+        order, slots local to their shard): ONE ``gather_windows`` launch
         copies each sequence's ``W`` contiguous rows, the stacks are static
         slices of them. Returns (metrics, per-sequence priority [B])."""
         b = len(batch["seq_local"])
-        slots = np.asarray(batch["seq_local"], np.int32)
-        win = gather_windows(to_device(slots * replay.W, self.device),
+        shard = np.arange(b) // (b // replay.num_shards)
+        slots = replay.ring_slot(shard, np.asarray(batch["seq_local"]))
+        win = gather_windows(to_device((slots * replay.W).astype(np.int32),
+                                       self.device),
                              replay.ring, n=b, w=replay.W, rowb=replay.rowb)
         meta = self._to_device({k: v for k, v in batch.items()
                                 if k not in ("seq_local", "n_valid")})
@@ -195,7 +211,8 @@ class SequenceLearner(Learner):
             steps.append(metrics)
         stacked = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
         if lmp is not None:
-            stacked["learn_plane"] = learning.lm_finalize(lmp)
+            stacked["learn_plane"] = learning.lm_finalize(
+                lmp, replay.num_shards)
         return maxp, stacked
 
 
@@ -238,7 +255,8 @@ class SequenceSolver(Solver):
         sizes = to_device(replay.device_inputs(), dev)
         betas = to_device(replay.next_betas(chain), dev)
         keys = next_fused_keys(self, replay.num_shards, chain)
-        u = self.draw_uniforms(keys[0], b, dev)
+        u = self.draw_uniforms(keys.reshape(-1, 2), b // replay.num_shards,
+                               dev)
         replay.dmaxp, metrics = self.learner.train_steps_fused(
             self.state, replay, b, sizes, betas, u)
         return metrics

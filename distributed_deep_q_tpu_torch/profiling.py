@@ -160,7 +160,8 @@ def fused_train_flops(solver, replay, chain: int = 1) -> float | None:
     cursors, sizes = (torch.from_numpy(a).to(dev)
                       for a in replay.device_inputs())
     betas = torch.full((1,), 0.5, dtype=torch.float32, device=dev)
-    u = torch.rand((1, spec[8]), generator=torch.Generator().manual_seed(0))
+    u = torch.rand((replay.num_shards, 1, spec[8]),
+                   generator=torch.Generator().manual_seed(0))
     counter = FlopCounterMode(display=False)
     with counter:
         solver.learner.train_steps_device_per(

@@ -116,7 +116,7 @@ class IngestDrain:
     which the device rings enqueue on the learner's stream) with the
     staged-row delta as its progress count. The reference's multi-host
     variant (a pluggable host-only work unit, ``prepare_rounds``) stays
-    with ROADMAP A14.
+    with ROADMAP A14b.
     """
 
     def __init__(self, replay, lock, min_rows: int, poll_s: float = 0.05):

@@ -7,15 +7,25 @@ cursors/sizes, β values and sampling uniforms per dispatch and reads back
 nothing. Per dispatch (``Learner.train_steps_device_per``):
 
 - build the validity mask from the cursors/sizes, mask the priorities,
-  take their CDF (``fused_sample_prep``) and the per-row metadata pack
-  (``build_meta_pack``) — capacity-sized, once per chunk;
-- draw ``chain × B`` indices by inverse CDF from the given uniforms, read
-  their metadata off the pack and compute IS weights
-  (``fused_sample_draw_packed``);
+  take each shard's CDF and mass (``fused_sample_prep``) and the per-row
+  metadata pack (``build_meta_pack``) — capacity-sized, once per chunk;
+- draw ``chain × B/D`` indices per shard by inverse CDF from that shard's
+  uniforms, read their metadata off the pack and compute IS weights
+  normalized over every shard (``fused_sample_draw_packed``); the batch is
+  the shards' draws concatenated in shard order;
 - copy each sample's obs+next-obs pixel window with ONE kernel launch
   (``ops/ring_gather.gather_windows``);
 - train, and scatter ``(|TD|+ε)^α`` back into the priority row
   (``scatter_priorities``).
+
+Shards: the reference runs the sample stage per mesh shard under
+``shard_map``. The port keeps its D shards as a leading axis of the device
+state on one device, laid out shard-major as ``np.asarray`` assembles the
+reference's ``P('dp')`` arrays: metadata and priorities ``[D · cap_local]``,
+the padded frame plane ``D × shard_rows`` rows (each shard's padded slots,
+then its scratch row). What the reference reduces over ``dp`` is reduced
+over that axis: the sampleable count is summed (``psum``), the IS weights'
+max and the running max priority are taken over every shard (``pmax``).
 
 Randomness: the reference draws ``jax.random.uniform(key, (B/D,))`` per
 shard from raw ``uint32[2]`` keys; ``uniforms_for_keys`` draws the same
@@ -84,22 +94,28 @@ def valid_mask(done: torch.Tensor, boundary: torch.Tensor,
 
 
 def build_cdf(prio_masked: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(inclusive CDF, total mass) over the masked priorities — built once
-    per chunk (sampling sees chunk-start priorities)."""
-    cdf = torch.cumsum(prio_masked, 0)
-    return cdf, cdf[-1]
+    """(inclusive CDF, total mass) over the masked priorities' last axis —
+    one per shard for ``[D, cap_local]`` — built once per chunk (sampling
+    sees chunk-start priorities)."""
+    cdf = torch.cumsum(prio_masked, -1)
+    return cdf, cdf[..., -1]
 
 
 def draw_from_cdf(u: torch.Tensor, cdf: torch.Tensor,
                   prio_masked: torch.Tensor, mass: torch.Tensor,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Inverse-CDF draws ∝ p from uniforms ``u`` (any shape): (indices,
-    p_i/mass), both shaped like ``u``."""
-    x = u * mass
-    idx = torch.searchsorted(cdf, x.reshape(-1), right=True).reshape(u.shape)
-    idx = idx.clamp(0, prio_masked.shape[0] - 1)
-    p = prio_masked[idx] / torch.clamp(mass, min=1e-12)
-    return idx, p
+    """Inverse-CDF draws ∝ p from uniforms ``u``: (row indices, p_i/mass),
+    both shaped like ``u``. ``cdf``/``prio_masked`` are ``[..., L]`` with
+    the shard dims in front (none for one shard), ``mass`` is ``[...]``,
+    and ``u`` starts with the same shard dims: each shard draws from its
+    own CDF, indices local to it."""
+    lead = tuple(cdf.shape[:-1])
+    x = u * mass.reshape(lead + (1,) * (u.dim() - len(lead)))
+    idx = torch.searchsorted(cdf, x.reshape(lead + (-1,)), right=True)
+    idx = idx.clamp(0, prio_masked.shape[-1] - 1)
+    p = torch.gather(prio_masked, -1, idx) / torch.clamp(
+        mass, min=1e-12).reshape(lead + (1,))
+    return idx.reshape(u.shape), p.reshape(u.shape)
 
 
 def stack_rows_to_obs(rows: torch.Tensor,
@@ -113,15 +129,17 @@ def stack_rows_to_obs(rows: torch.Tensor,
 
 def fused_sample_prep(shard_rows: dict[str, torch.Tensor],
                       cursors: torch.Tensor, sizes: torch.Tensor,
-                      slot_cap: int, stack: int, n_step: int):
+                      slot_cap: int, stack: int, n_step: int,
+                      num_shards: int = 1):
     """The capacity-sized part of a fused sample, once per chunk: validity
-    mask → masked priorities → CDF/mass → sampleable count. Returns
-    (pm, cdf, mass, n_glob)."""
+    mask → masked priorities ``[D, cap_local]`` → each shard's CDF and mass
+    ``[D]`` → the sampleable count summed over shards (the reference's
+    ``psum``). Returns (pm, cdf, mass, n_glob)."""
     mask = valid_mask(shard_rows["done"], shard_rows["boundary"], cursors,
                       sizes, slot_cap, stack, n_step)
-    pm = shard_rows["prio"] * mask
+    pm = (shard_rows["prio"] * mask).view(num_shards, -1)
     cdf, mass = build_cdf(pm)
-    n_glob = mask.sum(dtype=torch.float32)   # one shard: psum is the identity
+    n_glob = mask.sum(dtype=torch.float32)
     return pm, cdf, mass, n_glob
 
 
@@ -129,14 +147,21 @@ def stratified_is_weights(p: torch.Tensor, mass: torch.Tensor,
                           n_glob: torch.Tensor, betas: torch.Tensor,
                           num_shards: int) -> torch.Tensor:
     """IS weights for the realized per-shard stratified draw, normalized
-    per chain row: P(i) = p_i/(D·mass), N = the sampleable count. A shard
-    with zero mass gets zero weights (its priority scatter is pointed out
-    of range). ``p`` [chain, B], ``betas`` [chain]."""
+    per chain row: P(i) = p_i/(D·mass_s), N = the sampleable count. ``p``
+    is ``[chain, B]`` (one shard, ``mass`` a scalar) or ``[D, chain, B/D]``
+    (``mass`` ``[D]``), ``betas`` [chain]. A shard with zero mass gets zero
+    weights (its priority scatter is pointed out of range); that mask
+    comes before the max, which runs over every shard (the reference's
+    ``pmax``), so a dead shard cannot crush the live ones' weights."""
     pr = torch.clamp(p / num_shards, min=1e-12)
     w = (n_glob * pr) ** (-betas[:, None])
-    w = torch.where(mass > 0, w, torch.zeros_like(w))
-    w_max = w.max(dim=1).values                  # one shard: pmax = identity
-    return (w / torch.clamp(w_max[:, None], min=1e-12)).float()
+    if p.dim() == 3:
+        w = torch.where(mass[:, None, None] > 0, w, torch.zeros_like(w))
+        w_max = w.amax(dim=(0, 2))[None, :, None]
+    else:
+        w = torch.where(mass > 0, w, torch.zeros_like(w))
+        w_max = w.amax(dim=1)[:, None]
+    return (w / torch.clamp(w_max, min=1e-12)).float()
 
 
 def build_meta_pack(action: torch.Tensor, reward: torch.Tensor,
@@ -174,42 +199,60 @@ def build_meta_pack(action: torch.Tensor, reward: torch.Tensor,
     return torch.stack(lanes, dim=-1).reshape(-1, 3 + stack)
 
 
+def to_batch_order(x: torch.Tensor) -> torch.Tensor:
+    """``[D, chain, B/D, ...]`` per-shard draws → ``[chain, B, ...]``: the
+    shards' draws concatenated in shard order, the batch the reference's
+    mesh order gives."""
+    return x.transpose(0, 1).reshape((x.shape[1], -1) + x.shape[3:])
+
+
 def fused_sample_draw_packed(u: torch.Tensor, pack: torch.Tensor,
                              pm: torch.Tensor, cdf: torch.Tensor,
                              mass: torch.Tensor, n_glob: torch.Tensor,
                              per_shard: int, slot_cap: int, slot_pad: int,
                              stack: int, n_step: int, betas: torch.Tensor,
                              num_shards: int):
-    """Inverse-CDF draws for all ``chain`` steps (``u`` [chain, B]),
-    metadata from two row gathers per sample off the pack, and the
-    pixel-window START rows for ``gather_windows``.
+    """Inverse-CDF draws for all ``chain`` steps of every shard (``u``
+    ``[D, chain, B/D]``, ``pm``/``cdf`` ``[D, cap_local]``, ``mass``
+    ``[D]``), metadata from two row gathers per sample off the pack, and
+    the pixel-window START rows for ``gather_windows``.
 
-    Returns (meta dict [chain, B] incl. ``weight`` and the validity
-    planes ``ovalid``/``nvalid`` [chain, B, stack] uint8; window-start rows
-    ``ws`` [chain, B] in padded ring coordinates; sampled row indices
-    [chain, B], set to the capacity (out of range) when the mass is 0).
+    Returns, in batch order ``[chain, B]`` (``to_batch_order``): the meta
+    dict incl. ``weight`` and the validity planes ``ovalid``/``nvalid``
+    ``[chain, B, stack]`` uint8; window-start rows ``ws`` in the padded
+    frame plane (shard s starts at row ``s · shard_rows``, so a window
+    never leaves its shard: each shard's ghost rows close its own slots);
+    sampled row indices in global real coordinates, set to the capacity
+    ``D · cap_local`` (out of range) on a shard whose mass is 0.
     """
-    chain = u.shape[0]
-    idx, p = draw_from_cdf(u, cdf, pm, mass)
-    sub, local = idx // slot_cap, idx % slot_cap
-    anchor2 = sub * slot_cap + (local + n_step) % slot_cap
+    d, cap_local = num_shards, pm.shape[-1]
+    chain = u.shape[1]
+    li, p = draw_from_cdf(u, cdf, pm, mass)             # [D, chain, b]
+    shard = torch.arange(d, device=u.device).view(d, 1, 1)
+    sub, local = li // slot_cap, li % slot_cap
+    idx = shard * cap_local + li
+    anchor2 = shard * cap_local + sub * slot_cap + (local + n_step) % slot_cap
+    shard_rows = (cap_local // slot_cap) * slot_pad + 1
+    # window start (padded coords): rows [local-stack+1 .. local+n_step]
+    # are contiguous there thanks to the ghost rows
+    ws = shard * shard_rows + sub * slot_pad + (local - (stack - 1)) % slot_cap
+    w = stratified_is_weights(p, mass, n_glob, betas, d)
+    idx = to_batch_order(idx)
     lanes = pack.shape[-1]
-    mp = pack[idx.reshape(-1)].reshape(chain, per_shard, lanes)
-    mp2 = pack[anchor2.reshape(-1)].reshape(chain, per_shard, lanes)
+    mp = pack[idx.reshape(-1)].reshape(chain, d * per_shard, lanes)
+    mp2 = pack[to_batch_order(anchor2).reshape(-1)].reshape(
+        chain, d * per_shard, lanes)
     meta = {
         "action": mp[..., 0].to(torch.int32),
         "reward": mp[..., 1],
         "discount": mp[..., 2],
         "ovalid": mp[..., 3:3 + stack].to(torch.uint8),
         "nvalid": mp2[..., 3:3 + stack].to(torch.uint8),
+        "weight": to_batch_order(w),
     }
-    meta["weight"] = stratified_is_weights(p, mass, n_glob, betas,
-                                           num_shards)
-    # window start (padded coords): rows [local-stack+1 .. local+n_step]
-    # are contiguous there thanks to the ghost rows
-    ws = sub * slot_pad + (local - (stack - 1)) % slot_cap
-    idx = torch.where(mass > 0, idx, torch.full_like(idx, pm.shape[0]))
-    return meta, ws.to(torch.int32), idx.to(torch.int32)
+    dead = to_batch_order((~(mass > 0)).view(d, 1, 1).expand(li.shape))
+    idx = torch.where(dead, torch.full_like(idx, d * cap_local), idx)
+    return meta, to_batch_order(ws).to(torch.int32), idx.to(torch.int32)
 
 
 def scatter_priorities(prio: torch.Tensor, maxp: torch.Tensor,
@@ -292,21 +335,25 @@ class DevicePERFrameReplay(DeviceFrameReplay):
       ``window = stack + n_step``: the last ``window - 1`` rows are GHOST
       rows mirroring rows ``0..window-2`` (the flush writes those rows
       twice), so every sample's obs+next-obs window is ONE contiguous run.
-    - one extra SCRATCH row at the end absorbs the flush's padding lanes.
+    - one extra SCRATCH row after each shard's slots (``shard_rows =
+      cap_local_pad + 1`` rows per shard, the reference's layout); the
+      flush's padding lanes, every shard's, aim at shard 0's, which the
+      ``scatter_rows`` kernel skips (``skip_row``).
 
     Metadata/priority rows stay in REAL (unpadded) coordinates
-    ``[capacity]``; only the pixel plane is padded and ghosted. The device
-    state is the dict ``dstate`` with keys frames, action, reward, done,
-    boundary, prio and maxp (the running max pre-α priority, a 0-d tensor).
+    ``[capacity]``, shard s at ``[s·cap_local, (s+1)·cap_local)``; only the
+    pixel plane is padded and ghosted. The device state is the dict
+    ``dstate`` with keys frames, action, reward, done, boundary, prio and
+    maxp (the running max pre-α priority, a 0-d tensor, global).
     """
 
     def __init__(self, cfg, device, frame_shape=(84, 84), stack: int = 4,
                  gamma: float = 0.99, seed: int = 0, write_chunk: int = 64,
-                 num_streams: int = 1):
+                 num_streams: int = 1, num_shards: int = 1):
         # host trees off: the priorities live on the device
         super().__init__(dataclasses.replace(cfg, prioritized=False), device,
                          frame_shape, stack, gamma, seed, write_chunk,
-                         num_streams)
+                         num_streams, num_shards)
         self.prioritized = True
         self._cfg = cfg
         self.n_step, self.gamma = cfg.n_step, gamma
@@ -317,10 +364,10 @@ class DevicePERFrameReplay(DeviceFrameReplay):
             ((), np.int32), ((), np.float32), ((), np.uint8), ((), np.uint8)]
         self._di_cache: tuple[np.ndarray, np.ndarray] | None = None
         cap, dev = self.capacity, self.device
-        # every flush's source lanes: staged rows 0..k-1 for the main lanes,
-        # again for the ghost lanes; constant, so shipped once
-        src = np.arange(self.write_chunk, dtype=np.int32)
-        self._scatter_src = to_device(np.concatenate([src, src]), dev)
+        # a flush's source lanes for j shards: staged rows s·k .. s·k+k-1 of
+        # each for its main lanes, again for its ghost lanes; constant per
+        # j, so each is shipped once
+        self._scatter_src: dict[int, torch.Tensor] = {}
         self.dstate: dict[str, torch.Tensor] = {
             "frames": self._frames,
             "action": torch.zeros(cap, dtype=torch.int32, device=dev),
@@ -369,34 +416,43 @@ class DevicePERFrameReplay(DeviceFrameReplay):
         self._di_cache = None  # cursors/sizes moved
 
     def _apply_write(self, idx, cols) -> None:
-        """One padded chunk ([1, k] planes) → the device: frame rows
-        through the ``scatter_rows`` kernel (padded coords, ghost
-        duplicates, padding lanes → the scratch row, which the kernel
-        skips) and the metadata scatters (real coords; fresh rows'
+        """One padded round (``[D, k]`` planes) → the device, for the shards
+        it holds rows of: their frame rows through ONE ``scatter_rows``
+        launch (padded coords, ghost duplicates, padding lanes → the skipped
+        scratch row) and the metadata scatters (real coords; fresh rows'
         priorities seeded from the device max). Padding lanes of the
         metadata scatter are dropped on the host."""
         k = self.write_chunk
-        i2 = idx[0]                     # [k], in-shard real coords
-        ok = i2 < self.cap_local
+        ok = idx < self.cap_local          # [D, k], in-shard real coords
+        live = np.flatnonzero(ok.any(axis=1))
+        if len(live) == 0:
+            return
+        i2, ok = idx[live], ok[live]
+        j = len(live)
         sub = np.where(ok, i2 // self.slot_cap, 0)
         local = np.where(ok, i2 % self.slot_cap, 0)
-        scratch = self.cap_local_pad
-        main = np.where(ok, sub * self.slot_pad + local, scratch)
+        scratch = self.cap_local_pad       # shard 0's scratch row
+        base = (live * self.shard_rows)[:, None] + sub * self.slot_pad
+        main = np.where(ok, base + local, scratch)
         ghost = np.where(ok & (local < self.window - 1),
-                         sub * self.slot_pad + self.slot_cap + local,
-                         scratch)
-        didx = np.concatenate([main, ghost]).astype(np.int32)
+                         base + self.slot_cap + local, scratch)
+        didx = np.concatenate([main, ghost], axis=1).astype(np.int32)
         dev, st = self.device, self.dstate
+        if j not in self._scatter_src:
+            src = np.arange(j * k, dtype=np.int32).reshape(j, k)
+            self._scatter_src[j] = to_device(
+                np.concatenate([src, src], axis=1).reshape(-1), dev)
         staged, new_p = insert_meta_pack(
-            to_device(cols[0][0], dev), st["maxp"], k=k,
+            to_device(cols[0][live], dev), st["maxp"], k=j * k,
             row_len=self._row_len, rowb=self.rowb, alpha=self._alpha)
-        scatter_rows(self._scatter_src, to_device(didx, dev), staged,
-                     st["frames"], n=2 * k, rowb=self.rowb,
+        scatter_rows(self._scatter_src[j], to_device(didx.reshape(-1), dev),
+                     staged, st["frames"], n=2 * j * k, rowb=self.rowb,
                      skip_row=scratch)
-        midx = to_device(i2[ok].astype(np.int64), dev)
+        rows = (live[:, None] * self.cap_local + i2)[ok]
+        midx = to_device(rows.astype(np.int64), dev)
         for name, col in zip(("action", "reward", "done", "boundary"),
                              cols[1:]):
-            st[name][midx] = to_device(col[0][ok], dev)
+            st[name][midx] = to_device(col[live][ok], dev)
         st["prio"][midx] = new_p
 
     def reset_stream(self, stream: int) -> None:
@@ -414,8 +470,7 @@ class DevicePERFrameReplay(DeviceFrameReplay):
         super().reset_stream(stream)
         if len(m) == 0:
             return
-        _, base = self._slot_base(slot)
-        row = base + (m._cursor - 1) % self.slot_cap
+        row = int(self._global_index(slot, (m._cursor - 1) % self.slot_cap))
         with self._writer_stream():
             self.dstate["boundary"][row] = 1
 

@@ -16,8 +16,11 @@ slots, as in the reference:
 
 Frame stacking relies on temporal adjacency, so every slot has exactly ONE
 writer stream at a time: stream i owns the slots {g : g % num_streams == i}
-and cycles through them at episode boundaries. The port runs on one device,
-so D = 1 (one shard); the bookkeeping stays generic over slots.
+and cycles through them at episode boundaries. The reference's D shards are
+its mesh devices; the port keeps them on one device (``parallel/mesh.py``),
+so shard s is the block of ring rows above, and ``sample`` draws B/D rows
+per shard as the reference does, with shard-local stack indices
+(``global_stack_rows`` places them in the ring).
 
 ``DevicePERFrameReplay`` (``replay/device_per.py``) replaces the ring, its
 writer and the sampler with the fused device-PER ones.
@@ -66,6 +69,19 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.clone()
 
 
+def global_stack_rows(batch: dict, num_shards: int, cap_local: int) -> dict:
+    """An index batch from ``DeviceFrameReplay.sample`` with its stack
+    indices moved from shard-local to ring rows: row r of the batch is
+    shard ``r // (B/D)``'s, whose rows start at ``s · cap_local``. The
+    batch itself is left as it was."""
+    if num_shards == 1:
+        return batch
+    b = len(batch["oidx"])
+    off = (np.arange(b) // (b // num_shards) * cap_local)[:, None]
+    return dict(batch, oidx=(batch["oidx"] + off).astype(np.int32),
+                noidx=(batch["noidx"] + off).astype(np.int32))
+
+
 def compose_stacks(ring: torch.Tensor, oidx: torch.Tensor,
                    valid: torch.Tensor,
                    frame_shape: tuple[int, int] = (84, 84)) -> torch.Tensor:
@@ -99,10 +115,11 @@ class DeviceFrameReplay:
         seed: int = 0,
         write_chunk: int = 64,
         num_streams: int = 1,
+        num_shards: int = 1,
     ):
         self.device = torch.device(device)
-        d = self.num_shards = 1          # one device, one shard
-        self.local_shards = [0]
+        d = self.num_shards = int(num_shards)   # on the one device
+        self.local_shards = list(range(d))
         self.num_streams = max(int(num_streams), 1)
         self.subs_per_shard = -(-max(self.num_streams, d) // d)  # ceil
         g = self.num_slots = self.subs_per_shard * d
@@ -195,7 +212,7 @@ class DeviceFrameReplay:
         """Rows still in staging: the ``IngestDrain``'s backlog. The same
         as ``pending_rows`` on one device, where no flush plane is
         assembled ahead of its dispatch (the reference's multi-host
-        ``prepare_rounds``, ROADMAP A14)."""
+        ``prepare_rounds``, ROADMAP A14b)."""
         return sum(self._pending_rows)
 
     @property
@@ -414,17 +431,18 @@ class DeviceFrameReplay:
                 self._apply_write(idx, cols)
 
     def _apply_write(self, idx: np.ndarray, cols: list) -> None:
-        """One padded write chunk (``[1, k]`` planes) → the device ring.
+        """One padded write round (``[D, k]`` planes) → the device ring.
         The reference's scatter drops its padding lanes (index
         ``cap_local``) on the device; here they are dropped on the host, so
         ``index_copy_`` only sees real rows (distinct: a chunk never wraps
         a sub-ring)."""
-        ok = idx[0] < self.cap_local
+        ok = idx < self.cap_local
         if not ok.any():
             return
+        rows = (np.arange(self.num_shards)[:, None] * self.cap_local + idx)
         self.ring.index_copy_(
-            0, to_device(idx[0][ok].astype(np.int64), self.device),
-            to_device(cols[0][0][ok], self.device))
+            0, to_device(rows[ok].astype(np.int64), self.device),
+            to_device(cols[0][ok], self.device))
 
     # -- sample path --------------------------------------------------------
 
@@ -434,7 +452,8 @@ class DeviceFrameReplay:
 
     def sample(self, batch_size: int) -> dict[str, np.ndarray]:
         """Index batch (no pixels): per-shard draws concatenated in shard
-        order."""
+        order; ``oidx``/``noidx`` local to each row's shard, as the
+        reference's are (``global_stack_rows``), ``index`` global."""
         self.flush()
         d = self.num_shards
         per = batch_size // d

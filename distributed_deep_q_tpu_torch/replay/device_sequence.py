@@ -10,7 +10,7 @@ with the reference's one for one): sequence slot ``i`` owns frame rows
 ``[i·W, (i+1)·W)``, so sampling a sequence is ONE window of the
 ``gather_windows`` kernel and flushing one is ONE row of the
 ``scatter_rows`` kernel (a "row" there is the whole ``W·rowb``-byte slot).
-One scratch slot after the last absorbs the flush's padding lanes.
+A scratch slot after each shard's slots absorbs the flush's padding lanes.
 
 The host keeps the metadata and, when prioritized, a sum tree for the
 per-step ``sample()`` path; the device keeps twins of the metadata and a
@@ -18,11 +18,13 @@ per-sequence priority row (``dmeta``, ``dmaxp``) for the chained fused
 path (``SequenceLearner.train_steps_fused``). A training loop drives one
 of the two.
 
-The port runs one shard on one device (multi-process sequence replay is
-ROADMAP A14). The reference refuses a per-shard plane of 2³¹ elements or
-more, a limit of Mosaic's 32-bit index math; the r2d2 preset's plane is
-12,501 × 84 × 2048 = 2.15·10⁹ int32, and the port's kernels compute every
-offset in 64 bits, so the port has no such limit.
+The reference's D shards (its mesh devices) are a leading shard axis on
+the port's one device: each shard owns ``caps_local + 1`` ring slots, the
+last its scratch slot (multi-process sequence replay is ROADMAP A14b). The
+reference refuses a per-shard plane of 2³¹ elements or more, a limit of
+Mosaic's 32-bit index math; the r2d2 preset's plane is 12,501 × 84 × 2048
+= 2.15·10⁹ int32, and the port's kernels compute every offset in 64 bits,
+so the port has no such limit.
 """
 
 from __future__ import annotations
@@ -96,9 +98,16 @@ class DeviceSequenceReplay:
 
     Host surface of ``SequenceReplay`` (``add_sequence`` / ``add_batch`` /
     ``sample`` / ``update_priorities`` / ``ready``); ``sample`` returns the
-    sequence metadata plus slot indices (``seq_local``) whose pixels the
-    ring step gathers on the device. The fused path never calls it: it
-    samples on the device from ``dmeta``.
+    sequence metadata plus slot indices (``seq_local``, local to each row's
+    shard) whose pixels the ring step gathers on the device. The fused path
+    never calls it: it samples on the device from ``dmeta``.
+
+    Shards, as the reference's: sequences go round-robin over the D shards
+    (``_next_shard``), each with its own cursor, size, add count (its
+    staleness clock), sum tree and ``caps_local`` slots. Host metadata and
+    the device twins are indexed by global slot ``s · caps_local + local``;
+    the pixel ring holds ``slots_local = caps_local + 1`` slots per shard
+    (the last its scratch slot), shard-major.
     """
 
     prioritized: bool
@@ -118,22 +127,24 @@ class DeviceSequenceReplay:
         seed: int = 0,
         use_native: bool = True,
         write_chunk: int = 4,
+        num_shards: int = 1,
     ):
         if len(obs_shape) != 3:
             raise ValueError("DeviceSequenceReplay is the pixel path: "
                              f"obs_shape = (H, W, S), got {obs_shape}")
         self.device = torch.device(device)
-        self.num_shards = 1
+        d = self.num_shards = int(num_shards)
         self.seq_len = int(seq_len)
         self.stack = int(obs_shape[-1])
         self.frame_shape = tuple(obs_shape[:2])
         self._row_len = int(np.prod(self.frame_shape))
         self.W = (self.stack - 1) + (self.seq_len + 1)  # rows per sequence
-        self.capacity = max(int(capacity), 1)
+        self.caps_local = max(int(capacity) // d, 1)
+        self.capacity = self.caps_local * d               # sequences
         self.lstm_size = int(lstm_size)
         t, cap = self.seq_len, self.capacity
 
-        # host metadata, by sequence slot (the per-step sample path)
+        # host metadata, by global sequence slot (the per-step sample path)
         self.action = np.zeros((cap, t), np.int32)
         self.reward = np.zeros((cap, t), np.float32)
         self.discount = np.zeros((cap, t), np.float32)
@@ -141,30 +152,34 @@ class DeviceSequenceReplay:
         self.init_c = np.zeros((cap, lstm_size), np.float32)
         self.init_h = np.zeros((cap, lstm_size), np.float32)
         self.n_valid = np.zeros(cap, np.int32)  # real steps (mask sum)
-        self._cursor = 0
-        self._size = 0
+        # per-shard cursors, sizes and add counts (sequence slots)
+        self._cursor = np.zeros(d, np.int64)
+        self._sizes = np.zeros(d, np.int64)
+        self._added = np.zeros(d, np.int64)
+        self._next_shard = 0
         self._seqs_added = 0
         self._rng = np.random.default_rng(seed)
 
         self.prioritized = bool(prioritized)
         self.alpha, self.beta0 = float(alpha), float(beta0)
         self.beta_steps, self.eps = int(beta_steps), float(eps)
-        self.tree = (SumTree(cap, use_native=use_native)
-                     if prioritized else None)
+        self.trees = ([SumTree(self.caps_local, use_native=use_native)
+                       for _ in range(d)] if prioritized else None)
         self.max_priority = 1.0
         self._samples = 0
 
-        if write_chunk > cap:
+        if write_chunk > self.caps_local:
             raise ValueError(
-                f"write_chunk={write_chunk} sequences must fit the ring "
-                f"({cap}): duplicate targets in one flush are forbidden")
+                f"write_chunk={write_chunk} sequences must fit one shard's "
+                f"ring ({self.caps_local}): duplicate targets in one flush "
+                "are forbidden")
         self.write_chunk = max(int(write_chunk), 1)
         self.rowb = padded_row_bytes(self._row_len)  # bytes per frame row
         self.rowp = self.rowb // 4
         self.seq_bytes = self.W * self.rowb           # bytes per slot
-        self.slots = cap + 1                          # + the scratch slot
+        self.slots_local = self.caps_local + 1        # + the scratch slot
         dev = self.device
-        self.ring = torch.zeros(self.slots * self.W * self.rowp,
+        self.ring = torch.zeros(d * self.slots_local * self.W * self.rowp,
                                 dtype=torch.int32, device=dev)
         # device twins of the metadata and the per-sequence priority row
         # (the fused path), and the running max pre-α priority
@@ -178,26 +193,27 @@ class DeviceSequenceReplay:
             "prio": torch.zeros(cap, device=dev),
         }
         self.dmaxp = torch.ones((), device=dev)
-        # every flush's source lanes: staged slot k for lane k
-        self._scatter_src = to_device(
-            np.arange(self.write_chunk, dtype=np.int32), dev)
-        self._pending: list[tuple] = []
+        # a flush's source lanes for j shards: staged slot c for lane c
+        self._scatter_src: dict[int, torch.Tensor] = {}
+        self._pending: list[list[tuple]] = [[] for _ in range(d)]
 
     # -- bookkeeping --------------------------------------------------------
 
     def __len__(self) -> int:
-        return self._size
+        return int(self._sizes.sum())
 
     @property
     def steps_added(self) -> int:
         return self._seqs_added
 
     def pending_rows(self) -> int:
-        return len(self._pending)
+        return sum(len(p) for p in self._pending)
 
     def ready(self, learn_start: int) -> bool:
-        """``learn_start`` counts sequences."""
-        return self._size >= max(learn_start, 1)
+        """``learn_start`` counts sequences; every shard must hold one
+        (``sample`` draws B/D from each)."""
+        return len(self) >= max(learn_start, 1) and bool(
+            (self._sizes > 0).all())
 
     @property
     def beta(self) -> float:
@@ -213,31 +229,42 @@ class DeviceSequenceReplay:
         return out
 
     def device_inputs(self) -> np.ndarray:
-        """The filled-slot count ``[1]`` int32 for the fused sampler."""
-        return np.asarray([self._size], np.int32)
+        """Each shard's filled-slot count ``[D]`` int32 for the fused
+        sampler."""
+        return self._sizes.astype(np.int32)
+
+    def ring_slot(self, shard, local):
+        """The pixel ring's slot of a shard's sequence slot ``local``."""
+        return shard * self.slots_local + local
 
     # -- write --------------------------------------------------------------
 
     def add_sequence(self, seq: dict[str, np.ndarray]) -> int:
         """A ``SequenceBuilder`` emission (stacked obs): the stream is
-        derived here, so actors hand over what they hand the host store."""
-        g = self._cursor
-        self._cursor = (g + 1) % self.capacity
-        self._size = min(self._size + 1, self.capacity)
+        derived here, so actors hand over what they hand the host store.
+        Sequences go round-robin over the shards. Returns the global
+        slot."""
+        s = self._next_shard % self.num_shards
+        self._next_shard += 1
+        local = int(self._cursor[s])
+        self._cursor[s] = (local + 1) % self.caps_local
+        self._sizes[s] = min(int(self._sizes[s]) + 1, self.caps_local)
+        self._added[s] += 1
+        g = s * self.caps_local + local
         n_valid = int(np.asarray(seq["mask"]).sum())
         obs = np.asarray(seq["obs"], np.uint8)
         for key in META_KEYS:
             getattr(self, key)[g] = seq[key]
         self.n_valid[g] = n_valid
         if self.prioritized:
-            self.tree.set(np.asarray([g]),
-                          np.asarray([self.max_priority ** self.alpha]))
+            self.trees[s].set(np.asarray([local]),
+                              np.asarray([self.max_priority ** self.alpha]))
         stream = stream_from_stacked_obs(obs, n_valid, self.stack)
         padded = np.zeros((self.W, self.rowb), np.uint8)
         padded[:, :self._row_len] = stream
-        self._pending.append((g, padded))
+        self._pending[s].append((local, padded))
         self._seqs_added += 1
-        if len(self._pending) >= self.write_chunk:
+        if max(len(p) for p in self._pending) >= self.write_chunk:
             self.flush()
         return g
 
@@ -250,22 +277,35 @@ class DeviceSequenceReplay:
 
     def flush(self) -> None:
         """Push the staged sequences to the device, ``write_chunk`` per
-        launch: ONE ``scatter_rows`` row per sequence (its whole slot) plus
-        the metadata scatters; a short chunk's padding lanes aim at the
+        shard per round, the shards that have any in one launch: ONE
+        ``scatter_rows`` row per sequence (its whole slot) plus the
+        metadata scatters; a short shard's padding lanes aim at shard 0's
         scratch slot, which the kernel skips (``skip_row``). Fresh
         sequences' device priorities are seeded from the device max."""
         k, dev = self.write_chunk, self.device
-        while self._pending:
-            chunk, self._pending = self._pending[:k], self._pending[k:]
-            idx = np.full(k, self.capacity, np.int32)     # scratch slot
-            staged = np.zeros((k, self.W, self.rowb), np.uint8)
-            for c, (g, padded) in enumerate(chunk):
-                idx[c], staged[c] = g, padded
-            scatter_rows(self._scatter_src, to_device(idx, dev),
+        skip = self.caps_local                  # shard 0's scratch slot
+        while any(self._pending):
+            live = [s for s in range(self.num_shards) if self._pending[s]]
+            j = len(live)
+            idx = np.full((j, k), skip, np.int64)
+            staged = np.zeros((j, k, self.W, self.rowb), np.uint8)
+            real = []
+            for li, s in enumerate(live):
+                chunk = self._pending[s][:k]
+                self._pending[s] = self._pending[s][k:]
+                for c, (local, padded) in enumerate(chunk):
+                    idx[li, c] = self.ring_slot(s, local)
+                    staged[li, c] = padded
+                    real.append(s * self.caps_local + local)
+            if j not in self._scatter_src:
+                self._scatter_src[j] = to_device(
+                    np.arange(j * k, dtype=np.int32), dev)
+            scatter_rows(self._scatter_src[j],
+                         to_device(idx.reshape(-1).astype(np.int32), dev),
                          to_device(staged.view(np.int32).reshape(-1), dev),
-                         self.ring, n=k, rowb=self.seq_bytes,
-                         skip_row=self.capacity)
-            real = idx[:len(chunk)].astype(np.int64)
+                         self.ring, n=j * k, rowb=self.seq_bytes,
+                         skip_row=skip)
+            real = np.asarray(real, np.int64)
             ridx = to_device(real, dev)
             for key in META_KEYS:
                 self.dmeta[key][ridx] = to_device(getattr(self, key)[real],
@@ -275,34 +315,50 @@ class DeviceSequenceReplay:
     # -- sample (per-step host path) ----------------------------------------
 
     def sample(self, batch_size: int) -> dict[str, np.ndarray]:
-        """An index batch: slots drawn on the host, pixels composed on the
-        device from ``seq_local`` (``SequenceLearner``'s ring step)."""
+        """An index batch: B/D slots drawn on the host per shard,
+        concatenated in shard order; pixels composed on the device from
+        ``seq_local`` (``SequenceLearner``'s ring step)."""
         self.flush()
-        size = self._size
-        if size <= 0:
-            raise RuntimeError("sample() from an empty DeviceSequenceReplay")
+        d = self.num_shards
+        if batch_size % d:
+            raise ValueError(f"batch {batch_size} must split over {d} "
+                             "shards")
+        per = batch_size // d
         self._samples += 1
-        if self.prioritized:
-            idx = self.tree.sample_stratified(batch_size, self._rng)
-            idx = np.minimum(idx, size - 1)
-            p = self.tree.get(idx)
-            probs = np.maximum(p / max(self.tree.total, 1e-12), 1e-12)
-            w = (size * probs) ** (-self.beta)
-        else:
-            idx = self._rng.integers(0, size, size=batch_size)
-            w = np.ones(batch_size)
+        locs, weights, gids = [], [], []
+        for s in range(d):
+            size = int(self._sizes[s])
+            if size <= 0:
+                raise RuntimeError("sample() before every shard of the "
+                                   "DeviceSequenceReplay holds a sequence")
+            if self.prioritized:
+                li = self.trees[s].sample_stratified(per, self._rng)
+                li = np.minimum(li, size - 1)
+                p = self.trees[s].get(li)
+                mass = max(self.trees[s].total, 1e-12)
+                # realized stratified draw: P(i) = p_i / (D · mass_s)
+                probs = np.maximum(p / (d * mass), 1e-12)
+                w = (len(self) * probs) ** (-self.beta)
+            else:
+                li = self._rng.integers(0, size, size=per)
+                w = np.ones(per)
+            locs.append(li)
+            weights.append(w)
+            gids.append(s * self.caps_local + li)
+        gidx = np.concatenate(gids)
+        w = np.concatenate(weights)
         return {
-            "seq_local": idx.astype(np.int32),
-            "n_valid": self.n_valid[idx],
-            "action": self.action[idx],
-            "reward": self.reward[idx],
-            "discount": self.discount[idx],
-            "mask": self.mask[idx],
-            "init_c": self.init_c[idx],
-            "init_h": self.init_h[idx],
+            "seq_local": np.concatenate(locs).astype(np.int32),
+            "n_valid": self.n_valid[gidx],
+            "action": self.action[gidx],
+            "reward": self.reward[gidx],
+            "discount": self.discount[gidx],
+            "mask": self.mask[gidx],
+            "init_c": self.init_c[gidx],
+            "init_h": self.init_h[gidx],
             "weight": (w / w.max()).astype(np.float32),
-            "index": idx.astype(np.int32),
-            "_sampled_at": (self._seqs_added,),
+            "index": gidx.astype(np.int32),
+            "_sampled_at": tuple(int(v) for v in self._added),
         }
 
     # -- learner feedback ---------------------------------------------------
@@ -311,16 +367,20 @@ class DeviceSequenceReplay:
                           sampled_at=None) -> None:
         if not self.prioritized:
             return
-        li = np.asarray(idx, np.int64)
+        gidx = np.asarray(idx, np.int64)
         p = np.abs(np.asarray(priority, np.float64)) + self.eps
-        lp = p
-        if sampled_at is not None:
-            # drop updates for slots overwritten since the sample was drawn
-            li, lp = filter_stale(li, p, self._seqs_added, sampled_at[0],
-                                  self.capacity)
-            if li.size == 0:
-                return
-        self.tree.set(li, lp ** self.alpha)
-        # the running max takes every reported priority, stale ones too,
-        # as the reference's does
-        self.max_priority = max(self.max_priority, float(p.max()))
+        shard, local = gidx // self.caps_local, gidx % self.caps_local
+        for s in np.unique(shard):
+            pick = shard == s
+            li, lp = local[pick], p[pick]
+            if sampled_at is not None:
+                # each shard's staleness clock: drop updates for slots it
+                # has overwritten since the sample was drawn
+                li, lp = filter_stale(li, lp, int(self._added[s]),
+                                      sampled_at[int(s)], self.caps_local)
+                if li.size == 0:
+                    continue
+            self.trees[int(s)].set(li, lp ** self.alpha)
+            # the running max takes every reported priority, stale ones
+            # too, as the reference's does
+            self.max_priority = max(self.max_priority, float(p.max()))

@@ -9,22 +9,23 @@ byte-identical to what the saved one would have drawn. It is what
 on ``train.resume``.
 
 The key space and ``SCHEMA`` are the reference's, so a file written by
-either package loads into the other at one shard:
+either package loads into the other at the same shard count D:
 
 - the device tiers flush their staged rows first, download their rings
   once at save (``dev_*`` keys) and upload them onto the replay's own
-  device at load;
-- the reference keeps ``DeviceSequenceReplay``'s cursor, size and
-  add-count per shard, with a round-robin shard counter (``next_shard``)
-  and one sum tree per shard; the port has one shard, and writes them as
-  length-1 arrays, the counter as its add count and the tree as
-  ``tree0``;
-- a file saved from more than one shard is refused (ROADMAP A14). For the
-  frame rings the shard count shows in the slot count (one shard has one
-  slot per writer stream) and in the fused ring's scratch rows (one per
-  shard); a host-sampled ``DeviceFrameReplay`` file whose shards split
-  the streams evenly holds the same rows and slots as a one-shard file,
-  and loads as one.
+  device at load; the port's device planes are laid out shard-major, as
+  ``np.asarray`` assembles the reference's ``P('dp')`` arrays, so they
+  map on without a relayout;
+- ``DeviceSequenceReplay`` keeps its cursor, size and add count per
+  shard, its round-robin shard counter (``next_shard``) and one sum tree
+  per shard (``tree0`` …), as the reference's does;
+- a file loads only into a replay of its own shard count; another count
+  is refused with both named. The file does not record D: the sequence
+  ring has one size per shard, the fused ring one scratch row per shard
+  after its slots, and a host-sampled ``DeviceFrameReplay`` a slot count
+  that each D fits or not (``ceil(streams / D) · D`` slots). Where that
+  count fits several D, the reference's own checks (capacity and slots)
+  are all there is, here as there.
 
 Format: flat npz keys. Scalars ride as 0-d arrays; RNG states as JSON
 strings. ``meta_kind`` + geometry keys guard against loading a file into a
@@ -93,14 +94,26 @@ def _require(ok: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def _refuse_shards(shards: int | None) -> None:
-    """Refuse a file of ``shards`` shards (``None``: more than one, count
-    unknown)."""
-    if shards != 1:
-        raise NotImplementedError(
-            f"the replay file was saved from {shards or 'more than one'} "
-            "shards; the port runs one shard on one device, and more are "
-            "not ported yet (ROADMAP A14)")
+def _check_shards(file_shards, replay) -> None:
+    """Refuse a file of another shard count than ``replay``'s.
+    ``file_shards`` is the file's D, or the set of counts its slot layout
+    fits."""
+    fits = (file_shards if isinstance(file_shards, (set, frozenset))
+            else {file_shards})
+    if replay.num_shards not in fits:
+        saved = (f"{min(fits)}" if len(fits) == 1 else
+                 " or ".join(str(v) for v in sorted(fits)))
+        raise ValueError(
+            f"the replay file was saved from {saved} shard(s); this replay "
+            f"has {replay.num_shards} (mesh.dp): load it into a replay of "
+            "the same shard count")
+
+
+def _ring_shards(slots: int, streams: int) -> set[int]:
+    """The shard counts D a frame ring of ``slots`` slots for ``streams``
+    writer streams can have: ``ceil(max(streams, D) / D) · D == slots``."""
+    return {d for d in range(1, slots + 1)
+            if -(-max(streams, d) // d) * d == slots}
 
 
 # -- per-tier (de)serializers -------------------------------------------------
@@ -163,18 +176,17 @@ def _state(replay) -> dict:
         d["meta_W"] = replay.W
         for k in _SEQ_META + ("n_valid",):
             d[k] = getattr(replay, k)
-        # the reference's per-shard counters, at one shard; its round-robin
-        # shard counter advances once per add
-        d["cursor"] = np.asarray([replay._cursor], np.int64)
-        d["sizes"] = np.asarray([replay._size], np.int64)
-        d["added"] = np.asarray([replay._seqs_added], np.int64)
-        d["next_shard"] = replay._seqs_added
+        d["cursor"] = replay._cursor
+        d["sizes"] = replay._sizes
+        d["added"] = replay._added
+        d["next_shard"] = replay._next_shard
         d["seqs_added"] = replay._seqs_added
         d["samples"] = replay._samples
         d["max_priority"] = replay.max_priority
         d["rng"] = _rng_dump(replay._rng)
         if replay.prioritized:
-            d["tree0"] = replay.tree.tree
+            for i, t in enumerate(replay.trees):
+                d[f"tree{i}"] = t.tree
         d["dev_ring"] = _download(replay.ring)
         for k, v in replay.dmeta.items():
             d[f"dev_{k}"] = _download(v)
@@ -259,15 +271,15 @@ def _load_frame_ring(replay, z, kind: str) -> None:
     per = isinstance(replay, DevicePERFrameReplay)
     expect = "device_per" if per else "device_ring"
     _require(kind == expect, f"file holds {kind!r}, buffer is {expect!r}")
-    if int(z["meta_num_slots"]) != int(z["meta_num_streams"]):
-        _refuse_shards(None)    # one shard has one slot per writer stream
+    slots = int(z["meta_num_slots"])
     frames = z["dev_frames"]    # each read of an npz key reads the file
-    if per:
+    if per and slots == replay.num_slots:
         # the fused ring keeps one scratch row per shard after its slots
-        rows = frames.size // replay.rowp
-        if int(z["meta_num_slots"]) == replay.num_slots and rows > \
-                replay.num_slots * replay.slot_pad + 1:
-            _refuse_shards(rows - replay.num_slots * replay.slot_pad)
+        _check_shards(frames.size // replay.rowp - slots * replay.slot_pad,
+                      replay)
+    else:
+        _check_shards(_ring_shards(slots, int(z["meta_num_streams"])),
+                      replay)
     _require(int(z["meta_capacity"]) == replay.capacity
              and int(z["meta_num_slots"]) == replay.num_slots,
              "ring geometry mismatch (capacity / slot layout)")
@@ -295,29 +307,32 @@ def _load_frame_ring(replay, z, kind: str) -> None:
 def _load_device_sequence(replay, z, kind: str) -> None:
     _require(kind == "device_sequence", f"file holds {kind!r}")
     sizes = z["sizes"]
-    _refuse_shards(len(sizes))
+    _check_shards(len(sizes), replay)
     _require(int(z["meta_capacity"]) == replay.capacity
              and int(z["meta_seq_len"]) == replay.seq_len
              and int(z["meta_W"]) == replay.W, "geometry mismatch")
     _require(("tree0" in z) == replay.prioritized,
              "prioritized-ness mismatch: file was saved with prioritized="
              f"{'tree0' in z}, buffer is prioritized={replay.prioritized}")
-    replay._pending = []   # staged sequences would flush over the file's
+    # staged sequences would flush over the file's
+    replay._pending = [[] for _ in range(replay.num_shards)]
     _upload(replay.ring, z["dev_ring"], "dev_ring")
     for k in replay.dmeta:
         _upload(replay.dmeta[k], z[f"dev_{k}"], f"dev_{k}")
     _upload(replay.dmaxp, z["dev_maxp"], "dev_maxp")
     for k in _SEQ_META + ("n_valid",):
         getattr(replay, k)[:] = z[k]
-    replay._cursor = int(z["cursor"][0])
-    replay._size = int(sizes[0])
+    replay._cursor[:] = z["cursor"]
+    replay._sizes[:] = sizes
+    replay._added[:] = z["added"]
+    replay._next_shard = int(z["next_shard"])
     replay._seqs_added = int(z["seqs_added"])
     replay._samples = int(z["samples"])
     replay.max_priority = float(z["max_priority"])
     _rng_load(replay._rng, _str(z["rng"]))
     if replay.prioritized:
-        t = replay.tree
-        t.set(np.arange(t.size), z["tree0"][t.size: 2 * t.size])
+        for i, t in enumerate(replay.trees):
+            t.set(np.arange(t.size), z[f"tree{i}"][t.size: 2 * t.size])
 
 
 def _load_sequence(replay, z, kind: str) -> None:
@@ -347,11 +362,10 @@ def _load_sequence(replay, z, kind: str) -> None:
 
 def load_replay(replay, path: str) -> None:
     """Restore state saved by ``save_replay`` (this package's or the
-    reference's, at one shard) into a geometry-matched ``replay`` (same
-    class, capacity, slot layout); the device planes land on the replay's
-    own device. The file's state replaces the buffer's, rows it had staged
-    included. Raises ``ValueError`` on a mismatch and
-    ``NotImplementedError`` for a multi-shard file."""
+    reference's) into a geometry-matched ``replay`` (same class, capacity,
+    slot layout, shard count); the device planes land on the replay's own
+    device. The file's state replaces the buffer's, rows it had staged
+    included. Raises ``ValueError`` on a mismatch."""
     with np.load(path, allow_pickle=False) as z:
         _require(int(z["meta_schema"]) == SCHEMA,
                  f"replay file schema {int(z['meta_schema'])}, expected "

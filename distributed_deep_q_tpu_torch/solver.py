@@ -2,7 +2,8 @@
 the reference ``solver.py``).
 
 The backend is a torch device: ``cuda`` (CUDA device 0; raises without a
-card) or ``cpu``. The port runs one process on one device.
+card) or ``cpu``. The port runs one process on one device; ``mesh.dp`` sets
+the replay's shard count D (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -20,8 +21,10 @@ from distributed_deep_q_tpu_torch.convert import (
     train_state_to_flax)
 from distributed_deep_q_tpu_torch.models.qnet import build_qnet
 from distributed_deep_q_tpu_torch.parallel.learner import Learner, TrainState
+from distributed_deep_q_tpu_torch.parallel import mesh
 from distributed_deep_q_tpu_torch.replay.device_per import uniforms_for_keys
-from distributed_deep_q_tpu_torch.replay.device_ring import to_device
+from distributed_deep_q_tpu_torch.replay.device_ring import (
+    global_stack_rows, to_device)
 
 
 def select_device(backend: str) -> torch.device:
@@ -41,15 +44,9 @@ def select_device(backend: str) -> torch.device:
 
 def check_single_device(config: Config) -> None:
     """Refuse mesh settings the port does not run: it is one process on
-    one device, so one shard and no model axis."""
-    m = config.mesh
-    if m.num_processes > 1 or m.coordinator:
-        raise NotImplementedError(
-            "multi-process training is not ported yet (ROADMAP A14)")
-    if m.dp > 1 or m.model > 1:
-        raise NotImplementedError(
-            f"mesh.dp={m.dp}, mesh.model={m.model}: the port runs one shard "
-            "on one device; more shards are not ported yet (ROADMAP A14)")
+    one device with no model axis; the ``dp`` shards ride a shard axis of
+    the replay (``parallel/mesh.py``)."""
+    mesh.check_mesh(config.mesh)
 
 
 def sample_key_schedule(seed: int, start_step: int, num_shards: int,
@@ -128,8 +125,9 @@ class Solver:
       reference's layout (``convert.py``).
 
     ``draw_uniforms(keys, per_shard, device)`` makes each dispatch's
-    sampling uniforms from its keys (``uniforms_for_keys``); tests replace
-    it to feed the reference's uniforms.
+    sampling uniforms from its keys, ``[D·chain, 2]`` → ``[D·chain, B/D]``
+    (``uniforms_for_keys``, the reference's own draws); a test may replace
+    it to feed in other uniforms. ``num_shards`` is D (``mesh.dp``).
     """
 
     def __init__(self, config: Config, obs_dim: int = 4,
@@ -161,6 +159,7 @@ class Solver:
         net = build_qnet(config.net, obs_dim, config.train.seed)
         self.learner = make_learner(config, self.device)
         self.state: TrainState = self.learner.init_state(net.to(self.device))
+        self.num_shards = mesh.num_shards(config.mesh)
         self.draw_uniforms = uniforms_for_keys
         self._fused_key_base: int | None = None
         self._fused_steps_issued = 0
@@ -188,8 +187,10 @@ class Solver:
         scalars; frames are gathered on the device. ``frame_shape`` decodes
         the ring's flat rows (defaults to the net config's). Returns what
         ``train_step`` returns."""
+        rows = global_stack_rows(_strip_host_keys(batch), self.num_shards,
+                                 ring.shape[0] // self.num_shards)
         metrics, td_abs = self.learner.train_step_from_ring(
-            self.state, ring, _strip_host_keys(batch),
+            self.state, ring, rows,
             frame_shape=tuple(frame_shape or self.config.net.frame_shape))
         return self._with_feedback(metrics, td_abs, batch)
 
@@ -231,7 +232,7 @@ class Solver:
             spec = fused_spec(self.config, replay)
             self._dp_spec, self._dp_spec_replay = spec, replay
         keys = next_fused_keys(self, replay.num_shards, chain)
-        u = self.draw_uniforms(keys[0], spec[8], self.device)
+        u = self.draw_uniforms(keys.reshape(-1, 2), spec[8], self.device)
         dev = self.device
         maxp, metrics = self.learner.train_steps_device_per(
             self.state, replay.dstate, to_device(cursors, dev),

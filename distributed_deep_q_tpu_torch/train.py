@@ -44,6 +44,7 @@ from distributed_deep_q_tpu_torch.actors.game import (
     FrameStacker, NStepAccumulator, make_env)
 from distributed_deep_q_tpu_torch.config import Config
 from distributed_deep_q_tpu_torch.metrics import Metrics, MovingAverage
+from distributed_deep_q_tpu_torch.parallel import mesh
 from distributed_deep_q_tpu_torch.parallel.sequence_learner import (
     SequenceSolver)
 from distributed_deep_q_tpu_torch.profiling import (
@@ -170,7 +171,8 @@ def make_replay(cfg: Config, env, device: torch.device):
             else DeviceFrameReplay)
     return kind(cfg.replay, device, env.obs_shape, cfg.env.stack,
                 cfg.train.gamma, seed=seed,
-                write_chunk=cfg.replay.write_chunk)
+                write_chunk=cfg.replay.write_chunk,
+                num_shards=mesh.num_shards(cfg.mesh))
 
 
 def train_single_process(cfg: Config, metrics: Metrics | None = None,
@@ -376,7 +378,9 @@ def make_sequence_replay(cfg: Config, obs_shape: tuple[int, ...], obs_dtype,
                use_native=cfg.replay.use_native)
     if obs_dtype == np.uint8 and cfg.replay.device_resident:
         return DeviceSequenceReplay(seq_capacity, seq_len, obs_shape, device,
-                                    cfg.net.lstm_size, **per)
+                                    cfg.net.lstm_size,
+                                    num_shards=mesh.num_shards(cfg.mesh),
+                                    **per)
     return SequenceReplay(seq_capacity, seq_len, obs_shape, obs_dtype,
                           cfg.net.lstm_size, **per)
 

@@ -44,7 +44,7 @@ from distributed_deep_q_tpu_torch.parallel.anakin import (
 from distributed_deep_q_tpu_torch.replay import device_per as dp_mod
 from distributed_deep_q_tpu_torch.replay.device_per import (
     DevicePERFrameReplay)
-from distributed_deep_q_tpu_torch.solver import Solver
+from distributed_deep_q_tpu_torch.solver import Solver, sample_key_schedule
 
 FRAME, STACK = (10, 10), 2
 
@@ -69,23 +69,27 @@ def _anakin_config(mod=port_config, n_envs=16, ticks=8, capacity=256,
 
 def _host_twin(cfg, supersteps):
     """The superstep driven from the host: batched ``act_tick`` tick by
-    tick, ``add_batch(stream=g)``, ``train_steps_device_per``."""
+    tick, ``add_batch(stream=g)``, ``train_steps_device_per``. With D
+    shards the env at position p = s·E + e is stream g = e·D + s."""
     n, ticks = cfg.actors.anakin_envs, cfg.actors.anakin_ticks
     solver = Solver(cfg, obs_dim=FRAME[0] * FRAME[1] * STACK)
+    d = solver.num_shards
     replay = DevicePERFrameReplay(cfg.replay, solver.device, FRAME, STACK,
                                   cfg.train.gamma, seed=cfg.train.seed,
                                   write_chunk=cfg.replay.write_chunk,
-                                  num_streams=n)
+                                  num_streams=n, num_shards=d)
     reset_fn, step_fn = make_device_env(cfg.env)
     base = threefry.prng_key(cfg.train.seed)
-    g = torch.arange(n)
+    e_per = n // d
+    gids = [(p % e_per) * d + p // e_per for p in range(n)]
+    g = torch.tensor(gids)
     st, frames = reset_fn(threefry.fold_in(base, 1000 * (g + 1)))
     buf = torch.zeros((n, STACK, FRAME[0] * FRAME[1]), dtype=torch.uint8)
     buf[:, -1] = frames.reshape(n, -1)
     akeys = threefry.fold_in(base, 7777 * (g + 1))
     eps = torch.tensor([actor_epsilon(i, n, cfg.actors.eps_base,
                                       cfg.actors.eps_alpha)
-                        for i in range(n)], dtype=torch.float32)
+                        for i in gids], dtype=torch.float32)
     for _ in range(supersteps):
         recs = []
         for _t in range(ticks):
@@ -100,7 +104,7 @@ def _host_twin(cfg, supersteps):
                 "action": np.array([r["action"][s] for r in recs], np.int64),
                 "reward": np.array([r["reward"][s] for r in recs],
                                    np.float32),
-                "done": done, "boundary": done}, stream=s)
+                "done": done, "boundary": done}, stream=gids[s])
         solver.train_steps_device_per(replay, cfg.replay.fused_chain)
     return solver, replay
 
@@ -211,20 +215,21 @@ def _recording_ref_sample_stage(monkeypatch, record):
     draw, gather = (ref_anakin.fused_sample_draw_packed,
                     ref_anakin.gather_windows)
 
-    def put(kind, shard, *arrays):
+    def put(kind, **arrays):
         record.setdefault(kind, []).append(
-            (int(shard),) + tuple(np.asarray(a) for a in arrays))
+            {k: np.asarray(a) for k, a in arrays.items()})
 
-    def recording_draw(*args, **kw):
-        meta, ws, idx = draw(*args, **kw)
-        jax.debug.callback(lambda s, i, w: put("draw", s, i, w),
-                           lax.axis_index("dp"), idx, meta["weight"])
+    def recording_draw(keys, *args, **kw):
+        meta, ws, idx = draw(keys, *args, **kw)
+        jax.debug.callback(
+            lambda s, k, i, w, ws: put("draw", shard=s, keys=k, idx=i,
+                                       weight=w, ws=ws),
+            lax.axis_index("dp"), keys, idx, meta["weight"], ws)
         return meta, ws, idx
 
-    def recording_gather(*args, **kw):
-        win = gather(*args, **kw)
-        jax.debug.callback(lambda s, w: put("win", s, w),
-                           lax.axis_index("dp"), win)
+    def recording_gather(ws, *args, **kw):
+        win = gather(ws, *args, **kw)
+        jax.debug.callback(lambda w0, w: put("win", ws=w0, win=w), ws, win)
         return win
 
     monkeypatch.setattr(ref_anakin, "fused_sample_draw_packed",
@@ -265,11 +270,138 @@ def test_superstep_draws_the_references_rows(monkeypatch):
     runner.superstep()
     jax.effects_barrier()
     meta, win, idx, _ = drawn[0]
-    (_, idx_r, w_r), = record["draw"]
-    (_, win_r), = record["win"]
-    np.testing.assert_array_equal(idx.numpy(), idx_r)
-    np.testing.assert_array_equal(meta["weight"].numpy(), w_r)
-    np.testing.assert_array_equal(win.numpy(), win_r.reshape(-1))
+    (r,), (rw,) = record["draw"], record["win"]
+    np.testing.assert_array_equal(idx.numpy(), r["idx"])
+    np.testing.assert_array_equal(meta["weight"].numpy(), r["weight"])
+    np.testing.assert_array_equal(win.numpy(), rw["win"].reshape(-1))
+
+
+def _shard_rows(replay, frames):
+    """Every shard's real and ghost rows (its scratch row left out)."""
+    return frames.reshape(replay.num_shards, replay.shard_rows,
+                          replay.rowp)[:, :replay.cap_local_pad]
+
+
+def test_superstep_matches_batched_host_twin_at_dp2():
+    """Two shards of 8 envs each: the superstep against its host-driven
+    twin, bitwise as at one shard — every real and ghost row, the
+    metadata, priorities, maxp, θ, θ⁻ and Adam."""
+    torch.set_num_threads(1)
+    cfg = _anakin_config()
+    cfg.mesh.dp = 2
+    runner = AnakinRunner(cfg)
+    assert (runner.num_shards, runner.envs_per_shard) == (2, 8)
+    for _ in range(3):
+        runner.superstep()
+    runner.sync_solver()
+    solver, replay = _host_twin(cfg, 3)
+    a, h = runner.replay.dstate, replay.dstate
+    assert torch.equal(_shard_rows(replay, a["frames"]),
+                       _shard_rows(replay, h["frames"]))
+    for field in ("action", "reward", "done", "boundary", "prio", "maxp"):
+        assert torch.equal(a[field], h[field]), field
+    assert int(runner.solver.state.step) == int(solver.state.step) == 6
+    for x, y in ((runner.solver.state.net, solver.state.net),
+                 (runner.solver.state.target_net, solver.state.target_net)):
+        for (name, p), (_, q) in zip(x.named_parameters(),
+                                     y.named_parameters()):
+            assert torch.equal(p, q), name
+    for key in ("mu", "nu"):
+        for name, t in runner.solver.state.opt_state[key].items():
+            assert torch.equal(t, solver.state.opt_state[key][name]), name
+
+
+def test_runner_matches_reference_runner_at_dp2(monkeypatch):
+    """The reference's runner on its dp=2 mesh against the port's at
+    D = 2, from the same weights, no uniforms injected: the first
+    superstep's draws per shard (indices, IS weights, B1 windows)
+    bitwise; after three supersteps the frame plane and done/boundary
+    rows bitwise, every action equal unless the row's top two Q-values
+    lie within 2e-5, θ within 1e-5 (as at one shard)."""
+    from distributed_deep_q_tpu.parallel.anakin import (
+        AnakinRunner as RefRunner)
+    from distributed_deep_q_tpu.parallel.learner import _locate_adam_state
+
+    torch.set_num_threads(1)
+    record: dict = {}
+    _recording_ref_sample_stage(monkeypatch, record)
+    rcfg, pcfg = _anakin_config(ref_config), _anakin_config()
+    rcfg.mesh.dp = pcfg.mesh.dp = 2
+    ref = RefRunner(rcfg)
+    runner = AnakinRunner(pcfg)
+    st = jax.tree.map(np.asarray, ref.solver.state)
+    adam, _ = _locate_adam_state(st.opt_state)
+    runner.solver.load_flax_state(st.params, st.target_params, adam.count,
+                                  adam.mu, adam.nu, st.step)
+    qs, drawn = [], []
+    fused_sample = anakin_mod.fused_sample
+
+    def recording_tick(net, step_fn, frame_shape, eps, env_state, buf,
+                       akeys):
+        with torch.no_grad():
+            qs.append(net.forward_nchw(buf.view(buf.shape[0], STACK,
+                                                *FRAME)).numpy())
+        return act_tick(net, step_fn, frame_shape, eps, env_state, buf,
+                        akeys)
+
+    def recording_sample(*args):
+        out = fused_sample(*args)
+        drawn.append(out)
+        return out
+
+    monkeypatch.setattr(anakin_mod, "act_tick", recording_tick)
+    monkeypatch.setattr(anakin_mod, "fused_sample", recording_sample)
+    for _ in range(3):
+        ref.superstep()
+        runner.superstep()
+    ref.sync_solver()
+    runner.sync_solver()
+    jax.effects_barrier()
+    rp = runner.replay
+    per = 8
+    meta, win, idx, _ = drawn[0]
+    # the first superstep's draws: shard s's are the ones from its keys
+    keys = sample_key_schedule(pcfg.train.seed, 0, 2, runner.chain)
+    for s in range(2):
+        r, = [r for r in record["draw"] if int(r["shard"]) == s
+              and np.array_equal(r["keys"], keys[s])]
+        rw, = [rw for rw in record["win"]
+               if np.array_equal(rw["ws"], r["ws"].reshape(-1))]
+        part = slice(s * per, (s + 1) * per)
+        want = np.where(r["idx"] == rp.cap_local, rp.capacity,
+                        s * rp.cap_local + r["idx"])
+        np.testing.assert_array_equal(idx.numpy()[:, part], want)
+        np.testing.assert_array_equal(meta["weight"].numpy()[:, part],
+                                      r["weight"])
+        np.testing.assert_array_equal(
+            win.view(2, 16, -1).numpy()[:, part].reshape(-1),
+            rw["win"].reshape(-1))
+    ds_r, ds_p = ref.dstate, rp.dstate
+    np.testing.assert_array_equal(
+        _shard_rows(rp, np.asarray(ds_r.frames)),
+        _shard_rows(rp, ds_p["frames"]).numpy())
+    for field in ("done", "boundary"):
+        np.testing.assert_array_equal(np.asarray(getattr(ds_r, field)),
+                                      ds_p[field].numpy(), err_msg=field)
+    # ticks 8..23 are in the ring (slot_cap 16): shard s's row
+    # e·16 + (τ mod 16) is env s·8 + e's
+    for row in np.flatnonzero(np.asarray(ds_r.action)
+                              != ds_p["action"].numpy()):
+        s, rem = divmod(int(row), rp.cap_local)
+        e, local = divmod(rem, rp.slot_cap)
+        tau = local if local >= 8 else local + 16
+        top2 = np.sort(qs[tau][s * 8 + e])[-2:]
+        assert top2[1] - top2[0] < 2e-5, (row, qs[tau][s * 8 + e])
+    got = runner.solver.flax_state()
+    for name, want in (("params", ref.solver.state.params),
+                       ("target_params", ref.solver.state.target_params)):
+        for path, leaf in jax.tree_util.tree_leaves_with_path(want):
+            g = got[name]
+            for p in path:
+                g = g[p.key]
+            np.testing.assert_allclose(g, np.asarray(leaf), rtol=0,
+                                       atol=1e-5, err_msg=name)
+    assert got["step"] == int(ref.solver.state.step) == 6
 
 
 def test_gate_off_is_bitwise_gate_on():
@@ -318,13 +450,16 @@ def test_anakin_trains_signal_end_to_end():
     ({"env": "fake_atari"}, ValueError, "no JAX port"),
     ({"ticks": 17}, AssertionError, "within one sub-ring"),
     ({"optimizer": "rmsprop"}, AssertionError, "requires adam"),
-    ({"dp": 2}, NotImplementedError, "ROADMAP A14"),
+    ({"dp": 2}, None, None),
+    ({"dp": 2, "envs": 15}, AssertionError, "divide over 2 dp shards"),
 ])
 def test_anakin_rejects_unsupported_shapes(change, error, match):
     """The mode is explicit and guarded: what the superstep cannot run
-    fails at construction. (The reference's dividing-envs case needs more
-    than one shard, which the port refuses by name.)"""
-    cfg = _anakin_config(ticks=change.get("ticks", 8))
+    fails at construction, the reference's dividing-envs case included.
+    Two shards (``mesh.dp=2``), refused until the port had them (ROADMAP
+    A14a), run: one superstep over both shards' 8 envs each."""
+    cfg = _anakin_config(n_envs=change.get("envs", 16),
+                         ticks=change.get("ticks", 8))
     if "env" in change:
         cfg.env = port_config.EnvConfig(id="fake", kind=change["env"],
                                         frame_shape=FRAME, stack=STACK)
@@ -332,6 +467,13 @@ def test_anakin_rejects_unsupported_shapes(change, error, match):
         cfg.train.optimizer = change["optimizer"]
     if "dp" in change:
         cfg.mesh.dp = change["dp"]
+    if error is None:
+        torch.set_num_threads(1)
+        runner = AnakinRunner(cfg)
+        assert runner.num_shards == 2 and runner.envs_per_shard == 8
+        m = runner.superstep()
+        assert np.isfinite(m["loss"].numpy()).all()
+        return
     with pytest.raises(error, match=match):
         AnakinRunner(cfg)
 

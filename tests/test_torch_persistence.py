@@ -17,8 +17,10 @@ IS weights, snapshots) for the host-sampled tiers; for the fused
 window starts, the ``gather_windows`` windows, metadata and IS weights)
 drawn from the reference's own uniforms, at α = 0 as the Pong preset runs
 it (the pin slice 1 holds). The device planes (rings, metadata and
-priority rows) are compared as bytes. A geometry mismatch, a file of
-another kind and a file saved from more than one shard are refused.
+priority rows) are compared as bytes. A geometry mismatch and a file of
+another kind are refused, and so is a file saved from another shard
+count; a file from two shards crosses between the packages' two-shard
+replays, its next draws bitwise.
 """
 
 import numpy as np
@@ -76,7 +78,7 @@ def _ring_cfg(ref: bool, prioritized: bool, device_per: bool, alpha=0.6):
 
 def _build(tier: str, ref: bool, seed: int, dp: int = 1):
     """The tier's buffer in the reference (one-shard CPU mesh unless
-    ``dp``) or the port (on the CPU)."""
+    ``dp``) or the port (on the CPU, ``dp`` shards)."""
     m_mem, m_per, m_seq = ((ref_mem, ref_per, ref_seq) if ref
                            else (mem, per, seq))
     if tier in ("memory", "memory_per"):
@@ -99,7 +101,8 @@ def _build(tier: str, ref: bool, seed: int, dp: int = 1):
         if ref:
             return ref_ds.DeviceSequenceReplay(16, SEQ_LEN, (6, 6, 3),
                                                _mesh(dp), **kw)
-        return ds.DeviceSequenceReplay(16, SEQ_LEN, (6, 6, 3), "cpu", **kw)
+        return ds.DeviceSequenceReplay(16, SEQ_LEN, (6, 6, 3), "cpu",
+                                       num_shards=dp, **kw)
     if tier == "device_per":
         cfg = _ring_cfg(ref, True, True, alpha=0.0)
         if ref:
@@ -108,7 +111,7 @@ def _build(tier: str, ref: bool, seed: int, dp: int = 1):
                 write_chunk=16, num_streams=2)
         return port_dp.DevicePERFrameReplay(cfg, "cpu", FRAME, STACK, GAMMA,
                                        seed=seed, write_chunk=16,
-                                       num_streams=2)
+                                       num_streams=2, num_shards=dp)
     prioritized = tier == "device_ring_trees"
     streams = 1 if prioritized else 2
     cfg = _ring_cfg(ref, prioritized, False)
@@ -118,7 +121,7 @@ def _build(tier: str, ref: bool, seed: int, dp: int = 1):
                                           num_streams=streams)
     return ring.DeviceFrameReplay(cfg, "cpu", FRAME, STACK, GAMMA,
                                   seed=seed, write_chunk=16,
-                                  num_streams=streams)
+                                  num_streams=streams, num_shards=dp)
 
 
 def _sequences(n, seed):
@@ -357,13 +360,74 @@ def test_mismatched_buffers_are_refused(tier, other, match, tmp_path):
         persistence.load_replay(other(), path)
 
 
-@pytest.mark.parametrize("tier", ["device_ring_trees", "device_per",
-                                  "device_sequence_per"])
+SHARDED = ["device_ring_trees", "device_per", "device_sequence_per"]
+
+
+@pytest.mark.parametrize("tier", SHARDED)
 def test_multi_shard_files_are_refused(tier, tmp_path):
-    """A reference file from a two-shard mesh: the port runs one shard."""
+    """A reference file from a two-shard mesh loads only into a two-shard
+    replay (``test_multi_shard_files_cross_at_their_shard_count``): into
+    the port at one shard it is refused, both counts named."""
     path = str(tmp_path / "r2.npz")
     r = _build(tier, ref=True, seed=0, dp=2)
     _feed(tier, [r], 80 if "sequence" not in tier else 6, seed=1)
     ref_persist.save_replay(r, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+    with pytest.raises(ValueError, match="saved from 2 shard.*has 1"):
         persistence.load_replay(_build(tier, ref=False, seed=0), path)
+
+
+def _sharded_next_sample(tier: str, replay, ref: bool) -> dict:
+    """What a two-shard buffer draws next: ``sample()``, or for the fused
+    ring its sample stage from the shared key schedule with no uniforms
+    injected (indices and window starts in the port's global
+    coordinates)."""
+    if tier != "device_per":
+        return _next_sample(tier, replay, ref)
+    keys = sample_key_schedule(seed=0, start_step=replay._samples,
+                               num_shards=2, chain=CHAIN)
+    betas = replay.next_betas(CHAIN)
+    if ref:
+        from test_torch_sharded_replay import _ref_draw, _to_global
+        meta, ws, idx, win = _ref_draw(replay, keys, betas)
+        idx, ws = _to_global(replay, idx, ws)
+    else:
+        from test_torch_sharded_replay import _port_draw
+        meta, win, idx, ws = _port_draw(replay, keys, betas)
+        meta = {k: v.numpy() for k, v in meta.items()}
+        idx, ws, win = idx.numpy(), ws.numpy(), win.numpy()
+    return {"idx": idx, "ws": ws, "win": np.asarray(win).reshape(-1),
+            **{f"meta_{k}": np.asarray(v) for k, v in meta.items()}}
+
+
+@pytest.mark.parametrize("from_ref", [True, False])
+@pytest.mark.parametrize("tier", SHARDED)
+def test_multi_shard_files_cross_at_their_shard_count(tier, from_ref,
+                                                      tmp_path):
+    """A dp=2 file saved by either package loads into the other's
+    two-shard replay: the device planes bitwise, and the next sampled rows
+    (and, on the fused ring, windows and IS weights) bitwise."""
+    torch.set_num_threads(1)
+    path = str(tmp_path / "d2.npz")
+    src = _build(tier, ref=from_ref, seed=0, dp=2)
+    n = 80 if "sequence" not in tier else 6
+    _feed(tier, [src], n, seed=1)
+    if tier == "device_per":
+        _feed(tier, [src], 100, seed=3)      # stream 1 too: both shards
+    (ref_persist if from_ref else persistence).save_replay(src, path)
+    dst = _build(tier, ref=not from_ref, seed=999, dp=2)
+    (persistence if from_ref else ref_persist).load_replay(dst, path)
+    got, want = ((dst, src) if from_ref else (src, dst))
+    if tier == "device_per":
+        plane = {k: np.asarray(got.dstate[k]) for k in ("action", "prio")}
+        ref_plane = {k: np.asarray(getattr(want.dstate, k))
+                     for k in ("action", "prio")}
+        _assert_equal(plane, ref_plane)
+        rows = got.dstate["frames"].numpy().reshape(2, got.shard_rows, -1)
+        np.testing.assert_array_equal(
+            rows[:, :-1], np.asarray(want.dstate.frames).reshape(
+                2, got.shard_rows, -1)[:, :-1])
+    else:
+        _assert_equal(_device_planes(tier, got, False),
+                      _device_planes(tier, want, True))
+    _assert_equal(_sharded_next_sample(tier, got, False),
+                  _sharded_next_sample(tier, want, True))

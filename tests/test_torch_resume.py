@@ -157,7 +157,7 @@ def test_resumed_dispatches_continue_an_unbroken_run(path, tmp_path):
     for k, v in _device_state(path, ra).items():
         assert torch.equal(v, _device_state(path, rc)[k]), k
     if path == "r2d2_ring":
-        np.testing.assert_array_equal(ra.tree.tree, rc.tree.tree)
+        np.testing.assert_array_equal(ra.trees[0].tree, rc.trees[0].tree)
 
 
 # -- the reference's loop tests, through the port ---------------------------

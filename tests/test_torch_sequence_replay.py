@@ -148,7 +148,7 @@ def test_device_sequence_replay_matches_reference(prioritized):
         np.testing.assert_array_equal(port.dmeta[k].numpy(),
                                       np.asarray(ref.dmeta[k]), err_msg=k)
     if prioritized:
-        np.testing.assert_array_equal(port.tree.tree, ref.trees[0].tree)
+        np.testing.assert_array_equal(port.trees[0].tree, ref.trees[0].tree)
         assert port.max_priority == ref.max_priority
     assert len(port) == len(ref) == 10
     assert port.steps_added == ref.steps_added == len(emitted)

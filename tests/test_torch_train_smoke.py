@@ -65,10 +65,10 @@ def test_backend_cuda_raises_without_a_card():
               *RECIPE, "train.total_steps=10"])
 
 
-# settings the port refused until it had them (ROADMAP A4, A12): each
-# now trains through the same entry point
+# settings the port refused until it had them (ROADMAP A4, A12, A14a):
+# each now trains through the same entry point
 LIFTED = {"net.kind=r2d2 train.learn_metrics=true",
-          "train.optimizer=rmsprop", "train.learn_metrics=true"}
+          "train.optimizer=rmsprop", "train.learn_metrics=true", "mesh.dp=2"}
 
 
 @pytest.mark.parametrize("override", [
@@ -77,9 +77,9 @@ LIFTED = {"net.kind=r2d2 train.learn_metrics=true",
     "train.profile_port=6006", "mesh.num_processes=2", "mesh.dp=2",
     "train.optimizer=rmsprop", "train.learn_metrics=true"])
 def test_out_of_slice_configs_are_refused(override):
-    """``train.profile_port`` (A9) and more than one process or shard
-    (A14) are refused by name; the ``LIFTED`` settings run (the r2d2 one
-    on the preset's small recurrent net)."""
+    """``train.profile_port`` (A9) and more than one process (A14b) are
+    refused by name; the ``LIFTED`` settings run (the r2d2 one on the
+    preset's small recurrent net; ``mesh.dp=2`` on two replay shards)."""
     argv = ["train", "--preset", "pong", "--backend", "cpu",
             "--log-every", "5", "--set", *RECIPE, "train.total_steps=10",
             *override.split()]
