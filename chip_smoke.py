@@ -47,7 +47,9 @@ Phases (any failure exits non-zero and prints no result line):
    with the plain loss and with the fused loss kernels, then each traced
    with ``torch.profiler`` over four (the port's kernels' device time per
    launch read from the fused-loss trace, beside an empty kernel's time in
-   a profiler window of its own); then the same small fused
+   a profiler window of its own); where to draw the sampler's uniforms
+   (``uniforms_for_keys`` on the host or on the card: ms per call and per
+   grad step, in turns); then the same small fused
    dispatch on the card and on the CPU (whose path the CPU tests hold to
    the JAX reference), compared;
 6. host-sampled path — ``main train --preset breakout --backend cuda`` with
@@ -216,13 +218,35 @@ Phases (any failure exits non-zero and prints no result line):
    threefry's share, B1 and B2 per launch; the synced solver's greedy
    eval beats the random policy's. Printed: env and grad steps/s, ms per
    superstep;
+15. the sharded ring, ``mesh.dp = 8`` — 15a: ``main train --preset pong
+   --backend cuda --set mesh.dp=8`` at full width (bf16 Nature CNN, batch
+   512 = 64 per shard, the uncut 1M-row ring as 8 shards of 125,000 rows,
+   device PER α = 0, chain 8), learn_start cut to 8,192, 201 grad steps;
+   grad steps/s beside phase 4's and a launch census; phase 5's chain-8
+   dispatch at D = 1 and D = 8 in turns; then a small fused dispatch at
+   D = 8 on the card and on the CPU with no uniforms injected (8 streams
+   filling the shards alike, and 1 stream filling them unequally): sampled
+   rows, window starts, B1 windows, metadata, IS weights, ring bytes and
+   priorities bitwise (the weights within 2 ulp where the shards' masses
+   differ: ``pow`` may round its own way on each device); 15c: 15a's
+   replay saved (8.2 GB) and loaded into a fresh D = 8 replay, its state
+   and next draws bitwise, save and load seconds; 15b: B1 and B2 at the
+   D = 8 shapes on a ring of that geometry, bitwise against the plain
+   versions, timed beside the D = 1 shapes on the same ring; 15d: Anakin
+   at D = 8 (phase 14's pin configuration, 2 envs per shard) bitwise
+   against its host-driven twin;
 9. the ``kernels`` JSON line (each kernel's launches on every path in
    ``launches_by_path``), the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, 8c, 10, 11,
-11b, 11c, 12b, 13, 13b and 14) sets all kernel launch counters to 0 just
-before it and reads them just after.
+11b, 11c, 12b, 13, 13b, 14 and 15a) sets all kernel launch counters to 0
+just before it and reads them just after.
+
+``python3 chip_smoke.py --phase5 DIR [DIR ...]`` runs phase 5's chained
+dispatch from each checkout DIR of the repository in turn (parent,
+change, change, parent compares two trees on one card in one call) and
+prints its ms per grad step.
 """
 
 from __future__ import annotations
@@ -791,7 +815,7 @@ def time_uniform_draws(torch, solver, replay, chain: int,
     elementwise launches). The numbers are the same bits either way
     (checked); host ms per call over 64 calls ending in a synchronize, and
     ms per chain-8 grad step with each, in turns (host, card, card,
-    host)."""
+    host, twice)."""
     from functools import partial
 
     from distributed_deep_q_tpu_torch.replay.device_per import (
@@ -807,7 +831,7 @@ def time_uniform_draws(torch, solver, replay, chain: int,
         out[f"{where}_ms_per_call"] = time_ms(
             torch, lambda i: uniforms_for_keys(keys, 512, dev, on_device))[1]
     grad: dict[str, list[float]] = {"host": [], "card": []}
-    for where in ("host", "card", "card", "host"):
+    for where in ("host", "card", "card", "host") * 2:
         solver.draw_uniforms = partial(uniforms_for_keys,
                                        on_device=where == "card")
         grad[where].append(time_chain(torch, solver, replay, chain,
@@ -826,6 +850,10 @@ import json, torch, chip_smoke
 from distributed_deep_q_tpu_torch import config
 from distributed_deep_q_tpu_torch.replay.device_per import DevicePERFrameReplay
 from distributed_deep_q_tpu_torch.solver import Solver
+# the empty kernel launched once before phase 5's profiler windows, as the
+# whole run has by then (a fresh process's first launch of it goes unseen
+# by the profiler)
+chip_smoke.time_ms(torch, lambda i: torch.cuda._sleep(0))
 out = chip_smoke.run_chained(torch, config, Solver, DevicePERFrameReplay)
 print(json.dumps({k: out[k] for k in ("ms_per_grad_step",
                                       "fused_loss_ms_per_grad_step")}))
@@ -2934,21 +2962,46 @@ D8_SHARD_ROWS = D8_SLOT_PAD + 1
 def sharded_main_path(torch, cli_main, counters, train_mod) -> dict:
     """15a: ``main train --preset pong --backend cuda --set mesh.dp=8`` in
     process, its launches counted; the solver and the replay it built kept
-    (through ``restore_for_resume``, which the loop calls with both), then
-    ms per chain-8 grad step on them (24 dispatches after 2, host clock to
-    a synchronize) and a ``launch_census`` of 4 dispatches."""
+    (through ``restore_for_resume``, which the loop calls with both), and a
+    ``launch_census`` of 4 chain-8 dispatches on them."""
     with capturing(train_mod, "restore_for_resume",
                    lambda args, out: args[1:3]) as pairs:
         summary, launches, record = run_cli(cli_main, counters, D8_ARGV,
                                             "chip_smoke_pong_d8.jsonl")
     (solver, replay), = pairs
-    ms, _ = time_chain(torch, solver, replay, 8, 24)
     census = trace_dispatches(torch, solver, replay, 8, 4)
     return {"summary": summary, "launches": launches, "record": record,
             "solver": solver, "replay": replay,
             "shards": [solver.num_shards, replay.num_shards,
                        replay.subs_per_shard, replay.slot_cap],
-            "ms_per_grad_step_chain8": ms, "census": census}
+            "census": census}
+
+
+def shard_cost(torch, config, Solver, DevicePERFrameReplay) -> dict:
+    """What the shard axis costs the learner: phase 5's chain-8 dispatch
+    (the Pong preset, plain loss, the 1M-row ring filled with 30,000 rows)
+    at D = 1 and at D = 8, two solvers and replays from the same weights
+    and rows, timed in turns (1, 8, 8, 1): ms per grad step, host clock to
+    a synchronize."""
+    pairs = {}
+    for d in (1, D8):
+        cfg = config.pong_config()
+        cfg.mesh.backend, cfg.mesh.dp = "cuda", d
+        cfg.env.kind, cfg.env.id = "signal_atari", "signal"
+        cfg.net.num_actions = 4
+        s = Solver(cfg)
+        r = DevicePERFrameReplay(cfg.replay, s.device, (84, 84),
+                                 cfg.env.stack, cfg.train.gamma,
+                                 write_chunk=cfg.replay.write_chunk,
+                                 num_shards=d)
+        fill_replay(r, 30_000)
+        pairs[d] = (s, r)
+    times: dict[int, list[float]] = {1: [], D8: []}
+    for d in (1, D8, D8, 1):
+        times[d].append(time_chain(torch, *pairs[d], 8, 24)[0])
+    del pairs
+    return {"d1_ms_per_grad_step": times[1],
+            "d8_ms_per_grad_step": times[D8]}
 
 
 def sharded_cross_device_check(torch, config, Solver, DevicePERFrameReplay,
@@ -2977,13 +3030,17 @@ def sharded_cross_device_check(torch, config, Solver, DevicePERFrameReplay,
                                  write_chunk=16, num_streams=streams,
                                  num_shards=D8)
         rng = np.random.default_rng(3)
-        for c in range(96):
-            done = np.zeros(13, bool)
+        for c in range(96 if streams > 1 else 40):
+            # 8 streams: 13-row episodes, 12 to a shard (every shard full);
+            # 1 stream: 7- to 17-row episodes, one shard after the other,
+            # 465 rows in all (the shards' fills and masses differ)
+            n = 13 if streams > 1 else 7 + (5 * c) % 11
+            done = np.zeros(n, bool)
             done[-1] = True
             r.add_batch({
-                "frame": rng.integers(0, 256, (13, 52, 52), dtype=np.uint8),
-                "action": rng.integers(0, 4, 13).astype(np.int32),
-                "reward": rng.standard_normal(13).astype(np.float32),
+                "frame": rng.integers(0, 256, (n, 52, 52), dtype=np.uint8),
+                "action": rng.integers(0, 4, n).astype(np.int32),
+                "reward": rng.standard_normal(n).astype(np.float32),
                 "done": done}, stream=c % streams)
         return s, r
 
@@ -3659,15 +3716,18 @@ def main() -> int:
     log(f"[15a] (solver shards, replay shards, sub-rings per shard, rows "
         f"per sub-ring) {d8['shards']}; launches: {json.dumps(d8_launches)}")
     log(f"[15a] grad steps/s {d8_summary['grad_steps_per_s']} (phase 4, "
-        f"one shard: {summary['grad_steps_per_s']}); ms per chain-8 grad "
-        f"step {d8['ms_per_grad_step_chain8']} (phase 5, one shard: "
-        f"{chained['ms_per_grad_step']}); census of 4 dispatches: "
-        f"{json.dumps(d8['census'])}")
+        f"one shard: {summary['grad_steps_per_s']}); census of 4 chain-8 "
+        f"dispatches: {json.dumps(d8['census'])}")
     check_path(d8_summary, D8_GRAD_STEPS)
     assert d8["shards"][:2] == [D8, D8], d8["shards"]
     assert d8_launches["gather_windows"] >= d8_summary["grad_steps"], \
         d8_launches
     assert d8_launches["scatter_rows"] > 0, d8_launches
+    cost = shard_cost(torch, config, Solver, DevicePERFrameReplay)
+    log(f"[15a] ms per chain-8 grad step, D=1 and D=8 in turns: "
+        f"{json.dumps(cost)}")
+    gc.collect()
+    torch.cuda.empty_cache()
     d8_cross = sharded_cross_device_check(torch, config, Solver,
                                           DevicePERFrameReplay, learner_mod)
     log(f"[15a] card vs CPU at D=8, no uniforms injected: "

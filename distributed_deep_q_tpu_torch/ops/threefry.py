@@ -12,16 +12,20 @@ batch shape, as ``vmap`` over the jax function does:
 - ``fold_in(key, data)``    — ``jax.random.fold_in(key, data)``;
 - ``uniform(key)``          — scalar ``jax.random.uniform(key)`` (float32);
 - ``uniforms(key, n)``      — ``jax.random.uniform(key, (n,))`` → ``[..., n]``
-  (the fused samplers' draws);
+  (the fused samplers' draws); ``uniforms_host`` the same from numpy keys,
+  computed by numpy on the host;
 - ``randint(key, lo, hi)``  — scalar ``jax.random.randint(key, (), lo, hi)``
   (int32), with jax's two-draw construction.
 
 This is plain tensor arithmetic, not a kernel: the reference leaves this
-work to XLA. One hash is 20 rounds of a few elementwise ops each.
+work to XLA. One hash is 20 rounds of a few elementwise ops each; the hash
+uses only operators numpy arrays share, so ``uniforms_host`` runs it on
+numpy int64 arrays.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -35,8 +39,9 @@ def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
 def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
                  x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash (20 rounds) of the counter pair ``(x0, x1)``
-    under the key ``(k0, k1)``; all int64 tensors holding uint32 words,
-    broadcast together. Returns the two output words."""
+    under the key ``(k0, k1)``; all int64 tensors (or all int64 numpy
+    arrays) holding uint32 words, broadcast together. Returns the two
+    output words."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     a = (x0 + ks[0]) & _M32
     b = (x1 + ks[1]) & _M32
@@ -106,6 +111,19 @@ def uniforms(key: torch.Tensor, n: int) -> torch.Tensor:
     a, b = threefry2x32(key[..., 0, None], key[..., 1, None],
                         torch.zeros_like(i), i)
     return _bits_to_unit(a ^ b)
+
+
+def uniforms_host(key: np.ndarray, n: int) -> np.ndarray:
+    """``uniforms`` for numpy keys (``[..., 2]``, uint32 words), computed by
+    numpy on the host: the same hash and mantissa step, bit for bit.
+    Returns float32 ``[..., n]``."""
+    k = np.asarray(key).astype(np.int64)
+    i = np.arange(int(n), dtype=np.int64)
+    a, b = threefry2x32(k[..., 0, None], k[..., 1, None], np.zeros_like(i),
+                        i)
+    bits = ((a ^ b) >> 9) | 0x3F800000
+    f = bits.astype(np.int32).view(np.float32) - np.float32(1.0)
+    return np.maximum(f, np.float32(0.0))
 
 
 def randint(key: torch.Tensor, lo: int, hi: int) -> torch.Tensor:

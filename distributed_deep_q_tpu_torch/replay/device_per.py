@@ -57,13 +57,15 @@ def uniforms_for_keys(keys: np.ndarray, per_shard: int,
     """``jax.random.uniform(key, (per_shard,))`` for every key of ``keys``
     (``[..., 2]`` uint32): float32 ``[..., per_shard]`` in [0, 1) on
     ``device``, bitwise the reference's draws. The hash is integer
-    arithmetic, so where it runs does not change the numbers: on the host
-    by default (then one pinned copy), or ``on_device`` (the keys copied,
-    then about 170 elementwise launches)."""
-    k = torch.from_numpy(np.asarray(keys, np.uint32).astype(np.int64))
+    arithmetic, so where it runs does not change the numbers: by numpy on
+    the host by default (then one pinned copy), or ``on_device`` (the keys
+    copied, then about 170 elementwise launches), which the card measured
+    slower (PERF.md)."""
+    keys = np.asarray(keys, np.uint32)
     if on_device:
-        return threefry.uniforms(to_device(k.numpy(), device), per_shard)
-    u = threefry.uniforms(k, per_shard)
+        return threefry.uniforms(
+            to_device(keys.astype(np.int64), device), per_shard)
+    u = torch.from_numpy(threefry.uniforms_host(keys, per_shard))
     if device.type == "cuda":
         return u.pin_memory().to(device, non_blocking=True)
     return u
@@ -94,28 +96,27 @@ def valid_mask(done: torch.Tensor, boundary: torch.Tensor,
 
 
 def build_cdf(prio_masked: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(inclusive CDF, total mass) over the masked priorities' last axis —
-    one per shard for ``[D, cap_local]`` — built once per chunk (sampling
-    sees chunk-start priorities)."""
+    """Each shard's (inclusive CDF, total mass) over its masked priorities
+    ``[D, cap_local]`` — built once per chunk (sampling sees chunk-start
+    priorities)."""
     cdf = torch.cumsum(prio_masked, -1)
-    return cdf, cdf[..., -1]
+    return cdf, cdf[:, -1]
 
 
 def draw_from_cdf(u: torch.Tensor, cdf: torch.Tensor,
                   prio_masked: torch.Tensor, mass: torch.Tensor,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Inverse-CDF draws ∝ p from uniforms ``u``: (row indices, p_i/mass),
-    both shaped like ``u``. ``cdf``/``prio_masked`` are ``[..., L]`` with
-    the shard dims in front (none for one shard), ``mass`` is ``[...]``,
-    and ``u`` starts with the same shard dims: each shard draws from its
-    own CDF, indices local to it."""
-    lead = tuple(cdf.shape[:-1])
-    x = u * mass.reshape(lead + (1,) * (u.dim() - len(lead)))
-    idx = torch.searchsorted(cdf, x.reshape(lead + (-1,)), right=True)
+    """Inverse-CDF draws ∝ p, each shard from its own CDF: ``cdf`` and
+    ``prio_masked`` ``[D, L]``, ``mass`` ``[D]``, uniforms ``u`` ``[D,
+    ...]``. Returns (shard-local row indices, p_i/mass), both shaped like
+    ``u``."""
+    d = cdf.shape[0]
+    x = (u * mass.view((d,) + (1,) * (u.dim() - 1))).reshape(d, -1)
+    idx = torch.searchsorted(cdf, x, right=True)
     idx = idx.clamp(0, prio_masked.shape[-1] - 1)
-    p = torch.gather(prio_masked, -1, idx) / torch.clamp(
-        mass, min=1e-12).reshape(lead + (1,))
-    return idx.reshape(u.shape), p.reshape(u.shape)
+    p = torch.gather(prio_masked, 1, idx) / torch.clamp(
+        mass, min=1e-12)[:, None]
+    return idx.view(u.shape), p.view(u.shape)
 
 
 def stack_rows_to_obs(rows: torch.Tensor,
@@ -148,19 +149,15 @@ def stratified_is_weights(p: torch.Tensor, mass: torch.Tensor,
                           num_shards: int) -> torch.Tensor:
     """IS weights for the realized per-shard stratified draw, normalized
     per chain row: P(i) = p_i/(D·mass_s), N = the sampleable count. ``p``
-    is ``[chain, B]`` (one shard, ``mass`` a scalar) or ``[D, chain, B/D]``
-    (``mass`` ``[D]``), ``betas`` [chain]. A shard with zero mass gets zero
-    weights (its priority scatter is pointed out of range); that mask
-    comes before the max, which runs over every shard (the reference's
-    ``pmax``), so a dead shard cannot crush the live ones' weights."""
+    ``[D, chain, B/D]``, ``mass`` ``[D]``, ``betas`` [chain]. A shard with
+    zero mass gets zero weights (its priority scatter is pointed out of
+    range); that mask comes before the max, which runs over every shard
+    (the reference's ``pmax``), so a dead shard cannot crush the live
+    ones' weights."""
     pr = torch.clamp(p / num_shards, min=1e-12)
     w = (n_glob * pr) ** (-betas[:, None])
-    if p.dim() == 3:
-        w = torch.where(mass[:, None, None] > 0, w, torch.zeros_like(w))
-        w_max = w.amax(dim=(0, 2))[None, :, None]
-    else:
-        w = torch.where(mass > 0, w, torch.zeros_like(w))
-        w_max = w.amax(dim=1)[:, None]
+    w = torch.where(mass[:, None, None] > 0, w, torch.zeros_like(w))
+    w_max = w.amax(dim=(0, 2), keepdim=True)
     return (w / torch.clamp(w_max, min=1e-12)).float()
 
 

@@ -103,6 +103,10 @@ def test_shaped_uniform_matches_jax_bitwise(keys, n):
     np.testing.assert_array_equal(
         threefry.uniforms(tk[:6].view(2, 3, 2), n).reshape(6, n).numpy(),
         got[:6].numpy())
+    # and numpy on the host draws the same bits from the uint32 words
+    host = threefry.uniforms_host(ref.astype(np.uint32), n)
+    assert host.dtype == np.float32
+    np.testing.assert_array_equal(host.view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.parametrize("on_device", [False, True])
