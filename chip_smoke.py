@@ -809,31 +809,35 @@ def run_chained(torch, config, Solver, DevicePERFrameReplay) -> dict:
 
 def time_uniform_draws(torch, solver, replay, chain: int,
                        dispatches: int) -> dict:
-    """Where to draw the fused sampler's uniforms (``uniforms_for_keys``):
-    one chain-8 dispatch's [8, 512] from its keys on the host (then one
-    pinned copy) or on the card (the keys copied, then the hash's
-    elementwise launches). The numbers are the same bits either way
-    (checked); host ms per call over 64 calls ending in a synchronize, and
-    ms per chain-8 grad step with each, in turns (host, card, card,
-    host, twice)."""
-    from functools import partial
-
+    """Where to draw the fused sampler's uniforms: one chain-8 dispatch's
+    [8, 512] from its keys on the host (``uniforms_for_keys``: numpy, then
+    one pinned copy) or on the card (the keys copied, then
+    ``ops/threefry.py``'s hash in torch, ~170 elementwise launches). The
+    numbers are the same bits either way (checked); host ms per call over
+    64 calls ending in a synchronize, and ms per chain-8 grad step with
+    each, in turns (host, card, card, host, twice)."""
+    from distributed_deep_q_tpu_torch.ops import threefry
     from distributed_deep_q_tpu_torch.replay.device_per import (
         uniforms_for_keys)
+    from distributed_deep_q_tpu_torch.replay.device_ring import to_device
     from distributed_deep_q_tpu_torch.solver import sample_key_schedule
+
+    def on_card(keys, per_shard, device):
+        return threefry.uniforms(
+            to_device(np.asarray(keys, np.uint32).astype(np.int64), device),
+            per_shard)
 
     dev = solver.device
     keys = sample_key_schedule(0, 0, 1, chain).reshape(-1, 2)
-    equal = bool(torch.equal(uniforms_for_keys(keys, 512, dev),
-                             uniforms_for_keys(keys, 512, dev, True)))
-    out = {"bitwise_equal": equal}
-    for where, on_device in (("host", False), ("card", True)):
+    draws = {"host": uniforms_for_keys, "card": on_card}
+    out = {"bitwise_equal": bool(torch.equal(draws["host"](keys, 512, dev),
+                                             draws["card"](keys, 512, dev)))}
+    for where, draw in draws.items():
         out[f"{where}_ms_per_call"] = time_ms(
-            torch, lambda i: uniforms_for_keys(keys, 512, dev, on_device))[1]
+            torch, lambda i: draw(keys, 512, dev))[1]
     grad: dict[str, list[float]] = {"host": [], "card": []}
     for where in ("host", "card", "card", "host") * 2:
-        solver.draw_uniforms = partial(uniforms_for_keys,
-                                       on_device=where == "card")
+        solver.draw_uniforms = draws[where]
         grad[where].append(time_chain(torch, solver, replay, chain,
                                       dispatches)[0])
     solver.draw_uniforms = uniforms_for_keys

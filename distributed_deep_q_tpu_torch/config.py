@@ -313,13 +313,15 @@ class MeshConfig:
 
     ``backend='cuda'`` runs on CUDA device 0 and raises when there is no
     card; ``backend='cpu'`` runs on the host (the tests' backend). The port
-    runs in one process on one device: the mesh fields below are kept so a
-    reference command line parses, and anything but one shard is refused.
+    runs in one process on one device; ``dp`` replay shards ride a shard
+    axis on it (``parallel/mesh.py``). The other mesh fields are kept so a
+    reference command line parses; a model axis and more than one process
+    are refused.
     """
 
     backend: str = "cuda"  # cuda | cpu
     num_fake_devices: int = 8  # reference CPU-mesh field; unused here
-    dp: int = 0  # shards on the data-parallel axis; the port runs exactly 1
+    dp: int = 0  # replay shards D; 0 = one per device, the port's one
     model: int = 1  # model-parallel axis; the port runs exactly 1
     # multi-process learner: not ported yet (the port refuses
     # num_processes > 1)

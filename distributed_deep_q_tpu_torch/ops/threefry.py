@@ -11,9 +11,9 @@ batch shape, as ``vmap`` over the jax function does:
 - ``split(key, n)``         — ``jax.random.split(key, n)`` → ``[..., n, 2]``;
 - ``fold_in(key, data)``    — ``jax.random.fold_in(key, data)``;
 - ``uniform(key)``          — scalar ``jax.random.uniform(key)`` (float32);
-- ``uniforms(key, n)``      — ``jax.random.uniform(key, (n,))`` → ``[..., n]``
-  (the fused samplers' draws); ``uniforms_host`` the same from numpy keys,
-  computed by numpy on the host;
+- ``uniforms(key, n)``      — ``jax.random.uniform(key, (n,))``, ``[..., n]``
+  (the fused samplers' draws); ``uniforms_host`` the same from numpy
+  keys, computed by numpy on the host;
 - ``randint(key, lo, hi)``  — scalar ``jax.random.randint(key, (), lo, hi)``
   (int32), with jax's two-draw construction.
 

@@ -8,8 +8,9 @@ The reference compiles each step into one XLA program under ``shard_map``
 over a ``dp`` mesh: each shard takes the mean loss of its B/D rows and the
 gradients are ``pmean``'d. The port runs eagerly on one device and takes
 one step over the whole batch of B rows, D shards' draws concatenated:
-at equal B/D per shard that is the same mean, up to float order. The train state is two ``nn.Module``s (θ, θ⁻) plus plain dicts of
-tensors (the Adam state) and a step counter, all updated in place.
+at equal B/D per shard that is the same mean, up to float order. The
+train state is two ``nn.Module``s (θ, θ⁻) plus plain dicts of tensors (the
+Adam state) and a step counter, all updated in place.
 
 What the port computes differently from the reference, on purpose:
 

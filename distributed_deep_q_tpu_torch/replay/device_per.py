@@ -52,19 +52,13 @@ from distributed_deep_q_tpu_torch.replay.device_ring import (
 
 
 def uniforms_for_keys(keys: np.ndarray, per_shard: int,
-                      device: torch.device,
-                      on_device: bool = False) -> torch.Tensor:
+                      device: torch.device) -> torch.Tensor:
     """``jax.random.uniform(key, (per_shard,))`` for every key of ``keys``
     (``[..., 2]`` uint32): float32 ``[..., per_shard]`` in [0, 1) on
     ``device``, bitwise the reference's draws. The hash is integer
-    arithmetic, so where it runs does not change the numbers: by numpy on
-    the host by default (then one pinned copy), or ``on_device`` (the keys
-    copied, then about 170 elementwise launches), which the card measured
-    slower (PERF.md)."""
-    keys = np.asarray(keys, np.uint32)
-    if on_device:
-        return threefry.uniforms(
-            to_device(keys.astype(np.int64), device), per_shard)
+    arithmetic, so where it runs does not change the numbers; it runs by
+    numpy on the host, then one pinned copy, which the card measured
+    cheaper than its ~170 elementwise launches there (PERF.md §6)."""
     u = torch.from_numpy(threefry.uniforms_host(keys, per_shard))
     if device.type == "cuda":
         return u.pin_memory().to(device, non_blocking=True)

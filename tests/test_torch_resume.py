@@ -48,9 +48,10 @@ FRAME = (36, 36)
 # -- a resumed run continues an unbroken one --------------------------------
 
 
-def _fused_cfg(seed):
+def _fused_cfg(seed, dp=1):
     cfg = port_config.Config()
     cfg.mesh.backend = "cpu"
+    cfg.mesh.dp = dp
     cfg.net = port_config.NetConfig(kind="nature_cnn", num_actions=4,
                                     frame_shape=FRAME,
                                     compute_dtype="float32")
@@ -62,9 +63,10 @@ def _fused_cfg(seed):
     return cfg
 
 
-def _r2d2_cfg(seed):
+def _r2d2_cfg(seed, dp=1):
     cfg = port_config.Config()
     cfg.mesh.backend = "cpu"
+    cfg.mesh.dp = dp
     cfg.net = port_config.NetConfig(kind="r2d2", num_actions=4, lstm_size=8,
                                     frame_shape=FRAME, stack=4,
                                     compute_dtype="float32")
@@ -76,23 +78,24 @@ def _r2d2_cfg(seed):
     return cfg
 
 
-def _pair(path, seed):
-    """(solver, replay) for ``path``, filled by the same stream whatever
-    the replay's seed. The train seed is the run's (the fused key
-    schedule derives from it), so it stays 0."""
+def _pair(path, seed, dp=1):
+    """(solver, replay) for ``path`` on ``dp`` shards, filled by the same
+    stream whatever the replay's seed. The train seed is the run's (the
+    fused key schedule derives from it), so it stays 0."""
     rng = np.random.default_rng(0)
     if path == "fused_per":
-        s = Solver(_fused_cfg(0), backend="cpu")
+        s = Solver(_fused_cfg(0, dp), backend="cpu")
         r = DevicePERFrameReplay(s.config.replay, "cpu", FRAME, 4, 0.99,
-                                 seed=seed, write_chunk=16)
+                                 seed=seed, write_chunk=16, num_shards=dp)
         for i in range(300):
             r.add(rng.integers(0, 255, FRAME, dtype=np.uint8),
                   int(rng.integers(4)), float(rng.standard_normal()),
                   i % 11 == 10)
         return s, r
-    s = SequenceSolver(_r2d2_cfg(0), backend="cpu")
+    s = SequenceSolver(_r2d2_cfg(0, dp), backend="cpu")
     r = DeviceSequenceReplay(20, 8, FRAME + (4,), "cpu", 8, prioritized=True,
-                             alpha=0.6, seed=seed, write_chunk=3)
+                             alpha=0.6, seed=seed, write_chunk=3,
+                             num_shards=dp)
     for _ in range(24):
         mask = (np.arange(8) < rng.integers(3, 9)).astype(np.float32)
         r.add_sequence({
@@ -123,17 +126,31 @@ def _device_state(path, replay):
 
 @pytest.mark.parametrize("path", ["fused_per", "r2d2_fused", "r2d2_ring"])
 def test_resumed_dispatches_continue_an_unbroken_run(path, tmp_path):
+    _check_resume(path, tmp_path, dp=1)
+
+
+@pytest.mark.parametrize("path", ["fused_per", "r2d2_fused", "r2d2_ring"])
+def test_resumed_dispatches_continue_an_unbroken_run_at_dp2(path,
+                                                            tmp_path):
+    """A checkpoint and a replay file saved at two shards restore at two:
+    θ is whole either way; the key schedule (anchored on the restored
+    step) and the replay carry the shards."""
+    _check_resume(path, tmp_path, dp=2)
+
+
+def _check_resume(path, tmp_path, dp):
     torch.set_num_threads(1)
-    a, ra = _pair(path, seed=0)
+    a, ra = _pair(path, seed=0, dp=dp)
     for _ in range(4):
         _dispatch(path, a, ra)
 
-    b, rb = _pair(path, seed=0)
+    b, rb = _pair(path, seed=0, dp=dp)
     for _ in range(2):
         _dispatch(path, b, rb)
     Checkpointer(str(tmp_path / "ck")).save(b.state, wait=True)
     save_replay(rb, str(tmp_path / "r.npz"))
-    c, rc = _pair(path, seed=7)
+    c, rc = _pair(path, seed=7, dp=dp)
+    assert rc.num_shards == dp
     with torch.no_grad():           # the restore must overwrite all of it
         for p in c.state.net.parameters():
             p.normal_()
@@ -157,7 +174,8 @@ def test_resumed_dispatches_continue_an_unbroken_run(path, tmp_path):
     for k, v in _device_state(path, ra).items():
         assert torch.equal(v, _device_state(path, rc)[k]), k
     if path == "r2d2_ring":
-        np.testing.assert_array_equal(ra.trees[0].tree, rc.trees[0].tree)
+        for ta, tc in zip(ra.trees, rc.trees):
+            np.testing.assert_array_equal(ta.tree, tc.tree)
 
 
 # -- the reference's loop tests, through the port ---------------------------

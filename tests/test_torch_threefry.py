@@ -109,21 +109,24 @@ def test_shaped_uniform_matches_jax_bitwise(keys, n):
     np.testing.assert_array_equal(host.view(np.int32), want.view(np.int32))
 
 
-@pytest.mark.parametrize("on_device", [False, True])
-def test_fused_sampler_uniforms_are_the_references(on_device):
-    """``uniforms_for_keys`` over a ``[D, chain, 2]`` key schedule draws
-    what the reference's samplers draw, ``jax.random.uniform(keys[s, i],
-    (B/D,))``, bitwise, wherever the hash runs."""
+def test_fused_sampler_uniforms_are_the_references():
+    """``uniforms_for_keys`` (numpy on the host) over a ``[D, chain, 2]``
+    key schedule draws what the reference's samplers draw,
+    ``jax.random.uniform(keys[s, i], (B/D,))``, bitwise; so does the
+    torch hash on the same keys (the draw on the card)."""
     from distributed_deep_q_tpu_torch.replay.device_per import (
         uniforms_for_keys)
     from distributed_deep_q_tpu_torch.solver import sample_key_schedule
 
     keys = sample_key_schedule(seed=5, start_step=40, num_shards=2, chain=3)
-    got = uniforms_for_keys(keys, 33, torch.device("cpu"), on_device)
-    assert got.shape == (2, 3, 33)
+    got = uniforms_for_keys(keys, 33, torch.device("cpu"))
+    on_torch = threefry.uniforms(torch.from_numpy(keys.astype(np.int64)), 33)
+    assert got.shape == on_torch.shape == (2, 3, 33)
     for s in range(2):
         for i in range(3):
             want = np.asarray(jax.random.uniform(jnp.asarray(keys[s, i]),
-                                                 (33,)))
-            np.testing.assert_array_equal(want.view(np.int32),
-                                          got[s, i].numpy().view(np.int32))
+                                                 (33,))).view(np.int32)
+            np.testing.assert_array_equal(got[s, i].numpy().view(np.int32),
+                                          want)
+            np.testing.assert_array_equal(
+                on_torch[s, i].numpy().view(np.int32), want)
