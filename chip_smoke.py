@@ -222,12 +222,13 @@ Phases (any failure exits non-zero and prints no result line):
    --backend cuda --set mesh.dp=8`` at full width (bf16 Nature CNN, batch
    512 = 64 per shard, the uncut 1M-row ring as 8 shards of 125,000 rows,
    device PER α = 0, chain 8), learn_start cut to 8,192, 201 grad steps;
-   grad steps/s beside phase 4's and a launch census; phase 5's chain-8
-   dispatch at D = 1 and D = 8 in turns; then a small fused dispatch at
-   D = 8 on the card and on the CPU with no uniforms injected (8 streams
-   filling the shards alike, and 1 stream filling them unequally): sampled
-   rows, window starts, B1 windows, metadata, IS weights, ring bytes and
-   priorities bitwise (the weights within 2 ulp where the shards' masses
+   grad steps/s beside phase 4's and, in turns, the same loop at D = 1
+   and D = 8 (1, 8, 8, 1) with its ``StepTimer`` phases, and a launch
+   census; phase 5's chain-8 dispatch at D = 1 and D = 8 in turns; then
+   a small fused dispatch at D = 8 on the card and on the CPU with no
+   uniforms injected (8 streams filling the shards alike, and 1 stream
+   filling them unequally): sampled rows, window starts, B1 windows,
+   metadata, IS weights, ring bytes and priorities bitwise (the weights within 2 ulp where the shards' masses
    differ: ``pow`` may round its own way on each device); 15c: 15a's
    replay saved (8.2 GB) and loaded into a fresh D = 8 replay, its state
    and next draws bitwise, save and load seconds; 15b: B1 and B2 at the
@@ -2971,22 +2972,39 @@ D8_SLOT_PAD = D8_SLOT_CAP + WINDOW - 1
 D8_SHARD_ROWS = D8_SLOT_PAD + 1
 
 
+LOOP_KEYS = ("grad_steps_per_s", "time_dispatch_ms", "time_step_ms")
+
+
 def sharded_main_path(torch, cli_main, counters, train_mod) -> dict:
     """15a: ``main train --preset pong --backend cuda --set mesh.dp=8`` in
     process, its launches counted; the solver and the replay it built kept
     (through ``restore_for_resume``, which the loop calls with both), and a
-    ``launch_census`` of 4 chain-8 dispatches on them."""
+    ``launch_census`` of 4 chain-8 dispatches on them. The same loop at
+    ``mesh.dp=1`` runs before it and after a second D = 8 run (turns 1, 8,
+    8, 1: the host's speed drifts within a call), each run's loop rate and
+    ``StepTimer`` phases from its last metrics record."""
+    turns: dict[int, list[dict]] = {1: [], D8: []}
+
+    def loop(d, argv, jsonl):
+        s, launches, rec = run_cli(cli_main, counters, argv, jsonl)
+        turns[d].append({k: rec[k] for k in LOOP_KEYS})
+        return s, launches, rec
+
+    d1_argv = D8_ARGV[:-1] + ["mesh.dp=1"]
+    loop(1, d1_argv, "chip_smoke_pong_d1_turn.jsonl")
     with capturing(train_mod, "restore_for_resume",
                    lambda args, out: args[1:3]) as pairs:
-        summary, launches, record = run_cli(cli_main, counters, D8_ARGV,
-                                            "chip_smoke_pong_d8.jsonl")
+        summary, launches, record = loop(D8, D8_ARGV,
+                                         "chip_smoke_pong_d8.jsonl")
     (solver, replay), = pairs
     census = trace_dispatches(torch, solver, replay, 8, 4)
+    loop(D8, D8_ARGV, "chip_smoke_pong_d8_turn.jsonl")
+    loop(1, d1_argv, "chip_smoke_pong_d1_turn.jsonl")
     return {"summary": summary, "launches": launches, "record": record,
             "solver": solver, "replay": replay,
             "shards": [solver.num_shards, replay.num_shards,
                        replay.subs_per_shard, replay.slot_cap],
-            "census": census}
+            "census": census, "loop_turns": turns}
 
 
 def shard_cost(torch, config, Solver, DevicePERFrameReplay) -> dict:
@@ -3728,8 +3746,10 @@ def main() -> int:
     log(f"[15a] (solver shards, replay shards, sub-rings per shard, rows "
         f"per sub-ring) {d8['shards']}; launches: {json.dumps(d8_launches)}")
     log(f"[15a] grad steps/s {d8_summary['grad_steps_per_s']} (phase 4, "
-        f"one shard: {summary['grad_steps_per_s']}); census of 4 chain-8 "
-        f"dispatches: {json.dumps(d8['census'])}")
+        f"one shard: {summary['grad_steps_per_s']}); the loop at D=1 and "
+        f"D=8 in turns (1, 8, 8, 1; the second 8 is the counted run): "
+        f"{json.dumps(d8['loop_turns'])}; census of 4 chain-8 dispatches: "
+        f"{json.dumps(d8['census'])}")
     check_path(d8_summary, D8_GRAD_STEPS)
     assert d8["shards"][:2] == [D8, D8], d8["shards"]
     assert d8_launches["gather_windows"] >= d8_summary["grad_steps"], \

@@ -87,7 +87,7 @@ def _probe_envs(cfg: Config):
 def check_distributed(cfg: Config) -> None:
     """Refuse, by name, the settings the port's distributed topology does
     not run. Called before any process is spawned."""
-    from distributed_deep_q_tpu_torch.solver import check_single_device
+    from distributed_deep_q_tpu_torch.parallel.mesh import check_mesh
     from distributed_deep_q_tpu_torch.train import check_slice
 
     if cfg.replay.persist_path:
@@ -96,7 +96,7 @@ def check_distributed(cfg: Config) -> None:
             "replay paths; the distributed topology warm-refills from its "
             "actor fleet on restart (the reference behavior) — unset it "
             "for --distributed runs")
-    check_single_device(cfg)
+    check_mesh(cfg.mesh)
     check_slice(cfg)
 
 

@@ -42,13 +42,6 @@ def select_device(backend: str) -> torch.device:
     raise ValueError(f"unknown backend {backend!r} (cuda | cpu)")
 
 
-def check_single_device(config: Config) -> None:
-    """Refuse mesh settings the port does not run: it is one process on
-    one device with no model axis; the ``dp`` shards ride a shard axis of
-    the replay (``parallel/mesh.py``)."""
-    mesh.check_mesh(config.mesh)
-
-
 def sample_key_schedule(seed: int, start_step: int, num_shards: int,
                         chain: int) -> np.ndarray:
     """Device-sampling keys ``[D, chain, 2]`` for grad steps
@@ -147,7 +140,7 @@ class Solver:
         if backend is not None:
             config = dataclasses.replace(
                 config, mesh=dataclasses.replace(config.mesh, backend=backend))
-        check_single_device(config)
+        mesh.check_mesh(config.mesh)
         self.config = config
         self.backend = config.mesh.backend
         self.device = select_device(self.backend)
