@@ -236,13 +236,31 @@ Phases (any failure exits non-zero and prints no result line):
    versions, timed beside the D = 1 shapes on the same ring; 15d: Anakin
    at D = 8 (phase 14's pin configuration, 2 envs per shard) bitwise
    against its host-driven twin;
+16. two learner processes on the one card (``mesh.num_processes=2``,
+   gloo, both on ``cuda:0``; each process a ``--phase16-worker`` child of
+   this one) — 16a: the Pong preset's geometry (bf16 Nature CNN, batch
+   512, chain 8, α = 0) on a 131,072-row ring of 2 shards filled with rows
+   keyed by their global slot, 8 chain-8 dispatches at 2 processes × 1
+   shard and at 1 process × 2 shards, cuDNN deterministic: the drawn rows
+   and IS weights bitwise, the two ranks' θ bitwise, θ within
+   ``P16_THETA_TOL`` of the 1-process run; 16b: phase 11's ``main train
+   --distributed`` at 2 processes × 2 actors, 400 grad steps: both exit
+   0, grad steps exact, both shards fed, the θ hashes equal, no actor
+   holds a CUDA context (an ``ActorWatch`` in each process), B1 and B2
+   launched in both; 16c: ``main train`` (the in-process loop) at 2
+   processes, the Breakout preset host-sampled with the fused loss,
+   learn_start 5,000, 200 grad steps: B3 and B4 launched in both, θ
+   hashes equal. Printed: each process's grad steps/s beside phases 11,
+   6 and 6b's one-process rates, and the host-clock ms per grad step
+   inside the train step's collectives;
 9. the ``kernels`` JSON line (each kernel's launches on every path in
    ``launches_by_path``), the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, 8c, 10, 11,
-11b, 11c, 12b, 13, 13b, 14 and 15a) sets all kernel launch counters to 0
-just before it and reads them just after.
+11b, 11c, 12b, 13, 13b, 14, 15a and each process of 16a, 16b and 16c)
+sets all kernel launch counters to 0 just before it and reads them just
+after.
 
 ``python3 chip_smoke.py --phase5 DIR [DIR ...]`` runs phase 5's chained
 dispatch from each checkout DIR of the repository in turn (parent,
@@ -627,14 +645,14 @@ def autograd_route(torch, fl, q, act, t, w, g):
             lambda i: torch.autograd.grad(loss, [qr], retain_graph=True))
 
 
-def check_fused_loss(torch, fl, dev) -> dict:
+def check_fused_loss(torch, fl, dev, b: int = 512) -> dict:
     """B3/B4 against their plain versions (bitwise |td| and dq, loss to
     1e-6 relative) over A in {4, 18} and δ in {0.5, 1, 2}, B4 at every
     width with and without NaN and inf, then timed at δ = 1 for A = 4
-    and 18."""
+    and 18; all at ``b`` rows (the presets' 512; 256 is one of two
+    processes' share)."""
     import torch.nn.functional as F
 
-    b = 512
     out: dict = {"cases": 0, "td_max_abs_err": 0.0, "dq_max_abs_err": 0.0,
                  "loss_max_rel_err": 0.0}
     for a in (4, 18):
@@ -3299,6 +3317,293 @@ def sharded_resume(torch, persistence, train_mod, learner_mod, solver,
     return out
 
 
+
+# -- phase 16: two learner processes on the one card -------------------------
+
+# 16a: the Pong preset's geometry (bf16 Nature CNN 84×84×4, batch 512,
+# chain 8, α = 0) on a 131,072-row ring of D = 2 shards, each shard's one
+# slot filled with rows keyed by its global slot (so the ring is the same in
+# either layout); 8 chain-8 dispatches at 2 processes × 1 shard and at 1
+# process × 2 shards, cuDNN deterministic
+P16_RING, P16_ROWS_PER_SLOT = 131_072, 12_000
+P16_DISPATCHES, P16_CHAIN = 8, 8
+# θ at 2 processes against 1 process after the 64 grad steps: the
+# forwards run in bf16 and cuDNN picks its algorithm per batch shape (256
+# rows against 512), so the gradients differ in their low bits, and Adam,
+# which normalizes each element, turns that into up to ~lr per step where
+# a gradient is small. Measured 3.13e-4 on an H100 80GB HBM3 at 700 W
+# (PERF.md §6, phase 16); the bound keeps a 3x margin (2·lr·64 = 8e-3 is
+# Adam's own worst case)
+P16_THETA_TOL = 1e-3
+P16_TIMEOUT_S = 420
+# 16b: phase 11's run at 2 processes, 2 of the preset's 4 actors each,
+# each process's ring the preset's 1M rows' half (one shard of D = 2)
+P16_DIST_ARGV = ["train", "--distributed", "--preset", "pong",
+                 "--backend", "cuda", "--log-every", "100", "--set",
+                 "env.kind=signal_atari", "env.id=signal",
+                 "replay.learn_start=8192", "train.use_pallas_loss=true",
+                 "train.total_steps=400"]
+# 16c: the in-process loop at 2 processes, the Breakout preset with frames
+# in a host FrameStackReplay on each (the reference refuses the device ring
+# there), the fused loss; learn_start 5,000, 200 grad steps (phase 6b's
+# cut, twice the depth)
+P16_HOST_ARGV = ["train", "--preset", "breakout", "--backend", "cuda",
+                 "--log-every", "50", "--set", "env.kind=signal_atari",
+                 "env.id=signal", "replay.device_resident=false",
+                 "train.use_pallas_loss=true", "replay.learn_start=5000",
+                 "train.total_steps=5796"]
+
+
+def theta_hash(solver) -> str:
+    import hashlib
+    return hashlib.sha256(b"".join(
+        p.detach().float().cpu().numpy().tobytes()
+        for p in solver.state.net.parameters())).hexdigest()
+
+
+def p16_kernel_counters():
+    from distributed_deep_q_tpu_torch.ops import fused_loss as fl
+    from distributed_deep_q_tpu_torch.ops import ring_gather as rg
+    return {"gather_windows": rg.gather_windows,
+            "scatter_rows": rg.scatter_rows,
+            "fused_loss_fwd": fl.fused_loss_fwd,
+            "fused_loss_bwd": fl.fused_loss_bwd}
+
+
+def p16_pin_worker(pid: int, nproc: int, port: str, out: str) -> None:
+    """One process of 16a: join, fill this process's slots, run the 8
+    dispatches; write the drawn rows (global coordinates), IS weights, θ
+    and the launches."""
+    import torch
+
+    from distributed_deep_q_tpu_torch import config
+    from distributed_deep_q_tpu_torch.parallel import learner as learner_mod
+    from distributed_deep_q_tpu_torch.parallel import multihost
+    from distributed_deep_q_tpu_torch.replay.device_per import (
+        DevicePERFrameReplay)
+    from distributed_deep_q_tpu_torch.solver import Solver
+
+    cfg = config.pong_config()
+    cfg.env.kind, cfg.env.id = "signal_atari", "signal"
+    cfg.net.num_actions = 4
+    cfg.replay.capacity = P16_RING
+    cfg.mesh = config.MeshConfig(
+        backend="cuda", dp=2, coordinator=f"127.0.0.1:{port}",
+        num_processes=nproc, process_id=pid)
+    multihost.initialize_multihost(cfg.mesh)
+    torch.backends.cudnn.deterministic = True
+    solver = Solver(cfg)
+    streams = 2 // nproc                      # 1:1 stream ↔ slot
+    replay = DevicePERFrameReplay(
+        cfg.replay, solver.device, (84, 84), cfg.env.stack, cfg.train.gamma,
+        seed=0, write_chunk=cfg.replay.write_chunk, num_streams=streams,
+        num_shards=2, local_shards=solver.local_shards)
+    for s in range(streams):
+        g = pid * streams + s
+        assert replay._slot_cycle[s] == [g], replay._slot_cycle
+        rng = np.random.default_rng(3000 + g)
+        for start in range(0, P16_ROWS_PER_SLOT, 1000):
+            done = (np.arange(start, start + 1000) % 32) == 31
+            replay.add_batch({
+                "frame": rng.integers(0, 256, (1000, 84, 84),
+                                      dtype=np.uint8),
+                "action": rng.integers(0, 4, 1000).astype(np.int32),
+                "reward": (rng.random(1000) < 0.25).astype(np.float32),
+                "done": done}, stream=s)
+    replay.flush()
+    counters = p16_kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    with capturing(learner_mod, "fused_sample",
+                   lambda args, res: (res[2].cpu().numpy(),
+                                      res[0]["weight"].cpu().numpy())) \
+            as draws:
+        for _ in range(P16_DISPATCHES):
+            solver.train_steps_device_per(replay, chain=P16_CHAIN)
+        torch.cuda.synchronize()
+    idx = np.stack([d[0] for d in draws]).astype(np.int64)
+    idx = np.where(idx < replay.local_capacity,
+                   idx + replay.local_shards[0] * replay.cap_local,
+                   replay.capacity)
+    theta = torch.cat([p.detach().float().reshape(-1)
+                       for p in solver.state.net.parameters()]).cpu()
+    with open(out, "wb") as fh:
+        np.savez(fh, idx=idx, weight=np.stack([d[1] for d in draws]),
+                 theta=theta.numpy(), theta_hash=theta_hash(solver),
+                 launches=json.dumps({k: f.launches
+                                      for k, f in counters.items()}),
+                 step=solver.step)
+
+
+def p16_cli_worker(pid: int, nproc: int, port: str, out: str,
+                   watch_jsonl: str, *argv: str) -> None:
+    """One process of 16b or 16c: ``main`` in process with the mesh flags
+    of process ``pid``, every kernel counter set to 0 just before it and
+    read just after; ``--distributed`` runs under an ``ActorWatch`` (whose
+    grad-step signal is process 0's metrics JSONL, ``watch_jsonl``)."""
+    import torch  # noqa: F401 (the card's context is made by the loop)
+
+    from distributed_deep_q_tpu_torch import train as train_mod
+    from distributed_deep_q_tpu_torch.actors import supervisor
+    from distributed_deep_q_tpu_torch.main import main as cli_main
+    from distributed_deep_q_tpu_torch.parallel import multihost
+
+    distributed = "--distributed" in argv
+    jsonl = os.path.join(OUT_DIR, f"chip_smoke_p16_{os.path.basename(out)}"
+                                  ".jsonl")
+    argv = (list(argv[:1]) + ["--metrics-jsonl", jsonl] + list(argv[1:])
+            + [f"mesh.coordinator=127.0.0.1:{port}",
+               f"mesh.num_processes={nproc}", f"mesh.process_id={pid}"])
+    counters = p16_kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    watch = ActorWatch(watch_jsonl) if distributed else None
+    target = ((supervisor, "train_distributed") if distributed
+              else (train_mod, "train_single_process"))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with capturing(*target, lambda args, res: theta_hash(res["solver"])) \
+                as hashes, contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+    finally:
+        ctx = watch.verdict(2) if watch else None
+    wall = time.perf_counter() - t0
+    assert rc == 0, f"main returned {rc}"
+    launches = {k: fn.launches for k, fn in counters.items()}
+    with open(out, "w") as fh:
+        json.dump({"pid": pid, "summary": json.loads(
+            buf.getvalue().strip().splitlines()[-1]),
+            "launches": launches, "theta_hash": hashes[0], "wall_s": wall,
+            "collectives": multihost.STATS, "cuda_context": ctx}, fh)
+
+
+def p16_worker(argv: list[str]) -> int:
+    """``chip_smoke.py --phase16-worker KIND PID NPROC PORT OUT ...``: one
+    learner process of phase 16 (``pin`` or ``cli``)."""
+    kind, pid, nproc, port, out, *rest = argv
+    fn = {"pin": p16_pin_worker, "cli": p16_cli_worker}[kind]
+    fn(int(pid), int(nproc), port, out, *rest)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def p16_start(kind: str, nproc: int, tag: str, *extra: str):
+    """Start ``nproc`` phase-16 workers; returns (processes, their output
+    files, their stderr files)."""
+    port = str(free_port())
+    procs, outs, errs = [], [], []
+    for pid in range(nproc):
+        out = os.path.join(OUT_DIR, f"p16_{tag}_{pid}.out")
+        err = open(os.path.join(OUT_DIR, f"p16_{tag}_{pid}.err"), "w")
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase16-worker",
+             kind, str(pid), str(nproc), port, out, *extra],
+            stdout=err, stderr=subprocess.STDOUT))
+        outs.append(out)
+        errs.append(err)
+    return procs, outs, errs
+
+
+def p16_stop(started) -> None:
+    """Kill whichever of the workers still runs, and reap them all."""
+    procs, _, errs = started
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for e in errs:
+        e.close()
+
+
+def p16_wait(started, timeout: float = P16_TIMEOUT_S) -> list[str]:
+    """Wait for the workers; kill them all when one fails or the time is
+    up, and raise with the tail of each one's output."""
+    procs, outs, errs = started
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        p16_stop(started)
+    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = []
+        for i in bad:
+            with open(errs[i].name) as f:
+                tails.append(f"--- worker {i} rc={procs[i].returncode}\n"
+                             + f.read()[-3000:])
+        raise AssertionError("phase 16 workers failed:\n" + "\n".join(tails))
+    return outs
+
+
+def phase16_pin() -> dict:
+    """16a: 2 processes × 1 shard against 1 process × 2 shards, started
+    together."""
+    one_w = p16_start("pin", 1, "pin1")
+    two_w = p16_start("pin", 2, "pin2")
+    try:
+        one = dict(np.load(p16_wait(one_w)[0]))
+        two = [dict(np.load(o)) for o in p16_wait(two_w)]
+    finally:
+        p16_stop(two_w)
+    idx2 = np.concatenate([t["idx"] for t in two], axis=-1)
+    w2 = np.concatenate([t["weight"] for t in two], axis=-1)
+    dtheta = float(np.abs(two[0]["theta"] - one["theta"]).max())
+    return {"draws_bitwise": bool(np.array_equal(idx2, one["idx"])),
+            "weights_bitwise": bool(np.array_equal(w2, one["weight"])),
+            "rows_drawn": int(one["idx"].size),
+            "shards_drawn": sorted(set((one["idx"] // (P16_RING // 2))
+                                       .ravel().tolist())),
+            "ranks_theta_bitwise": bool(np.array_equal(two[0]["theta"],
+                                                       two[1]["theta"])),
+            "theta_max_abs_diff_vs_one_process": dtheta,
+            "theta_max_abs": float(np.abs(one["theta"]).max()),
+            "steps": [int(one["step"])] + [int(t["step"]) for t in two],
+            "launches": [json.loads(str(one["launches"]))]
+            + [json.loads(str(t["launches"])) for t in two]}
+
+
+def phase16_cli(tag: str, argv: list[str]) -> list[dict]:
+    """16b / 16c: ``main`` on 2 processes."""
+    watch = os.path.join(OUT_DIR, f"chip_smoke_p16_p16_{tag}_0.out.jsonl")
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(watch)
+    res = []
+    for o in p16_wait(p16_start("cli", 2, tag, watch, *argv)):
+        with open(o) as f:
+            res.append(json.load(f))
+    return res
+
+
+def check_phase16_cli(res: list[dict], grad_steps: int,
+                      kernels: tuple[str, ...]) -> None:
+    for r in res:
+        check_path(r["summary"], grad_steps)
+        for name in kernels:
+            assert r["launches"][name] > 0, (r["pid"], r["launches"])
+    assert res[0]["theta_hash"] == res[1]["theta_hash"], \
+        [r["theta_hash"] for r in res]
+
+
+def p16_collective_ms(r: dict) -> float:
+    """Host-clock ms per grad step inside the train step's collectives."""
+    st = r["collectives"]["step"]
+    return 1e3 * st["seconds"] / max(r["summary"]["grad_steps"], 1)
+
+
 def main() -> int:
     import torch
 
@@ -3786,6 +4091,58 @@ def main() -> int:
     log(f"[15d] anakin at D=8 against its host twin: {json.dumps(d8_pin)}")
     assert not d8_pin["pin_diffs"], d8_pin["pin_diffs"]
     assert d8_pin["shards"] == D8 and d8_pin["grad_steps"] == 6, d8_pin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 16. two learner processes on the one card ---------------------------
+    t16 = time.perf_counter()
+    # B3/B4 at one of two processes' rows (B = 256), as phase 3b at 512
+    loss256 = check_fused_loss(torch, fl, dev, b=256)
+    log(f"[16] fused loss at B=256: {json.dumps(loss256)}")
+    assert loss256["td_max_abs_err"] == 0, "B3 |td| disagrees at B=256"
+    assert loss256["dq_max_abs_err"] == 0, "B4 dq disagrees at B=256"
+    assert loss256["loss_max_rel_err"] <= 1e-6, loss256
+    pin16 = phase16_pin()
+    log(f"[16a] 2 processes x 1 shard against 1 process x 2 shards, "
+        f"{P16_DISPATCHES} chain-{P16_CHAIN} dispatches: {json.dumps(pin16)}")
+    assert pin16["draws_bitwise"] and pin16["weights_bitwise"], pin16
+    assert pin16["shards_drawn"] == [0, 1], pin16
+    assert pin16["ranks_theta_bitwise"], pin16
+    assert pin16["steps"] == [P16_DISPATCHES * P16_CHAIN] * 3, pin16
+    assert pin16["theta_max_abs_diff_vs_one_process"] <= P16_THETA_TOL, \
+        pin16
+    d16 = phase16_cli("dist", P16_DIST_ARGV)
+    h16 = phase16_cli("host", P16_HOST_ARGV)
+    for tag, res in (("16b", d16), ("16c", h16)):
+        for r in res:
+            ctx = r.pop("cuda_context")
+            log(f"[{tag}] process {r['pid']}: {json.dumps(r)}")
+            if ctx is not None:
+                log(f"[{tag}] process {r['pid']}'s actors and the card "
+                    f"({ctx['check']} check): {json.dumps(ctx)}")
+                assert ctx["samples_full_fleet_training"] > 0, ctx
+                assert not ctx["actors_holding_cuda"], ctx
+                if not ctx["check"].startswith("nvidia-smi pids"):
+                    # this process and the two learners
+                    assert ctx["compute_apps_max"] <= 3, ctx
+    check_phase16_cli(d16, 400, ("gather_windows", "scatter_rows"))
+    check_phase16_cli(h16, 200, ("fused_loss_fwd", "fused_loss_bwd"))
+    for r in d16:
+        s16 = r["summary"]
+        assert s16["env_steps"] >= 8192, s16      # each process's shard fed
+        assert s16["actor_restarts"] == 0, s16
+        assert s16["rpc_checksum_errors"] == 0, s16
+        assert s16["rpc_dispatch_errors"] == 0, s16
+    log(f"[16] grad steps/s per process (last window): 16b "
+        f"{[r['summary']['grad_steps_per_s'] for r in d16]} beside phase "
+        f"11's {dist['11']['summary']['grad_steps_per_s']} (one process); "
+        f"16c {[r['summary']['grad_steps_per_s'] for r in h16]} beside "
+        f"phase 6's {b_summary['grad_steps_per_s']} and 6b's "
+        f"{h_summary['grad_steps_per_s']} (one process)")
+    log(f"[16] ms per grad step inside the train step's collectives (host "
+        f"clock): 16b {[p16_collective_ms(r) for r in d16]}, 16c "
+        f"{[p16_collective_ms(r) for r in h16]}; phase 16 wall "
+        f"{time.perf_counter() - t16:.1f} s")
 
     # -- 9. result lines ------------------------------------------------------
     src = "distributed_deep_q_tpu_torch/csrc/ring_gather.cu"
@@ -3924,6 +4281,17 @@ def main() -> int:
     bwd_row["a18"].update({k: loss_k["a18"]["bwd"][k] for k in (
         "autograd_host_ms", "autograd_grad_host_ms")})
     bwd_row["widths_checked"] = sorted({c["a"] for c in loss_k["bwd_widths"]})
+    # one of two processes' rows (phase 16c's shape)
+    for row, part in ((kernels[-2], "fwd"), (kernels[-1], "bwd")):
+        row["ok"] = row["ok"] and loss256[
+            "td_max_abs_err" if part == "fwd" else "dq_max_abs_err"] == 0
+        row["b256"] = dict(
+            {k: loss256["a4"][part][k] for k in (
+                "ms", "host_ms", "plain_ms", "bound_ms", "composition_ms",
+                "bytes")},
+            shape="B=256 A=4 delta=1 (one of two processes)",
+            path="phase 16c (breakout host-sampled, 2 processes)",
+            launches=[r["launches"][row["name"]] for r in h16])
     # every path's launches, each path's counts set to 0 just before it
     by_path = {"4 pong": launches, "6 breakout host-sampled": b_launches,
                "6b breakout host FrameStackReplay": h_launches,
@@ -3942,7 +4310,18 @@ def main() -> int:
                "13 breakout learn plane": lm_launches,
                "13b pong rmsprop": rm_launches,
                "14 anakin": ana["launches"],
-               "15a pong mesh.dp=8": d8_launches}
+               "15a pong mesh.dp=8": d8_launches,
+               "16a pin, 1 process": pin16["launches"][0],
+               "16a pin, 2 processes, rank 0": pin16["launches"][1],
+               "16a pin, 2 processes, rank 1": pin16["launches"][2],
+               "16b pong distributed, 2 processes, rank 0":
+                   d16[0]["launches"],
+               "16b pong distributed, 2 processes, rank 1":
+                   d16[1]["launches"],
+               "16c breakout host-sampled, 2 processes, rank 0":
+                   h16[0]["launches"],
+               "16c breakout host-sampled, 2 processes, rank 1":
+                   h16[1]["launches"]}
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
@@ -3957,6 +4336,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--phase5"]:
             code = phase5_trees(sys.argv[2:])
+        elif sys.argv[1:2] == ["--phase16-worker"]:
+            code = p16_worker(sys.argv[2:])
         else:
             code = main()
     except Exception:

@@ -29,11 +29,21 @@ each chunk's learning-dynamics plane (``learning.py``) into ``learn/*``
 gauges at log cadence and registers itself as the fleet-health member
 ``"learner"`` (``default_learn_rules``/``default_learn_trends``).
 
+More than one learner process (``mesh.num_processes``,
+``parallel/multihost.py``): every process runs this same topology, its own
+``ReplayFeedServer``, its slice of the actor fleet and its block of replay
+shards (``_split_fleet_across_processes``); only the train step's
+collectives cross processes. The learn gate opens on every process at once
+(``all_processes_ready``), host-batch paths sample synchronously (no
+``DeviceStager``), and each process writes priorities back into its own
+replay only.
+
 Refused by name, before any process is spawned (``check_distributed``):
-more than one process or a model axis (A14b), and ``replay.persist_path`` (the
-distributed topology warm-refills from its fleet, as in the reference);
-vector acting on an env that is not pixels (``train_distributed``, as in
-the reference).
+a model axis, and ``replay.persist_path`` (the distributed topology
+warm-refills from its fleet, as in the reference); vector acting on an env
+that is not pixels (``train_distributed``, as in the reference); and, with
+more than one process, an uneven split of the batch or the fleet and the
+host-sampled device rings, as in the reference.
 """
 
 from __future__ import annotations
@@ -53,6 +63,8 @@ from distributed_deep_q_tpu_torch import health, learning, tracing
 from distributed_deep_q_tpu_torch.actors import game
 from distributed_deep_q_tpu_torch.config import Config, env_for_actor
 from distributed_deep_q_tpu_torch.metrics import Metrics
+from distributed_deep_q_tpu_torch.parallel.multihost import (
+    all_processes_ready, local_rows)
 
 
 def actor_epsilon(i: int, n: int, base: float, alpha: float) -> float:
@@ -82,6 +94,55 @@ def _probe_envs(cfg: Config):
             f"multi-game fleet requires one shared action space, got "
             f"{counts}; set env.full_action_space=true for ALE games")
     return first
+
+
+def _split_fleet_across_processes(cfg: Config, pixel: bool, metrics,
+                                  ring_desc: str, fused_ok: bool = False):
+    """Each learner process's share of the run: its own server, actor
+    slice and replay shards; each samples its ``B/pc`` rows into the train
+    step, whose gradient mean spans the processes. Local actor ids
+    ``0..k-1`` double as the process's replay streams; global identity (ε
+    ladder, env seeds, multi-game assignment) comes from
+    ``actor_id_offset`` or, under ``actors.assignment="hash"``, from the
+    consistent-hash slice (``actors/assignment.py``). ``ring_desc`` names
+    the host-sampled device ring in the refusal.
+
+    Returns (cfg, local_batch, metrics, pc, pid): the metrics swapped for
+    a sink-less instance on processes other than 0."""
+    pc, pid = int(cfg.mesh.num_processes), int(cfg.mesh.process_id)
+    local_batch = cfg.replay.batch_size
+    if pc > 1:
+        if cfg.replay.batch_size % pc:
+            raise ValueError(f"replay.batch_size={cfg.replay.batch_size} "
+                             f"must divide across {pc} processes")
+        if cfg.actors.num_actors % pc:
+            raise ValueError(f"actors.num_actors={cfg.actors.num_actors} "
+                             f"must divide across {pc} processes")
+        if pixel and cfg.replay.device_resident and not (
+                fused_ok and cfg.replay.prioritized
+                and cfg.replay.device_per):
+            raise ValueError(
+                f"the {ring_desc}'s host-sampled path is single-controller; "
+                "multi-host --distributed pixel runs need either the FUSED "
+                "ring (replay.prioritized=true + replay.device_per=true) or "
+                "replay.device_resident=false")
+        local_batch = cfg.replay.batch_size // pc
+        k = cfg.actors.num_actors // pc
+        if cfg.actors.assignment == "hash":
+            from distributed_deep_q_tpu_torch.actors.assignment import (
+                local_slice)
+            gids = local_slice(cfg.actors.num_actors, pc, pid)
+            cfg = cfg.replace(actors=dataclasses.replace(
+                cfg.actors, num_actors=k, actor_id_offset=0,
+                actor_gids=tuple(gids),
+                fleet_size=cfg.actors.num_actors))
+        else:
+            cfg = cfg.replace(actors=dataclasses.replace(
+                cfg.actors, num_actors=k, actor_id_offset=pid * k,
+                fleet_size=cfg.actors.num_actors))
+        if pid != 0:
+            metrics = Metrics()  # file sinks live on process 0 only
+    return cfg, local_batch, metrics, pc, pid
 
 
 def check_distributed(cfg: Config) -> None:
@@ -1225,6 +1286,18 @@ def _tear_down_rpc_plane(cfg: Config, server, sup, infer_server=None) -> None:
         server.close()
 
 
+def _restore(cfg: Config, solver):
+    """The newest checkpoint into ``solver`` on ``train.resume`` (made
+    process 0's on every process). Returns the checkpointer or None."""
+    from distributed_deep_q_tpu_torch.utils.checkpoint import (
+        maybe_checkpointer)
+    ckpt = maybe_checkpointer(cfg.train)
+    if ckpt and cfg.train.resume and ckpt.latest_step() is not None:
+        solver.state, _ = ckpt.restore(solver.state)
+        solver.replicate_state()
+    return ckpt
+
+
 def _wait_for_fill(server, ready) -> tuple[float, int]:
     """Wait for the learn gate (the actors stream meanwhile). Returns when,
     and at how many env steps, rows from the fleet were first seen: the
@@ -1333,9 +1406,8 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
     from distributed_deep_q_tpu_torch.replay.replay_memory import ReplayMemory
     from distributed_deep_q_tpu_torch.replay.staging import DeviceStager
     from distributed_deep_q_tpu_torch.solver import FusedStepStream, Solver
-    from distributed_deep_q_tpu_torch.train import log_final_eval
-    from distributed_deep_q_tpu_torch.utils.checkpoint import (
-        maybe_checkpointer)
+    from distributed_deep_q_tpu_torch.train import (
+        log_final_eval, save_checkpoint)
 
     metrics = metrics or Metrics()
     tracing.configure_from(cfg.trace)  # learner-process tracer state
@@ -1360,7 +1432,8 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
     replay_cfg = dataclasses.replace(
         cfg.replay, priority_beta_steps=cfg.train.total_steps)
     solver = Solver(cfg, obs_dim=int(np.prod(obs_shape)))
-    batch_size = cfg.replay.batch_size
+    cfg, batch_size, metrics, pc, _ = _split_fleet_across_processes(
+        cfg, pixel, metrics, "device frame ring", fused_ok=True)
     # every stacked env row is its own replay stream (slot ownership and
     # flush_seq dedup key on it)
     streams = cfg.actors.num_actors * max(int(cfg.actors.vector_envs), 1)
@@ -1371,7 +1444,8 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
         replay = cls(replay_cfg, solver.device, obs_shape, cfg.env.stack,
                      cfg.train.gamma, seed=cfg.train.seed,
                      write_chunk=cfg.replay.write_chunk, num_streams=streams,
-                     num_shards=solver.num_shards)
+                     num_shards=solver.num_shards,
+                     local_shards=solver.local_shards)
     elif pixel:
         if cfg.replay.prioritized:
             raise ValueError(
@@ -1399,24 +1473,30 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
     autoscaler, scale_executor = _bring_up_autoscaler(cfg, sup, server)
     writeback = None
     if replay.prioritized and not fused_per:
+        # with more than one process each writes back its own rows only
         writeback = make_writeback(replay, cfg.replay,
-                                   lock=server.replay_lock)
+                                   lock=server.replay_lock,
+                                   to_host=local_rows if pc > 1 else None)
     summary: dict = {}
     timer = StepTimer()
     trace = TraceWindow(cfg.train.profile_dir, cfg.train.profile_start_step,
                         cfg.train.profile_num_steps)
-    ckpt = maybe_checkpointer(cfg.train)
-    if ckpt and cfg.train.resume and ckpt.latest_step() is not None:
-        solver.state, _ = ckpt.restore(solver.state)
+    ckpt = _restore(cfg, solver)
+    if solver.step:
         _publish_weights(server, infer_server, solver.get_weights())
     stager = None
     try:
+        # every process's shards warm: the AND is a collective, so the
+        # polling processes go in lockstep and none steps alone
         first = _wait_for_fill(
-            server, lambda: replay.ready(cfg.replay.learn_start))
-        if not (ring or fused_per):
+            server, lambda: all_processes_ready(
+                replay.ready(cfg.replay.learn_start)))
+        if not (ring or fused_per) and pc == 1:
             # host-batch path: double-buffered sample → device pipeline;
             # shares the server's replay lock so the background sampler
-            # serializes with RPC writers and the priority write-back
+            # serializes with RPC writers and the priority write-back.
+            # More than one process samples synchronously, as the
+            # reference does
             stager = DeviceStager(lambda: replay.sample(batch_size),
                                   device=solver.device, depth=2,
                                   lock=server.replay_lock)
@@ -1453,7 +1533,11 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
                             replay.ring, batch, replay.frame_shape)
             else:
                 with timer.phase("sample"):  # wait on the pipeline
-                    batch = stager.get()
+                    if stager is not None:
+                        batch = stager.get()
+                    else:
+                        with server.replay_lock:
+                            batch = replay.sample(batch_size)
                 sampled_at = batch.pop("_sampled_at", replay.steps_added)
                 if tracing.ENABLED and isinstance(batch.get("index"),
                                                   np.ndarray):
@@ -1484,8 +1568,8 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
                                 1e3 * (time.perf_counter() - t0))
 
             if ckpt and gstep % cfg.train.checkpoint_every == 0:
-                ckpt.save(solver.state,
-                          extra={"env_steps": server.counters()["env_steps"]})
+                save_checkpoint(cfg, ckpt, solver,
+                                server.counters()["env_steps"])
                 if cfg.train.server_snapshot_path:
                     server.snapshot_async(cfg.train.server_snapshot_path)
 
@@ -1545,9 +1629,8 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
     from distributed_deep_q_tpu_torch.replay.prioritized import make_writeback
     from distributed_deep_q_tpu_torch.replay.sequence import SequenceReplay
     from distributed_deep_q_tpu_torch.solver import FusedStepStream
-    from distributed_deep_q_tpu_torch.train import log_final_eval
-    from distributed_deep_q_tpu_torch.utils.checkpoint import (
-        maybe_checkpointer)
+    from distributed_deep_q_tpu_torch.train import (
+        log_final_eval, save_checkpoint)
 
     metrics = metrics or Metrics()
     tracing.configure_from(cfg.trace)  # learner-process tracer state
@@ -1562,7 +1645,8 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
     del probe
 
     solver = SequenceSolver(cfg, obs_dim=obs_dim)
-    batch_size = cfg.replay.batch_size
+    cfg, batch_size, metrics, pc, _ = _split_fleet_across_processes(
+        cfg, pixel, metrics, "device sequence ring", fused_ok=True)
     seq_len = cfg.replay.sequence_length
     seq_capacity = max(cfg.replay.capacity // seq_len, 64)
     per = dict(prioritized=cfg.replay.prioritized,
@@ -1574,7 +1658,9 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
     if device_seq:
         replay = DeviceSequenceReplay(seq_capacity, seq_len, obs_shape,
                                       solver.device, cfg.net.lstm_size,
-                                      num_shards=solver.num_shards, **per)
+                                      num_shards=solver.num_shards,
+                                      local_shards=solver.local_shards,
+                                      **per)
     else:
         replay = SequenceReplay(seq_capacity, seq_len, obs_shape, obs_dtype,
                                 cfg.net.lstm_size, **per)
@@ -1584,9 +1670,8 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
     # that cannot be microbatched across actors (BatchedPolicy refuses it)
     server, sup, _ = _bring_up_rpc_plane(cfg, replay)
     _publish_weights(server, None, solver.get_weights())
-    ckpt = maybe_checkpointer(cfg.train)
-    if ckpt and cfg.train.resume and ckpt.latest_step() is not None:
-        solver.state, _ = ckpt.restore(solver.state)
+    ckpt = _restore(cfg, solver)
+    if solver.step:
         _publish_weights(server, None, solver.get_weights())
 
     # the chained fused path samples from the device priority row, so it
@@ -1600,12 +1685,14 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
     writeback = None
     if replay.prioritized and not fused_seq:
         writeback = make_writeback(replay, cfg.replay,
-                                   lock=server.replay_lock)
+                                   lock=server.replay_lock,
+                                   to_host=local_rows if pc > 1 else None)
     summary: dict = {}
     timer = StepTimer()
     try:
-        first = _wait_for_fill(server,
-                               lambda: replay.ready(learn_start_seqs))
+        # the collective learn gate (see train_distributed)
+        first = _wait_for_fill(server, lambda: all_processes_ready(
+            replay.ready(learn_start_seqs)))
         fused_stream = (FusedStepStream(solver, replay,
                                         cfg.replay.fused_chain,
                                         dispatch_lock=server.replay_lock,
@@ -1651,8 +1738,8 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
                 metrics.observe("learner/publish_params_ms",
                                 1e3 * (time.perf_counter() - t0))
             if ckpt and gstep % cfg.train.checkpoint_every == 0:
-                ckpt.save(solver.state,
-                          extra={"env_steps": server.counters()["env_steps"]})
+                save_checkpoint(cfg, ckpt, solver,
+                                server.counters()["env_steps"])
                 if cfg.train.server_snapshot_path:
                     server.snapshot_async(cfg.train.server_snapshot_path)
             if gstep % log_every == 0:

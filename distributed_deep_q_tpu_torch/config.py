@@ -311,21 +311,26 @@ class ActorConfig:
 class MeshConfig:
     """Device / backend selection — the ``--backend`` switch.
 
-    ``backend='cuda'`` runs on CUDA device 0 and raises when there is no
-    card; ``backend='cpu'`` runs on the host (the tests' backend). The port
-    runs in one process on one device; ``dp`` replay shards ride a shard
-    axis on it (``parallel/mesh.py``). The other mesh fields are kept so a
-    reference command line parses; a model axis and more than one process
-    are refused.
+    ``backend='cuda'`` runs on a CUDA device and raises when there is no
+    card; ``backend='cpu'`` runs on the host (the tests' backend). Each
+    process runs on one device: ``cuda:{process_id % device_count}``.
+    ``dp`` replay shards ride a shard axis on it (``parallel/mesh.py``).
+
+    More than one learner process (``parallel/multihost.py``): every
+    process runs the same command with its own ``process_id``; they join
+    over ``gloo`` at ``coordinator`` (process 0's ``host:port``), each
+    owns ``D / num_processes`` of the replay shards and the gradient mean
+    spans them. ``num_fake_devices`` is the reference's CPU-mesh size,
+    kept for its even-split check. A model axis (``model`` > 1) is
+    refused.
     """
 
     backend: str = "cuda"  # cuda | cpu
-    num_fake_devices: int = 8  # reference CPU-mesh field; unused here
-    dp: int = 0  # replay shards D; 0 = one per device, the port's one
+    num_fake_devices: int = 8  # reference CPU-mesh size; split check only
+    dp: int = 0  # replay shards D in all; 0 = one per process
     model: int = 1  # model-parallel axis; the port runs exactly 1
-    # multi-process learner: not ported yet (the port refuses
-    # num_processes > 1)
-    coordinator: str = ""       # e.g. "10.0.0.1:8476"
+    # learner processes: the same command on each, process_id 0..n-1
+    coordinator: str = ""       # process 0's "host:port", e.g. "10.0.0.1:8476"
     num_processes: int = 1
     process_id: int = 0
 

@@ -20,9 +20,10 @@ Plane layout (one float32 vector, ``PLANE_SIZE`` elements)::
     maxes           max |TD|, max Q, max priority
     mins            min IS weight, min |TD|
 
-The port's D shards share one device and the learner steps over the whole
-batch of B rows, so ``lm_finalize``'s reductions over shards are the
-identity; the segments keep the reference's layout. Everything sits
+Each process's shards share its device and its learner steps over all of
+its rows at once, so ``lm_finalize``'s reductions over shards are the
+identity within a process and collectives across processes; the segments
+keep the reference's layout. Everything sits
 behind ``cfg.train.learn_metrics``: with it off no plane code runs and no
 plane is allocated.
 
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from distributed_deep_q_tpu_torch.metrics import Histogram
+from distributed_deep_q_tpu_torch.parallel import multihost
 
 # TD-|error| histogram geometry — in lockstep with the host Histogram the
 # accumulator rebuilds. Four buckets per decade over eight decades.
@@ -151,15 +153,20 @@ def lm_update(plane: torch.Tensor, *, cfg, td_abs, weight, loss, q, q_mean,
 
 
 def lm_finalize(plane: torch.Tensor, num_shards: int = 1) -> torch.Tensor:
-    """The per-dispatch reduction over the ``num_shards`` shards: the
-    reference psums the shard segment, passes the replicated one through
-    and pmax/pmins the extrema. The port folds each grad step over the
-    whole batch of B rows, all D shards' draws at once, so its shard
-    segment already sums every row and its extrema already run over every
-    shard: at any D the reduction is the identity."""
+    """The per-dispatch reduction, segment by segment: the reference psums
+    the shard segment over every shard, passes the replicated one through
+    and pmax/pmins the extrema. Within a process the port folds each grad
+    step over all of its rows at once, so its shard segment already sums
+    its shards and its extrema already run over them; across processes
+    (``parallel/multihost.py``) the shard segment is summed, the maxima
+    and minima reduced, and the replicated segment, equal on every
+    process after the step's all-reduce, left alone. ``num_shards`` is
+    kept for the reference's signature."""
     del num_shards
-    return torch.cat([plane[:_REPL], plane[_REPL:_MAX], plane[_MAX:_MIN],
-                      plane[_MIN:]])
+    return torch.cat([multihost.all_reduce_(plane[:_REPL]),
+                      plane[_REPL:_MAX],
+                      multihost.all_reduce_(plane[_MAX:_MIN], "max"),
+                      multihost.all_reduce_(plane[_MIN:], "min")])
 
 
 # -- host side ---------------------------------------------------------------

@@ -22,12 +22,18 @@ Examples:
         replay.persist_path=replay.npz train.resume=true
     python -m distributed_deep_q_tpu_torch.main play --preset cartpole --backend cpu \\
         --set train.checkpoint_dir=ckpt
+    # two learner processes (run once per process_id, 0 and 1)
+    python -m distributed_deep_q_tpu_torch.main train --preset cartpole --backend cpu \\
+        --set mesh.coordinator=127.0.0.1:29500 mesh.num_processes=2 \\
+        mesh.process_id=0
 
 ``--backend`` defaults to ``cuda`` and raises without a card; ``--backend
 cpu`` runs on the host. ``--distributed`` runs the learner on the backend
 and the actors as spawned processes on the host CPU (by design: they never
 touch the card). ``eval`` and ``play`` restore the newest checkpoint
-under ``train.checkpoint_dir`` when there is one.
+under ``train.checkpoint_dir`` when there is one. With
+``mesh.num_processes`` > 1 every process runs the same command with its own
+``mesh.process_id``; only process 0 writes ``--metrics-jsonl``.
 """
 
 from __future__ import annotations
@@ -85,6 +91,11 @@ def main(argv: list[str] | None = None) -> int:
                              "learner over the v4 wire)")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
+    # join the other learner processes before anything touches the card
+    # (a no-op at one process)
+    from distributed_deep_q_tpu_torch.parallel.multihost import (
+        initialize_multihost)
+    initialize_multihost(cfg.mesh)
 
     # imported past flag parsing so --help stays cheap
     from distributed_deep_q_tpu_torch.metrics import Metrics

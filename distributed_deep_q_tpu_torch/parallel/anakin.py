@@ -123,6 +123,13 @@ class AnakinRunner:
         from distributed_deep_q_tpu_torch.replay.device_per import (
             DevicePERFrameReplay)
 
+        if cfg.mesh.num_processes > 1:
+            # no reference test or preset runs Anakin on more than one
+            # process; its superstep owns one device's ring
+            raise NotImplementedError(
+                f"Anakin at mesh.num_processes={cfg.mesh.num_processes}: "
+                "the superstep runs in one learner process (ROADMAP, the "
+                "refusals still in the port)")
         self.cfg = cfg
         h, w = cfg.env.frame_shape
         stack = int(cfg.env.stack)

@@ -6,9 +6,13 @@ host batch (``train_step``), on index batches into the device frame ring
 
 The reference compiles each step into one XLA program under ``shard_map``
 over a ``dp`` mesh: each shard takes the mean loss of its B/D rows and the
-gradients are ``pmean``'d. The port runs eagerly on one device and takes
-one step over the whole batch of B rows, D shards' draws concatenated:
-at equal B/D per shard that is the same mean, up to float order. The
+gradients are ``pmean``'d. The port runs eagerly on one device per
+process and takes one step over the process's rows, its shards' draws
+concatenated: at equal B/D per shard that is the same mean, up to float
+order. With more than one process (``parallel/multihost.py``) each takes
+the mean over its ``B/pc`` rows, and the gradients, the loss and the Q
+mean are then averaged over the processes in one all-reduce, before the
+clip, as the reference's ``pmean`` does. The
 train state is two ``nn.Module``s (θ, θ⁻) plus plain dicts of tensors (the
 Adam state) and a step counter, all updated in place.
 
@@ -43,6 +47,7 @@ from distributed_deep_q_tpu_torch.config import TrainConfig
 from distributed_deep_q_tpu_torch.ops.fused_loss import FusedDqnLoss
 from distributed_deep_q_tpu_torch.ops.losses import bellman_targets, dqn_loss
 from distributed_deep_q_tpu_torch.ops.ring_gather import gather_windows
+from distributed_deep_q_tpu_torch.parallel import multihost
 from distributed_deep_q_tpu_torch.replay.device_per import (
     build_meta_pack, fused_sample_draw_packed, fused_sample_prep,
     scatter_priorities)
@@ -250,20 +255,22 @@ def fused_sample(rows: dict[str, torch.Tensor], cursors: torch.Tensor,
                  sizes: torch.Tensor, betas: torch.Tensor, u: torch.Tensor,
                  spec: tuple):
     """The sample stage of a fused dispatch, against the priorities as of
-    chunk start: prep + meta pack + ``chain × B/D`` draws per shard from
-    its uniforms (``u`` ``[D, chain, B/D]``; a ``[chain, B]`` at one shard
-    reads the same) + ONE ``gather_windows`` launch for every sample's
-    obs+next-obs window. Returns, in batch order (the shards' draws
-    concatenated), (meta dict [chain, B, ...], windows ``[chain · B ·
-    window · rowb/4]`` int32, sampled row indices [chain, B], window-start
-    rows [chain, B])."""
+    chunk start: prep + meta pack + ``chain × B/D`` draws per shard of this
+    process from its uniforms (``u`` ``[Dl, chain, B/D]``, any shape of
+    that size: a ``[chain, B]`` at one shard reads the same) + ONE
+    ``gather_windows`` launch for every sample's obs+next-obs window.
+    ``spec``'s shard count is D over every process; this process's Dl
+    follows from ``u``. Returns, in batch order (the shards' draws
+    concatenated), (meta dict [chain, Dl·B/D, ...], windows ``[chain ·
+    Dl·B/D · window · rowb/4]`` int32, sampled row indices [chain, Dl·B/D],
+    window-start rows [chain, Dl·B/D])."""
     (slot_cap, slot_pad, rowb, row_len, stack, n_step, gamma,
      frame_shape, per_shard, alpha, eps, num_shards) = spec
+    u = u.reshape(-1, betas.shape[0], per_shard)
     pm, cdf, mass, n_glob = fused_sample_prep(
-        rows, cursors, sizes, slot_cap, stack, n_step, num_shards)
+        rows, cursors, sizes, slot_cap, stack, n_step, u.shape[0])
     pack = build_meta_pack(rows["action"], rows["reward"], rows["done"],
                            rows["boundary"], slot_cap, stack, n_step, gamma)
-    u = u.reshape(num_shards, -1, per_shard)
     metas, ws, idxs = fused_sample_draw_packed(
         u, pack, pm, cdf, mass, n_glob, per_shard, slot_cap, slot_pad,
         stack, n_step, betas, num_shards)
@@ -313,12 +320,14 @@ class Learner:
         params = dict(net.named_parameters())
         grads = dict(zip(params, torch.autograd.grad(loss,
                                                      list(params.values()))))
+        # the reference's pmean of grads, loss and Q mean, before the clip
+        grads, (loss, q_mean) = multihost.mean_grads_and_scalars(
+            grads, [loss.detach(), q.detach().mean()])
         gnorm = global_norm(grads)
         state.step = state.step + 1
         apply_optimizer(cfg, grads, state.opt_state, params,
                         dict(target.named_parameters()), gnorm, state.step)
-        metrics = {"loss": loss.detach(), "q_mean": q.detach().mean(),
-                   "grad_norm": gnorm}
+        metrics = {"loss": loss, "q_mean": q_mean, "grad_norm": gnorm}
         return metrics, td_abs, q.detach()
 
     def _to_device(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
@@ -420,6 +429,10 @@ class Learner:
                     q_mean=metrics["q_mean"], gnorm=metrics["grad_norm"],
                     step=state.step, alpha=alpha, eps=eps)
             steps.append(metrics)
+        # the reference pmaxes the running max priority every step; a max
+        # of maxima is exact, and nothing in the chain reads it, so the
+        # port reduces it once per dispatch
+        maxp = multihost.all_reduce_(maxp, "max")
         stacked = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
         if lmp is not None:
             stacked["learn_plane"] = learning.lm_finalize(lmp, num_shards)

@@ -27,8 +27,12 @@ priority as |TD| (the reference's R2D2 chain has no ``use_plane`` gate).
 The reference's ``stack_forwards`` route changes XLA's op schedule only;
 the port computes the same function one net at a time. The reference's D
 shards each step over B/D sequences and ``pmean`` the gradients; the port
-draws per shard, then steps once over all B sequences (the same mean at
-equal B/D per shard, up to float order).
+draws per shard, then steps once over all of the process's sequences (the
+same mean at equal B/D per shard, up to float order). With more than one
+learner process (``parallel/multihost.py``) the step's gradients, loss and
+Q mean are averaged over the processes in one all-reduce, the fused
+sample's filled count is summed and its IS weights' max taken over them,
+and, under ``train.learn_metrics``, the step's Q max too.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from distributed_deep_q_tpu_torch.models.qnet import R2d2QNet
 from distributed_deep_q_tpu_torch.ops.losses import (
     sequence_bellman_targets, sequence_dqn_loss)
 from distributed_deep_q_tpu_torch.ops.ring_gather import gather_windows
+from distributed_deep_q_tpu_torch.parallel import multihost
 from distributed_deep_q_tpu_torch.parallel.learner import (
     Learner, TrainState, apply_optimizer, global_norm)
 from distributed_deep_q_tpu_torch.replay.device_per import (
@@ -59,31 +64,34 @@ from distributed_deep_q_tpu_torch.solver import (
 
 def fused_sequence_sample(replay, batch_size: int, sizes: torch.Tensor,
                           betas: torch.Tensor, u: torch.Tensor):
-    """The sample stage of a fused sequence dispatch: per shard, draw
-    every step's B/D sequences from that shard's chunk-start priorities by
-    inverse CDF over its uniforms (``u`` ``[D, chain, B/D]``; a ``[chain,
-    B]`` at one shard reads the same), gather their metadata and IS
-    weights (normalized over every shard), and copy all their windows with
-    ONE ``gather_windows`` launch. Returns, in batch order (the shards'
-    draws concatenated), (metas [chain, B, ...] with ``weight``, windows
-    ``[chain, B, W, rowp]`` int32, sampled global slots [chain, B], set to
-    the capacity (out of range) on a shard whose mass is 0)."""
-    d, caps = replay.num_shards, replay.caps_local
+    """The sample stage of a fused sequence dispatch: per shard of this
+    process, draw every step's B/D sequences from that shard's chunk-start
+    priorities by inverse CDF over its uniforms (``u`` ``[Dl, chain,
+    B/D]``; a ``[chain, B]`` at one shard reads the same), gather their
+    metadata and IS weights (normalized over every shard of every
+    process), and copy all their windows with ONE ``gather_windows``
+    launch. ``batch_size`` is this process's rows (``Dl · B/D``). Returns,
+    in batch order (the shards' draws concatenated), (metas [chain,
+    batch_size, ...] with ``weight``, windows ``[chain, batch_size, W,
+    rowp]`` int32, sampled slots of this process's device rows [chain,
+    batch_size], set to its capacity (out of range) on a shard whose mass
+    is 0)."""
+    d, caps = len(replay.local_shards), replay.caps_local
     dmeta, W = replay.dmeta, replay.W
     chain, dev = betas.shape[0], u.device
     u = u.reshape(d, chain, batch_size // d)
     filled = (torch.arange(caps, device=dev)[None, :]
-              < sizes.view(d, 1)).float()                 # [D, caps]
+              < sizes.view(d, 1)).float()                 # [Dl, caps]
     pm = dmeta["prio"].view(d, caps) * filled
     cdf, mass = build_cdf(pm)
-    n_glob = filled.sum()
-    li, p = draw_from_cdf(u, cdf, pm, mass)               # [D, chain, b]
+    n_glob = multihost.all_reduce_(filled.sum())          # the psum
+    li, p = draw_from_cdf(u, cdf, pm, mass)               # [Dl, chain, b]
     shard = torch.arange(d, device=dev).view(d, 1, 1)
     flat = to_batch_order(shard * caps + li).reshape(-1)
     metas = {key: dmeta[key][flat].reshape(
         (chain, batch_size) + dmeta[key].shape[1:]) for key in META_KEYS}
     metas["weight"] = to_batch_order(
-        stratified_is_weights(p, mass, n_glob, betas, d))
+        stratified_is_weights(p, mass, n_glob, betas, replay.num_shards))
     slots = to_batch_order(replay.ring_slot(shard, li)).reshape(-1)
     win = gather_windows((slots * W).to(torch.int32), replay.ring,
                          n=chain * batch_size, w=W, rowb=replay.rowb)
@@ -91,7 +99,7 @@ def fused_sequence_sample(replay, batch_size: int, sizes: torch.Tensor,
     # a zero-mass draw writes no priority (scatter_priorities drops it)
     dead = to_batch_order((~(mass > 0)).view(d, 1, 1).expand(li.shape))
     idx = flat.view(chain, batch_size)
-    idx = torch.where(dead, torch.full_like(idx, replay.capacity), idx)
+    idx = torch.where(dead, torch.full_like(idx, replay.local_capacity), idx)
     return metas, win, idx
 
 
@@ -138,15 +146,18 @@ class SequenceLearner(Learner):
         params = dict(net.named_parameters())
         grads = dict(zip(params, torch.autograd.grad(loss,
                                                      list(params.values()))))
+        # the reference's pmean of grads, loss and Q mean, before the clip
+        grads, (loss, q_mean) = multihost.mean_grads_and_scalars(
+            grads, [loss.detach(), q.detach().mean()])
         gnorm = global_norm(grads)
         state.step = state.step + 1
         apply_optimizer(cfg, grads, state.opt_state, params,
                         dict(target.named_parameters()), gnorm, state.step)
-        metrics = {"loss": loss.detach(), "q_mean": q.detach().mean(),
-                   "grad_norm": gnorm}
+        metrics = {"loss": loss, "q_mean": q_mean, "grad_norm": gnorm}
         if cfg.learn_metrics:
-            # the recurrent step's Q extreme, the plane's q input
-            metrics["q_max"] = q.detach().max()
+            # the recurrent step's Q extreme, the plane's q input, as the
+            # reference pmaxes it
+            metrics["q_max"] = multihost.all_reduce_(q.detach().max(), "max")
         return metrics, priority
 
     def train_step(self, state: TrainState, batch: dict[str, Any]):
@@ -209,6 +220,9 @@ class SequenceLearner(Learner):
                     gnorm=metrics["grad_norm"], step=state.step,
                     alpha=replay.alpha, eps=replay.eps)
             steps.append(metrics)
+        # the running max over processes, once per dispatch (see
+        # Learner._train_chain)
+        maxp = multihost.all_reduce_(maxp, "max")
         stacked = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
         if lmp is not None:
             stacked["learn_plane"] = learning.lm_finalize(
@@ -251,12 +265,14 @@ class SequenceSolver(Solver):
         chain = chain or max(int(self.config.replay.fused_chain), 1)
         if replay.pending_rows():
             replay.flush()
-        dev, b = self.device, self.config.replay.batch_size
+        dev, b = self.device, self.local_batch
         sizes = to_device(replay.device_inputs(), dev)
         betas = to_device(replay.next_betas(chain), dev)
-        keys = next_fused_keys(self, replay.num_shards, chain)
-        u = self.draw_uniforms(keys.reshape(-1, 2), b // replay.num_shards,
-                               dev)
+        # each of this process's shards draws with its global shard's keys
+        keys = next_fused_keys(self, replay.num_shards, chain)[
+            replay.local_shards]
+        u = self.draw_uniforms(keys.reshape(-1, 2),
+                               b // len(replay.local_shards), dev)
         replay.dmaxp, metrics = self.learner.train_steps_fused(
             self.state, replay, b, sizes, betas, u)
         return metrics

@@ -114,13 +114,18 @@ class IngestDrain:
 
     The work unit is ``replay.flush()`` (the full host→device dispatch,
     which the device rings enqueue on the learner's stream) with the
-    staged-row delta as its progress count. The reference's multi-host
-    variant (a pluggable host-only work unit, ``prepare_rounds``) stays
-    with ROADMAP A14b.
+    staged-row delta as its progress count, or, given ``work``, that
+    callable, which returns the rows it moved: a ring of one of several
+    learner processes passes ``work=prepare_rounds`` (host-only assembly
+    of flush planes; the dispatch waits for the solver's chunk boundary,
+    as in the reference). Either way the backlog is the replay's
+    ``_staged_rows``.
     """
 
-    def __init__(self, replay, lock, min_rows: int, poll_s: float = 0.05):
+    def __init__(self, replay, lock, min_rows: int, poll_s: float = 0.05,
+                 work=None):
         self._replay = replay
+        self._work = work
         self._lock = lock
         self._min = max(int(min_rows), 1)
         self._poll_s = float(poll_s)
@@ -146,6 +151,8 @@ class IngestDrain:
 
     def _do_work(self) -> int:
         """One work unit under the replay lock; returns rows moved."""
+        if self._work is not None:
+            return int(self._work())
         before = self._replay.pending_rows()
         self._replay.flush()
         return before - self._replay.pending_rows()

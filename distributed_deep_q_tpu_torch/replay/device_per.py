@@ -19,13 +19,17 @@ nothing. Per dispatch (``Learner.train_steps_device_per``):
   (``scatter_priorities``).
 
 Shards: the reference runs the sample stage per mesh shard under
-``shard_map``. The port keeps its D shards as a leading axis of the device
-state on one device, laid out shard-major as ``np.asarray`` assembles the
-reference's ``P('dp')`` arrays: metadata and priorities ``[D · cap_local]``,
-the padded frame plane ``D × shard_rows`` rows (each shard's padded slots,
-then its scratch row). What the reference reduces over ``dp`` is reduced
-over that axis: the sampleable count is summed (``psum``), the IS weights'
-max and the running max priority are taken over every shard (``pmax``).
+``shard_map``. The port keeps a process's shards as a leading axis of the
+device state on its device, laid out shard-major as ``np.asarray``
+assembles the reference's ``P('dp')`` arrays: metadata and priorities
+``[Dl · cap_local]``, the padded frame plane ``Dl × shard_rows`` rows (each
+shard's padded slots, then its scratch row), Dl = D at one process. What
+the reference reduces over ``dp`` is reduced over that axis and then, with
+more than one learner process, over the processes
+(``parallel/multihost.py``): the sampleable count is summed (``psum``),
+the IS weights' max and the running max priority are taken over every
+shard (``pmax``). Each shard draws with its GLOBAL shard's keys, so a
+shard draws the same rows whichever process holds it.
 
 Randomness: the reference draws ``jax.random.uniform(key, (B/D,))`` per
 shard from raw ``uint32[2]`` keys; ``uniforms_for_keys`` draws the same
@@ -45,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from distributed_deep_q_tpu_torch.ops import threefry
+from distributed_deep_q_tpu_torch.parallel import multihost
 from distributed_deep_q_tpu_torch.ops.ring_gather import (
     padded_row_bytes, scatter_rows)
 from distributed_deep_q_tpu_torch.replay.device_ring import (
@@ -128,13 +133,14 @@ def fused_sample_prep(shard_rows: dict[str, torch.Tensor],
                       num_shards: int = 1):
     """The capacity-sized part of a fused sample, once per chunk: validity
     mask → masked priorities ``[D, cap_local]`` → each shard's CDF and mass
-    ``[D]`` → the sampleable count summed over shards (the reference's
-    ``psum``). Returns (pm, cdf, mass, n_glob)."""
+    ``[D]`` → the sampleable count summed over shards and over processes
+    (the reference's ``psum``). ``num_shards`` counts this process's shards.
+    Returns (pm, cdf, mass, n_glob)."""
     mask = valid_mask(shard_rows["done"], shard_rows["boundary"], cursors,
                       sizes, slot_cap, stack, n_step)
     pm = (shard_rows["prio"] * mask).view(num_shards, -1)
     cdf, mass = build_cdf(pm)
-    n_glob = mask.sum(dtype=torch.float32)
+    n_glob = multihost.all_reduce_(mask.sum(dtype=torch.float32))
     return pm, cdf, mass, n_glob
 
 
@@ -143,15 +149,16 @@ def stratified_is_weights(p: torch.Tensor, mass: torch.Tensor,
                           num_shards: int) -> torch.Tensor:
     """IS weights for the realized per-shard stratified draw, normalized
     per chain row: P(i) = p_i/(D·mass_s), N = the sampleable count. ``p``
-    ``[D, chain, B/D]``, ``mass`` ``[D]``, ``betas`` [chain]. A shard with
-    zero mass gets zero weights (its priority scatter is pointed out of
-    range); that mask comes before the max, which runs over every shard
-    (the reference's ``pmax``), so a dead shard cannot crush the live
-    ones' weights."""
+    ``[Dl, chain, B/D]`` for this process's Dl shards, ``mass`` ``[Dl]``,
+    ``betas`` [chain]; ``num_shards`` is D over every process. A shard
+    with zero mass gets zero weights (its priority scatter is pointed out
+    of range); that mask comes before the max, which runs over every
+    shard of every process (the reference's ``pmax``), so a dead shard
+    cannot crush the live ones' weights."""
     pr = torch.clamp(p / num_shards, min=1e-12)
     w = (n_glob * pr) ** (-betas[:, None])
     w = torch.where(mass[:, None, None] > 0, w, torch.zeros_like(w))
-    w_max = w.amax(dim=(0, 2), keepdim=True)
+    w_max = multihost.all_reduce_(w.amax(dim=(0, 2), keepdim=True), "max")
     return (w / torch.clamp(w_max, min=1e-12)).float()
 
 
@@ -203,20 +210,22 @@ def fused_sample_draw_packed(u: torch.Tensor, pack: torch.Tensor,
                              per_shard: int, slot_cap: int, slot_pad: int,
                              stack: int, n_step: int, betas: torch.Tensor,
                              num_shards: int):
-    """Inverse-CDF draws for all ``chain`` steps of every shard (``u``
-    ``[D, chain, B/D]``, ``pm``/``cdf`` ``[D, cap_local]``, ``mass``
-    ``[D]``), metadata from two row gathers per sample off the pack, and
-    the pixel-window START rows for ``gather_windows``.
+    """Inverse-CDF draws for all ``chain`` steps of every shard of this
+    process (``u`` ``[Dl, chain, B/D]``, ``pm``/``cdf`` ``[Dl, cap_local]``,
+    ``mass`` ``[Dl]``), metadata from two row gathers per sample off the
+    pack, and the pixel-window START rows for ``gather_windows``.
+    ``num_shards`` is D over every process (the IS weights' P(i)); the
+    rows, windows and indices are this process's, Dl = D at one process.
 
     Returns, in batch order ``[chain, B]`` (``to_batch_order``): the meta
     dict incl. ``weight`` and the validity planes ``ovalid``/``nvalid``
     ``[chain, B, stack]`` uint8; window-start rows ``ws`` in the padded
     frame plane (shard s starts at row ``s · shard_rows``, so a window
     never leaves its shard: each shard's ghost rows close its own slots);
-    sampled row indices in global real coordinates, set to the capacity
-    ``D · cap_local`` (out of range) on a shard whose mass is 0.
+    sampled row indices in the process's real coordinates, set to its
+    capacity ``Dl · cap_local`` (out of range) on a shard whose mass is 0.
     """
-    d, cap_local = num_shards, pm.shape[-1]
+    d, cap_local = pm.shape
     chain = u.shape[1]
     li, p = draw_from_cdf(u, cdf, pm, mass)             # [D, chain, b]
     shard = torch.arange(d, device=u.device).view(d, 1, 1)
@@ -227,7 +236,7 @@ def fused_sample_draw_packed(u: torch.Tensor, pack: torch.Tensor,
     # window start (padded coords): rows [local-stack+1 .. local+n_step]
     # are contiguous there thanks to the ghost rows
     ws = shard * shard_rows + sub * slot_pad + (local - (stack - 1)) % slot_cap
-    w = stratified_is_weights(p, mass, n_glob, betas, d)
+    w = stratified_is_weights(p, mass, n_glob, betas, num_shards)
     idx = to_batch_order(idx)
     lanes = pack.shape[-1]
     mp = pack[idx.reshape(-1)].reshape(chain, d * per_shard, lanes)
@@ -340,11 +349,12 @@ class DevicePERFrameReplay(DeviceFrameReplay):
 
     def __init__(self, cfg, device, frame_shape=(84, 84), stack: int = 4,
                  gamma: float = 0.99, seed: int = 0, write_chunk: int = 64,
-                 num_streams: int = 1, num_shards: int = 1):
+                 num_streams: int = 1, num_shards: int = 1,
+                 local_shards: list[int] | None = None):
         # host trees off: the priorities live on the device
         super().__init__(dataclasses.replace(cfg, prioritized=False), device,
                          frame_shape, stack, gamma, seed, write_chunk,
-                         num_streams, num_shards)
+                         num_streams, num_shards, local_shards)
         self.prioritized = True
         self._cfg = cfg
         self.n_step, self.gamma = cfg.n_step, gamma
@@ -354,7 +364,7 @@ class DevicePERFrameReplay(DeviceFrameReplay):
         self._stage_columns += [
             ((), np.int32), ((), np.float32), ((), np.uint8), ((), np.uint8)]
         self._di_cache: tuple[np.ndarray, np.ndarray] | None = None
-        cap, dev = self.capacity, self.device
+        cap, dev = self.local_capacity, self.device
         # a flush's source lanes for j shards: staged rows s·k .. s·k+k-1 of
         # each for its main lanes, again for its ghost lanes; constant per
         # j, so each is shipped once
@@ -388,7 +398,7 @@ class DevicePERFrameReplay(DeviceFrameReplay):
         self.shard_rows = self.cap_local_pad + 1      # +1 scratch row
         # no 2³¹ cap on the ring (the reference's assert guarded Mosaic's
         # 32-bit index math): the kernels compute offsets in 64 bits
-        shape = (self.num_shards * self.shard_rows * self.rowp,)
+        shape = (len(self.local_shards) * self.shard_rows * self.rowp,)
         self._frames = torch.zeros(shape, dtype=torch.int32,
                                    device=self.device)
 
@@ -461,7 +471,8 @@ class DevicePERFrameReplay(DeviceFrameReplay):
         super().reset_stream(stream)
         if len(m) == 0:
             return
-        row = int(self._global_index(slot, (m._cursor - 1) % self.slot_cap))
+        row = int(self._device_row(
+            self._global_index(slot, (m._cursor - 1) % self.slot_cap)))
         with self._writer_stream():
             self.dstate["boundary"][row] = 1
 
@@ -477,16 +488,17 @@ class DevicePERFrameReplay(DeviceFrameReplay):
         return out
 
     def device_inputs(self) -> tuple[np.ndarray, np.ndarray]:
-        """(cursors, sizes) int32 host arrays, shard-major ``[D·subs]``;
-        cached between writes."""
+        """(cursors, sizes) int32 host arrays for this process's shards,
+        shard-major ``[Dl·subs]``; cached between writes."""
         if self._di_cache is None:
             d, subs = self.num_shards, self.subs_per_shard
-            cursors = np.zeros(d * subs, np.int32)
-            sizes = np.zeros(d * subs, np.int32)
-            for s in range(d):
+            dl = len(self.local_shards)
+            cursors = np.zeros(dl * subs, np.int32)
+            sizes = np.zeros(dl * subs, np.int32)
+            for li, s in enumerate(self.local_shards):
                 for sub in range(subs):
                     m = self.slots[sub * d + s]
-                    cursors[s * subs + sub] = m._cursor
-                    sizes[s * subs + sub] = len(m)
+                    cursors[li * subs + sub] = m._cursor
+                    sizes[li * subs + sub] = len(m)
             self._di_cache = (cursors, sizes)
         return self._di_cache

@@ -15,12 +15,25 @@ slots, as in the reference:
     slot g (global id) lives on shard g % D at sub-ring g // D
 
 Frame stacking relies on temporal adjacency, so every slot has exactly ONE
-writer stream at a time: stream i owns the slots {g : g % num_streams == i}
-and cycles through them at episode boundaries. The reference's D shards are
-its mesh devices; the port keeps them on one device (``parallel/mesh.py``),
-so shard s is the block of ring rows above, and ``sample`` draws B/D rows
-per shard as the reference does, with shard-local stack indices
-(``global_stack_rows`` places them in the ring).
+writer stream at a time: stream i owns every ``num_streams``-th of the
+process's slots and cycles through them at episode boundaries. The
+reference's D shards are its mesh devices; the port keeps them on one
+device (``parallel/mesh.py``), so shard s is the block of ring rows above,
+and ``sample`` draws B/D rows per shard as the reference does, with
+shard-local stack indices (``global_stack_rows`` places them in the ring).
+
+More than one learner process (``parallel/multihost.py``): each process
+owns the contiguous block ``local_shards`` of the D shards, its streams
+cycle over the slots of those shards only, and its device state holds
+only them. The geometry (``subs_per_shard``, ``slot_cap``, capacity) comes
+from the stream count over every process, so it is the same in each; slot
+ids, shard ids and the rows ``add`` returns stay global. As in the
+reference, the flush waits for the chunk boundary (``defer_flush``) and
+the drain only assembles its planes (``prepare_rounds``), so the write
+order is the staged order. The reference's flush is a collective with a
+round count agreed by MAX across processes; the port's writes only its own
+process's tensors, so the agreement would add nothing but empty rounds and
+is left out.
 
 ``DevicePERFrameReplay`` (``replay/device_per.py``) replaces the ring, its
 writer and the sampler with the fused device-PER ones.
@@ -116,12 +129,22 @@ class DeviceFrameReplay:
         write_chunk: int = 64,
         num_streams: int = 1,
         num_shards: int = 1,
+        local_shards: list[int] | None = None,
     ):
         self.device = torch.device(device)
-        d = self.num_shards = int(num_shards)   # on the one device
-        self.local_shards = list(range(d))
+        d = self.num_shards = int(num_shards)   # over every process
+        # this process's block of shards (all of them at one process)
+        self.local_shards = (list(range(d)) if local_shards is None
+                             else [int(s) for s in local_shards])
+        dl = len(self.local_shards)
+        assert dl and d % dl == 0 and self.local_shards == list(range(
+            self.local_shards[0], self.local_shards[0] + dl)), (
+            f"local shards {self.local_shards} must be a contiguous block "
+            f"of D/processes of the {d} shards")
+        self._pc = d // dl                      # learner processes
         self.num_streams = max(int(num_streams), 1)
-        self.subs_per_shard = -(-max(self.num_streams, d) // d)  # ceil
+        total_streams = self.num_streams * self._pc
+        self.subs_per_shard = -(-max(total_streams, d) // d)  # ceil
         g = self.num_slots = self.subs_per_shard * d
         self.slot_cap = int(cfg.capacity) // g
         assert self.slot_cap > 0 and cfg.batch_size % d == 0, (
@@ -132,6 +155,8 @@ class DeviceFrameReplay:
         write_chunk = min(int(write_chunk), self.slot_cap)
         self.cap_local = self.slot_cap * self.subs_per_shard
         self.capacity = self.cap_local * d
+        # the rows this process's device state holds: its shards only
+        self.local_capacity = self.cap_local * dl
         self.stack = int(stack)
         self.frame_shape = tuple(frame_shape)
         self.write_chunk = int(write_chunk)
@@ -151,11 +176,18 @@ class DeviceFrameReplay:
         self.max_priority = 1.0
         self._samples = 0
 
-        # stream i owns every num_streams-th slot
+        # stream i owns every num_streams-th slot of this process's shards
+        # (every num_streams-th slot at one process)
+        local_set = set(self.local_shards)
+        local_slots = [s for s in range(g) if s % d in local_set]
         self._slot_cycle = [
-            [s for j, s in enumerate(range(g)) if j % self.num_streams == i]
+            [s for j, s in enumerate(local_slots)
+             if j % self.num_streams == i]
             for i in range(self.num_streams)]
         self._stream_pos = [0] * self.num_streams
+        # more than one process: the flush waits for the chunk boundary
+        # and the drain only assembles planes (module docstring)
+        self.defer_flush = self._pc > 1
 
         self._row_len = int(np.prod(self.frame_shape))
         self._alloc_ring()
@@ -171,6 +203,10 @@ class DeviceFrameReplay:
         self._stages: list | None = None  # built lazily: subclasses widen
         self._pending: list[list[tuple]] = [[] for _ in range(d)]
         self._pending_rows = [0] * d
+        # flush planes assembled ahead of their dispatch (prepare_rounds),
+        # FIFO: the next flush writes them before any fresh round
+        self._prepared: list[tuple[np.ndarray, list, int]] = []
+        self._prepared_rows = 0
         self._drain: IngestDrain | None = None   # start_drain attaches one
         self._drain_enabled = bool(getattr(cfg, "ingest_drain", True))
         self._drain_min = int(getattr(cfg, "drain_min_rows", 0))
@@ -179,7 +215,15 @@ class DeviceFrameReplay:
     def _alloc_ring(self) -> None:
         """The device frame plane: ``[capacity, H·W]`` uint8, one flattened
         frame per row (7.06 GB at 1M × 84×84). ``DevicePERFrameReplay``
-        overrides this with its padded int32 ring."""
+        overrides this with its padded int32 ring. The host-sampled ring
+        is single-process, as in the reference: more than one process
+        runs the fused ring or a host replay."""
+        if self._pc > 1:
+            raise ValueError(
+                "DeviceFrameReplay's host-sampled path is single-process; "
+                "more than one learner process needs the fused ring "
+                "(replay.prioritized=true replay.device_per=true) or "
+                "replay.device_resident=false")
         self.ring = torch.zeros((self.capacity, self._row_len),
                                 dtype=torch.uint8, device=self.device)
 
@@ -205,15 +249,18 @@ class DeviceFrameReplay:
         return sum(len(m) for m in self.slots)
 
     def pending_rows(self) -> int:
-        """Rows staged but not yet flushed to the device."""
-        return sum(self._pending_rows)
+        """Rows staged or in assembled planes, not yet on the device."""
+        return sum(self._pending_rows) + self._prepared_rows
 
     def _staged_rows(self) -> int:
-        """Rows still in staging: the ``IngestDrain``'s backlog. The same
-        as ``pending_rows`` on one device, where no flush plane is
-        assembled ahead of its dispatch (the reference's multi-host
-        ``prepare_rounds``, ROADMAP A14b)."""
+        """Rows still in staging, not counting assembled planes: the
+        ``IngestDrain``'s backlog (a row in a plane needs no more host
+        work, only its dispatch)."""
         return sum(self._pending_rows)
+
+    def _device_row(self, gidx):
+        """A global ring row → its row in this process's device state."""
+        return gidx - self.local_shards[0] * self.cap_local
 
     @property
     def steps_added(self) -> int:
@@ -229,12 +276,15 @@ class DeviceFrameReplay:
 
     def ready(self, learn_start: int) -> bool:
         """True when the aggregate fill reached ``learn_start`` AND every
-        shard has at least one slot with sampleable transitions."""
+        shard of this process has at least one slot with sampleable
+        transitions (across processes the caller ANDs it:
+        ``multihost.all_processes_ready``)."""
         if len(self) < learn_start:
             return False
         per_shard = {s: 0 for s in self.local_shards}
         for g in range(self.num_slots):
-            per_shard[g % self.num_shards] += self._sampleable(g)
+            if g % self.num_shards in per_shard:
+                per_shard[g % self.num_shards] += self._sampleable(g)
         return all(mass > 0 for mass in per_shard.values())
 
     @property
@@ -335,7 +385,7 @@ class DeviceFrameReplay:
             return
         if self._drain is not None:
             self._drain.notify()
-        else:
+        elif not self.defer_flush:
             self.flush()
 
     def start_drain(self, lock, min_rows: int | None = None):
@@ -356,7 +406,9 @@ class DeviceFrameReplay:
         if self.device.type == "cuda":
             self._stream = torch.cuda.current_stream(self.device)
         min_r = min_rows or max(self.write_chunk, self._drain_min)
-        self._drain = IngestDrain(self, lock, min_r)
+        self._drain = IngestDrain(
+            self, lock, min_r,
+            work=self.prepare_rounds if self.defer_flush else None)
         return self._drain
 
     def stop_drain(self) -> None:
@@ -421,13 +473,37 @@ class DeviceFrameReplay:
                     self._pending[s][0] = tuple(a[take:] for a in entry)
         return idx, cols, rows
 
+    def _staged_rounds(self) -> int:
+        """Write rounds that the staged rows of this process's shards
+        need."""
+        return -(-max((self._pending_rows[s] for s in self.local_shards),
+                      default=0) // self.write_chunk)
+
+    def prepare_rounds(self) -> int:
+        """Assemble staged rows into padded flush planes WITHOUT writing
+        them: the drain's work unit when the flush waits for the chunk
+        boundary (``defer_flush``). Host only. The planes are written
+        first, in order, at the next ``flush``, so the device write order
+        is the staged order. Returns the rows moved into planes."""
+        total = 0
+        for _ in range(self._staged_rounds()):
+            plane = self._assemble_round()
+            self._prepared.append(plane)
+            self._prepared_rows += plane[2]
+            total += plane[2]
+        return total
+
     def flush(self) -> None:
-        """Push all staged rows to the device in fixed-shape chunks, on the
-        learner's stream (``_writer_stream``)."""
-        rounds = -(-max(self._pending_rows) // self.write_chunk)
+        """Push the assembled planes, then all staged rows, to the device in
+        fixed-shape chunks, on the learner's stream (``_writer_stream``)."""
+        rounds = len(self._prepared) + self._staged_rounds()
         with self._writer_stream():
             for _ in range(rounds):
-                idx, cols, _ = self._assemble_round()
+                if self._prepared:
+                    idx, cols, rows = self._prepared.pop(0)
+                    self._prepared_rows -= rows
+                else:
+                    idx, cols, _ = self._assemble_round()
                 self._apply_write(idx, cols)
 
     def _apply_write(self, idx: np.ndarray, cols: list) -> None:

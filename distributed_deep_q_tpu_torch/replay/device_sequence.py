@@ -19,12 +19,19 @@ path (``SequenceLearner.train_steps_fused``). A training loop drives one
 of the two.
 
 The reference's D shards (its mesh devices) are a leading shard axis on
-the port's one device: each shard owns ``caps_local + 1`` ring slots, the
-last its scratch slot (multi-process sequence replay is ROADMAP A14b). The
-reference refuses a per-shard plane of 2³¹ elements or more, a limit of
-Mosaic's 32-bit index math; the r2d2 preset's plane is 12,501 × 84 × 2048
-= 2.15·10⁹ int32, and the port's kernels compute every offset in 64 bits,
-so the port has no such limit.
+the port's device: each shard owns ``caps_local + 1`` ring slots, the
+last its scratch slot. With more than one learner process
+(``parallel/multihost.py``) a process owns the contiguous block
+``local_shards`` and its device ring and twins hold those shards only;
+sequences go round-robin over them. The reference's flush there is a
+collective that waits for the dispatch; the port's writes only this
+process's tensors, so it flushes as one process does. The host sample
+path stays single-process, as the reference's does.
+
+The reference refuses a per-shard plane of 2³¹ elements or more, a limit
+of Mosaic's 32-bit index math; the r2d2 preset's plane is 12,501 × 84 ×
+2048 = 2.15·10⁹ int32, and the port's kernels compute every offset in 64
+bits, so the port has no such limit.
 """
 
 from __future__ import annotations
@@ -128,12 +135,20 @@ class DeviceSequenceReplay:
         use_native: bool = True,
         write_chunk: int = 4,
         num_shards: int = 1,
+        local_shards: list[int] | None = None,
     ):
         if len(obs_shape) != 3:
             raise ValueError("DeviceSequenceReplay is the pixel path: "
                              f"obs_shape = (H, W, S), got {obs_shape}")
         self.device = torch.device(device)
-        d = self.num_shards = int(num_shards)
+        d = self.num_shards = int(num_shards)   # over every process
+        self.local_shards = (list(range(d)) if local_shards is None
+                             else [int(s) for s in local_shards])
+        dl = len(self.local_shards)
+        assert dl and d % dl == 0 and self.local_shards == list(range(
+            self.local_shards[0], self.local_shards[0] + dl)), (
+            f"local shards {self.local_shards} must be a contiguous block "
+            f"of D/processes of the {d} shards")
         self.seq_len = int(seq_len)
         self.stack = int(obs_shape[-1])
         self.frame_shape = tuple(obs_shape[:2])
@@ -141,6 +156,7 @@ class DeviceSequenceReplay:
         self.W = (self.stack - 1) + (self.seq_len + 1)  # rows per sequence
         self.caps_local = max(int(capacity) // d, 1)
         self.capacity = self.caps_local * d               # sequences
+        self.local_capacity = self.caps_local * dl        # on this device
         self.lstm_size = int(lstm_size)
         t, cap = self.seq_len, self.capacity
 
@@ -179,10 +195,12 @@ class DeviceSequenceReplay:
         self.seq_bytes = self.W * self.rowb           # bytes per slot
         self.slots_local = self.caps_local + 1        # + the scratch slot
         dev = self.device
-        self.ring = torch.zeros(d * self.slots_local * self.W * self.rowp,
+        self.ring = torch.zeros(dl * self.slots_local * self.W * self.rowp,
                                 dtype=torch.int32, device=dev)
         # device twins of the metadata and the per-sequence priority row
-        # (the fused path), and the running max pre-α priority
+        # (the fused path), and the running max pre-α priority; this
+        # process's shards only
+        cap = self.local_capacity
         self.dmeta: dict[str, torch.Tensor] = {
             "action": torch.zeros((cap, t), dtype=torch.int32, device=dev),
             "reward": torch.zeros((cap, t), device=dev),
@@ -210,10 +228,11 @@ class DeviceSequenceReplay:
         return sum(len(p) for p in self._pending)
 
     def ready(self, learn_start: int) -> bool:
-        """``learn_start`` counts sequences; every shard must hold one
-        (``sample`` draws B/D from each)."""
+        """``learn_start`` counts sequences; every shard of this process
+        must hold one (each draws B/D; across processes the caller ANDs
+        it: ``multihost.all_processes_ready``)."""
         return len(self) >= max(learn_start, 1) and bool(
-            (self._sizes > 0).all())
+            (self._sizes[self.local_shards] > 0).all())
 
     @property
     def beta(self) -> float:
@@ -229,22 +248,23 @@ class DeviceSequenceReplay:
         return out
 
     def device_inputs(self) -> np.ndarray:
-        """Each shard's filled-slot count ``[D]`` int32 for the fused
-        sampler."""
-        return self._sizes.astype(np.int32)
+        """Each of this process's shards' filled-slot count ``[Dl]`` int32
+        for the fused sampler."""
+        return self._sizes[self.local_shards].astype(np.int32)
 
-    def ring_slot(self, shard, local):
-        """The pixel ring's slot of a shard's sequence slot ``local``."""
-        return shard * self.slots_local + local
+    def ring_slot(self, li, local):
+        """The pixel ring's slot of sequence slot ``local`` of this
+        process's ``li``-th shard."""
+        return li * self.slots_local + local
 
     # -- write --------------------------------------------------------------
 
     def add_sequence(self, seq: dict[str, np.ndarray]) -> int:
         """A ``SequenceBuilder`` emission (stacked obs): the stream is
         derived here, so actors hand over what they hand the host store.
-        Sequences go round-robin over the shards. Returns the global
-        slot."""
-        s = self._next_shard % self.num_shards
+        Sequences go round-robin over this process's shards. Returns the
+        global slot."""
+        s = self.local_shards[self._next_shard % len(self.local_shards)]
         self._next_shard += 1
         local = int(self._cursor[s])
         self._cursor[s] = (local + 1) % self.caps_local
@@ -284,18 +304,19 @@ class DeviceSequenceReplay:
         sequences' device priorities are seeded from the device max."""
         k, dev = self.write_chunk, self.device
         skip = self.caps_local                  # shard 0's scratch slot
+        s0 = self.local_shards[0]
         while any(self._pending):
-            live = [s for s in range(self.num_shards) if self._pending[s]]
+            live = [s for s in self.local_shards if self._pending[s]]
             j = len(live)
             idx = np.full((j, k), skip, np.int64)
             staged = np.zeros((j, k, self.W, self.rowb), np.uint8)
             real = []
-            for li, s in enumerate(live):
+            for r, s in enumerate(live):
                 chunk = self._pending[s][:k]
                 self._pending[s] = self._pending[s][k:]
                 for c, (local, padded) in enumerate(chunk):
-                    idx[li, c] = self.ring_slot(s, local)
-                    staged[li, c] = padded
+                    idx[r, c] = self.ring_slot(s - s0, local)
+                    staged[r, c] = padded
                     real.append(s * self.caps_local + local)
             if j not in self._scatter_src:
                 self._scatter_src[j] = to_device(
@@ -306,7 +327,7 @@ class DeviceSequenceReplay:
                          self.ring, n=j * k, rowb=self.seq_bytes,
                          skip_row=skip)
             real = np.asarray(real, np.int64)
-            ridx = to_device(real, dev)
+            ridx = to_device(real - s0 * self.caps_local, dev)
             for key in META_KEYS:
                 self.dmeta[key][ridx] = to_device(getattr(self, key)[real],
                                                   dev)
@@ -318,6 +339,12 @@ class DeviceSequenceReplay:
         """An index batch: B/D slots drawn on the host per shard,
         concatenated in shard order; pixels composed on the device from
         ``seq_local`` (``SequenceLearner``'s ring step)."""
+        if len(self.local_shards) < self.num_shards:
+            raise ValueError(
+                "the device sequence ring's host-sampled path is "
+                "single-process; more than one learner process needs the "
+                "fused ring (replay.prioritized=true replay.device_per=true)"
+                " or replay.device_resident=false")
         self.flush()
         d = self.num_shards
         if batch_size % d:

@@ -1,9 +1,12 @@
 """``Solver`` — the train-step owner behind the ``--backend`` switch (port of
 the reference ``solver.py``).
 
-The backend is a torch device: ``cuda`` (CUDA device 0; raises without a
-card) or ``cpu``. The port runs one process on one device; ``mesh.dp`` sets
-the replay's shard count D (``parallel/mesh.py``).
+The backend is a torch device: ``cuda`` (raises without a card) or
+``cpu``. Each process runs on one device; ``mesh.dp`` sets the replay's
+shard count D (``parallel/mesh.py``). With more than one learner process
+(``parallel/multihost.py``) every process holds the whole train state,
+made equal to process 0's at init and at restore (``replicate_state``),
+and trains on its ``B / num_processes`` rows (``local_batch``).
 """
 
 from __future__ import annotations
@@ -21,22 +24,24 @@ from distributed_deep_q_tpu_torch.convert import (
     train_state_to_flax)
 from distributed_deep_q_tpu_torch.models.qnet import build_qnet
 from distributed_deep_q_tpu_torch.parallel.learner import Learner, TrainState
-from distributed_deep_q_tpu_torch.parallel import mesh
+from distributed_deep_q_tpu_torch.parallel import mesh, multihost
 from distributed_deep_q_tpu_torch.replay.device_per import uniforms_for_keys
 from distributed_deep_q_tpu_torch.replay.device_ring import (
     global_stack_rows, to_device)
 
 
-def select_device(backend: str) -> torch.device:
-    """``cuda`` → CUDA device 0, raising when there is none (no CPU
-    fallback); ``cpu`` → the host."""
+def select_device(backend: str, process_id: int = 0) -> torch.device:
+    """``cuda`` → CUDA device ``process_id % device_count`` (device 0 at
+    one process), raising when there is none (no CPU fallback); ``cpu`` →
+    the host."""
     if backend == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "--backend cuda was requested but torch.cuda.is_available() "
                 "is false (no NVIDIA card or no CUDA build of torch); pass "
                 "--backend cpu to run on the host")
-        return torch.device("cuda", 0)
+        return torch.device("cuda",
+                            int(process_id) % torch.cuda.device_count())
     if backend == "cpu":
         return torch.device("cpu")
     raise ValueError(f"unknown backend {backend!r} (cuda | cpu)")
@@ -95,6 +100,18 @@ def fused_spec(config: Config, replay) -> tuple:
             float(config.replay.priority_eps), replay.num_shards)
 
 
+def state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor of a train state: θ, θ⁻, the optimizer's moments (and
+    Adam's count) and the step."""
+    out = [p.data for p in state.net.parameters()]
+    out += [p.data for p in state.target_net.parameters()]
+    opt = state.opt_state
+    out += list(opt["mu"].values()) + list(opt["nu"].values())
+    if "count" in opt:
+        out.append(opt["count"])
+    return out + [state.step]
+
+
 def _strip_host_keys(batch: dict[str, Any]) -> dict[str, Any]:
     """Drop host-only bookkeeping (slot indices, sample snapshots) before a
     batch goes to the device."""
@@ -143,7 +160,7 @@ class Solver:
         mesh.check_mesh(config.mesh)
         self.config = config
         self.backend = config.mesh.backend
-        self.device = select_device(self.backend)
+        self.device = select_device(self.backend, config.mesh.process_id)
         if self.device.type == "cuda":
             # float32 configs compute in full float32, as the reference does
             # on the CPU; the bf16 presets are unaffected
@@ -153,6 +170,14 @@ class Solver:
         self.learner = make_learner(config, self.device)
         self.state: TrainState = self.learner.init_state(net.to(self.device))
         self.num_shards = mesh.num_shards(config.mesh)
+        self.local_shards = mesh.local_shards(config.mesh)
+        pc = max(int(config.mesh.num_processes), 1)
+        if config.replay.batch_size % pc:
+            raise ValueError(f"replay.batch_size={config.replay.batch_size} "
+                             f"must divide across {pc} processes")
+        # this process's rows of every step (all of them at one process)
+        self.local_batch = config.replay.batch_size // pc
+        self.replicate_state()
         self.draw_uniforms = uniforms_for_keys
         self._fused_key_base: int | None = None
         self._fused_steps_issued = 0
@@ -162,6 +187,12 @@ class Solver:
     @property
     def step(self) -> int:
         return int(self.state.step)
+
+    def replicate_state(self) -> None:
+        """Make this process's train state process 0's, bit for bit
+        (``multihost.put_replicated``): at init and after a restore. A
+        no-op at one process."""
+        multihost.put_replicated(state_tensors(self.state))
 
     def train_step(self, batch: dict[str, np.ndarray]) -> dict[str, Any]:
         """One gradient step on a host batch. Returns the metrics as device
@@ -224,7 +255,9 @@ class Solver:
         if spec is None or self._dp_spec_replay is not replay:
             spec = fused_spec(self.config, replay)
             self._dp_spec, self._dp_spec_replay = spec, replay
-        keys = next_fused_keys(self, replay.num_shards, chain)
+        # each of this process's shards draws with its global shard's keys
+        keys = next_fused_keys(self, replay.num_shards, chain)[
+            replay.local_shards]
         u = self.draw_uniforms(keys.reshape(-1, 2), spec[8], self.device)
         dev = self.device
         maxp, metrics = self.learner.train_steps_device_per(

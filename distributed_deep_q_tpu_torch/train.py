@@ -29,6 +29,16 @@ Host-sampled prioritized replay gets its priorities back through a
 ``replay.persist_path`` is set (``replay/persistence.py``), and restore
 both before the first step on ``train.resume``. Configurations outside the
 port are refused with the ROADMAP item that will port them.
+
+More than one learner process (``mesh.num_processes``,
+``parallel/multihost.py``): every process runs the same loop, its own env
+(seed offset ``131·process_id``) feeding its own replay, sampling its
+``B / num_processes`` rows into a train step whose gradient mean spans the
+processes. The learn gate opens on every process at once
+(``all_processes_ready``); only process 0 keeps metrics sinks and writes
+checkpoints; each process persists its replay to ``{path}.proc{pid}``.
+Pixel runs need a host replay there (``replay.device_resident=false``),
+and the device sequence ring is not persisted, both as in the reference.
 """
 
 from __future__ import annotations
@@ -45,6 +55,8 @@ from distributed_deep_q_tpu_torch.actors.game import (
 from distributed_deep_q_tpu_torch.config import Config
 from distributed_deep_q_tpu_torch.metrics import Metrics, MovingAverage
 from distributed_deep_q_tpu_torch.parallel import mesh
+from distributed_deep_q_tpu_torch.parallel.multihost import (
+    all_processes_ready, local_rows)
 from distributed_deep_q_tpu_torch.parallel.sequence_learner import (
     SequenceSolver)
 from distributed_deep_q_tpu_torch.profiling import (
@@ -132,31 +144,52 @@ def trace_window(cfg: Config) -> TraceWindow:
                        cfg.train.profile_num_steps)
 
 
-def restore_for_resume(cfg: Config, solver, replay):
+def persist_path(cfg: Config) -> str:
+    """Where this process persists its replay: ``replay.persist_path``, or
+    ``{path}.proc{pid}`` with more than one process (a shared path would
+    race on save and clone one process's replay onto every process on
+    resume)."""
+    persist = cfg.replay.persist_path
+    if persist and cfg.mesh.num_processes > 1:
+        persist = f"{persist}.proc{cfg.mesh.process_id}"
+    return persist
+
+
+def restore_for_resume(cfg: Config, solver, replay, persist: str):
     """The resume points both loops share: the newest checkpoint into
-    ``solver`` and the persisted replay into ``replay``, each only on
+    ``solver`` (on every process, then made process 0's bit for bit) and
+    the persisted replay at ``persist`` into ``replay``, each only on
     ``train.resume`` and when there is one. Returns (the checkpointer or
-    None, the persist path or "", the grad-step count to continue
-    from)."""
+    None, the grad-step count to continue from)."""
     gsteps = 0
     ckpt = maybe_checkpointer(cfg.train)
     if ckpt and cfg.train.resume and ckpt.latest_step() is not None:
         # extra (env steps) is read and dropped, as in the reference: the
         # ε schedule and the actor's RNG restart
         solver.state, _ = ckpt.restore(solver.state)
+        solver.replicate_state()
         gsteps = solver.step
-    persist = cfg.replay.persist_path
     if persist and cfg.train.resume and os.path.exists(persist):
         # restore the buffer's exact sampling state instead of
         # warm-refilling
         load_replay(replay, persist)
-    return ckpt, persist, gsteps
+    return ckpt, gsteps
 
 
-def make_replay(cfg: Config, env, device: torch.device):
+def save_checkpoint(cfg: Config, ckpt, solver, env_steps: int,
+                    wait: bool = False) -> None:
+    """Save the train state; process 0 alone writes it (every process
+    holds the same state, and one directory takes one writer)."""
+    if cfg.mesh.process_id == 0:
+        ckpt.save(solver.state, extra={"env_steps": env_steps}, wait=wait)
+
+
+def make_replay(cfg: Config, env, device: torch.device,
+                seed: int | None = None):
     """The replay the reference builds for this env and these settings
-    (see the module docstring)."""
-    seed = cfg.train.seed
+    (see the module docstring), its host RNGs seeded from ``seed``
+    (default ``train.seed``)."""
+    seed = cfg.train.seed if seed is None else seed
     if env.obs_dtype != np.uint8:
         return maybe_prioritize(ReplayMemory(
             cfg.replay.capacity, env.obs_shape, np.float32, seed=seed),
@@ -172,7 +205,8 @@ def make_replay(cfg: Config, env, device: torch.device):
     return kind(cfg.replay, device, env.obs_shape, cfg.env.stack,
                 cfg.train.gamma, seed=seed,
                 write_chunk=cfg.replay.write_chunk,
-                num_shards=mesh.num_shards(cfg.mesh))
+                num_shards=mesh.num_shards(cfg.mesh),
+                local_shards=mesh.local_shards(cfg.mesh))
 
 
 def train_single_process(cfg: Config, metrics: Metrics | None = None,
@@ -187,9 +221,23 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
     cfg.net.num_actions = env.num_actions
     obs_dim = int(np.prod(env.obs_shape))
     solver = Solver(cfg, obs_dim=obs_dim)
-    rng = np.random.default_rng(cfg.train.seed)
-    replay = make_replay(cfg, env, solver.device)
+    # the Solver refused a batch that does not split across the processes
+    pc, pid = cfg.mesh.num_processes, cfg.mesh.process_id
+    local_batch = solver.local_batch
+    if pc > 1:
+        # decorrelate the processes' experience streams
+        env = make_env(cfg.env, seed=cfg.train.seed + 131 * pid)
+        if pid != 0:
+            metrics = Metrics()  # file sinks live on process 0 only
+    seed = cfg.train.seed + 131 * pid
+    rng = np.random.default_rng(seed)
     pixel_env = env.obs_dtype == np.uint8
+    if pixel_env and cfg.replay.device_resident and pc > 1:
+        raise ValueError(
+            "replay.device_resident=True is single-controller only (the "
+            "host writes frames into a sharded device ring); multi-host "
+            "pixel runs need replay.device_resident=false")
+    replay = make_replay(cfg, env, solver.device, seed)
     if pixel_env:
         stacker = FrameStacker(env.obs_shape, cfg.env.stack)
     else:
@@ -200,7 +248,9 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
     ep_ret, ep_returns = 0.0, MovingAverage(100)
     summary: dict = {}
     fused_per = isinstance(replay, DevicePERFrameReplay)
-    writeback = (make_writeback(replay, cfg.replay)
+    # with more than one process each writes back its own rows only
+    writeback = (make_writeback(replay, cfg.replay,
+                                to_host=local_rows if pc > 1 else None)
                  if replay.prioritized and not fused_per else None)
     learn_live = False
     best_eval, best_params = float("-inf"), None
@@ -215,7 +265,8 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
     trace = trace_window(cfg)
     # a resumed fused run draws the keys an unbroken run would: the key
     # schedule anchors on the restored step at the first dispatch
-    ckpt, persist, gsteps = restore_for_resume(cfg, solver, replay)
+    persist = persist_path(cfg)
+    ckpt, gsteps = restore_for_resume(cfg, solver, replay, persist)
 
     for t in range(1, cfg.train.total_steps + 1):
         eps = epsilon_at(t, cfg.actors)
@@ -250,7 +301,10 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
                 nstep.reset()
 
         if t % cfg.train.train_every == 0 and not learn_live:
-            learn_live = replay.ready(cfg.replay.learn_start)
+            # every process's replay warm: a collective AND, at the same
+            # loop point on every process (no process steps alone)
+            learn_live = all_processes_ready(
+                replay.ready(cfg.replay.learn_start))
         if learn_live and t % cfg.train.train_every == 0:
             # learn phase: j minibatches per k env steps; the fused path
             # chains up to fused_chain of them per dispatch
@@ -259,7 +313,7 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
                     m = fused_stream.next(cfg.train.grad_steps_per_train - j)
                 else:
                     with timer.phase("sample"):
-                        batch = replay.sample(cfg.replay.batch_size)
+                        batch = replay.sample(local_batch)
                     sampled_at = batch.pop("_sampled_at",
                                            replay.steps_added)
                     with timer.phase("dispatch"):
@@ -278,7 +332,7 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
                         writeback.push(m["index"], m["td_abs"], sampled_at)
                 metrics.count("grad_steps")
                 if ckpt and gsteps % cfg.train.checkpoint_every == 0:
-                    ckpt.save(solver.state, extra={"env_steps": t})
+                    save_checkpoint(cfg, ckpt, solver, t)
                     if persist:
                         save_replay(replay, persist)
                 if gsteps % log_every == 0:
@@ -320,8 +374,7 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
         solver.update(best_params)
         final_ret = evaluate(solver, cfg)
     if ckpt:
-        ckpt.save(solver.state, extra={"env_steps": cfg.train.total_steps},
-                  wait=True)
+        save_checkpoint(cfg, ckpt, solver, cfg.train.total_steps, wait=True)
     if persist:
         save_replay(replay, persist)
     summary["eval_return"] = final_ret
@@ -380,6 +433,7 @@ def make_sequence_replay(cfg: Config, obs_shape: tuple[int, ...], obs_dtype,
         return DeviceSequenceReplay(seq_capacity, seq_len, obs_shape, device,
                                     cfg.net.lstm_size,
                                     num_shards=mesh.num_shards(cfg.mesh),
+                                    local_shards=mesh.local_shards(cfg.mesh),
                                     **per)
     return SequenceReplay(seq_capacity, seq_len, obs_shape, obs_dtype,
                           cfg.net.lstm_size, **per)
@@ -401,6 +455,8 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
     cfg.net.num_actions = env.num_actions
     obs_dim = int(np.prod(env.obs_shape))
     solver = SequenceSolver(cfg, obs_dim=obs_dim)
+    if cfg.mesh.process_id != 0:
+        metrics = Metrics()  # file sinks live on process 0 only
     rng = np.random.default_rng(cfg.train.seed)
 
     pixel = env.obs_dtype == np.uint8
@@ -432,7 +488,16 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
     carry = solver.initial_state(1)
     ep_ret, ep_returns = 0.0, MovingAverage(100)
     summary: dict = {}
-    ckpt, persist, gsteps = restore_for_resume(cfg, solver, replay)
+    persist = persist_path(cfg)
+    if persist and cfg.mesh.num_processes > 1 and device_seq:
+        # each process's file would hold its own shards only, and a resume
+        # would rebuild a buffer whose sampling state no longer matches
+        raise ValueError(
+            "replay.persist_path is not supported with a device-resident "
+            "DeviceSequenceReplay under multi-process (num_processes="
+            f"{cfg.mesh.num_processes}); set replay.device_resident=false "
+            "or drop persist_path")
+    ckpt, gsteps = restore_for_resume(cfg, solver, replay, persist)
     for t in range(1, cfg.train.total_steps + 1):
         eps = epsilon_at(t, cfg.actors)
         carry_before = carry
@@ -460,15 +525,17 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
             obs = stacker.reset(frame) if pixel else frame
             carry = solver.initial_state(1)
 
-        if (replay.ready(learn_start_seqs)
-                and t % cfg.train.train_every == 0):
+        # the gate is a collective AND over the processes, taken at the
+        # same loop point on every one
+        if (t % cfg.train.train_every == 0
+                and all_processes_ready(replay.ready(learn_start_seqs))):
             if fused_seq:
                 remaining = ((cfg.train.total_steps - t)
                              // cfg.train.train_every + 1)
                 m = stream.next(remaining)
             else:
                 with timer.phase("sample"):
-                    batch = replay.sample(cfg.replay.batch_size)
+                    batch = replay.sample(solver.local_batch)
                 sampled_at = batch.pop("_sampled_at")
                 with timer.phase("dispatch"):
                     if device_seq:
@@ -483,7 +550,7 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
                     writeback.push(m["index"], m["td_abs"], sampled_at)
             metrics.count("grad_steps")
             if ckpt and gsteps % cfg.train.checkpoint_every == 0:
-                ckpt.save(solver.state, extra={"env_steps": t})
+                save_checkpoint(cfg, ckpt, solver, t)
                 if persist:
                     save_replay(replay, persist)
             if gsteps % log_every == 0:
@@ -505,8 +572,7 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
     if writeback is not None:
         writeback.drain()
     if ckpt:
-        ckpt.save(solver.state, extra={"env_steps": cfg.train.total_steps},
-                  wait=True)
+        save_checkpoint(cfg, ckpt, solver, cfg.train.total_steps, wait=True)
     if persist:
         # an end-of-run save without checkpointing too, as in the
         # reference: the buffer must not go stale against the final θ

@@ -221,7 +221,10 @@ def test_evaluate_per_game_single_and_multi():
     # the patched spawn, so nothing refused it before the fleet came up
     ("train.learn_metrics=true", "an actor was spawned"),
     ("replay.persist_path=replay.npz", "replay.persist_path"),
-    ("mesh.num_processes=2", "ROADMAP A14"),
+    # more than one process runs now (ROADMAP A14b), but only in a
+    # process that joined their group: never as one process
+    ("mesh.num_processes=2", "initialize_multihost"),
+    ("mesh.model=2", "model axis"),
 ])
 @pytest.mark.parametrize("preset", ["pong", "r2d2"])
 def test_refusals_come_before_any_actor_is_spawned(override, name, preset,

@@ -69,22 +69,30 @@ def test_backend_cuda_raises_without_a_card():
 # each now trains through the same entry point
 LIFTED = {"net.kind=r2d2 train.learn_metrics=true",
           "train.optimizer=rmsprop", "train.learn_metrics=true", "mesh.dp=2"}
+# what is still refused, and by what. More than one process (A14b) runs
+# now; without a coordinator it is refused as the reference refuses it
+# (there is no group to join), never run as one process
+REFUSED = {"train.profile_port=6006": (NotImplementedError, "ROADMAP"),
+           "mesh.num_processes=2": (ValueError, "mesh.coordinator"),
+           "mesh.model=2": (NotImplementedError, "model axis")}
 
 
 @pytest.mark.parametrize("override", [
     pytest.param("net.kind=r2d2 train.learn_metrics=true",
                  id="net.kind=r2d2"),
     "train.profile_port=6006", "mesh.num_processes=2", "mesh.dp=2",
-    "train.optimizer=rmsprop", "train.learn_metrics=true"])
+    "train.optimizer=rmsprop", "train.learn_metrics=true", "mesh.model=2"])
 def test_out_of_slice_configs_are_refused(override):
-    """``train.profile_port`` (A9) and more than one process (A14b) are
-    refused by name; the ``LIFTED`` settings run (the r2d2 one on the
-    preset's small recurrent net; ``mesh.dp=2`` on two replay shards)."""
+    """``train.profile_port`` (A9) and a model axis are refused by name,
+    and more than one process with no coordinator; the ``LIFTED``
+    settings run (the r2d2 one on the preset's small recurrent net;
+    ``mesh.dp=2`` on two replay shards)."""
     argv = ["train", "--preset", "pong", "--backend", "cpu",
             "--log-every", "5", "--set", *RECIPE, "train.total_steps=10",
             *override.split()]
-    if override not in LIFTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if override in REFUSED:
+        exc, match = REFUSED[override]
+        with pytest.raises(exc, match=match):
             main(argv)
         return
     torch.set_num_threads(1)
