@@ -211,7 +211,7 @@ Phases (any failure exits non-zero and prints no result line):
    plain version, timed beside the byte bound and ``index_copy_``. Then
    the Pong preset's geometry on signal_atari (bf16 Nature CNN 84×84×4,
    batch 512, 1M-row ring, α = 0, chain 8, the fused loss), 64 envs × 16
-   ticks, 300 supersteps: all four kernels launched; 20 supersteps under
+   ticks, 200 supersteps: all four kernels launched; 20 supersteps under
    ``torch.cuda.set_sync_debug_mode("warn")`` make no synchronizing call;
    a ``torch.profiler`` window of 2 supersteps gives the act / insert /
    sample / train stages' device ms, launches per superstep and
@@ -242,8 +242,12 @@ Phases (any failure exits non-zero and prints no result line):
    512, chain 8, α = 0) on a 131,072-row ring of 2 shards filled with rows
    keyed by their global slot, 8 chain-8 dispatches at 2 processes × 1
    shard and at 1 process × 2 shards, cuDNN deterministic: the drawn rows
-   and IS weights bitwise, the two ranks' θ bitwise, θ within
-   ``P16_THETA_TOL`` of the 1-process run; 16b: phase 11's ``main train
+   and IS weights bitwise, every B1 launch's windows bitwise against the
+   plain gather on the same indices, the two ranks' θ and Adam's μ
+   bitwise, θ within ``P16_THETA_TOL`` and μ within ``P16_MU_TOL`` of
+   the 1-process run (``--phase16a`` runs 16a alone); before it, B3/B4 at
+   B = 256 and B1 at 2,048 windows on 16b's one-shard ring against their
+   plain versions; 16b: phase 11's ``main train
    --distributed`` at 2 processes × 2 actors, 400 grad steps: both exit
    0, grad steps exact, both shards fed, the θ hashes equal, no actor
    holds a CUDA context (an ``ActorWatch`` in each process), B1 and B2
@@ -348,15 +352,18 @@ def float_err(torch, a, b) -> float:
 # -- phase 3 ------------------------------------------------------------------
 
 
-def check_gather(torch, rg, ring, dev, n: int) -> dict:
+def check_gather(torch, rg, ring, dev, n: int, rows: int = ROWS) -> dict:
+    """B1 at ``n`` windows on a random ring of ``rows`` rows of ``ROWB``
+    bytes: bitwise against its plain version, then timed beside it,
+    ``index_select`` and the byte bound."""
     rowp = ROWB // 4
     gen = torch.Generator(device=dev).manual_seed(n)
     # 8 index sets, cycled while timing, so repeated launches do not find
     # their windows in the 50 MB L2 cache (a fresh draw's windows are cold)
-    idx_sets = [torch.randint(0, ROWS - WINDOW + 1, (n,), dtype=torch.int32,
+    idx_sets = [torch.randint(0, rows - WINDOW + 1, (n,), dtype=torch.int32,
                               device=dev, generator=gen) for _ in range(8)]
     idx = idx_sets[0]
-    idx[0] = ROWS - WINDOW                 # the ring's last window
+    idx[0] = rows - WINDOW                 # the ring's last window
     idx[1] = 2**31 // ROWB + 1             # just past the 2³¹-byte mark
     idx[2] = 0
     high = int((idx.long() * ROWB >= 2**31).sum())
@@ -376,7 +383,8 @@ def check_gather(torch, rg, ring, dev, n: int) -> dict:
     library_ms, library_host_ms = time_ms(
         torch, lambda i: torch.index_select(ring2d, 0, lib_rows[i % 8]))
     nbytes = n * 4 + 2 * n * WINDOW * ROWB
-    return {"n": n, "windows_past_2^31_bytes": high, "max_abs_err": err,
+    return {"n": n, "rows": rows, "windows_past_2^31_bytes": high,
+            "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "host_ms": host_ms, "plain_host_ms": plain_host_ms,
             "library_host_ms": library_host_ms,
@@ -2737,8 +2745,9 @@ def anakin_pin(torch, config, modules, dp: int = 1) -> dict:
 # Phase 14 at full width: the Pong preset's geometry (bf16 Nature CNN at
 # 84×84×4, batch 512, 1M-row ring = 8.19 GB, α = 0, chain 8, the fused
 # loss) on signal_atari, 64 envs × 16 ticks = 1,024 env steps and 8 grad
-# steps per superstep; 300 supersteps, the first 20 of them warm-up
-ANAKIN_ENVS, ANAKIN_TICKS, ANAKIN_SUPERSTEPS = 64, 16, 300
+# steps per superstep; 200 supersteps, the first 20 of them warm-up (300
+# until phase 16 came: cut to keep the whole run well inside its limit)
+ANAKIN_ENVS, ANAKIN_TICKS, ANAKIN_SUPERSTEPS = 64, 16, 200
 ANAKIN_PROFILED = 2     # each holds ~38,000 launches for the profiler
 
 
@@ -3335,7 +3344,20 @@ P16_DISPATCHES, P16_CHAIN = 8, 8
 # (PERF.md §6, phase 16); the bound keeps a 3x margin (2·lr·64 = 8e-3 is
 # Adam's own worst case)
 P16_THETA_TOL = 1e-3
+# Adam's first moment at 2 processes against 1 process, as
+# max|Δμ| / max|μ|: μ is linear in the gradient, so a wrong mean over the
+# processes (a sum, or B3/B4 dividing by the global batch) moves it by
+# about 1, where θ, which Adam normalizes, barely moves. Measured 0.062
+# on an H100 80GB HBM3 at 700 W; a planted sum in place of the mean read
+# 1.30 and a planted division by the global batch 0.735, with θ inside
+# P16_THETA_TOL in both (PERF.md §6, phase 16): the bound sits 4x above
+# the first reading and 2.9x below the nearest fault
+P16_MU_TOL = 0.25
 P16_TIMEOUT_S = 420
+# 16b: each process's padded frame ring, one shard of D = 2 (what 16b's
+# replay allocates): 2 sub-rings of 250,000 rows + 4 ghost rows, and the
+# scratch row; B1 runs on it at chain 8 × 256 rows = 2,048 windows
+P16_SHARD_ROWS, P16_GATHER_N = 2 * (250_000 + WINDOW - 1) + 1, 8 * 256
 # 16b: phase 11's run at 2 processes, 2 of the preset's 4 actors each,
 # each process's ring the preset's 1M rows' half (one shard of D = 2)
 P16_DIST_ARGV = ["train", "--distributed", "--preset", "pong",
@@ -3377,6 +3399,7 @@ def p16_pin_worker(pid: int, nproc: int, port: str, out: str) -> None:
     import torch
 
     from distributed_deep_q_tpu_torch import config
+    from distributed_deep_q_tpu_torch.ops import ring_gather as rg
     from distributed_deep_q_tpu_torch.parallel import learner as learner_mod
     from distributed_deep_q_tpu_torch.parallel import multihost
     from distributed_deep_q_tpu_torch.replay.device_per import (
@@ -3414,22 +3437,42 @@ def p16_pin_worker(pid: int, nproc: int, port: str, out: str) -> None:
     counters = p16_kernel_counters()
     for f in counters.values():
         f.launches = 0
+    # every B1 launch of the dispatches held against its plain version on
+    # the same inputs (the plain version launches no kernel)
+    gathered = []
+    gather = learner_mod.gather_windows
+
+    def checked_gather(idx, ring, **kw):
+        out = gather(idx, ring, **kw)
+        plain = rg.gather_windows_plain(idx, ring, **kw)
+        gathered.append((kw["n"], bool(torch.equal(out, plain))))
+        return out
+
+    learner_mod.gather_windows = checked_gather
     with capturing(learner_mod, "fused_sample",
                    lambda args, res: (res[2].cpu().numpy(),
                                       res[0]["weight"].cpu().numpy())) \
             as draws:
-        for _ in range(P16_DISPATCHES):
-            solver.train_steps_device_per(replay, chain=P16_CHAIN)
-        torch.cuda.synchronize()
+        try:
+            for _ in range(P16_DISPATCHES):
+                solver.train_steps_device_per(replay, chain=P16_CHAIN)
+            torch.cuda.synchronize()
+        finally:
+            learner_mod.gather_windows = gather
     idx = np.stack([d[0] for d in draws]).astype(np.int64)
     idx = np.where(idx < replay.local_capacity,
                    idx + replay.local_shards[0] * replay.cap_local,
                    replay.capacity)
     theta = torch.cat([p.detach().float().reshape(-1)
                        for p in solver.state.net.parameters()]).cpu()
+    mu = solver.state.opt_state["mu"]
+    mu = torch.cat([mu[k].detach().float().reshape(-1)
+                    for k in sorted(mu)]).cpu()
     with open(out, "wb") as fh:
         np.savez(fh, idx=idx, weight=np.stack([d[1] for d in draws]),
-                 theta=theta.numpy(), theta_hash=theta_hash(solver),
+                 theta=theta.numpy(), mu=mu.numpy(),
+                 gathers=np.asarray(gathered, np.int64),
+                 theta_hash=theta_hash(solver),
                  launches=json.dumps({k: f.launches
                                       for k, f in counters.items()}),
                  step=solver.step)
@@ -3463,7 +3506,9 @@ def p16_cli_worker(pid: int, nproc: int, port: str, out: str,
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
-        with capturing(*target, lambda args, res: theta_hash(res["solver"])) \
+        with capturing(*target, lambda args, res: (
+                theta_hash(res["solver"]),
+                getattr(res.get("replay"), "shard_rows", None))) \
                 as hashes, contextlib.redirect_stdout(buf):
             rc = cli_main(argv)
     finally:
@@ -3474,7 +3519,8 @@ def p16_cli_worker(pid: int, nproc: int, port: str, out: str,
     with open(out, "w") as fh:
         json.dump({"pid": pid, "summary": json.loads(
             buf.getvalue().strip().splitlines()[-1]),
-            "launches": launches, "theta_hash": hashes[0], "wall_s": wall,
+            "launches": launches, "theta_hash": hashes[0][0],
+            "ring_shard_rows": hashes[0][1], "wall_s": wall,
             "collectives": multihost.STATS, "cuda_context": ctx}, fh)
 
 
@@ -3562,7 +3608,12 @@ def phase16_pin() -> dict:
     idx2 = np.concatenate([t["idx"] for t in two], axis=-1)
     w2 = np.concatenate([t["weight"] for t in two], axis=-1)
     dtheta = float(np.abs(two[0]["theta"] - one["theta"]).max())
+    dmu = float(np.abs(two[0]["mu"] - one["mu"]).max())
+    gathers = [r["gathers"] for r in [one] + two]
     return {"draws_bitwise": bool(np.array_equal(idx2, one["idx"])),
+            "b1_windows_bitwise_vs_plain": bool(all(
+                len(g) and g[:, 1].all() for g in gathers)),
+            "b1_n": [sorted(set(g[:, 0].tolist())) for g in gathers],
             "weights_bitwise": bool(np.array_equal(w2, one["weight"])),
             "rows_drawn": int(one["idx"].size),
             "shards_drawn": sorted(set((one["idx"] // (P16_RING // 2))
@@ -3571,9 +3622,46 @@ def phase16_pin() -> dict:
                                                        two[1]["theta"])),
             "theta_max_abs_diff_vs_one_process": dtheta,
             "theta_max_abs": float(np.abs(one["theta"]).max()),
+            "mu_rel_diff_vs_one_process":
+                dmu / float(np.abs(one["mu"]).max()),
+            "ranks_mu_bitwise": bool(np.array_equal(two[0]["mu"],
+                                                    two[1]["mu"])),
             "steps": [int(one["step"])] + [int(t["step"]) for t in two],
             "launches": [json.loads(str(one["launches"]))]
             + [json.loads(str(t["launches"])) for t in two]}
+
+
+def check_phase16_pin() -> dict:
+    """16a, run and held to its bars."""
+    pin16 = phase16_pin()
+    log(f"[16a] 2 processes x 1 shard against 1 process x 2 shards, "
+        f"{P16_DISPATCHES} chain-{P16_CHAIN} dispatches: {json.dumps(pin16)}")
+    assert pin16["draws_bitwise"] and pin16["weights_bitwise"], pin16
+    assert pin16["b1_windows_bitwise_vs_plain"], pin16
+    assert pin16["b1_n"] == [[P16_CHAIN * 512], [P16_GATHER_N],
+                             [P16_GATHER_N]], pin16
+    assert pin16["shards_drawn"] == [0, 1], pin16
+    assert pin16["ranks_theta_bitwise"] and pin16["ranks_mu_bitwise"], pin16
+    assert pin16["steps"] == [P16_DISPATCHES * P16_CHAIN] * 3, pin16
+    assert pin16["theta_max_abs_diff_vs_one_process"] <= P16_THETA_TOL, \
+        pin16
+    assert pin16["mu_rel_diff_vs_one_process"] <= P16_MU_TOL, pin16
+    return pin16
+
+
+def phase16a_only() -> int:
+    """``chip_smoke.py --phase16a``: 16a alone (its bars and its
+    readings), for a quick check of the multi-process train step."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from distributed_deep_q_tpu_torch.ops import cuda_build
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log(nvidia_smi_line())
+    log(f"[2] build: {cuda_build.build_all()}")   # before the workers
+    check_phase16_pin()
+    return 0
 
 
 def phase16_cli(tag: str, argv: list[str]) -> list[dict]:
@@ -4102,15 +4190,20 @@ def main() -> int:
     assert loss256["td_max_abs_err"] == 0, "B3 |td| disagrees at B=256"
     assert loss256["dq_max_abs_err"] == 0, "B4 dq disagrees at B=256"
     assert loss256["loss_max_rel_err"] <= 1e-6, loss256
-    pin16 = phase16_pin()
-    log(f"[16a] 2 processes x 1 shard against 1 process x 2 shards, "
-        f"{P16_DISPATCHES} chain-{P16_CHAIN} dispatches: {json.dumps(pin16)}")
-    assert pin16["draws_bitwise"] and pin16["weights_bitwise"], pin16
-    assert pin16["shards_drawn"] == [0, 1], pin16
-    assert pin16["ranks_theta_bitwise"], pin16
-    assert pin16["steps"] == [P16_DISPATCHES * P16_CHAIN] * 3, pin16
-    assert pin16["theta_max_abs_diff_vs_one_process"] <= P16_THETA_TOL, \
-        pin16
+    # B1 at one of two processes' shapes: 2,048 windows on 16b's ring of
+    # one shard, as phase 3 at 512 and 4,096 on the whole ring
+    gen = torch.Generator(device=dev).manual_seed(16)
+    ring16 = torch.randint(-2**31, 2**31 - 1, (P16_SHARD_ROWS * ROWB // 4,),
+                           dtype=torch.int32, device=dev, generator=gen)
+    gather16 = check_gather(torch, rg, ring16, dev, P16_GATHER_N,
+                            rows=P16_SHARD_ROWS)
+    del ring16
+    torch.cuda.empty_cache()
+    log(f"[16] gather_windows at one process's shape: "
+        f"{json.dumps(gather16)}")
+    assert gather16["max_abs_err"] == 0, "B1 disagrees at n=2048"
+    assert gather16["windows_past_2^31_bytes"] > 0, gather16
+    pin16 = check_phase16_pin()
     d16 = phase16_cli("dist", P16_DIST_ARGV)
     h16 = phase16_cli("host", P16_HOST_ARGV)
     for tag, res in (("16b", d16), ("16c", h16)):
@@ -4126,6 +4219,8 @@ def main() -> int:
                     # this process and the two learners
                     assert ctx["compute_apps_max"] <= 3, ctx
     check_phase16_cli(d16, 400, ("gather_windows", "scatter_rows"))
+    assert [r["ring_shard_rows"] for r in d16] == [P16_SHARD_ROWS] * 2, \
+        [r["ring_shard_rows"] for r in d16]
     check_phase16_cli(h16, 200, ("fused_loss_fwd", "fused_loss_bwd"))
     for r in d16:
         s16 = r["summary"]
@@ -4156,11 +4251,16 @@ def main() -> int:
          "plain_ms": g512["plain_ms"], "bound_ms": g512["bound_ms"],
          "bound_by": "bytes", "library_ms": g512["library_ms"],
          "empty_kernel_ms": empty_ms, "host_ms": g512["host_ms"],
-         "ok": g512["max_abs_err"] == 0 and g4096["max_abs_err"] == 0,
+         "ok": (g512["max_abs_err"] == 0 and g4096["max_abs_err"] == 0
+                and gather16["max_abs_err"] == 0),
          "shape": "n=512 w=5 rowb=8192", "path": "phase 4 (pong)",
          "chain8": {k: g4096[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "library_ms", "max_abs_err",
-                                          "host_ms")}},
+                                          "host_ms")},
+         # one of two processes' draw: chain 8 x 256 rows on 16b's ring
+         "two_process_chain8": {k: gather16[k] for k in (
+             "n", "rows", "ms", "plain_ms", "bound_ms", "library_ms",
+             "max_abs_err", "host_ms")}},
     ]
     # B2's row: the pre-dispatch flush, the shape of most of its launches;
     # the fill chunk beside it
@@ -4336,6 +4436,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--phase5"]:
             code = phase5_trees(sys.argv[2:])
+        elif sys.argv[1:2] == ["--phase16a"]:
+            code = phase16a_only()
         elif sys.argv[1:2] == ["--phase16-worker"]:
             code = p16_worker(sys.argv[2:])
         else:

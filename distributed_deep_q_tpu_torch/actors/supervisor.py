@@ -105,16 +105,14 @@ def _split_fleet_across_processes(cfg: Config, pixel: bool, metrics,
     ladder, env seeds, multi-game assignment) comes from
     ``actor_id_offset`` or, under ``actors.assignment="hash"``, from the
     consistent-hash slice (``actors/assignment.py``). ``ring_desc`` names
-    the host-sampled device ring in the refusal.
+    the host-sampled device ring in the refusal. The batch split is the
+    ``Solver``'s (``local_batch``), which is built first and refuses a
+    batch that does not divide.
 
-    Returns (cfg, local_batch, metrics, pc, pid): the metrics swapped for
-    a sink-less instance on processes other than 0."""
+    Returns (cfg, metrics, pc, pid): the metrics swapped for a sink-less
+    instance on processes other than 0."""
     pc, pid = int(cfg.mesh.num_processes), int(cfg.mesh.process_id)
-    local_batch = cfg.replay.batch_size
     if pc > 1:
-        if cfg.replay.batch_size % pc:
-            raise ValueError(f"replay.batch_size={cfg.replay.batch_size} "
-                             f"must divide across {pc} processes")
         if cfg.actors.num_actors % pc:
             raise ValueError(f"actors.num_actors={cfg.actors.num_actors} "
                              f"must divide across {pc} processes")
@@ -126,7 +124,6 @@ def _split_fleet_across_processes(cfg: Config, pixel: bool, metrics,
                 "multi-host --distributed pixel runs need either the FUSED "
                 "ring (replay.prioritized=true + replay.device_per=true) or "
                 "replay.device_resident=false")
-        local_batch = cfg.replay.batch_size // pc
         k = cfg.actors.num_actors // pc
         if cfg.actors.assignment == "hash":
             from distributed_deep_q_tpu_torch.actors.assignment import (
@@ -142,7 +139,7 @@ def _split_fleet_across_processes(cfg: Config, pixel: bool, metrics,
                 fleet_size=cfg.actors.num_actors))
         if pid != 0:
             metrics = Metrics()  # file sinks live on process 0 only
-    return cfg, local_batch, metrics, pc, pid
+    return cfg, metrics, pc, pid
 
 
 def check_distributed(cfg: Config) -> None:
@@ -1432,8 +1429,9 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
     replay_cfg = dataclasses.replace(
         cfg.replay, priority_beta_steps=cfg.train.total_steps)
     solver = Solver(cfg, obs_dim=int(np.prod(obs_shape)))
-    cfg, batch_size, metrics, pc, _ = _split_fleet_across_processes(
+    cfg, metrics, pc, _ = _split_fleet_across_processes(
         cfg, pixel, metrics, "device frame ring", fused_ok=True)
+    batch_size = solver.local_batch
     # every stacked env row is its own replay stream (slot ownership and
     # flush_seq dedup key on it)
     streams = cfg.actors.num_actors * max(int(cfg.actors.vector_envs), 1)
@@ -1645,8 +1643,9 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
     del probe
 
     solver = SequenceSolver(cfg, obs_dim=obs_dim)
-    cfg, batch_size, metrics, pc, _ = _split_fleet_across_processes(
+    cfg, metrics, pc, _ = _split_fleet_across_processes(
         cfg, pixel, metrics, "device sequence ring", fused_ok=True)
+    batch_size = solver.local_batch
     seq_len = cfg.replay.sequence_length
     seq_capacity = max(cfg.replay.capacity // seq_len, 64)
     per = dict(prioritized=cfg.replay.prioritized,

@@ -26,10 +26,10 @@ so every collective here is an ``all_reduce`` or a ``broadcast``.
 
 What became an identity, and why:
 
-- ``global_batch``: the reference assembles the global sharded batch from
-  each process's local rows. The port's train step takes the local rows
-  as they are and all-reduces the gradients, so a process's rows *are*
-  its share of the step.
+- the reference's ``global_batch`` assembles the global sharded batch
+  from each process's local rows. The port's train step takes the local
+  rows as they are and all-reduces the gradients, so a process's rows
+  *are* its share of the step, and the port has no such function.
 - ``local_rows``: the reference reads this process's rows back out of a
   batch-sharded result. The port's results are local tensors already;
   what is left is the copy to the host.
@@ -158,12 +158,6 @@ def put_replicated(tensors: Iterable[torch.Tensor]) -> None:
             dist.broadcast(t, src=0)
 
 
-def global_batch(batch: dict) -> dict:
-    """The identity: a process's local rows are its share of the step (see
-    the module docstring)."""
-    return batch
-
-
 def all_processes_ready(local_ready: bool) -> bool:
     """AND of a host flag across processes (the learn gate: no process may
     enter the collective train step alone). A collective: every process
@@ -174,17 +168,6 @@ def all_processes_ready(local_ready: bool) -> bool:
     with _counted("gate"):
         dist.all_reduce(t, op=dist.ReduceOp.MIN)
     return bool(t.item())
-
-
-def global_max_int(value: int) -> int:
-    """MAX of a host integer across processes. A collective. The identity
-    at one process."""
-    if not is_multiprocess():
-        return int(value)
-    t = torch.tensor([int(value)], dtype=torch.int64)
-    with _counted("gate"):
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return int(t.item())
 
 
 def local_rows(t: torch.Tensor) -> np.ndarray:

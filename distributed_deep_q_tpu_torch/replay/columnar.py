@@ -114,18 +114,15 @@ class IngestDrain:
 
     The work unit is ``replay.flush()`` (the full host→device dispatch,
     which the device rings enqueue on the learner's stream) with the
-    staged-row delta as its progress count, or, given ``work``, that
-    callable, which returns the rows it moved: a ring of one of several
-    learner processes passes ``work=prepare_rounds`` (host-only assembly
-    of flush planes; the dispatch waits for the solver's chunk boundary,
-    as in the reference). Either way the backlog is the replay's
-    ``_staged_rows``.
+    staged-row delta as its progress count, at one learner process and
+    at several alike. The reference's multi-host variant (a pluggable
+    host-only work unit, ``prepare_rounds``) serves its collective flush;
+    the port's flush writes only its own process's tensors and has none
+    (``replay/device_ring.py``).
     """
 
-    def __init__(self, replay, lock, min_rows: int, poll_s: float = 0.05,
-                 work=None):
+    def __init__(self, replay, lock, min_rows: int, poll_s: float = 0.05):
         self._replay = replay
-        self._work = work
         self._lock = lock
         self._min = max(int(min_rows), 1)
         self._poll_s = float(poll_s)
@@ -151,8 +148,6 @@ class IngestDrain:
 
     def _do_work(self) -> int:
         """One work unit under the replay lock; returns rows moved."""
-        if self._work is not None:
-            return int(self._work())
         before = self._replay.pending_rows()
         self._replay.flush()
         return before - self._replay.pending_rows()

@@ -27,13 +27,13 @@ owns the contiguous block ``local_shards`` of the D shards, its streams
 cycle over the slots of those shards only, and its device state holds
 only them. The geometry (``subs_per_shard``, ``slot_cap``, capacity) comes
 from the stream count over every process, so it is the same in each; slot
-ids, shard ids and the rows ``add`` returns stay global. As in the
-reference, the flush waits for the chunk boundary (``defer_flush``) and
-the drain only assembles its planes (``prepare_rounds``), so the write
-order is the staged order. The reference's flush is a collective with a
-round count agreed by MAX across processes; the port's writes only its own
-process's tensors, so the agreement would add nothing but empty rounds and
-is left out.
+ids, shard ids and the rows ``add`` returns stay global. The reference
+defers each process's flush to the chunk boundary and agrees its round
+count by MAX across processes, because its flush is one collective
+program over every process's devices. The port's flush writes only its
+own process's tensors, and the solver flushes every staged row before
+each dispatch, so every process keeps the one immediate flush path: the
+write order is the staged order, and a dispatch draws the same rows.
 
 ``DevicePERFrameReplay`` (``replay/device_per.py``) replaces the ring, its
 writer and the sampler with the fused device-PER ones.
@@ -185,9 +185,6 @@ class DeviceFrameReplay:
              if j % self.num_streams == i]
             for i in range(self.num_streams)]
         self._stream_pos = [0] * self.num_streams
-        # more than one process: the flush waits for the chunk boundary
-        # and the drain only assembles planes (module docstring)
-        self.defer_flush = self._pc > 1
 
         self._row_len = int(np.prod(self.frame_shape))
         self._alloc_ring()
@@ -203,10 +200,6 @@ class DeviceFrameReplay:
         self._stages: list | None = None  # built lazily: subclasses widen
         self._pending: list[list[tuple]] = [[] for _ in range(d)]
         self._pending_rows = [0] * d
-        # flush planes assembled ahead of their dispatch (prepare_rounds),
-        # FIFO: the next flush writes them before any fresh round
-        self._prepared: list[tuple[np.ndarray, list, int]] = []
-        self._prepared_rows = 0
         self._drain: IngestDrain | None = None   # start_drain attaches one
         self._drain_enabled = bool(getattr(cfg, "ingest_drain", True))
         self._drain_min = int(getattr(cfg, "drain_min_rows", 0))
@@ -249,13 +242,14 @@ class DeviceFrameReplay:
         return sum(len(m) for m in self.slots)
 
     def pending_rows(self) -> int:
-        """Rows staged or in assembled planes, not yet on the device."""
-        return sum(self._pending_rows) + self._prepared_rows
+        """Rows staged but not yet flushed to the device."""
+        return sum(self._pending_rows)
 
     def _staged_rows(self) -> int:
-        """Rows still in staging, not counting assembled planes: the
-        ``IngestDrain``'s backlog (a row in a plane needs no more host
-        work, only its dispatch)."""
+        """Rows still in staging: the ``IngestDrain``'s backlog. The same
+        as ``pending_rows``: no flush plane is assembled ahead of its
+        dispatch (the reference's multi-host ``prepare_rounds``; see the
+        module docstring for why the port has none)."""
         return sum(self._pending_rows)
 
     def _device_row(self, gidx):
@@ -385,7 +379,7 @@ class DeviceFrameReplay:
             return
         if self._drain is not None:
             self._drain.notify()
-        elif not self.defer_flush:
+        else:
             self.flush()
 
     def start_drain(self, lock, min_rows: int | None = None):
@@ -406,9 +400,7 @@ class DeviceFrameReplay:
         if self.device.type == "cuda":
             self._stream = torch.cuda.current_stream(self.device)
         min_r = min_rows or max(self.write_chunk, self._drain_min)
-        self._drain = IngestDrain(
-            self, lock, min_r,
-            work=self.prepare_rounds if self.defer_flush else None)
+        self._drain = IngestDrain(self, lock, min_r)
         return self._drain
 
     def stop_drain(self) -> None:
@@ -473,37 +465,13 @@ class DeviceFrameReplay:
                     self._pending[s][0] = tuple(a[take:] for a in entry)
         return idx, cols, rows
 
-    def _staged_rounds(self) -> int:
-        """Write rounds that the staged rows of this process's shards
-        need."""
-        return -(-max((self._pending_rows[s] for s in self.local_shards),
-                      default=0) // self.write_chunk)
-
-    def prepare_rounds(self) -> int:
-        """Assemble staged rows into padded flush planes WITHOUT writing
-        them: the drain's work unit when the flush waits for the chunk
-        boundary (``defer_flush``). Host only. The planes are written
-        first, in order, at the next ``flush``, so the device write order
-        is the staged order. Returns the rows moved into planes."""
-        total = 0
-        for _ in range(self._staged_rounds()):
-            plane = self._assemble_round()
-            self._prepared.append(plane)
-            self._prepared_rows += plane[2]
-            total += plane[2]
-        return total
-
     def flush(self) -> None:
-        """Push the assembled planes, then all staged rows, to the device in
-        fixed-shape chunks, on the learner's stream (``_writer_stream``)."""
-        rounds = len(self._prepared) + self._staged_rounds()
+        """Push all staged rows to the device in fixed-shape chunks, on the
+        learner's stream (``_writer_stream``)."""
+        rounds = -(-max(self._pending_rows) // self.write_chunk)
         with self._writer_stream():
             for _ in range(rounds):
-                if self._prepared:
-                    idx, cols, rows = self._prepared.pop(0)
-                    self._prepared_rows -= rows
-                else:
-                    idx, cols, _ = self._assemble_round()
+                idx, cols, _ = self._assemble_round()
                 self._apply_write(idx, cols)
 
     def _apply_write(self, idx: np.ndarray, cols: list) -> None:

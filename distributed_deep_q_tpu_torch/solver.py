@@ -157,6 +157,10 @@ class Solver:
         if backend is not None:
             config = dataclasses.replace(
                 config, mesh=dataclasses.replace(config.mesh, backend=backend))
+        pc = max(int(config.mesh.num_processes), 1)
+        if config.replay.batch_size % pc:
+            raise ValueError(f"replay.batch_size={config.replay.batch_size} "
+                             f"must divide across {pc} processes")
         mesh.check_mesh(config.mesh)
         self.config = config
         self.backend = config.mesh.backend
@@ -171,10 +175,6 @@ class Solver:
         self.state: TrainState = self.learner.init_state(net.to(self.device))
         self.num_shards = mesh.num_shards(config.mesh)
         self.local_shards = mesh.local_shards(config.mesh)
-        pc = max(int(config.mesh.num_processes), 1)
-        if config.replay.batch_size % pc:
-            raise ValueError(f"replay.batch_size={config.replay.batch_size} "
-                             f"must divide across {pc} processes")
         # this process's rows of every step (all of them at one process)
         self.local_batch = config.replay.batch_size // pc
         self.replicate_state()

@@ -498,6 +498,7 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
             f"{cfg.mesh.num_processes}); set replay.device_resident=false "
             "or drop persist_path")
     ckpt, gsteps = restore_for_resume(cfg, solver, replay, persist)
+    learn_live = False
     for t in range(1, cfg.train.total_steps + 1):
         eps = epsilon_at(t, cfg.actors)
         carry_before = carry
@@ -525,10 +526,12 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
             obs = stacker.reset(frame) if pixel else frame
             carry = solver.initial_state(1)
 
-        # the gate is a collective AND over the processes, taken at the
-        # same loop point on every one
-        if (t % cfg.train.train_every == 0
-                and all_processes_ready(replay.ready(learn_start_seqs))):
+        if t % cfg.train.train_every == 0 and not learn_live:
+            # every process's replay warm: a collective AND, at the same
+            # loop point on every process, until it first holds (the fill
+            # only grows, so it holds from then on)
+            learn_live = all_processes_ready(replay.ready(learn_start_seqs))
+        if learn_live and t % cfg.train.train_every == 0:
             if fused_seq:
                 remaining = ((cfg.train.total_steps - t)
                              // cfg.train.train_every + 1)

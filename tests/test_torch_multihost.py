@@ -48,6 +48,7 @@ if REPO not in sys.path:
 STEPS, GLOBAL_B, OBS_DIM, ACTIONS = 5, 16, 6, 3
 SAMPLE_D, SAMPLE_B, CHAIN, FRAME = 8, 32, 2, (36, 36)
 SPAWN_TIMEOUT_S = 240
+REC_STEPS, REC_EVERY = 480, 16
 
 
 # ---------------------------------------------------------------------------
@@ -410,9 +411,11 @@ def _worker_collectives(pid, nproc, port, out):
         "rank": multihost.process_index(),
         "and_mixed": multihost.all_processes_ready(pid == 0),
         "and_all": multihost.all_processes_ready(True),
-        "max_int": multihost.global_max_int(5 * pid + 3),
+        "max": multihost.all_reduce_(
+            torch.tensor([5.0 * pid + 3, -pid]), "max").tolist(),
+        "min": multihost.all_reduce_(
+            torch.tensor([5.0 * pid + 3, -pid]), "min").tolist(),
         "rows": multihost.local_rows(torch.arange(4.0) + pid).tolist(),
-        "batch_is_identity": multihost.global_batch({"a": 1}) == {"a": 1},
     }
     t = torch.full((3,), float(pid + 1))
     multihost.put_replicated([t])
@@ -513,6 +516,38 @@ def _worker_dist(pid, nproc, port, out, mode, steps):
         json.dump(res, f)
 
 
+def _worker_recurrent(pid, nproc, port, out):
+    """``train_recurrent`` (the in-process r2d2 loop) on the fused
+    sequence ring, small; records the learn gate's collectives."""
+    import dataclasses
+
+    from distributed_deep_q_tpu_torch import config as pc
+    from distributed_deep_q_tpu_torch.parallel import multihost
+    from distributed_deep_q_tpu_torch.train import train_recurrent
+
+    cfg = pc.r2d2_config()
+    cfg.mesh = _join(pid, nproc, port)
+    cfg.env = dataclasses.replace(cfg.env, id="signal", kind="signal_atari",
+                                  frame_shape=(36, 36))
+    cfg.net.frame_shape = (36, 36)
+    cfg.net.lstm_size = 8
+    cfg.net.compute_dtype = "float32"
+    cfg.replay = dataclasses.replace(
+        cfg.replay, capacity=2048, batch_size=8, learn_start=192,
+        sequence_length=12, burn_in=2, prioritized=True,
+        device_resident=True, device_per=True, write_chunk=2,
+        fused_chain=2)
+    cfg.train = dataclasses.replace(
+        cfg.train, total_steps=REC_STEPS, train_every=REC_EVERY,
+        target_update_period=10, eval_every=0, keep_best_eval=False,
+        eval_episodes=1)
+    summary = train_recurrent(cfg, log_every=10_000)
+    with open(out, "w") as f:
+        json.dump({"grad_steps": int(summary["grad_steps"]),
+                   "step": summary["solver"].step,
+                   "gate_calls": multihost.STATS["gate"]["calls"]}, f)
+
+
 def _worker_alone(pid, nproc, port, out):
     """Process ``pid`` of ``nproc`` whose peers never come: joining must
     raise (no single-process fallback)."""
@@ -533,7 +568,8 @@ def _worker_alone(pid, nproc, port, out):
 
 WORKERS = {"alone": _worker_alone, "mlp": _worker_mlp, "sample": _worker_sample,
            "chain": _worker_chain, "seq": _worker_seq,
-           "collectives": _worker_collectives, "dist": _worker_dist}
+           "collectives": _worker_collectives, "dist": _worker_dist,
+           "recurrent": _worker_recurrent}
 
 
 # ---------------------------------------------------------------------------
@@ -659,14 +695,12 @@ def test_shard_local_sampling_bitwise_two_process(tmp_path):
     assert _ulp_diff(got["weight"], metas["weight"]) <= 2
 
 
-def test_deferred_flush_writes_the_staged_order():
-    """A process holding shard 1 of D = 2 defers its flush to the dispatch
-    (``defer_flush``) while its drain only assembles planes
-    (``prepare_rounds``); the flush then writes them first, then what is
-    still staged. The ring it leaves, and what a dispatch draws from it
-    with shard 1's keys, are bitwise those of one process holding both
-    shards, whose own draws the reference's match (the two-process test
-    above)."""
+def test_one_shard_process_ring_and_draws_match_its_shard():
+    """A process holding shard 1 of D = 2 flushes as one process does: at
+    each chunk boundary and before a dispatch, in the staged order. The
+    ring it leaves, and what a dispatch draws from it with shard 1's keys,
+    are bitwise shard 1 of one process holding both shards, whose own
+    draws the reference's match (the two-process test above)."""
     import torch
 
     from distributed_deep_q_tpu_torch import config as pc
@@ -686,7 +720,6 @@ def test_deferred_flush_writes_the_staged_order():
                                     local_shards=local)
 
     both, half = replay(2, None), replay(1, [1])
-    assert half.defer_flush and not both.defer_flush
     assert half._slot_cycle == [[1]] and both._slot_cycle == [[0], [1]]
     def rows(slot, start):
         rng = np.random.default_rng(2000 + 100 * slot + start)
@@ -699,12 +732,8 @@ def test_deferred_flush_writes_the_staged_order():
         both.add_batch(rows(0, start), stream=0)
         both.add_batch(rows(1, start), stream=1)
         half.add_batch(rows(1, start), stream=0)
-        half.prepare_rounds()             # the drain's work, no write
-    assert not half.dstate["frames"].any()   # nothing written inline
-    assert half.pending_rows() == 90 and half._staged_rows() == 0
-    half.flush()
-    assert half.pending_rows() == 0
-    both.flush()
+    # each add crossed a chunk boundary and flushed inline
+    assert half.pending_rows() == 0 and both.pending_rows() == 0
     # every row of shard 1 but its scratch row, whose contents are
     # unspecified (the kernel skips it; the plain version writes padding
     # lanes there, last round last)
@@ -798,6 +827,26 @@ def test_sequence_chain_two_process_matches_one(tmp_path):
     np.testing.assert_allclose(r2, r1, rtol=1e-5, atol=1e-7)
 
 
+def test_recurrent_loop_gate_latches_two_process(tmp_path):
+    """``train_recurrent`` on two processes: the learn gate is a collective
+    only until it first holds, as in ``train_single_process``; every tick
+    after it is a grad step, the same on both ranks."""
+    outs = [str(tmp_path / f"r{pid}.json") for pid in range(2)]
+    _spawn(lambda pid, port: [sys.executable, os.path.abspath(__file__),
+                              "recurrent", str(pid), "2", str(port),
+                              outs[pid]], 2)
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+    ticks = REC_STEPS // REC_EVERY
+    for r in res:
+        assert r["grad_steps"] > 0 and r["gate_calls"] >= 1
+        # the last gate call opened the gate, and its tick stepped
+        assert r["gate_calls"] - 1 + r["grad_steps"] == ticks, r
+    assert res[0] == res[1]
+
+
 def test_initialize_multihost_noop_single_process():
     """One process: a no-op that leaves no process group, so single-process
     entry points call it unconditionally; ``local_rows`` gives every row,
@@ -815,7 +864,8 @@ def test_initialize_multihost_noop_single_process():
     np.testing.assert_array_equal(multihost.local_rows(torch.from_numpy(x)),
                                   x)
     assert multihost.all_processes_ready(True)
-    assert multihost.global_max_int(7) == 7
+    t = torch.tensor([7.0])
+    assert multihost.all_reduce_(t, "max") is t and t.item() == 7.0
 
 
 @pytest.mark.parametrize("mesh, match", [
@@ -837,18 +887,20 @@ def test_uneven_device_split_rejected(mesh, match):
 
 def test_batch_split_refused():
     """``replay.batch_size`` that does not split across the processes is
-    refused by the reference's message (the process-group check comes
-    after it, so no group is needed here)."""
+    refused by the reference's message, by the ``Solver`` that every loop
+    builds first (before the process-group check, so no group is needed
+    here); so is a fleet that does not split, by the supervisor."""
     from distributed_deep_q_tpu_torch import config as pc
     from distributed_deep_q_tpu_torch.actors.supervisor import (
         _split_fleet_across_processes)
+    from distributed_deep_q_tpu_torch.solver import Solver
 
     cfg = pc.pong_config()
     cfg.mesh = pc.MeshConfig(backend="cpu", num_processes=2, process_id=0,
                              coordinator="127.0.0.1:1")
     cfg.replay.batch_size = 33
     with pytest.raises(ValueError, match="must divide across 2 processes"):
-        _split_fleet_across_processes(cfg, True, None, "ring", True)
+        Solver(cfg)
     cfg.replay.batch_size = 32
     cfg.actors.num_actors = 3
     with pytest.raises(ValueError, match="must divide across 2 processes"):
@@ -880,9 +932,9 @@ def test_missing_peer_raises(pid, tmp_path):
 
 
 def test_collectives_two_process(tmp_path):
-    """``all_processes_ready`` (AND), ``global_max_int`` (MAX),
-    ``put_replicated`` (rank 0's values), and the identities
-    ``local_rows`` and ``global_batch``, at two processes."""
+    """``all_processes_ready`` (AND), ``all_reduce_`` (MAX, MIN),
+    ``put_replicated`` (rank 0's values), and the identity ``local_rows``,
+    at two processes."""
     res = []
     outs = [str(tmp_path / f"c{pid}.json") for pid in range(2)]
     _spawn(lambda pid, port: [sys.executable, os.path.abspath(__file__),
@@ -894,9 +946,8 @@ def test_collectives_two_process(tmp_path):
     for pid, r in enumerate(res):
         assert r["multiprocess"] and r["count"] == 2 and r["rank"] == pid
         assert r["and_mixed"] is False and r["and_all"] is True
-        assert r["max_int"] == 8
+        assert r["max"] == [8.0, 0.0] and r["min"] == [3.0, -1.0]
         assert r["rows"] == [float(i + pid) for i in range(4)]
-        assert r["batch_is_identity"]
         assert r["replicated"] == [1.0, 1.0, 1.0]
 
 
