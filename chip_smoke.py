@@ -211,9 +211,9 @@ Phases (any failure exits non-zero and prints no result line):
    plain version, timed beside the byte bound and ``index_copy_``. Then
    the Pong preset's geometry on signal_atari (bf16 Nature CNN 84×84×4,
    batch 512, 1M-row ring, α = 0, chain 8, the fused loss), 64 envs × 16
-   ticks, 200 supersteps: all four kernels launched; 20 supersteps under
+   ticks, 80 supersteps: all four kernels launched; 10 supersteps under
    ``torch.cuda.set_sync_debug_mode("warn")`` make no synchronizing call;
-   a ``torch.profiler`` window of 2 supersteps gives the act / insert /
+   a ``torch.profiler`` window of 1 superstep gives the act / insert /
    sample / train stages' device ms, launches per superstep and
    threefry's share, B1 and B2 per launch; the synced solver's greedy
    eval beats the random policy's. Printed: env and grad steps/s, ms per
@@ -223,7 +223,7 @@ Phases (any failure exits non-zero and prints no result line):
    512 = 64 per shard, the uncut 1M-row ring as 8 shards of 125,000 rows,
    device PER α = 0, chain 8), learn_start cut to 8,192, 201 grad steps;
    grad steps/s beside phase 4's and, in turns, the same loop at D = 1
-   and D = 8 (1, 8, 8, 1) with its ``StepTimer`` phases, and a launch
+   and D = 8 (1, 8) with its ``StepTimer`` phases, and a launch
    census; phase 5's chain-8 dispatch at D = 1 and D = 8 in turns; then
    a small fused dispatch at D = 8 on the card and on the CPU with no
    uniforms injected (8 streams filling the shards alike, and 1 stream
@@ -257,14 +257,47 @@ Phases (any failure exits non-zero and prints no result line):
    hashes equal. Printed: each process's grad steps/s beside phases 11,
    6 and 6b's one-process rates, and the host-clock ms per grad step
    inside the train step's collectives;
+17. the chaos and soak gates (``distributed_deep_q_tpu_torch/chaos_smoke.py``
+   and ``fleet_smoke.py``) on the card at the Pong preset's width on
+   signal_atari (bf16 Nature CNN, 84×84×4, 4 actions, batch 512), each
+   sub-phase's kernel counts set to 0 just before it and read just after
+   (``--phase17`` runs the phase alone) — 17a ``ingest``: 4 actors × 40
+   flushes × 64 labeled 84×84 frames into the preset's fused ring of
+   16,384 rows (no slot wraps) through the ``IngestDrain`` (B2) while the
+   preset's learner steps on it at the capped consumption rate (B1):
+   lost, duplicated and corrupt 0 (every id read back from the ring once
+   the drain has stopped and the card has finished), sheds fired, the
+   drain carried the flushes; 17b ``inference``: ``BatchedPolicy`` behind
+   the ``InferenceServer`` at the preset's buckets under
+   ``drop=0.03,truncate=0.02,corrupt=0.01,seed=29``: wrong, missing and
+   duplicated actions 0 against an oracle forward at the bucket each row
+   was served at (cuDNN deterministic), the clients' reply p50/p99; 17c
+   ``vector``: the same net, the server hard-killed and rebooted mid-run,
+   wrong 0; 17d ``tenants``: both arcs, no actor process holding a CUDA
+   context; 17e ``train``: phase 11's run under
+   ``actors.chaos=drop=0.005,truncate=0.003,seed=5``, 400 grad steps:
+   phase 11's checks, the robustness counters printed, kill escalations
+   0, the replay's stored rows equal to the server's env steps (duplicate
+   flushes absorbed, not stored); 17f: the pixel fleet soak at 64 streams
+   (84×84, batch 512, the 1M-row fused ring) in a ``--phase17f-worker``
+   child (the soak's 128 threads share one interpreter lock, and this
+   process holds the threads of every earlier phase): every stream
+   delivers, the learner steps, the reference's floors (burst > 5,000 and
+   paced > 1,000 transitions/s, contention ratio > 0.1), ingest and
+   grad-step rates printed beside the card's name and power limit. In 17a
+   and 17f the
+   first 16 launches of each B1 and B2 shape are held bitwise against
+   the plain versions on the same inputs;
 9. the ``kernels`` JSON line (each kernel's launches on every path in
    ``launches_by_path``), the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, 8c, 10, 11,
-11b, 11c, 12b, 13, 13b, 14, 15a and each process of 16a, 16b and 16c)
-sets all kernel launch counters to 0 just before it and reads them just
-after.
+11b, 11c, 12b, 13, 13b, 14, 15a, each process of 16a, 16b and 16c, and
+17a–17f) sets all kernel launch counters to 0 just before it and reads
+them just after.
+
+``python3 chip_smoke.py --phase17`` runs phase 17 alone, after the build.
 
 ``python3 chip_smoke.py --phase5 DIR [DIR ...]`` runs phase 5's chained
 dispatch from each checkout DIR of the repository in turn (parent,
@@ -275,6 +308,8 @@ prints its ms per grad step.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import gc
 import glob
 import io
@@ -352,37 +387,38 @@ def float_err(torch, a, b) -> float:
 # -- phase 3 ------------------------------------------------------------------
 
 
-def check_gather(torch, rg, ring, dev, n: int, rows: int = ROWS) -> dict:
-    """B1 at ``n`` windows on a random ring of ``rows`` rows of ``ROWB``
-    bytes: bitwise against its plain version, then timed beside it,
+def check_gather(torch, rg, ring, dev, n: int, rows: int = ROWS,
+                 w: int = WINDOW) -> dict:
+    """B1 at ``n`` windows of ``w`` rows on a random ring of ``rows`` rows
+    of ``ROWB`` bytes: bitwise against its plain version, then timed beside it,
     ``index_select`` and the byte bound."""
     rowp = ROWB // 4
     gen = torch.Generator(device=dev).manual_seed(n)
     # 8 index sets, cycled while timing, so repeated launches do not find
     # their windows in the 50 MB L2 cache (a fresh draw's windows are cold)
-    idx_sets = [torch.randint(0, rows - WINDOW + 1, (n,), dtype=torch.int32,
+    idx_sets = [torch.randint(0, rows - w + 1, (n,), dtype=torch.int32,
                               device=dev, generator=gen) for _ in range(8)]
     idx = idx_sets[0]
-    idx[0] = rows - WINDOW                 # the ring's last window
+    idx[0] = rows - w                 # the ring's last window
     idx[1] = 2**31 // ROWB + 1             # just past the 2³¹-byte mark
     idx[2] = 0
     high = int((idx.long() * ROWB >= 2**31).sum())
-    got = rg.gather_windows(idx, ring, n=n, w=WINDOW, rowb=ROWB)
-    want = rg.gather_windows_plain(idx, ring, n=n, w=WINDOW, rowb=ROWB)
+    got = rg.gather_windows(idx, ring, n=n, w=w, rowb=ROWB)
+    want = rg.gather_windows_plain(idx, ring, n=n, w=w, rowb=ROWB)
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, want)
     del got, want
     ring2d = ring.view(-1, rowp)
-    lib_rows = [(i.long()[:, None] + torch.arange(WINDOW, device=dev)
+    lib_rows = [(i.long()[:, None] + torch.arange(w, device=dev)
                  ).reshape(-1) for i in idx_sets]
     ms, host_ms = time_ms(torch, lambda i: rg.gather_windows(
-        idx_sets[i % 8], ring, n=n, w=WINDOW, rowb=ROWB))
+        idx_sets[i % 8], ring, n=n, w=w, rowb=ROWB))
     plain_ms, plain_host_ms = time_ms(
         torch, lambda i: rg.gather_windows_plain(
-            idx_sets[i % 8], ring, n=n, w=WINDOW, rowb=ROWB))
+            idx_sets[i % 8], ring, n=n, w=w, rowb=ROWB))
     library_ms, library_host_ms = time_ms(
         torch, lambda i: torch.index_select(ring2d, 0, lib_rows[i % 8]))
-    nbytes = n * 4 + 2 * n * WINDOW * ROWB
+    nbytes = n * 4 + 2 * n * w * ROWB
     return {"n": n, "rows": rows, "windows_past_2^31_bytes": high,
             "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -2745,10 +2781,13 @@ def anakin_pin(torch, config, modules, dp: int = 1) -> dict:
 # Phase 14 at full width: the Pong preset's geometry (bf16 Nature CNN at
 # 84×84×4, batch 512, 1M-row ring = 8.19 GB, α = 0, chain 8, the fused
 # loss) on signal_atari, 64 envs × 16 ticks = 1,024 env steps and 8 grad
-# steps per superstep; 200 supersteps, the first 20 of them warm-up (300
-# until phase 16 came: cut to keep the whole run well inside its limit)
-ANAKIN_ENVS, ANAKIN_TICKS, ANAKIN_SUPERSTEPS = 64, 16, 200
-ANAKIN_PROFILED = 2     # each holds ~38,000 launches for the profiler
+# steps per superstep; 80 supersteps, the first 10 of them warm-up and 10
+# under the sync check (300 until phase 16 came, 200 until phase 17 came,
+# with 20 and 20 and 2 profiled: cut to keep the whole run well inside its
+# limit)
+ANAKIN_ENVS, ANAKIN_TICKS, ANAKIN_SUPERSTEPS = 64, 16, 80
+ANAKIN_WARM, ANAKIN_SYNC_CHECKED = 10, 10
+ANAKIN_PROFILED = 1     # ~38,000 launches for the profiler
 
 
 def anakin_full_config(config):
@@ -2793,7 +2832,7 @@ def anakin_full(torch, config, counters, modules, make_env, train_mod
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    warm = 20
+    warm = ANAKIN_WARM
     for _ in range(warm):
         runner.superstep()
     torch.cuda.synchronize()
@@ -2803,7 +2842,7 @@ def anakin_full(torch, config, counters, modules, make_env, train_mod
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            for _ in range(20):
+            for _ in range(ANAKIN_SYNC_CHECKED):
                 runner.superstep()
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -2814,7 +2853,7 @@ def anakin_full(torch, config, counters, modules, make_env, train_mod
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     ev0.record()
-    timed = ANAKIN_SUPERSTEPS - warm - 20 - ANAKIN_PROFILED
+    timed = ANAKIN_SUPERSTEPS - warm - ANAKIN_SYNC_CHECKED - ANAKIN_PROFILED
     t2 = time.perf_counter()
     for _ in range(timed):
         runner.superstep()
@@ -2901,7 +2940,7 @@ def anakin_full(torch, config, counters, modules, make_env, train_mod
         "act_reward": float(runner.last_act_reward),
         "last_loss": metrics["loss"], "eval_return": ret,
         "random_policy_return": random_ret, "wall_s": total_s,
-        "first_20_supersteps_s": t1 - t0}
+        "warm_supersteps_s": t1 - t0}
 
 
 def profiling_census(torch, prof, wall_ms: float) -> dict:
@@ -3007,9 +3046,9 @@ def sharded_main_path(torch, cli_main, counters, train_mod) -> dict:
     process, its launches counted; the solver and the replay it built kept
     (through ``restore_for_resume``, which the loop calls with both), and a
     ``launch_census`` of 4 chain-8 dispatches on them. The same loop at
-    ``mesh.dp=1`` runs before it and after a second D = 8 run (turns 1, 8,
-    8, 1: the host's speed drifts within a call), each run's loop rate and
-    ``StepTimer`` phases from its last metrics record."""
+    ``mesh.dp=1`` runs just before it (turns 1, 8; until phase 17 came,
+    1, 8, 8, 1: cut to keep the whole run inside its limit), each run's
+    loop rate and ``StepTimer`` phases from its last metrics record."""
     turns: dict[int, list[dict]] = {1: [], D8: []}
 
     def loop(d, argv, jsonl):
@@ -3025,8 +3064,6 @@ def sharded_main_path(torch, cli_main, counters, train_mod) -> dict:
                                          "chip_smoke_pong_d8.jsonl")
     (solver, replay), = pairs
     census = trace_dispatches(torch, solver, replay, 8, 4)
-    loop(D8, D8_ARGV, "chip_smoke_pong_d8_turn.jsonl")
-    loop(1, d1_argv, "chip_smoke_pong_d1_turn.jsonl")
     return {"summary": summary, "launches": launches, "record": record,
             "solver": solver, "replay": replay,
             "shards": [solver.num_shards, replay.num_shards,
@@ -3396,15 +3433,8 @@ def p16_pin_worker(pid: int, nproc: int, port: str, out: str) -> None:
     """One process of 16a: join, fill this process's slots, run the 8
     dispatches; write the drawn rows (global coordinates), IS weights, θ
     and the launches."""
-    import torch
-
     from distributed_deep_q_tpu_torch import config
-    from distributed_deep_q_tpu_torch.ops import ring_gather as rg
-    from distributed_deep_q_tpu_torch.parallel import learner as learner_mod
     from distributed_deep_q_tpu_torch.parallel import multihost
-    from distributed_deep_q_tpu_torch.replay.device_per import (
-        DevicePERFrameReplay)
-    from distributed_deep_q_tpu_torch.solver import Solver
 
     cfg = config.pong_config()
     cfg.env.kind, cfg.env.id = "signal_atari", "signal"
@@ -3414,6 +3444,21 @@ def p16_pin_worker(pid: int, nproc: int, port: str, out: str) -> None:
         backend="cuda", dp=2, coordinator=f"127.0.0.1:{port}",
         num_processes=nproc, process_id=pid)
     multihost.initialize_multihost(cfg.mesh)
+    try:
+        p16_pin_run(pid, nproc, cfg, out)
+    finally:
+        multihost.shutdown()
+
+
+def p16_pin_run(pid: int, nproc: int, cfg, out: str) -> None:
+    import torch
+
+    from distributed_deep_q_tpu_torch.ops import ring_gather as rg
+    from distributed_deep_q_tpu_torch.parallel import learner as learner_mod
+    from distributed_deep_q_tpu_torch.replay.device_per import (
+        DevicePERFrameReplay)
+    from distributed_deep_q_tpu_torch.solver import Solver
+
     torch.backends.cudnn.deterministic = True
     solver = Solver(cfg)
     streams = 2 // nproc                      # 1:1 stream ↔ slot
@@ -3690,6 +3735,365 @@ def p16_collective_ms(r: dict) -> float:
     """Host-clock ms per grad step inside the train step's collectives."""
     st = r["collectives"]["step"]
     return 1e3 * st["seconds"] / max(r["summary"]["grad_steps"], 1)
+
+
+# -- phase 17: the chaos and soak gates on the card --------------------------
+
+# The port's chaos modes (``distributed_deep_q_tpu_torch/chaos_smoke.py``)
+# and the pixel fleet soak (``fleet_smoke.py``) at the Pong preset's width
+# on SignalAtari: the bf16 Nature CNN over 84×84×4, 4 actions, batch 512.
+# 17a ingest: the preset's fused ring (B2 flushes through the IngestDrain),
+# sized so no slot wraps: 4 actors × 40 flushes × 64 rows into 16,384 rows
+# (4 sub-rings of 4,096; 134 MB padded), the preset's learner stepping on
+# it at the capped consumption rate (B1); the reference's spec
+P17_INGEST = dict(num_actors=4, flushes=40, rows=64, capacity=16_384,
+                  consume_rate=500.0, frame_shape=(84, 84),
+                  device_per=True)
+# 17e: phase 11's run (4 actors, the uncut 1M-row ring, the fused loss)
+# under the train mode's wire chaos (drop=0.005,truncate=0.003,seed=5);
+# cut: 400 grad steps (phase 11: 800)
+P17_TRAIN_SET = ["env.kind=signal_atari", "env.id=signal",
+                 "replay.learn_start=8192", "train.use_pallas_loss=true",
+                 "train.total_steps=400"]
+P17_TRAIN_GRAD_STEPS = 400
+# 17f: the pixel soak at 64 streams, the preset's geometry (1M rows, 15,625
+# per stream, its actors' 64 transitions per message: the harness's default
+# 16 was sized for 36×36 frames, and at 84×84 the per-message host cost of
+# 128 threads under one interpreter lock kept the burst near the floor) and
+# the reference's phases (5 s fill, 3 s idle, 6 s paced)
+P17_SOAK = dict(num_actors=64, fill_s=5.0, measure_s=6.0, batch=512,
+                send_batch=64, rate_per_actor=128.0, frame_hw=84,
+                capacity=1_000_000, compute_dtype="bfloat16")
+P17_SOAK_TIMEOUT_S = 300
+# the launches of each kernel shape held against the plain version on the
+# same inputs, per sub-phase (the first ones; later launches pass through)
+P17_CHECKED = 16
+
+
+class KernelChecks:
+    """Wraps B1 where the fused learner calls it and B2 where the fused
+    ring's flush calls it: the first ``P17_CHECKED`` launches of each
+    shape are held against the plain version on the same inputs (B2 on a
+    copy of the ring taken just before, compared outside the skipped
+    scratch row, whose contents are unspecified). The wrapped kernel
+    counts its launch as always; the plain version launches none."""
+
+    def __init__(self, torch, rg, learner_mod, device_per_mod):
+        self.torch, self.rg = torch, rg
+        self.mods = ((learner_mod, "gather_windows", self._gather),
+                     (device_per_mod, "scatter_rows", self._scatter))
+        self.orig = {name: getattr(mod, name) for mod, name, _ in self.mods}
+        self.seen: dict[str, dict] = {}
+
+    def __enter__(self):
+        for mod, name, fn in self.mods:
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, _ in self.mods:
+            setattr(mod, name, self.orig[name])
+
+    def _slot(self, name: str, key: tuple):
+        rec = self.seen.setdefault(f"{name} {key}", {"checked": 0,
+                                                     "bitwise": 0})
+        return rec if rec["checked"] < P17_CHECKED else None
+
+    def _gather(self, idx, ring, **kw):
+        out = self.orig["gather_windows"](idx, ring, **kw)
+        rec = self._slot("gather_windows",
+                         (kw["n"], kw["w"], kw["rowb"]))
+        if rec is not None:
+            plain = self.rg.gather_windows_plain(idx, ring, **kw)
+            rec["checked"] += 1
+            rec["bitwise"] += int(self.torch.equal(out, plain))
+        return out
+
+    def _scatter(self, src, dst, staged, ring, **kw):
+        rec = self._slot("scatter_rows", (kw["n"], kw["rowb"]))
+        before = ring.clone() if rec is not None else None
+        out = self.orig["scatter_rows"](src, dst, staged, ring, **kw)
+        if rec is not None:
+            self.rg.scatter_rows_plain(src, dst, staged, before, **kw)
+            rowp = kw["rowb"] // 4
+            skip = kw.get("skip_row")
+            if skip is not None:
+                before.view(-1, rowp)[skip] = ring.view(-1, rowp)[skip]
+            rec["checked"] += 1
+            rec["bitwise"] += int(self.torch.equal(ring, before))
+            rec.setdefault("real_lanes", []).append(
+                int((dst != (-1 if skip is None else skip)).sum()))
+            del before
+        return out
+
+    def verdict(self) -> dict:
+        return {"shapes": self.seen,
+                "all_bitwise": all(r["bitwise"] == r["checked"]
+                                   for r in self.seen.values())}
+
+
+def p17_net(config):
+    """The Pong preset's net on SignalAtari's 4 actions, and the preset."""
+    cfg = config.pong_config()
+    cfg.env.kind, cfg.env.id = "signal_atari", "signal"
+    cfg.net = dataclasses.replace(cfg.net, num_actions=4)
+    return cfg, cfg.net
+
+
+def run_phase17(torch, counters, cli_modules) -> dict:
+    """17a–17f, each with every kernel counter set to 0 just before it and
+    read just after; each gate failing raises. Returns what the result
+    lines need: each sub-phase's launches and verdict, and the B1/B2
+    checks."""
+    from distributed_deep_q_tpu_torch import chaos_smoke, config
+    from distributed_deep_q_tpu_torch import metrics as metrics_mod
+    from distributed_deep_q_tpu_torch.actors import supervisor
+    from distributed_deep_q_tpu_torch.parallel import learner as learner_mod
+    from distributed_deep_q_tpu_torch.replay import device_per
+    from distributed_deep_q_tpu_torch.solver import Solver
+
+    rg = cli_modules["rg"]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out: dict = {"launches": {}}
+    pong, net = p17_net(config)
+    obs_dim = 84 * 84 * 4
+    t17 = time.perf_counter()
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read() -> dict:
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def show(tag: str, v: dict, keys: tuple) -> None:
+        log(f"[{tag}] {json.dumps({k: v.get(k) for k in keys})}")
+
+    # 17a: ingest at saturation into the fused ring, the learner on it
+    cfg_a = copy.deepcopy(pong)
+    cfg_a.replay = dataclasses.replace(cfg_a.replay,
+                                       capacity=P17_INGEST["capacity"])
+    learner = Solver(cfg_a)
+    zero()
+    t0 = time.perf_counter()
+    with KernelChecks(torch, rg, learner_mod, device_per) as chk_a:
+        va = chaos_smoke.run_ingest_saturation_smoke(
+            device="cuda", learner=learner, **P17_INGEST)
+    out["launches"]["17a"] = read()
+    out["17a"] = dict(va, checks=chk_a.verdict(),
+                      phase_s=time.perf_counter() - t0)
+    del learner
+    torch.cuda.empty_cache()
+    show("17a", out["17a"], (
+        "ok", "transitions_sent", "transitions_stored", "lost",
+        "duplicated", "corrupt_rows", "shed_flushes", "client_sheds",
+        "drain_flushes", "drained_rows", "rows_left_staged",
+        "learner_grad_steps", "faults_fired", "wall_s", "errors",
+        "checks", "trace"))
+    log(f"[17a] launches {json.dumps(out['launches']['17a'])}")
+    assert va["ok"], va
+    assert va["lost"] == va["duplicated"] == va["corrupt_rows"] == 0, va
+    assert va["shed_flushes"] > 0 and va["drain_flushes"] > 0, va
+    assert chk_a.verdict()["all_bitwise"], chk_a.verdict()
+    assert out["launches"]["17a"]["scatter_rows"] > 0, out["launches"]
+    assert out["launches"]["17a"]["gather_windows"] > 0, out["launches"]
+
+    # 17b: BatchedPolicy behind the InferenceServer under wire chaos
+    zero()
+    vb = chaos_smoke.run_inference_chaos_smoke(
+        device="cuda", net=net, obs_dim=obs_dim,
+        buckets=pong.inference.buckets)
+    out["launches"]["17b"] = read()
+    out["17b"] = vb
+    show("17b", vb, (
+        "ok", "requests_sent", "replies", "wrong_actions",
+        "missing_actions", "client_sheds", "server_requests",
+        "server_wire_errors", "compiled_buckets", "served_buckets",
+        "reply_ms_p50", "reply_ms_p99", "faults_fired", "wall_s", "errors"))
+    assert vb["ok"], vb
+    assert vb["wrong_actions"] == vb["missing_actions"] == 0, vb
+    assert vb["replies"] == vb["requests_sent"], vb
+
+    # 17c: the vector loop through a hard-killed and rebooted server
+    zero()
+    vc = chaos_smoke.run_vector_chaos_smoke(device="cuda", net=net)
+    out["launches"]["17c"] = read()
+    out["17c"] = vc
+    show("17c", vc, (
+        "ok", "actions_checked", "wrong_actions", "missing_actions",
+        "duplicated_ticks", "kill_tick", "retry_events", "client_sheds",
+        "reboot_server_requests", "served_buckets", "faults_fired",
+        "wall_s", "errors"))
+    assert vc["ok"], vc
+    assert vc["wrong_actions"] == vc["missing_actions"] == 0, vc
+
+    # 17d: both tenants arcs; arc 2's actor processes hold no CUDA context
+    zero()
+    watch = ActorWatch(os.path.join(OUT_DIR, "chip_smoke_p17d.none"))
+    try:
+        vd = chaos_smoke.run_tenants_smoke(device="cuda", net=net,
+                                           obs_dim=obs_dim)
+    finally:
+        ctx_d = watch.verdict(3)
+    out["launches"]["17d"] = read()
+    out["17d"] = dict(vd, cuda_context=ctx_d)
+    show("17d", vd, (
+        "ok", "replies", "wrong_actions", "missing_actions",
+        "tenant_mismatches", "version_mismatches", "ladder_ledger",
+        "ladder_cleared", "shadow_direct_rejected", "compiled_buckets",
+        "warmed", "ladder_rose", "primary_shed", "retired_ok",
+        "shrunk", "retire_applied", "regrew", "grow_applied", "settled",
+        "executor_terminations", "kill_escalations", "rollbacks",
+        "transitions_stored", "duplicated", "wrong_stored_actions",
+        "critical_flaps", "slo_problems", "elastic_problems",
+        "invalid_records", "wall_s", "errors"))
+    log(f"[17d] arc 2's actors and the card ({ctx_d['check']} check): "
+        f"{json.dumps(ctx_d)}")
+    assert vd["ok"], {k: v for k, v in vd.items()
+                      if k not in ("decisions", "applied")}
+    assert vd["wrong_actions"] == vd["missing_actions"] == 0, vd
+    assert vd["duplicated"] == vd["wrong_stored_actions"] == 0, vd
+    assert ctx_d["samples"] > 0 and ctx_d["actors_seen"], ctx_d
+    assert not ctx_d["actors_holding_cuda"], ctx_d
+    if not ctx_d["check"].startswith("nvidia-smi pids"):
+        assert ctx_d["compute_apps_max"] <= 1, ctx_d
+
+    # 17e: train_distributed under the fleet's wire chaos (phase 11's run)
+    jsonl = os.path.join(OUT_DIR, "chip_smoke_p17e.jsonl")
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(jsonl)
+    watch = ActorWatch(jsonl)
+    zero()
+    t0 = time.perf_counter()
+    try:
+        with capturing(supervisor, "train_distributed",
+                       lambda args, res: res) as runs, \
+                contextlib.redirect_stdout(io.StringIO()):
+            ve = chaos_smoke.run_train_chaos(
+                P17_TRAIN_SET, device="cuda", preset="pong",
+                metrics=metrics_mod.Metrics(jsonl), log_every=100)
+    finally:
+        ctx_e = watch.verdict(4)
+    launches_e = read()
+    summary = {k: v for k, v in runs[0].items()
+               if isinstance(v, (int, float, str))}
+    stored = int(runs[0]["replay"].steps_added)
+    out["launches"]["17e"] = launches_e
+    out["17e"] = {"counters": ve, "stored_rows": stored,
+                  "phase_s": time.perf_counter() - t0,
+                  "summary": {k: summary.get(k) for k in (
+                      "grad_steps", "env_steps", "grad_steps_per_s",
+                      "env_steps_per_s", "loss", "q_mean", "eval_return",
+                      "rpc_checksum_errors", "rpc_shed_flushes")}}
+    log(f"[17e] robustness counters {json.dumps(ve)}; stored rows {stored}"
+        f"; {json.dumps(out['17e']['summary'])}; launches "
+        f"{json.dumps(launches_e)}; phase {out['17e']['phase_s']:.1f} s")
+    log(f"[17e] actors and the card ({ctx_e['check']} check): "
+        f"{json.dumps(ctx_e)}")
+    check_distributed_run(
+        {"summary": summary, "launches": launches_e, "cuda_context": ctx_e},
+        P17_TRAIN_GRAD_STEPS, ("env_steps", 8192), tuple(counters))
+    assert ve["actor_kill_escalations"] == 0, ve
+    # a duplicate flush is counted by the dedup and lands no row: every
+    # row the replay stored is one the server counted once
+    assert stored == summary["env_steps"], (stored, summary["env_steps"])
+
+    # 17f: the pixel fleet soak at 64 streams, in a fresh process: its
+    # 64 actor and 64 server threads share one interpreter lock, which
+    # the threads earlier phases leave in this one would share too
+    log(f"[17f] threads in this process: {threading.active_count()}")
+    res = os.path.join(OUT_DIR, "p17f.json")
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(res)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phase17f-worker", res],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=P17_SOAK_TIMEOUT_S)
+    assert proc.returncode == 0, (
+        f"17f worker rc={proc.returncode}\n{proc.stdout[-3000:]}")
+    with open(res) as f:
+        soak = json.load(f)
+    vf, chk_f = soak["result"], soak["checks"]
+    out["launches"]["17f"] = soak["launches"]
+    out["17f"] = dict(vf, checks=chk_f)
+    log(f"[17f] {json.dumps(out['17f'])}; launches "
+        f"{json.dumps(out['launches']['17f'])}; {nvidia_smi_line()}")
+    # every stream delivers, the learner keeps stepping, and the floors of
+    # the reference's test_pixel_fleet_64_streams_fused_per hold
+    assert vf["errors"] == [] and vf["streams_seen"] == 64, vf
+    assert vf["pixel_burst_ingest_tps"] > 5_000, vf
+    assert vf["ingest_transitions_per_s"] > 1_000, vf
+    assert vf["learner_idle_steps_per_s"] > 1, vf
+    assert vf["contention_ratio"] > 0.1, vf
+    assert chk_f["all_bitwise"], chk_f
+    for k in ("gather_windows", "scatter_rows"):
+        assert out["launches"]["17f"][k] > 0, out["launches"]
+    # B1 at 17f's draw, the shape no other phase launches (n-step 2: 6-row
+    # windows), on a random ring of the preset's rows: bitwise against the
+    # plain version, then timed beside it, index_select and its bound
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    ring = torch.randint(-2**31, 2**31 - 1, (ROWS * ROWB // 4,),
+                         dtype=torch.int32, device=dev, generator=gen)
+    out["gather_w6"] = check_gather(torch, rg, ring, dev,
+                                    P17_SOAK["batch"], w=6)
+    del ring
+    torch.cuda.empty_cache()
+    log(f"[17f] gather_windows at the soak's shape (n=512, w=6): "
+        f"{json.dumps(out['gather_w6'])}")
+    assert out["gather_w6"]["max_abs_err"] == 0, out["gather_w6"]
+    out["wall_s"] = time.perf_counter() - t17
+    log(f"[17] phase 17 wall {out['wall_s']:.1f} s")
+    return out
+
+
+def p17_soak_worker(argv: list[str]) -> int:
+    """``chip_smoke.py --phase17f-worker OUT``: 17f's soak in a process of
+    its own, every kernel counter set to 0 just before it and read just
+    after, the first launches of each B1/B2 shape held against the plain
+    versions; writes the result, the checks and the launches to OUT."""
+    import torch
+
+    from distributed_deep_q_tpu_torch import fleet_smoke
+    from distributed_deep_q_tpu_torch.ops import ring_gather as rg
+    from distributed_deep_q_tpu_torch.parallel import learner as learner_mod
+    from distributed_deep_q_tpu_torch.replay import device_per
+
+    counters = p16_kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with KernelChecks(torch, rg, learner_mod, device_per) as chk:
+        vf = fleet_smoke.run_pixel_fleet_smoke(device="cuda", **P17_SOAK)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    with open(argv[0], "w") as f:
+        json.dump({"result": vf, "checks": chk.verdict(),
+                   "launches": launches}, f)
+    return 0
+
+
+def phase17_only() -> int:
+    """``chip_smoke.py --phase17``: phase 17 alone (its gates and its
+    readings), after the build and phase 3's kernel checks at the shapes
+    17a and 17f launch."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from distributed_deep_q_tpu_torch.ops import cuda_build
+    from distributed_deep_q_tpu_torch.ops import fused_loss as fl
+    from distributed_deep_q_tpu_torch.ops import ring_gather as rg
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log(nvidia_smi_line())
+    log(f"[2] build: {cuda_build.build_all()}")
+    counters = {"gather_windows": rg.gather_windows,
+                "scatter_rows": rg.scatter_rows,
+                "fused_loss_fwd": fl.fused_loss_fwd,
+                "fused_loss_bwd": fl.fused_loss_bwd}
+    p17 = run_phase17(torch, counters, {"rg": rg})
+    log(json.dumps({"launches_by_path": p17["launches"]}))
+    return 0
 
 
 def main() -> int:
@@ -4140,7 +4544,7 @@ def main() -> int:
         f"per sub-ring) {d8['shards']}; launches: {json.dumps(d8_launches)}")
     log(f"[15a] grad steps/s {d8_summary['grad_steps_per_s']} (phase 4, "
         f"one shard: {summary['grad_steps_per_s']}); the loop at D=1 and "
-        f"D=8 in turns (1, 8, 8, 1; the second 8 is the counted run): "
+        f"D=8 in turns (1, 8; the 8 is the counted run): "
         f"{json.dumps(d8['loop_turns'])}; census of 4 chain-8 dispatches: "
         f"{json.dumps(d8['census'])}")
     check_path(d8_summary, D8_GRAD_STEPS)
@@ -4238,6 +4642,9 @@ def main() -> int:
         f"clock): 16b {[p16_collective_ms(r) for r in d16]}, 16c "
         f"{[p16_collective_ms(r) for r in h16]}; phase 16 wall "
         f"{time.perf_counter() - t16:.1f} s")
+
+    # -- 17. the chaos and soak gates ------------------------------------------
+    p17 = run_phase17(torch, counters, {"rg": rg})
 
     # -- 9. result lines ------------------------------------------------------
     src = "distributed_deep_q_tpu_torch/csrc/ring_gather.cu"
@@ -4421,7 +4828,30 @@ def main() -> int:
                "16c breakout host-sampled, 2 processes, rank 0":
                    h16[0]["launches"],
                "16c breakout host-sampled, 2 processes, rank 1":
-                   h16[1]["launches"]}
+                   h16[1]["launches"],
+               "17a chaos ingest": p17["launches"]["17a"],
+               "17b chaos inference": p17["launches"]["17b"],
+               "17c chaos vector": p17["launches"]["17c"],
+               "17d chaos tenants": p17["launches"]["17d"],
+               "17e chaos train": p17["launches"]["17e"],
+               "17f pixel fleet soak, 64 streams": p17["launches"]["17f"]}
+    # phase 17's B1/B2 launches held against the plain versions
+    for row in kernels[:2]:
+        checked = {tag: {k: v for k, v in p17[tag]["checks"]["shapes"].items()
+                         if k.startswith(row["name"])}
+                   for tag in ("17a", "17f")}
+        row["phase17_checked_vs_plain"] = checked
+        row["ok"] = row["ok"] and all(
+            r["bitwise"] == r["checked"] for c in checked.values()
+            for r in c.values())
+    g6 = p17["gather_w6"]
+    kernels[0]["ok"] = kernels[0]["ok"] and g6["max_abs_err"] == 0
+    kernels[0]["soak"] = dict(
+        {k: g6[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
+                            "library_ms", "max_abs_err")},
+        shape="n=512 w=6 rowb=8192 (n-step 2)",
+        launches=p17["launches"]["17f"]["gather_windows"],
+        path="phase 17f (pixel fleet soak, 64 streams)")
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
@@ -4438,6 +4868,10 @@ if __name__ == "__main__":
             code = phase5_trees(sys.argv[2:])
         elif sys.argv[1:2] == ["--phase16a"]:
             code = phase16a_only()
+        elif sys.argv[1:2] == ["--phase17"]:
+            code = phase17_only()
+        elif sys.argv[1:2] == ["--phase17f-worker"]:
+            code = p17_soak_worker(sys.argv[2:])
         elif sys.argv[1:2] == ["--phase16-worker"]:
             code = p16_worker(sys.argv[2:])
         else:

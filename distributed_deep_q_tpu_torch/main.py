@@ -94,9 +94,15 @@ def main(argv: list[str] | None = None) -> int:
     # join the other learner processes before anything touches the card
     # (a no-op at one process)
     from distributed_deep_q_tpu_torch.parallel.multihost import (
-        initialize_multihost)
+        initialize_multihost, shutdown)
     initialize_multihost(cfg.mesh)
+    try:
+        return _run(args, cfg)
+    finally:
+        shutdown()   # leave the group on the way out, success or error
 
+
+def _run(args, cfg) -> int:
     # imported past flag parsing so --help stays cheap
     from distributed_deep_q_tpu_torch.metrics import Metrics
     from distributed_deep_q_tpu_torch.train import (

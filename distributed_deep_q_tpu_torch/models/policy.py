@@ -108,7 +108,7 @@ class BatchedPolicy:
     # -- forward ------------------------------------------------------------
 
     def forward(self, obs: np.ndarray,
-                params: Generation | None = None
+                params: Generation | None = None, bucket: int | None = None
                 ) -> tuple[np.ndarray, np.ndarray]:
         """Actions + Q-values for a stacked observation batch.
 
@@ -116,7 +116,9 @@ class BatchedPolicy:
         independent; padding rows are zeros and sliced off before the
         argmax, so they never influence a real row. ``params`` (a
         generation from ``unflatten``) overrides the installed θ for this
-        forward only.
+        forward only. ``bucket`` pads to that size instead of the smallest
+        bucket holding ``n`` rows (an oracle's forward at the shape a
+        served row went through).
         """
         obs = np.asarray(obs)
         n = obs.shape[0]
@@ -126,7 +128,10 @@ class BatchedPolicy:
                      for i in range(0, n, cap)]
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
-        bucket = self.bucket_for(n)
+        if bucket is None:
+            bucket = self.bucket_for(n)
+        elif bucket < n:
+            raise ValueError(f"bucket {bucket} holds fewer than {n} rows")
         gen = self.params if params is None else params
         with self._lock, torch.cuda.stream(self.stream):
             self._compiled.add(bucket)

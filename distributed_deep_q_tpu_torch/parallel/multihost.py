@@ -36,10 +36,18 @@ What became an identity, and why:
 
 There is no fallback: a process group that cannot be started, or a peer
 that does not arrive, raises, and nothing carries on as one process.
+
+Teardown: ``jax.distributed.initialize`` is shut down at interpreter exit by
+jax itself; torch's process group is not. A process that exits with the
+group still up can abort in its C++ teardown after its work is done
+(``terminate called without an active exception``). So
+``initialize_multihost`` registers ``shutdown`` to run at exit, and every
+entry point that joins calls it on its way out.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import datetime
 import time
@@ -114,6 +122,37 @@ def initialize_multihost(cfg: MeshConfig) -> None:
         "gloo", init_method=f"tcp://{cfg.coordinator}",
         rank=int(cfg.process_id), world_size=int(cfg.num_processes),
         timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S))
+    atexit.register(shutdown)
+
+
+def shutdown() -> None:
+    """Leave the learner processes' group; a no-op when this process is in
+    none (so it is safe to call twice, and at exit after an explicit call).
+
+    Every process meets the others at a barrier, then destroys its group.
+    Rank 0 hosts the group's TCP store, so it goes last: each other rank
+    says goodbye through the store after its own teardown, and rank 0
+    waits for every goodbye before it returns. Bounded: a peer that died
+    makes the barrier raise at once (gloo sees the closed connection), and
+    one that hangs makes it raise after ``JOIN_TIMEOUT_S``; the group is
+    destroyed either way."""
+    if not dist.is_initialized():
+        return
+    rank, world = dist.get_rank(), dist.get_world_size()
+    timeout = datetime.timedelta(seconds=JOIN_TIMEOUT_S)
+    store = dist.distributed_c10d._get_default_store()
+    try:
+        if world > 1:
+            dist.monitored_barrier(timeout=timeout)
+    finally:
+        dist.destroy_process_group()
+    if world <= 1:
+        return
+    if rank == 0:
+        store.wait([f"multihost/left/{r}" for r in range(1, world)],
+                   timeout)
+    else:
+        store.set(f"multihost/left/{rank}", "1")
 
 
 def is_multiprocess() -> bool:

@@ -36,12 +36,20 @@ class ColumnStage:
     columns. Buffers grow by doubling (staged depth is a starting size,
     not a cap: the backpressure plane bounds occupancy in practice, and
     the legacy FIFO this replaces was unbounded too).
+
+    The staged rows are ``[_head, _rows)`` of each buffer: ``take``
+    advances the head, and the rows left move to the front only when an
+    append needs the room. (The reference compacts the remainder on every
+    take, which makes draining a backlog of R rows in rounds of k cost
+    O(R²/k) row copies under the replay lock: ~3 ms a round at 84×84 and
+    a 2,000-row backlog.)
     """
 
     def __init__(self, columns, depth: int = 4096,
                  use_native: bool = True):
         self._columns = [(tuple(tail), np.dtype(dt)) for tail, dt in columns]
         self._depth = max(int(depth), 1)
+        self._head = 0
         self._rows = 0
         self._bufs = [np.zeros((self._depth,) + tail, dt)
                       for tail, dt in self._columns]
@@ -51,15 +59,28 @@ class ColumnStage:
         self._lib = native.load() if use_native else None
 
     def __len__(self) -> int:
-        return self._rows
+        return self._rows - self._head
 
-    def _grow(self, need: int) -> None:
-        while self._depth < need:
+    def staged(self) -> list[np.ndarray]:
+        """Each column's staged rows, oldest first (views)."""
+        return [buf[self._head:self._rows] for buf in self._bufs]
+
+    def _make_room(self, n: int) -> None:
+        """Move the staged rows to the front, then grow the buffers by
+        doubling until ``n`` more rows fit behind them."""
+        live = self._rows - self._head
+        if self._head:
+            for buf in self._bufs:
+                buf[:live] = buf[self._head:self._rows]
+            self._head, self._rows = 0, live
+        if live + n <= self._depth:
+            return
+        while self._depth < live + n:
             self._depth *= 2
         grown = []
         for buf, (tail, dt) in zip(self._bufs, self._columns):
             new = np.zeros((self._depth,) + tail, dt)
-            new[:self._rows] = buf[:self._rows]
+            new[:live] = buf[:live]
             grown.append(new)
         self._bufs = grown
 
@@ -71,7 +92,7 @@ class ColumnStage:
         """
         n = len(cols[0])
         if self._rows + n > self._depth:
-            self._grow(self._rows + n)
+            self._make_room(n)
         segs = [np.ascontiguousarray(c, dt).reshape((n,) + tail)
                 for c, (tail, dt) in zip(cols, self._columns)]
         if self._lib is not None:
@@ -88,19 +109,19 @@ class ColumnStage:
     def take(self, k: int, outs: list, li: int) -> int:
         """Drain up to ``k`` oldest rows into flush planes.
 
-        ``outs[c][li, :take]`` receives column ``c``'s head; the
-        remainder compacts to the front (FIFO order preserved, same as
-        the legacy per-flush queue's split-preserving partial takes).
+        ``outs[c][li, :take]`` receives column ``c``'s head; the rest stay
+        staged in order (FIFO, the same as the legacy per-flush queue's
+        split-preserving partial takes).
         """
-        take = min(self._rows, k)
+        take = min(len(self), k)
         if take == 0:
             return 0
-        rem = self._rows - take
+        h = self._head
         for out, buf in zip(outs, self._bufs):
-            out[li, :take] = buf[:take]
-            if rem:
-                buf[:rem] = buf[take:self._rows]
-        self._rows = rem
+            out[li, :take] = buf[h:h + take]
+        self._head = h + take
+        if self._head == self._rows:
+            self._head = self._rows = 0
         return take
 
 

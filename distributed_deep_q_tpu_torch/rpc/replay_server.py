@@ -292,6 +292,10 @@ class ReplayFeedServer:
                  snapshot_path: str = "", flow: FlowConfig | None = None,
                  snapshot_keep: int = 3):
         self.replay = replay
+        # whether the replay's add_batch takes a stream id, read once: the
+        # signature lookup costs ~0.1 ms, more than the rest of a small
+        # flush's bookkeeping
+        self._stream_kw = _takes_stream(replay)
         self.telemetry = ServerTelemetry()
         self.snapshot_keep = snapshot_keep
         # serializes snapshot attempts; held across the async write so an
@@ -936,7 +940,7 @@ class ReplayFeedServer:
                          ("frame", "action", "reward", "done", "boundary")
                          if k in req}
                 with tracing.span("ring_insert"):
-                    if _takes_stream(self.replay):
+                    if self._stream_kw:
                         idx = self.replay.add_batch(batch, stream=actor_id)
                     else:
                         idx = self.replay.add_batch(batch)

@@ -100,10 +100,13 @@ def test_staged_append_native_equals_numpy_and_the_reference():
         for st in stages:
             st.append(*seg)
         assert len({len(st) for st in stages}) == 1
-        for bufs in zip(*(st._bufs for st in stages)):
+        # the staged rows, oldest first: the port's from its head cursor,
+        # the reference's (which compacts on every take) from row 0
+        staged = [stages[0].staged(), stages[1].staged(),
+                  [b[:len(stages[2])] for b in stages[2]._bufs]]
+        for bufs in zip(*staged):
             for b in bufs[1:]:
-                np.testing.assert_array_equal(b[:len(stages[0])],
-                                              bufs[0][:len(stages[0])])
+                np.testing.assert_array_equal(b, bufs[0])
         if rng.random() < 0.4:
             k = int(rng.integers(1, len(stages[0]) + 1))
             planes = [[np.zeros((1, k) + t, d) for t, d in cols]
