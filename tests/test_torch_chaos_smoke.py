@@ -356,20 +356,30 @@ def test_planted_dropped_row_fails_the_ingest_gate(monkeypatch):
 
 
 def test_planted_crossed_row_fails_the_inference_gate(monkeypatch):
+    """One labelled row, (client 0, request 0), gets another row's action
+    in every forward that serves it: the wire chaos may drop the reply
+    that carried the cross and the client re-send it, and the re-sent
+    row is crossed too, so the one reply the client records for it is
+    always wrong. The oracle (a plain ``BatchedPolicy``, which records
+    nothing) is left alone."""
     from distributed_deep_q_tpu_torch.models.policy import BatchedPolicy
 
     orig = BatchedPolicy.forward
+    planted = chaos_smoke._labeled_obs(1_000, (8,)).tobytes()
     crossed = []
 
-    def cross_once(self, obs, params=None, bucket=None):
+    def cross_row(self, obs, params=None, bucket=None):
         a, q = orig(self, obs, params=params, bucket=bucket)
-        if not crossed:
-            a = a.copy()
-            a[0] = (a[0] + 1) % q.shape[1]   # another row's answer
-            crossed.append(True)
+        if not hasattr(self, "served"):
+            return a, q
+        for j, row in enumerate(np.asarray(obs)):
+            if row.tobytes() == planted:
+                a = a.copy()
+                a[j] = (a[j] + 1) % q.shape[1]   # another row's answer
+                crossed.append(j)
         return a, q
 
-    monkeypatch.setattr(BatchedPolicy, "forward", cross_once)
+    monkeypatch.setattr(BatchedPolicy, "forward", cross_row)
     v = chaos_smoke.run_inference_chaos_smoke(device="cpu")
     assert crossed
     assert not v["ok"] and v["wrong_actions"] == 1, v
