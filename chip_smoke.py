@@ -9,6 +9,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. device — the card's name, count, ``nvidia-smi`` name and power limit,
    and the TF32 flags;
+1b. the static-analysis gate — ``distributed_deep_q_tpu_torch.analysis``
+   (``python -m distributed_deep_q_tpu_torch.analysis``) over the port
+   package as this checkout holds it: findings (the run fails on any),
+   the rules, the files scanned, the host seconds and the Python version
+   (``--phase1b`` runs it alone, and needs no card);
 2. build — compile the hand-written kernels (one ``nvcc`` per source, all
    started together) and print the compiler's register/spill report;
 3. ring kernels — an empty kernel's time first (the launch floor every
@@ -261,7 +266,11 @@ Phases (any failure exits non-zero and prints no result line):
    and ``fleet_smoke.py``) on the card at the Pong preset's width on
    signal_atari (bf16 Nature CNN, 84×84×4, 4 actions, batch 512), each
    sub-phase's kernel counts set to 0 just before it and read just after
-   (``--phase17`` runs the phase alone) — 17a ``ingest``: 4 actors × 40
+   (``--phase17`` runs the phase alone), after the chaos tool's own
+   preflight (``chaos_smoke._require_clean_gate``: on a tree the analysis
+   gate rejects it prints the findings to stderr and exits 2, so no chaos
+   verdict is printed for it; ``--phase17`` runs it before it looks for a
+   card) — 17a ``ingest``: 4 actors × 40
    flushes × 64 labeled 84×84 frames into the preset's fused ring of
    16,384 rows (no slot wraps) through the ``IngestDrain`` (B2) while the
    preset's learner steps on it at the capped consumption rate (B1):
@@ -298,6 +307,9 @@ Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, 8c, 10, 11,
 them just after.
 
 ``python3 chip_smoke.py --phase17`` runs phase 17 alone, after the build.
+
+``python3 chip_smoke.py --phase1b`` runs the analysis gate alone (exit 0
+clean, 1 on findings).
 
 ``python3 chip_smoke.py --phase5 DIR [DIR ...]`` runs phase 5's chained
 dispatch from each checkout DIR of the repository in turn (parent,
@@ -4073,10 +4085,48 @@ def p17_soak_worker(argv: list[str]) -> int:
     return 0
 
 
+def analysis_gate() -> dict:
+    """Phase 1b: the port's static-analysis gate over this checkout's
+    port package, timed on the host clock."""
+    from distributed_deep_q_tpu_torch.analysis import (
+        KNOWN_RULES, repo_root, run_all)
+    from distributed_deep_q_tpu_torch.analysis.core import package_files
+
+    root = repo_root()
+    t0 = time.perf_counter()
+    findings = run_all(root)
+    seconds = time.perf_counter() - t0
+    for f in findings:
+        log(f"[1b] {f}")
+    return {"findings": len(findings),
+            "finding_rules": sorted({f.rule for f in findings}),
+            "rules": len(KNOWN_RULES),
+            "files_scanned": len(package_files(root)),
+            "seconds": seconds, "python": sys.version.split()[0]}
+
+
+def phase1b_only() -> int:
+    """``chip_smoke.py --phase1b``: the analysis gate alone."""
+    with contextlib.suppress(Exception):
+        log(nvidia_smi_line())
+    gate = analysis_gate()
+    log(f"[1b] analysis gate: {json.dumps(gate)}")
+    return 0 if gate["findings"] == 0 else 1
+
+
+def p17_preflight() -> None:
+    """Phase 17's preflight, the chaos tool's own: on a tree the analysis
+    gate rejects, the findings go to stderr and the process exits 2."""
+    from distributed_deep_q_tpu_torch import chaos_smoke
+
+    chaos_smoke._require_clean_gate()
+
+
 def phase17_only() -> int:
     """``chip_smoke.py --phase17``: phase 17 alone (its gates and its
-    readings), after the build and phase 3's kernel checks at the shapes
-    17a and 17f launch."""
+    readings), after its preflight, the build and phase 3's kernel checks
+    at the shapes 17a and 17f launch."""
+    p17_preflight()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4147,6 +4197,12 @@ def main() -> int:
         f"flags at start: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32} (the port's Solver sets "
         "both False on the card)")
+
+    # -- 1b. the static-analysis gate ------------------------------------------
+    gate = analysis_gate()
+    log(f"[1b] analysis gate: {json.dumps(gate)}")
+    assert gate["findings"] == 0, (
+        f"the analysis gate found {gate['findings']} finding(s)")
     counters = {"gather_windows": rg.gather_windows,
                 "scatter_rows": rg.scatter_rows,
                 "fused_loss_fwd": fl.fused_loss_fwd,
@@ -4644,6 +4700,7 @@ def main() -> int:
         f"{time.perf_counter() - t16:.1f} s")
 
     # -- 17. the chaos and soak gates ------------------------------------------
+    p17_preflight()
     p17 = run_phase17(torch, counters, {"rg": rg})
 
     # -- 9. result lines ------------------------------------------------------
@@ -4870,6 +4927,8 @@ if __name__ == "__main__":
             code = phase16a_only()
         elif sys.argv[1:2] == ["--phase17"]:
             code = phase17_only()
+        elif sys.argv[1:2] == ["--phase1b"]:
+            code = phase1b_only()
         elif sys.argv[1:2] == ["--phase17f-worker"]:
             code = p17_soak_worker(sys.argv[2:])
         elif sys.argv[1:2] == ["--phase16-worker"]:

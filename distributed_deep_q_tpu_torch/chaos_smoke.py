@@ -20,9 +20,10 @@ to that bucket (cuBLAS and cuDNN pick their algorithm per batch shape, so
 a forward at another shape may differ in its low bits and flip a
 near-tie).
 
-Left out: the reference's preflight ``_require_clean_gate``, which refuses
-to run unless its static-analysis gate is clean. The port has no analysis
-gate yet; the port of ``analysis/`` adds the preflight and its test.
+As in the reference, no mode runs on a tree its static-analysis gate
+rejects: ``main`` first runs the port's gate (``python -m
+distributed_deep_q_tpu_torch.analysis``) over the port package and, on
+any finding, prints them to stderr and exits 2 (``_require_clean_gate``).
 
 Eleven modes:
 
@@ -2525,10 +2526,28 @@ def run_tenants_smoke(deadline: float = 240.0, device: str = "cuda",
     return verdict
 
 
+def _require_clean_gate() -> None:
+    """Chaos results must never be reported for code with known race
+    findings — refuse to run unless the static-analysis gate is clean."""
+    from distributed_deep_q_tpu_torch.analysis import run_all
+
+    findings = run_all()
+    if findings:
+        for f in findings:
+            print(f, file=sys.stderr)
+        print(f"chaos_smoke: REFUSING to run — analysis gate failed with "
+              f"{len(findings)} finding(s); fix or suppress them first "
+              "(python -m distributed_deep_q_tpu_torch.analysis)",
+              file=sys.stderr)
+        sys.exit(2)
+
+
 def main(argv: list[str] | None = None) -> int:
     """The reference's command line; ``--device DEV`` (anywhere) sets the
     device modes' device (the card by default), and the ``train`` mode
-    takes ``--preset NAME`` before its overrides."""
+    takes ``--preset NAME`` before its overrides. Refuses to run on a tree
+    the analysis gate rejects (exit 2)."""
+    _require_clean_gate()
     args = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
     if "--device" in args:

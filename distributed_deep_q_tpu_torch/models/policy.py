@@ -103,7 +103,8 @@ class BatchedPolicy:
     def compiled_buckets(self) -> list[int]:
         """Bucket sizes that have run — the census holding the
         ≤ ``len(buckets)`` batch-shape bound."""
-        return sorted(self._compiled)
+        with self._lock:
+            return sorted(self._compiled)
 
     # -- forward ------------------------------------------------------------
 

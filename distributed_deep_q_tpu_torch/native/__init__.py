@@ -45,8 +45,11 @@ def _build(out: Path) -> bool:
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
-        subprocess.run(["g++", *_FLAGS, "-o", str(tmp), str(_SRC)],
-                       check=True, capture_output=True, timeout=120)
+        subprocess.run(  # ddq: allow(blocking.under-lock) — build-once
+            # gate: _lock exists to make the first caller compile while
+            # the rest wait; nothing hot shares this module lock
+            ["g++", *_FLAGS, "-o", str(tmp), str(_SRC)],
+            check=True, capture_output=True, timeout=120)
         os.replace(tmp, out)
         return True
     except (OSError, subprocess.SubprocessError):

@@ -93,7 +93,7 @@ def make_velocity_signal_env(frame_shape=(84, 84), num_actions: int = 4,
 
     def velocities(device):
         if device not in tables:
-            tables[device] = torch.tensor(vel, dtype=torch.int32,
+            tables[device] = torch.tensor(vel, dtype=torch.int32,  # ddq: allow(purity.captured-write) — per-device constant cache, filled on the first call: fill it before a capture (ROADMAP item 8)
                                           device=device)
         return tables[device]
 

@@ -127,7 +127,7 @@ def gather_windows(idx: torch.Tensor, ring: torch.Tensor, *, n: int, w: int,
     if err:
         raise RuntimeError(f"gather_windows kernel launch failed: CUDA "
                            f"error {err}")
-    gather_windows.launches += 1
+    gather_windows.launches += 1  # ddq: allow(purity.captured-write) — host launch count: under a CUDA graph it counts the capture, not the replays (ROADMAP item 8)
     return out
 
 
@@ -174,7 +174,7 @@ def scatter_rows(src_idx: torch.Tensor, dst_idx: torch.Tensor,
     if err:
         raise RuntimeError(f"scatter_rows kernel launch failed: CUDA "
                            f"error {err}")
-    scatter_rows.launches += 1
+    scatter_rows.launches += 1  # ddq: allow(purity.captured-write) — host launch count: under a CUDA graph it counts the capture, not the replays (ROADMAP item 8)
     return ring
 
 

@@ -224,7 +224,7 @@ class AnakinRunner:
                 net, self._step_fn, self.frame_shape, self._eps, env_state,
                 buf, akeys)
             recs.append(rec)
-        self._env = (env_state, buf, akeys)
+        self._env = (env_state, buf, akeys)  # ddq: allow(purity.captured-write) — superstep state rebound to new tensors: a CUDA graph needs it copied into static buffers (ROADMAP item 8)
         return {key: torch.stack([r[key] for r in recs]) for key in recs[0]}
 
     def _insert(self, recs) -> None:
@@ -252,8 +252,8 @@ class AnakinRunner:
         ds.done[midx] = dn
         ds.boundary[midx] = dn
         ds.prio[midx] = new_p
-        self._cursors = (self._cursors + self.ticks) % slot_cap
-        self._sizes = torch.clamp(self._sizes + self.ticks, max=slot_cap)
+        self._cursors = (self._cursors + self.ticks) % slot_cap  # ddq: allow(purity.captured-write) — superstep state rebound to new tensors: a CUDA graph needs it copied into static buffers (ROADMAP item 8)
+        self._sizes = torch.clamp(self._sizes + self.ticks, max=slot_cap)  # ddq: allow(purity.captured-write) — superstep state rebound to new tensors: a CUDA graph needs it copied into static buffers (ROADMAP item 8)
 
     def superstep(self) -> dict[str, torch.Tensor]:
         """One act + insert + sample + train superstep, issued on the

@@ -606,7 +606,7 @@ class InferenceServer:
         if method == "health":
             return self.health_scrape()
 
-        if method == "stats":
+        if method == "stats":  # ddq: allow(protocol.orphan-handler) — the scrape verb of operators and tests; the port's own code reads this telemetry in process
             out: dict[str, Any] = {
                 "params_version": self._published_version(),
                 "compiled_buckets": np.asarray(

@@ -851,7 +851,7 @@ class ReplayFeedServer:
             # rings + evaluate SLO/trend rules → flat wire verdict
             return self.health_scrape()
 
-        if method == "stats":
+        if method == "stats":  # ddq: allow(protocol.orphan-handler) — the scrape verb of operators and tests; the port's own code reads this telemetry in process
             with self.replay_lock:
                 out = {
                     "env_steps": self.env_steps,

@@ -139,7 +139,7 @@ class Checkpointer:
         meta = {k: _jsonable(v) for k, v in (extra or {}).items()}
         self._writer = threading.Thread(
             target=self._write, args=(step, snap, meta),
-            name=f"checkpoint-{step}", daemon=True)
+            name="checkpoint-writer", daemon=True)
         self._writer.start()
         if wait:
             self.wait()
