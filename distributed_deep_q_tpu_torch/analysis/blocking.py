@@ -47,18 +47,16 @@ import ast
 import os
 
 from distributed_deep_q_tpu_torch.analysis.core import (
-    Finding, Source, call_name, dotted, load_sources, pkg)
+    Finding, Source, call_name, dotted, load_sources)
 from distributed_deep_q_tpu_torch.analysis import locks as _locks
 
 RULE = "blocking.under-lock"
 
-# the threaded RPC/replay plane the locks registry walks, plus the
-# resilient client (its retry loop and the raw client transport it
-# wraps are exactly where sleeps and wire I/O meet locks; the port's
-# registry already walks it for its mass-reconnect counter)
-SCAN_FILES = _locks.DEFAULT_REGISTRY.files + tuple(
-    f for f in (pkg("rpc", "resilience.py"),)
-    if f not in _locks.DEFAULT_REGISTRY.files)
+# the files the locks registry walks: the threaded RPC/replay plane and
+# the resilient client, whose retry loop and raw transport are exactly
+# where sleeps and wire I/O meet locks (the reference's pass adds the
+# client to its registry's files; the port's registry lists it)
+SCAN_FILES = _locks.DEFAULT_REGISTRY.files
 
 # -- what counts as blocking ------------------------------------------------
 

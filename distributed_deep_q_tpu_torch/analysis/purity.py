@@ -191,10 +191,9 @@ _LOG_METHODS = {"debug", "info", "warning", "warn", "error", "exception",
                 "critical"}
 
 # capture wrappers whose first argument is captured code
-_WRAPPER_CALLS = {"torch.compile", "torch.cuda.make_graphed_callables",
-                  "cuda.make_graphed_callables", "make_graphed_callables"}
+_WRAPPER_CALLS = {"torch.compile", "torch.cuda.make_graphed_callables"}
 _WRAPPER_DECORATORS = {"torch.compile"}
-_GRAPH_CONTEXTS = {"torch.cuda.graph", "cuda.graph"}
+_GRAPH_CONTEXTS = {"torch.cuda.graph"}
 
 _FuncNode = ast.FunctionDef | ast.AsyncFunctionDef | ast.Lambda
 
