@@ -10,7 +10,7 @@ Eight passes, one entry point:
                        discipline
 - ``threads``        — thread-lifecycle registry: every spawn site
                        declares its owner, stop mechanism, join site
-- ``blocking``       — blocking calls (socket/sleep/fsync/device_put/
+- ``blocking``       — blocking calls (socket/sleep/fsync/synchronize/
                        …) while a registered lock is held, expanded
                        interprocedurally
 - ``purity``         — host side effects inside the device-step
