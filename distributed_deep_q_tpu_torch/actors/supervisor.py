@@ -332,6 +332,7 @@ class _RemoteInference:
                                     actor_id=actor_id,
                                     timeout=cfg.actors.rpc_call_timeout),
             rng=rng, should_abort=stop_event.is_set)
+        self._stub = stub
         self._client = ResilientReplayFeedClient(
             stub, policy, should_abort=stop_event.is_set, seed=seed)
         self._client.on_backpressure = touch
@@ -348,16 +349,28 @@ class _RemoteInference:
         """Batched remote argmax actions: ONE ``infer`` RPC for a whole
         row batch — the vector actor's one-RPC-per-tick path. A shed sheds
         the WHOLE batch (the server admits whole requests only), so retry
-        keeps the rows together and row order is preserved end to end. An
+        keeps the rows together and row order is preserved end to end. A
+        server that answers it is closing (a restart) is retried like a
+        dropped connection, under the stub's retry deadline. Any other
         ``error`` reply (a failed forward) raises ``RPCError``."""
-        from distributed_deep_q_tpu_torch.rpc.resilience import RPCError
+        from distributed_deep_q_tpu_torch.rpc.inference_server import (
+            CLOSING)
+        from distributed_deep_q_tpu_torch.rpc.resilience import (
+            RPCError, ServerClosing)
 
         batch = np.ascontiguousarray(np.asarray(obs))
         seq = self._seq
         self._seq += 1
+
+        def send() -> dict:
+            resp = self._stub.call("infer", obs=batch, seq=seq)
+            if resp.get("error") == CLOSING:
+                raise ServerClosing(f"infer rejected: {CLOSING}")
+            return resp
+
         while True:
             with tracing.span("rpc_call"):
-                resp = self._client.call("infer", obs=batch, seq=seq)
+                resp = self._client._run("infer", send)
             if resp.get("error"):
                 raise RPCError(f"infer rejected: {resp['error']}")
             if resp.get("shed"):

@@ -78,6 +78,11 @@ log = logging.getLogger(__name__)
 # client retries instead of serve threads parked forever
 REPLY_BOUND_S = 60.0
 
+# the ``error`` reply to an infer that reaches a closing server (the
+# reference's wording): the port's actors retry it, it is not a fault of
+# the forward
+CLOSING = "inference server closing"
+
 # the canonical tenant tag every single-tenant deployment serves
 TENANT_PRIMARY = "primary"
 
@@ -672,7 +677,7 @@ class InferenceServer:
         p = _Pending(obs, actor_id, ten.tag)
         with self._cv:
             if self._closed:
-                return {"error": "inference server closing"}
+                return {"error": CLOSING}
             self._pending.append(p)
             self._queued_rows += n
             self._cv.notify_all()

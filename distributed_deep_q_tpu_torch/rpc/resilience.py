@@ -64,6 +64,12 @@ class RPCError(RuntimeError):
     """The server answered with an application error — retrying won't help."""
 
 
+class ServerClosing(ConnectionError):
+    """The server answered that it is shutting down (a restart in
+    progress): a transport fault in all but name, so an idempotent call
+    retries it under the policy's deadline like a dropped connection."""
+
+
 # process-wide mass-reconnect accounting (rpc/mass_reconnects): every
 # remap-flavored ``rehost`` from any client in this process counts here,
 # so the churn harness and the supervisor read one fleet-level gauge

@@ -10,7 +10,8 @@ serving distinct θ generations, the shadow tenant mirror-only (its
 counters read with a deadline: the batcher releases the primary's waiters
 before it mirrors, so one read right after the reply can race the last
 mirror), and a θ swap racing the batcher never tearing a reply. Added:
-a failed forward reaches the actor as ``RPCError``, and each package's
+a failed forward reaches the actor as ``RPCError`` while a closing
+server's reply (a restart) is retried like a dropped connection, and each package's
 client is served by the other package's server from the same θ — the
 same actions (the Q rows of two implementations agree within 1e-5, so a
 near-tie may flip; there the action must be one of the tied), the same
@@ -332,6 +333,62 @@ def test_failed_forward_reaches_the_actor_as_rpc_error():
     try:
         with pytest.raises(RPCError, match="device lost"):
             remote.action(np.zeros(2, np.float32))
+    finally:
+        remote.close()
+        server.close()
+
+
+def _scripted(server, replies):
+    """Answer the server's first infers with ``replies``, in order, then
+    serve as usual."""
+    real = server._infer
+    left = list(replies)
+
+    def infer(req, actor_id):
+        return left.pop(0) if left else real(req, actor_id)
+
+    server._infer = infer
+
+
+@pytest.mark.parametrize("first, raises", [
+    ({"error": "inference server closing"}, None),
+    ({"error": "RuntimeError: device lost"}, "device lost"),
+])
+def test_remote_inference_retries_a_closing_server_only(monkeypatch, first,
+                                                        raises):
+    """An infer that meets a closing server (a restart) is re-sent under
+    the stub's retry deadline, with the ``retry`` instant of every other
+    retry, and gets the right actions; the infer is a pure function of
+    (θ, obs), so the re-send is idempotent. Any other ``error`` reply (a
+    failed forward) still raises ``RPCError``."""
+    from distributed_deep_q_tpu_torch import tracing
+
+    net = dict(kind="mlp", hidden=(24,), num_actions=3)
+    local = QNet(NetConfig(**net), seed=2, obs_dim=4)
+    server = InferenceServer(_policy(net, obs_dim=4, buckets=(8,)),
+                             cutoff_us=500)
+    server.set_params(local.get_weights(), version=3)
+    _scripted(server, [first])
+    cfg = _remote_cfg(server, net)
+    cfg.actors.rpc_retry_base = 0.01
+    instants = []
+    monkeypatch.setattr(tracing, "instant",
+                        lambda name, **kw: instants.append((name, kw)))
+    remote = _RemoteInference(cfg, threading.Event(), actor_id=0, gid=0)
+    rows = np.random.default_rng(3).standard_normal((5, 4)).astype(
+        np.float32)
+    try:
+        if raises:
+            with pytest.raises(RPCError, match=raises):
+                remote.actions(rows)
+            assert remote._client.retries == 0
+            return
+        got = remote.actions(rows)
+        _same_or_tied(got, np.argmax(local.forward(rows), axis=-1),
+                      local.forward(rows))
+        assert remote.version == 3
+        assert remote._client.retries == 1
+        assert ("retry", {"method": "infer", "attempt": 0}) in instants
     finally:
         remote.close()
         server.close()
