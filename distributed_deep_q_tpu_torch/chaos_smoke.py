@@ -2067,13 +2067,26 @@ def run_tenants_smoke(deadline: float = 240.0, device: str = "cuda",
     # share (3 or 4 of 7) reach it only when wire chaos leaves orphaned
     # requests queued, so the reference's wave may not reach it at all
     pinned_aids = list(range(100, 112))
-    got: dict[int, dict] = {a: {} for a in split_aids + pinned_aids}
-    sheds1: dict[int, int] = {a: 0 for a in split_aids + pinned_aids}
+    # and one greedy actor: one actor id on several concurrent request
+    # streams, so its admitted rate is several times a pinned client's.
+    # The primary's "fair" controller sheds only an actor at or above its
+    # share of the fleet's rate, and a synchronous client queued behind
+    # the stall never is (its rate decays while it waits), so without
+    # the greedy actor the primary sheds only if the wave's first seconds
+    # happen to leave one client fast
+    greedy_aid, greedy_streams = 112, 4
+    got: dict[int, dict] = {a: {}
+                            for a in split_aids + pinned_aids + [greedy_aid]}
+    # one shed count per request stream: (actor id, first request)
+    sheds1: dict[tuple, int] = {
+        (a, 0): 0 for a in split_aids + pinned_aids}
+    sheds1.update({(greedy_aid, k): 0 for k in range(greedy_streams)})
 
-    def client1(aid: int, n_req: int, tenant: str = "") -> None:
+    def client1(aid: int, n_req: int, tenant: str = "", first: int = 0,
+                stride: int = 1) -> None:
         c = None
         try:
-            for i in range(n_req):
+            for i in range(first, n_req, stride):
                 obs = make_obs(aid, i)
                 for _ in range(900):
                     try:
@@ -2094,7 +2107,7 @@ def run_tenants_smoke(deadline: float = 240.0, device: str = "cuda",
                         time.sleep(0.02)
                         continue
                     if resp.get("shed"):
-                        sheds1[aid] += 1
+                        sheds1[(aid, first)] += 1
                         trc.instant("shed", plane="inference")
                         time.sleep(min(
                             resp.get("retry_after_ms", 10), 50) / 1e3)
@@ -2125,6 +2138,10 @@ def run_tenants_smoke(deadline: float = 240.0, device: str = "cuda",
     pinned = [threading.Thread(target=client1,
                                args=(a, 40, TENANT_PRIMARY), daemon=True)
               for a in pinned_aids]
+    greedy = [threading.Thread(
+        target=client1,
+        args=(greedy_aid, 40, TENANT_PRIMARY, k, greedy_streams),
+        daemon=True) for k in range(greedy_streams)]
     for t in threads1:
         t.start()
 
@@ -2164,6 +2181,12 @@ def run_tenants_smoke(deadline: float = 240.0, device: str = "cuda",
     for t in pinned:
         t.start()
         time.sleep(0.15)
+    # the greedy actor joins once the A/B rung sheds, so the primary's
+    # first shed cannot come ahead of it
+    run_until1(lambda: server1.ladder_level() >= 2, max_s=10.0,
+               collect=True)
+    for t in greedy:
+        t.start()
     prim_shed = run_until1(
         lambda: any(e["class"] == "primary"
                     for e in server1.ladder_ledger()),
@@ -2173,9 +2196,9 @@ def run_tenants_smoke(deadline: float = 240.0, device: str = "cuda",
     # phase 1d: release the stall; the fleet must walk back to ok and
     # the ladder back to level 0 under a light primary probe
     policy1.stall.clear()
-    for t in threads1 + pinned:
+    for t in threads1 + pinned + greedy:
         t.join(timeout=deadline / 2)
-    hung1 = sum(t.is_alive() for t in threads1 + pinned)
+    hung1 = sum(t.is_alive() for t in threads1 + pinned + greedy)
     ladder_cleared = False
     pc = None
     t_end = time.monotonic() + 10.0

@@ -415,3 +415,54 @@ def test_trace_verdict_counts_orphans():
     trc.instant("retry", parent=12345)
     time.sleep(0)
     assert chaos_smoke._trace_verdict(trc)["orphan_spans"] == 1
+
+
+def _fair_sheds(flow_mod, streams: list[int], seconds: float = 60.0,
+                wait_s: float = 5.0) -> dict[int, int]:
+    """The tenants mode's overload wave against a primary's "fair"
+    controller, on a simulated clock: each stream is a synchronous client
+    (an admitted request comes back ``wait_s`` later, behind the stalled
+    forwards; a shed one 50 ms later) and the queue stays over the
+    watermark throughout. Sheds per actor id."""
+    import heapq
+
+    now = [0.0]
+
+    class Queue:
+        def pending_rows(self):
+            return 120  # 15 requests of 8 rows, the watermark is 80
+
+    flow = flow_mod.FlowController(
+        flow_mod.FlowConfig(staged_high_watermark=80, ingest_factor=100.0,
+                            flush_credit_floor=8),
+        None, Queue(), clock=lambda: now[0])
+    events = [(0.01 * i, i, aid) for i, aid in enumerate(streams)]
+    heapq.heapify(events)
+    sheds: dict[int, int] = {}
+    while events[0][0] <= seconds:
+        t, i, aid = heapq.heappop(events)
+        now[0] = t
+        admitted, _ = flow.admit(aid, 8)
+        if admitted:
+            flow.on_ingest(aid, 8)
+        else:
+            sheds[aid] = sheds.get(aid, 0) + 1
+        heapq.heappush(events, (t + (wait_s if admitted else 0.05), i, aid))
+    return sheds
+
+
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_fair_primary_sheds_the_waves_greedy_actor_only(package):
+    """Why the tenants mode's wave carries a greedy actor. Synchronous
+    clients queued behind the stalled forwards are never above their fair
+    share when they arrive (each one's rate decays while it waits), so a
+    "fair" primary over its watermark sheds none of them; an actor on four
+    streams is shed. Both packages' controllers decide alike."""
+    if package == "reference":
+        from distributed_deep_q_tpu.rpc import flowcontrol as flow_mod
+    else:
+        from distributed_deep_q_tpu_torch.rpc import flowcontrol as flow_mod
+    equal = list(range(16))
+    assert _fair_sheds(flow_mod, equal) == {}
+    sheds = _fair_sheds(flow_mod, equal + [112] * 4)
+    assert set(sheds) == {112} and sheds[112] > 0, sheds
