@@ -297,16 +297,28 @@ Phases (any failure exits non-zero and prints no result line):
    and 17f the
    first 16 launches of each B1 and B2 shape are held bitwise against
    the plain versions on the same inputs;
+18. the bench — ``python -m distributed_deep_q_tpu_torch.bench --quick``
+   in a child process (``--phase18`` runs the phase alone): every row of
+   the port's bench at full width (84×84×4, batch 512 and 32, chains 64,
+   256 and 32, the 65,536-row rings and the 1M-row flagship ring, the
+   r2d2 sequence learner at 64 × 80), its depth cut. Checks: the one JSON
+   line holds every key the bench keeps of the root ``bench.py``'s and
+   its own, every rate is finite and above 0, 0 < ``mfu`` ≤ 1.05,
+   ``flops_per_step`` within 10% of ``flops_per_step_analytic``, B1 and
+   B2 launched in the flagship row and B3 and B4 in ``pallas_on``;
 9. the ``kernels`` JSON line (each kernel's launches on every path in
    ``launches_by_path``), the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, 8c, 10, 11,
-11b, 11c, 12b, 13, 13b, 14, 15a, each process of 16a, 16b and 16c, and
-17a–17f) sets all kernel launch counters to 0 just before it and reads
-them just after.
+11b, 11c, 12b, 13, 13b, 14, 15a, each process of 16a, 16b and 16c,
+17a–17f, and each row of 18) sets all kernel launch counters to 0 just
+before it and reads them just after; phase 18's path is the sum of its
+rows.
 
 ``python3 chip_smoke.py --phase17`` runs phase 17 alone, after the build.
+
+``python3 chip_smoke.py --phase18`` runs phase 18 alone, after the build.
 
 ``python3 chip_smoke.py --phase1b`` runs the analysis gate alone (exit 0
 clean, 1 on findings).
@@ -4146,6 +4158,74 @@ def phase17_only() -> int:
     return 0
 
 
+P18_TIMEOUT_S = 300
+BENCH_KERNELS = ("gather_windows", "scatter_rows", "fused_loss_fwd",
+                 "fused_loss_bwd")
+
+
+def check_bench_line(line: dict, keys: tuple) -> None:
+    """The bench's line holds every key it keeps of the reference's and
+    its own; every rate is finite and above 0; MFU lies in (0, 1.05]; the
+    counted FLOPs lie within 10% of the analytic count; B1 and B2
+    launched in the flagship row, B3 and B4 in ``pallas_on``."""
+    missing = [k for k in keys if k not in line]
+    assert not missing, missing
+    for k, v in line.items():
+        if k == "value" or k.endswith("_steps_per_s"):
+            assert isinstance(v, (int, float)) and math.isfinite(v) \
+                and v > 0, (k, v)
+    assert line["mfu"] is not None and 0 < line["mfu"] <= 1.05, line["mfu"]
+    fl, an = line["flops_per_step"], line["flops_per_step_analytic"]
+    assert abs(fl - an) / an <= 0.10, (fl, an)
+    flag, pallas = line["launches"]["flagship"], line["launches"]["pallas_on"]
+    assert flag["gather_windows"] > 0 and flag["scatter_rows"] > 0, flag
+    assert pallas["fused_loss_fwd"] > 0 and pallas["fused_loss_bwd"] > 0, \
+        pallas
+
+
+def run_phase18() -> dict:
+    """18: ``python -m distributed_deep_q_tpu_torch.bench --quick`` in a
+    child process (its rings, 8.19 GB for the flagship, are freed when it
+    exits), its one line parsed and checked; the launches of all its rows
+    summed per kernel."""
+    from distributed_deep_q_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_deep_q_tpu_torch.bench",
+         "--quick"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, timeout=P18_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, "p18_bench.stderr"), "w") as f:
+        f.write(proc.stderr)
+    assert proc.returncode == 0, (
+        f"bench rc={proc.returncode}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 1, lines
+    line = json.loads(lines[0])
+    check_bench_line(line, bench.KEPT + tuple(bench.PORT_ONLY))
+    launches = {k: sum(row[k] for row in line["launches"].values())
+                for k in BENCH_KERNELS}
+    log(f"[18] bench --quick: {seconds:.1f} s; {json.dumps(line)}")
+    log(f"[18] launches {json.dumps(launches)}; {nvidia_smi_line()}")
+    return {"line": line, "seconds": seconds, "launches": launches}
+
+
+def phase18_only() -> int:
+    """``chip_smoke.py --phase18``: phase 18 alone, after the build."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from distributed_deep_q_tpu_torch.ops import cuda_build
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log(nvidia_smi_line())
+    log(f"[2] build: {cuda_build.build_all()}")
+    run_phase18()
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4703,6 +4783,11 @@ def main() -> int:
     p17_preflight()
     p17 = run_phase17(torch, counters, {"rg": rg})
 
+    # -- 18. the bench --------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    p18 = run_phase18()
+
     # -- 9. result lines ------------------------------------------------------
     src = "distributed_deep_q_tpu_torch/csrc/ring_gather.cu"
     loss_src = "distributed_deep_q_tpu_torch/csrc/fused_loss.cu"
@@ -4891,7 +4976,8 @@ def main() -> int:
                "17c chaos vector": p17["launches"]["17c"],
                "17d chaos tenants": p17["launches"]["17d"],
                "17e chaos train": p17["launches"]["17e"],
-               "17f pixel fleet soak, 64 streams": p17["launches"]["17f"]}
+               "17f pixel fleet soak, 64 streams": p17["launches"]["17f"],
+               "18 bench": p18["launches"]}
     # phase 17's B1/B2 launches held against the plain versions
     for row in kernels[:2]:
         checked = {tag: {k: v for k, v in p17[tag]["checks"]["shapes"].items()
@@ -4929,6 +5015,8 @@ if __name__ == "__main__":
             code = phase17_only()
         elif sys.argv[1:2] == ["--phase1b"]:
             code = phase1b_only()
+        elif sys.argv[1:2] == ["--phase18"]:
+            code = phase18_only()
         elif sys.argv[1:2] == ["--phase17f-worker"]:
             code = p17_soak_worker(sys.argv[2:])
         elif sys.argv[1:2] == ["--phase16-worker"]:

@@ -37,9 +37,11 @@ from dataclasses import dataclass, field
 
 PACKAGE = "distributed_deep_q_tpu_torch"
 
-# package-relative: the chaos harness, the fleet soak and the telemetry
-# report, run as ``python -m distributed_deep_q_tpu_torch.<tool>``
-TOOL_MODULES = ("chaos_smoke.py", "fleet_smoke.py", "telemetry_report.py")
+# package-relative: the chaos harness, the fleet soak, the telemetry
+# report and the bench, each run as
+# ``python -m distributed_deep_q_tpu_torch.<tool>``
+TOOL_MODULES = ("chaos_smoke.py", "fleet_smoke.py", "telemetry_report.py",
+                "bench.py")
 
 _PRAGMA = re.compile(r"#\s*ddq:\s*allow\(([^)]*)\)")
 

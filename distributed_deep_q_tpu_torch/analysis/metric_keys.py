@@ -12,8 +12,9 @@ read under another). This pass pins the names:
 - Any string literal matching a metric namespace (``rpc/…``,
   ``trace/…``, …) anywhere in the port package, its tool modules
   included (the twins of the reference's ``scripts/``), must be
-  declared → ``metric_keys.unknown-metric``. The port has no
-  ``bench.py`` of its own.
+  declared → ``metric_keys.unknown-metric``. The port's ``bench.py``
+  is one of those tool modules, as the reference scans its root
+  ``bench.py``.
 - The first argument of ``metrics.count/gauge/observe/observe_many/
   histogram`` — when a literal — must be declared too (covers bare
   names like ``grad_steps`` that carry no namespace).
