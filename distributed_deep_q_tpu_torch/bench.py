@@ -49,9 +49,9 @@ rep's iterations × chain. A row's value is the median of ``REPS`` reps,
 its spread (max − min)/median.
 
 ``--quick`` keeps every row's width (frames, batch, chain, ring capacity)
-and cuts its depth only (``QUICK``): 2 reps of ~0.5 s with 1 warm-up
-dispatch, one calibration dispatch on the chained rows, at least 1 timed
-dispatch per rep, a 0.5 s settle, prefills of 8,192 (idle rings) and
+and cuts its depth only (``QUICK``): 2 reps of ~0.5 s, no warm-up
+dispatch (one calibration dispatch on the chained rows warms each row),
+at least 1 timed dispatch per rep, a 0.5 s settle, prefills of 8,192 (idle rings) and
 16,384 rows (the flagship ring), and the r2d2 ring at 128 sequences with
 1 host and 8 ring steps per rep.
 
@@ -209,7 +209,7 @@ FULL = Sizes(batch=BATCH, flag_batch=BATCH, chain=CHAIN, b32_chain=B32_CHAIN,
                             chain=8))
 # --quick: FULL's widths, its depth cut
 QUICK = dataclasses.replace(
-    FULL, idle_prefill=8_192, flag_prefill=16_384, chunks=4, warmup=1,
+    FULL, idle_prefill=8_192, flag_prefill=16_384, chunks=4, warmup=0,
     reps=2, rep_target_s=0.5, probe_min=1, iters_min=1, settle_s=0.5,
     r2d2=dataclasses.replace(FULL.r2d2, n_seqs=128, iters_host=1,
                              iters_dev=8))

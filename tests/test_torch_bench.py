@@ -45,7 +45,8 @@ from distributed_deep_q_tpu.replay import persistence as ref_persist
 
 from distributed_deep_q_tpu_torch import bench
 from distributed_deep_q_tpu_torch import config as port_config
-from distributed_deep_q_tpu_torch.profiling import fused_train_flops
+from distributed_deep_q_tpu_torch.profiling import (
+    PORT_KERNELS, fused_train_flops)
 from distributed_deep_q_tpu_torch.replay import persistence
 
 REPO = Path(__file__).resolve().parent.parent
@@ -321,7 +322,7 @@ def _card_line() -> dict:
     line = {k: 1.0 for k in bench.KEPT}
     line.update(flops_per_step=44.5e9, flops_per_step_analytic=47.9e9,
                 mfu=0.0055, quick=True, nvidia_smi="card, 700.00 W")
-    line["launches"] = {row: {k: 3 for k in chip_smoke.BENCH_KERNELS}
+    line["launches"] = {row: {k: 3 for k in PORT_KERNELS}
                         for row in ("flagship", "pallas_on")}
     return line
 
