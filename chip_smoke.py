@@ -133,7 +133,7 @@ Phases (any failure exits non-zero and prints no result line):
    84×84, batch 512, device PER with α = 0, chain 8, the fused loss), the
    preset's 4 actor processes ``spawn``ed on the host and its uncut 1M-row
    ring in four stream sub-rings; cuts: learn_start 8,192 and the depth,
-   400 grad steps. First a control: a spawned child that does make a CUDA
+   800 grad steps. First a control: a spawned child that does make a CUDA
    context, and what the checks see of it. While the learner trains, a
    watcher samples the actor processes (this process's ``spawn``ed
    children) and shows that none holds a CUDA context: by ``nvidia-smi``'s
@@ -253,7 +253,7 @@ Phases (any failure exits non-zero and prints no result line):
    the 1-process run (``--phase16a`` runs 16a alone); before it, B3/B4 at
    B = 256 and B1 at 2,048 windows on 16b's one-shard ring against their
    plain versions; 16b: phase 11's ``main train
-   --distributed`` at 2 processes × 2 actors, 200 grad steps: both exit
+   --distributed`` at 2 processes × 2 actors, 400 grad steps: both exit
    0, grad steps exact, both shards fed, the θ hashes equal, no actor
    holds a CUDA context (an ``ActorWatch`` in each process), B1 and B2
    launched in both; 16c: ``main train`` (the in-process loop) at 2
@@ -284,7 +284,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``vector``: the same net, the server hard-killed and rebooted mid-run,
    wrong 0; 17d ``tenants``: both arcs, no actor process holding a CUDA
    context; 17e ``train``: phase 11's run under
-   ``actors.chaos=drop=0.005,truncate=0.003,seed=5``, 200 grad steps:
+   ``actors.chaos=drop=0.005,truncate=0.003,seed=5``, 400 grad steps:
    phase 11's checks, the robustness counters printed, kill escalations
    0, the replay's stored rows equal to the server's env steps (duplicate
    flushes absorbed, not stored); 17f: the pixel fleet soak at 64 streams
@@ -2017,13 +2017,12 @@ def check_replay_feed(out: dict) -> None:
 # feeding it over the v4 wire. Phase 11, the Pong preset (bf16 Nature CNN,
 # batch 512, its uncut 1M-row ring in four stream sub-rings, device PER
 # with α = 0, chain 8, the fused loss: all four kernels); cuts: learn_start
-# 8,192 and the depth, 400 grad steps (800 until phase 18 came)
-DIST_GRAD_STEPS = 400
+# 8,192 and the depth, 800 grad steps
 DIST_PONG_ARGV = ["train", "--distributed", "--preset", "pong",
                   "--backend", "cuda", "--log-every", "200", "--set",
                   "env.kind=signal_atari", "env.id=signal",
                   "replay.learn_start=8192", "train.use_pallas_loss=true",
-                  f"train.total_steps={DIST_GRAD_STEPS}"]
+                  "train.total_steps=800"]
 # Phase 11b, the Breakout preset host-sampled: frames in a host
 # MultiStreamFrameReplay (uniform), batches through the DeviceStager's
 # pinned copies, the fused loss; cuts: 4 actors (the preset has 16),
@@ -2271,7 +2270,7 @@ POLICY_ITERS = 32
 # Phase 12b: phase 11's run with the inference plane on and 8 envs per
 # actor process (4 × 8 = 32 replay streams in the uncut 1M-row ring), the
 # health plane and the autoscaler with its executor in dry_run (the fleet
-# stays 4); the same cuts (learn_start 8,192, 400 grad steps)
+# stays 4); the same cuts (learn_start 8,192, 800 grad steps)
 SERVED_SET = ["inference.enabled=true", "actors.vector_envs=8",
               "health.enabled=true", "autoscale.enabled=true",
               "autoscale.execute=true", "autoscale.dry_run=true"]
@@ -3426,7 +3425,7 @@ P16_DIST_ARGV = ["train", "--distributed", "--preset", "pong",
                  "--backend", "cuda", "--log-every", "100", "--set",
                  "env.kind=signal_atari", "env.id=signal",
                  "replay.learn_start=8192", "train.use_pallas_loss=true",
-                 "train.total_steps=200"]
+                 "train.total_steps=400"]
 # 16c: the in-process loop at 2 processes, the Breakout preset with frames
 # in a host FrameStackReplay on each (the reference refuses the device ring
 # there), the fused loss; learn_start 5,000, 100 grad steps (phase 6b's
@@ -3776,11 +3775,11 @@ P17_INGEST = dict(num_actors=4, flushes=40, rows=64, capacity=16_384,
                   device_per=True)
 # 17e: phase 11's run (4 actors, the uncut 1M-row ring, the fused loss)
 # under the train mode's wire chaos (drop=0.005,truncate=0.003,seed=5);
-# cut: 200 grad steps (phase 11: 400)
-P17_TRAIN_GRAD_STEPS = 200
+# cut: 400 grad steps (phase 11: 800)
 P17_TRAIN_SET = ["env.kind=signal_atari", "env.id=signal",
                  "replay.learn_start=8192", "train.use_pallas_loss=true",
-                 f"train.total_steps={P17_TRAIN_GRAD_STEPS}"]
+                 "train.total_steps=400"]
+P17_TRAIN_GRAD_STEPS = 400
 # 17f: the pixel soak at 64 streams, the preset's geometry (1M rows, 15,625
 # per stream, its actors' 64 transitions per message: the harness's default
 # 16 was sized for 36×36 frames, and at 84×84 the per-message host cost of
@@ -4512,8 +4511,7 @@ def main() -> int:
     all_kernels = tuple(counters)
     dist = {}
     for tag, argv, jsonl, fleet, grad, fill, kernels in (
-            ("11", DIST_PONG_ARGV, "chip_smoke_dist_pong.jsonl", 4,
-             DIST_GRAD_STEPS,
+            ("11", DIST_PONG_ARGV, "chip_smoke_dist_pong.jsonl", 4, 800,
              ("env_steps", 8192), all_kernels),
             ("11b", DIST_BREAKOUT_ARGV, "chip_smoke_dist_breakout.jsonl", 4,
              100, ("env_steps", 8192), ("fused_loss_fwd", "fused_loss_bwd")),
@@ -4564,8 +4562,7 @@ def main() -> int:
     log(f"[12b] launches: {json.dumps(served['launches'])}; no actor holds "
         f"a CUDA context ({served['cuda_context']['check']} check): "
         f"{json.dumps(served['cuda_context'])}")
-    check_distributed_run(served, DIST_GRAD_STEPS, ("env_steps", 8192),
-                          all_kernels)
+    check_distributed_run(served, 800, ("env_steps", 8192), all_kernels)
     served_read = check_served_fleet(served, served_jsonl, telemetry_report)
     last = served_read.pop("last_record")
     log(f"[12b] the fleet's env steps/s {s['env_steps_per_s']} (4 actor "
@@ -4761,7 +4758,7 @@ def main() -> int:
                 if not ctx["check"].startswith("nvidia-smi pids"):
                     # this process and the two learners
                     assert ctx["compute_apps_max"] <= 3, ctx
-    check_phase16_cli(d16, 200, ("gather_windows", "scatter_rows"))
+    check_phase16_cli(d16, 400, ("gather_windows", "scatter_rows"))
     assert [r["ring_shard_rows"] for r in d16] == [P16_SHARD_ROWS] * 2, \
         [r["ring_shard_rows"] for r in d16]
     check_phase16_cli(h16, 100, ("fused_loss_fwd", "fused_loss_bwd"))
