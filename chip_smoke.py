@@ -133,7 +133,7 @@ Phases (any failure exits non-zero and prints no result line):
    84×84, batch 512, device PER with α = 0, chain 8, the fused loss), the
    preset's 4 actor processes ``spawn``ed on the host and its uncut 1M-row
    ring in four stream sub-rings; cuts: learn_start 8,192 and the depth,
-   800 grad steps. First a control: a spawned child that does make a CUDA
+   400 grad steps. First a control: a spawned child that does make a CUDA
    context, and what the checks see of it. While the learner trains, a
    watcher samples the actor processes (this process's ``spawn``ed
    children) and shows that none holds a CUDA context: by ``nvidia-smi``'s
@@ -253,7 +253,7 @@ Phases (any failure exits non-zero and prints no result line):
    the 1-process run (``--phase16a`` runs 16a alone); before it, B3/B4 at
    B = 256 and B1 at 2,048 windows on 16b's one-shard ring against their
    plain versions; 16b: phase 11's ``main train
-   --distributed`` at 2 processes × 2 actors, 400 grad steps: both exit
+   --distributed`` at 2 processes × 2 actors, 200 grad steps: both exit
    0, grad steps exact, both shards fed, the θ hashes equal, no actor
    holds a CUDA context (an ``ActorWatch`` in each process), B1 and B2
    launched in both; 16c: ``main train`` (the in-process loop) at 2
@@ -2017,12 +2017,14 @@ def check_replay_feed(out: dict) -> None:
 # feeding it over the v4 wire. Phase 11, the Pong preset (bf16 Nature CNN,
 # batch 512, its uncut 1M-row ring in four stream sub-rings, device PER
 # with α = 0, chain 8, the fused loss: all four kernels); cuts: learn_start
-# 8,192 and the depth, 800 grad steps
+# 8,192 and the depth, 400 grad steps. The actor watch reads "training"
+# from the first metrics record, so the run logs every 50 grad steps: a
+# watch period (1.5 s) must fit between that record and the run's end
 DIST_PONG_ARGV = ["train", "--distributed", "--preset", "pong",
-                  "--backend", "cuda", "--log-every", "200", "--set",
+                  "--backend", "cuda", "--log-every", "50", "--set",
                   "env.kind=signal_atari", "env.id=signal",
                   "replay.learn_start=8192", "train.use_pallas_loss=true",
-                  "train.total_steps=800"]
+                  "train.total_steps=400"]
 # Phase 11b, the Breakout preset host-sampled: frames in a host
 # MultiStreamFrameReplay (uniform), batches through the DeviceStager's
 # pinned copies, the fused loss; cuts: 4 actors (the preset has 16),
@@ -2270,7 +2272,7 @@ POLICY_ITERS = 32
 # Phase 12b: phase 11's run with the inference plane on and 8 envs per
 # actor process (4 × 8 = 32 replay streams in the uncut 1M-row ring), the
 # health plane and the autoscaler with its executor in dry_run (the fleet
-# stays 4); the same cuts (learn_start 8,192, 800 grad steps)
+# stays 4); the same cuts (learn_start 8,192, 400 grad steps)
 SERVED_SET = ["inference.enabled=true", "actors.vector_envs=8",
               "health.enabled=true", "autoscale.enabled=true",
               "autoscale.execute=true", "autoscale.dry_run=true"]
@@ -3420,12 +3422,13 @@ P16_TIMEOUT_S = 420
 # scratch row; B1 runs on it at chain 8 × 256 rows = 2,048 windows
 P16_SHARD_ROWS, P16_GATHER_N = 2 * (250_000 + WINDOW - 1) + 1, 8 * 256
 # 16b: phase 11's run at 2 processes, 2 of the preset's 4 actors each,
-# each process's ring the preset's 1M rows' half (one shard of D = 2)
+# each process's ring the preset's 1M rows' half (one shard of D = 2);
+# 200 grad steps, logged every 25 for each process's actor watch
 P16_DIST_ARGV = ["train", "--distributed", "--preset", "pong",
-                 "--backend", "cuda", "--log-every", "100", "--set",
+                 "--backend", "cuda", "--log-every", "25", "--set",
                  "env.kind=signal_atari", "env.id=signal",
                  "replay.learn_start=8192", "train.use_pallas_loss=true",
-                 "train.total_steps=400"]
+                 "train.total_steps=200"]
 # 16c: the in-process loop at 2 processes, the Breakout preset with frames
 # in a host FrameStackReplay on each (the reference refuses the device ring
 # there), the fused loss; learn_start 5,000, 100 grad steps (phase 6b's
@@ -4511,7 +4514,7 @@ def main() -> int:
     all_kernels = tuple(counters)
     dist = {}
     for tag, argv, jsonl, fleet, grad, fill, kernels in (
-            ("11", DIST_PONG_ARGV, "chip_smoke_dist_pong.jsonl", 4, 800,
+            ("11", DIST_PONG_ARGV, "chip_smoke_dist_pong.jsonl", 4, 400,
              ("env_steps", 8192), all_kernels),
             ("11b", DIST_BREAKOUT_ARGV, "chip_smoke_dist_breakout.jsonl", 4,
              100, ("env_steps", 8192), ("fused_loss_fwd", "fused_loss_bwd")),
@@ -4562,7 +4565,7 @@ def main() -> int:
     log(f"[12b] launches: {json.dumps(served['launches'])}; no actor holds "
         f"a CUDA context ({served['cuda_context']['check']} check): "
         f"{json.dumps(served['cuda_context'])}")
-    check_distributed_run(served, 800, ("env_steps", 8192), all_kernels)
+    check_distributed_run(served, 400, ("env_steps", 8192), all_kernels)
     served_read = check_served_fleet(served, served_jsonl, telemetry_report)
     last = served_read.pop("last_record")
     log(f"[12b] the fleet's env steps/s {s['env_steps_per_s']} (4 actor "
@@ -4758,7 +4761,7 @@ def main() -> int:
                 if not ctx["check"].startswith("nvidia-smi pids"):
                     # this process and the two learners
                     assert ctx["compute_apps_max"] <= 3, ctx
-    check_phase16_cli(d16, 400, ("gather_windows", "scatter_rows"))
+    check_phase16_cli(d16, 200, ("gather_windows", "scatter_rows"))
     assert [r["ring_shard_rows"] for r in d16] == [P16_SHARD_ROWS] * 2, \
         [r["ring_shard_rows"] for r in d16]
     check_phase16_cli(h16, 100, ("fused_loss_fwd", "fused_loss_bwd"))
