@@ -27,7 +27,8 @@ Phases (any failure exits non-zero and prints no result line):
    beside the bound of the bytes the data needs, the plain version and one
    library call;
 3b. loss kernels — the fused TD loss forward (B3) and backward (B4)
-   against their plain versions at B = 512 with A = 4 and A = 18, δ in
+   against their plain versions at B = 512 with A = 4, 6 (the bench's
+   head) and 18, δ in
    {0.5, 1, 2}, a few actions out of range: |td| and dq bitwise, the loss
    within 1e-6 relative; B4 also at every head width it has an instance
    for (2, 4, 6, 18) and one it loops over (5), with and without NaN and
@@ -216,7 +217,7 @@ Phases (any failure exits non-zero and prints no result line):
    plain version, timed beside the byte bound and ``index_copy_``. Then
    the Pong preset's geometry on signal_atari (bf16 Nature CNN 84×84×4,
    batch 512, 1M-row ring, α = 0, chain 8, the fused loss), 64 envs × 16
-   ticks, 60 supersteps: all four kernels launched; 10 supersteps under
+   ticks, 40 supersteps: all four kernels launched; 10 supersteps under
    ``torch.cuda.set_sync_debug_mode("warn")`` make no synchronizing call;
    a ``torch.profiler`` window of 1 superstep gives the act / insert /
    sample / train stages' device ms, launches per superstep and
@@ -227,9 +228,9 @@ Phases (any failure exits non-zero and prints no result line):
    --backend cuda --set mesh.dp=8`` at full width (bf16 Nature CNN, batch
    512 = 64 per shard, the uncut 1M-row ring as 8 shards of 125,000 rows,
    device PER α = 0, chain 8), learn_start cut to 8,192, 201 grad steps;
-   grad steps/s beside phase 4's and, in turns, the same loop at D = 1
-   and D = 8 (1, 8) with its ``StepTimer`` phases, and a launch
-   census; phase 5's chain-8 dispatch at D = 1 and D = 8 in turns; then
+   grad steps/s beside phase 4's (D = 1), its ``StepTimer`` phases and
+   a launch census; phase 5's chain-8 dispatch at D = 1 and D = 8 in
+   turns; then
    a small fused dispatch at D = 8 on the card and on the CPU with no
    uniforms injected (8 streams filling the shards alike, and 1 stream
    filling them unequally): sampled rows, window starts, B1 windows,
@@ -297,15 +298,19 @@ Phases (any failure exits non-zero and prints no result line):
    and 17f the
    first 16 launches of each B1 and B2 shape are held bitwise against
    the plain versions on the same inputs;
-18. the bench — ``python -m distributed_deep_q_tpu_torch.bench --quick``
-   in a child process (``--phase18`` runs the phase alone): every row of
-   the port's bench at full width (84×84×4, batch 512 and 32, chains 64,
-   256 and 32, the 65,536-row rings and the 1M-row flagship ring, the
-   r2d2 sequence learner at 64 × 80), its depth cut. Checks: the one JSON
-   line holds every key the bench keeps of the root ``bench.py``'s and
-   its own, every rate is finite and above 0, 0 < ``mfu`` ≤ 1.05,
+18. the bench — its ``--quick`` command line (``bench.main``) in a
+   ``--phase18-worker`` child process (``--phase18`` runs the phase
+   alone): every row of the port's bench at full width (84×84×4, batch
+   512 and 32, chains 64, 256 and 32, the 65,536-row rings and the
+   1M-row flagship ring, the r2d2 sequence learner at 64 × 80 on its
+   512-sequence ring), its depth cut. Checks: the one JSON line holds
+   every key the bench keeps of the root ``bench.py``'s and its own,
+   every rate is finite and above 0, 0 < ``mfu`` ≤ 1.05,
    ``flops_per_step`` within 10% of ``flops_per_step_analytic``, B1 and
-   B2 launched in the flagship row and B3 and B4 in ``pallas_on``;
+   B2 launched in the flagship row and B3 and B4 in ``pallas_on``; the
+   first 4 launches of each B1 and B2 shape in every row (up to 131,072
+   windows, 7.5 GB out, on the chain-256 row) held bitwise against the
+   plain versions on the same inputs; B3 at the bench's A = 6 is in 3b;
 9. the ``kernels`` JSON line (each kernel's launches on every path in
    ``launches_by_path``), the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -715,15 +720,16 @@ def autograd_route(torch, fl, q, act, t, w, g):
 
 def check_fused_loss(torch, fl, dev, b: int = 512) -> dict:
     """B3/B4 against their plain versions (bitwise |td| and dq, loss to
-    1e-6 relative) over A in {4, 18} and δ in {0.5, 1, 2}, B4 at every
-    width with and without NaN and inf, then timed at δ = 1 for A = 4
+    1e-6 relative) over A in {4, 6, 18} (6: the bench's head) and δ in
+    {0.5, 1, 2}, B4 at every
+    width with and without NaN and inf, then timed at δ = 1 for A = 4, 6
     and 18; all at ``b`` rows (the presets' 512; 256 is one of two
     processes' share)."""
     import torch.nn.functional as F
 
     out: dict = {"cases": 0, "td_max_abs_err": 0.0, "dq_max_abs_err": 0.0,
                  "loss_max_rel_err": 0.0}
-    for a in (4, 18):
+    for a in (4, 6, 18):
         for delta in (0.5, 1.0, 2.0):
             q, act, t, w, g = loss_inputs(torch, dev, b, a, seed=a)
             loss, td = fl.fused_loss_fwd(q, act, t, w, delta)
@@ -743,7 +749,7 @@ def check_fused_loss(torch, fl, dev, b: int = 512) -> dict:
     out["bwd_widths"] = check_bwd_widths(torch, fl, dev, b)
     out["dq_max_abs_err"] = max([out["dq_max_abs_err"]] + [
         c["max_abs_err"] for c in out["bwd_widths"]])
-    for a in (4, 18):
+    for a in (4, 6, 18):
         q, act, t, w, g = loss_inputs(torch, dev, b, a, seed=a)
         # the composition cannot take out-of-range actions: gather faults
         act_in = act.clamp(0, a - 1)
@@ -2807,11 +2813,11 @@ def anakin_pin(torch, config, modules, dp: int = 1) -> dict:
 # Phase 14 at full width: the Pong preset's geometry (bf16 Nature CNN at
 # 84×84×4, batch 512, 1M-row ring = 8.19 GB, α = 0, chain 8, the fused
 # loss) on signal_atari, 64 envs × 16 ticks = 1,024 env steps and 8 grad
-# steps per superstep; 60 supersteps, the first 10 of them warm-up and 10
+# steps per superstep; 40 supersteps, the first 10 of them warm-up and 10
 # under the sync check (300 until phase 16 came, 200 until phase 17 came,
-# 80 until phase 18 came, with 20 and 20 and 2 profiled: cut to keep the
-# whole run well inside its limit)
-ANAKIN_ENVS, ANAKIN_TICKS, ANAKIN_SUPERSTEPS = 64, 16, 60
+# 80 and then 60 beside phase 18, with 20 and 20 and 2 profiled: cut to
+# keep the whole run well inside its limit)
+ANAKIN_ENVS, ANAKIN_TICKS, ANAKIN_SUPERSTEPS = 64, 16, 40
 ANAKIN_WARM, ANAKIN_SYNC_CHECKED = 10, 10
 ANAKIN_PROFILED = 1     # ~38,000 launches for the profiler
 
@@ -3071,30 +3077,23 @@ def sharded_main_path(torch, cli_main, counters, train_mod) -> dict:
     """15a: ``main train --preset pong --backend cuda --set mesh.dp=8`` in
     process, its launches counted; the solver and the replay it built kept
     (through ``restore_for_resume``, which the loop calls with both), and a
-    ``launch_census`` of 4 chain-8 dispatches on them. The same loop at
-    ``mesh.dp=1`` runs just before it (turns 1, 8; until phase 17 came,
-    1, 8, 8, 1: cut to keep the whole run inside its limit), each run's
-    loop rate and ``StepTimer`` phases from its last metrics record."""
-    turns: dict[int, list[dict]] = {1: [], D8: []}
-
-    def loop(d, argv, jsonl):
-        s, launches, rec = run_cli(cli_main, counters, argv, jsonl)
-        turns[d].append({k: rec[k] for k in LOOP_KEYS})
-        return s, launches, rec
-
-    d1_argv = D8_ARGV[:-1] + ["mesh.dp=1"]
-    loop(1, d1_argv, "chip_smoke_pong_d1_turn.jsonl")
+    ``launch_census`` of 4 chain-8 dispatches on them; its loop rate and
+    ``StepTimer`` phases from its last metrics record. (The same loop at
+    ``mesh.dp=1`` ran in turns beside it until phase 18 came: cut to keep
+    the whole run inside its limit; ``shard_cost`` keeps the D = 1 and
+    D = 8 dispatch in turns.)"""
     with capturing(train_mod, "restore_for_resume",
                    lambda args, out: args[1:3]) as pairs:
-        summary, launches, record = loop(D8, D8_ARGV,
-                                         "chip_smoke_pong_d8.jsonl")
+        summary, launches, record = run_cli(cli_main, counters, D8_ARGV,
+                                            "chip_smoke_pong_d8.jsonl")
     (solver, replay), = pairs
     census = trace_dispatches(torch, solver, replay, 8, 4)
     return {"summary": summary, "launches": launches, "record": record,
             "solver": solver, "replay": replay,
             "shards": [solver.num_shards, replay.num_shards,
                        replay.subs_per_shard, replay.slot_cap],
-            "census": census, "loop_turns": turns}
+            "census": census,
+            "loop": {k: record[k] for k in LOOP_KEYS}}
 
 
 def shard_cost(torch, config, Solver, DevicePERFrameReplay) -> dict:
@@ -3798,18 +3797,20 @@ P17_CHECKED = 16
 
 
 class KernelChecks:
-    """Wraps B1 where the fused learner calls it and B2 where the fused
-    ring's flush calls it: the first ``P17_CHECKED`` launches of each
-    shape are held against the plain version on the same inputs (B2 on a
-    copy of the ring taken just before, compared outside the skipped
-    scratch row, whose contents are unspecified). The wrapped kernel
-    counts its launch as always; the plain version launches none."""
+    """Wraps B1 where ``gather_mods`` call it and B2 where
+    ``scatter_mods`` call it: the first ``limit`` launches of each shape
+    are held against the plain version on the same inputs (B2 on a copy
+    of the ring taken just before, compared outside the skipped scratch
+    row, whose contents are unspecified). The wrapped kernel counts its
+    launch as always; the plain version launches none."""
 
-    def __init__(self, torch, rg, learner_mod, device_per_mod):
-        self.torch, self.rg = torch, rg
-        self.mods = ((learner_mod, "gather_windows", self._gather),
-                     (device_per_mod, "scatter_rows", self._scatter))
-        self.orig = {name: getattr(mod, name) for mod, name, _ in self.mods}
+    def __init__(self, torch, rg, gather_mods, scatter_mods,
+                 limit: int = P17_CHECKED):
+        self.torch, self.rg, self.limit = torch, rg, limit
+        self.mods = ([(m, "gather_windows", self._gather)
+                      for m in gather_mods]
+                     + [(m, "scatter_rows", self._scatter)
+                        for m in scatter_mods])
         self.seen: dict[str, dict] = {}
 
     def __enter__(self):
@@ -3819,15 +3820,15 @@ class KernelChecks:
 
     def __exit__(self, *exc):
         for mod, name, _ in self.mods:
-            setattr(mod, name, self.orig[name])
+            setattr(mod, name, getattr(self.rg, name))
 
     def _slot(self, name: str, key: tuple):
         rec = self.seen.setdefault(f"{name} {key}", {"checked": 0,
                                                      "bitwise": 0})
-        return rec if rec["checked"] < P17_CHECKED else None
+        return rec if rec["checked"] < self.limit else None
 
     def _gather(self, idx, ring, **kw):
-        out = self.orig["gather_windows"](idx, ring, **kw)
+        out = self.rg.gather_windows(idx, ring, **kw)
         rec = self._slot("gather_windows",
                          (kw["n"], kw["w"], kw["rowb"]))
         if rec is not None:
@@ -3839,7 +3840,7 @@ class KernelChecks:
     def _scatter(self, src, dst, staged, ring, **kw):
         rec = self._slot("scatter_rows", (kw["n"], kw["rowb"]))
         before = ring.clone() if rec is not None else None
-        out = self.orig["scatter_rows"](src, dst, staged, ring, **kw)
+        out = self.rg.scatter_rows(src, dst, staged, ring, **kw)
         if rec is not None:
             self.rg.scatter_rows_plain(src, dst, staged, before, **kw)
             rowp = kw["rowb"] // 4
@@ -3903,7 +3904,7 @@ def run_phase17(torch, counters, cli_modules) -> dict:
     learner = Solver(cfg_a)
     zero()
     t0 = time.perf_counter()
-    with KernelChecks(torch, rg, learner_mod, device_per) as chk_a:
+    with KernelChecks(torch, rg, [learner_mod], [device_per]) as chk_a:
         va = chaos_smoke.run_ingest_saturation_smoke(
             device="cuda", learner=learner, **P17_INGEST)
     out["launches"]["17a"] = read()
@@ -3968,8 +3969,8 @@ def run_phase17(torch, counters, cli_modules) -> dict:
         "ok", "replies", "wrong_actions", "missing_actions",
         "tenant_mismatches", "version_mismatches", "ladder_ledger",
         "ladder_cleared", "shadow_direct_rejected", "compiled_buckets",
-        "warmed", "ladder_rose", "primary_shed", "retired_ok",
-        "shrunk", "retire_applied", "regrew", "grow_applied", "settled",
+        "warmed", "ladder_rose", "ab_rung_by_equal_wave",
+        "equal_wave_occupancy_max", "primary_shed", "retired_ok", "shrunk", "retire_applied", "regrew", "grow_applied", "settled",
         "executor_terminations", "kill_escalations", "rollbacks",
         "transitions_stored", "duplicated", "wrong_stored_actions",
         "critical_flaps", "slo_problems", "elastic_problems",
@@ -4091,7 +4092,7 @@ def p17_soak_worker(argv: list[str]) -> int:
     counters = p16_kernel_counters()
     for fn in counters.values():
         fn.launches = 0
-    with KernelChecks(torch, rg, learner_mod, device_per) as chk:
+    with KernelChecks(torch, rg, [learner_mod], [device_per]) as chk:
         vf = fleet_smoke.run_pixel_fleet_smoke(device="cuda", **P17_SOAK)
     launches = {k: fn.launches for k, fn in counters.items()}
     with open(argv[0], "w") as f:
@@ -4162,6 +4163,10 @@ def phase17_only() -> int:
 
 
 P18_TIMEOUT_S = 300
+# the bench's launches of each B1/B2 shape held against the plain version
+# on the same inputs (the first ones: they fall in each row's calibration
+# probe and first rep, so the timed reps run almost unchecked)
+P18_CHECKED = 4
 
 
 def check_bench_line(line: dict, keys: tuple) -> None:
@@ -4184,19 +4189,49 @@ def check_bench_line(line: dict, keys: tuple) -> None:
         pallas
 
 
+def p18_bench_worker(argv: list[str], sizes=None) -> int:
+    """``chip_smoke.py --phase18-worker OUT [BENCH ARGS]``: the bench's
+    command line (``bench.main``, ``--quick`` unless other arguments
+    follow; its one line goes to stdout) in a process of its own, with
+    the first ``P18_CHECKED`` launches of each B1/B2 shape on every row
+    (the frame rings' and the sequence ring's) held against the plain
+    versions; writes the checks to OUT. ``sizes`` goes to ``bench.main``
+    (the tests' small run)."""
+    import torch
+
+    from distributed_deep_q_tpu_torch import bench
+    from distributed_deep_q_tpu_torch.ops import ring_gather as rg
+    from distributed_deep_q_tpu_torch.parallel import learner as learner_mod
+    from distributed_deep_q_tpu_torch.parallel import (
+        sequence_learner as seq_learner_mod)
+    from distributed_deep_q_tpu_torch.replay import device_per
+    from distributed_deep_q_tpu_torch.replay import device_sequence
+
+    with KernelChecks(torch, rg, [learner_mod, seq_learner_mod],
+                      [device_per, device_sequence],
+                      limit=P18_CHECKED) as chk:
+        code = bench.main(argv[1:] or ["--quick"], sizes=sizes)
+    with open(argv[0], "w") as f:
+        json.dump(chk.verdict(), f)
+    return code
+
+
 def run_phase18() -> dict:
-    """18: ``python -m distributed_deep_q_tpu_torch.bench --quick`` in a
+    """18: the bench's ``--quick`` command line in a ``--phase18-worker``
     child process (its rings, 8.19 GB for the flagship, are freed when it
-    exits), its one line parsed and checked; the launches of all its rows
-    summed per kernel."""
+    exits), its one line parsed and checked, and its B1/B2 checks against
+    the plain versions read; the launches of all its rows summed per
+    kernel."""
     from distributed_deep_q_tpu_torch import bench
 
+    res = os.path.join(OUT_DIR, "p18_checks.json")
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(res)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "distributed_deep_q_tpu_torch.bench",
-         "--quick"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, timeout=P18_TIMEOUT_S,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
+        [sys.executable, os.path.abspath(__file__), "--phase18-worker", res],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        timeout=P18_TIMEOUT_S)
     seconds = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "p18_bench.stderr"), "w") as f:
         f.write(proc.stderr)
@@ -4210,9 +4245,16 @@ def run_phase18() -> dict:
     for row in line["launches"].values():
         for k, n in row.items():
             launches[k] = launches.get(k, 0) + n
+    with open(res) as f:
+        checks = json.load(f)
     log(f"[18] bench --quick: {seconds:.1f} s; {json.dumps(line)}")
     log(f"[18] launches {json.dumps(launches)}; {nvidia_smi_line()}")
-    return {"line": line, "seconds": seconds, "launches": launches}
+    log(f"[18] B1/B2 against the plain versions: {json.dumps(checks)}")
+    kinds = {k.split()[0] for k in checks["shapes"]}
+    assert kinds == {"gather_windows", "scatter_rows"}, checks
+    assert checks["all_bitwise"], checks
+    return {"line": line, "seconds": seconds, "launches": launches,
+            "checks": checks}
 
 
 def phase18_only() -> int:
@@ -4682,9 +4724,8 @@ def main() -> int:
     log(f"[15a] (solver shards, replay shards, sub-rings per shard, rows "
         f"per sub-ring) {d8['shards']}; launches: {json.dumps(d8_launches)}")
     log(f"[15a] grad steps/s {d8_summary['grad_steps_per_s']} (phase 4, "
-        f"one shard: {summary['grad_steps_per_s']}); the loop at D=1 and "
-        f"D=8 in turns (1, 8; the 8 is the counted run): "
-        f"{json.dumps(d8['loop_turns'])}; census of 4 chain-8 dispatches: "
+        f"one shard: {summary['grad_steps_per_s']}); the loop's phases: "
+        f"{json.dumps(d8['loop'])}; census of 4 chain-8 dispatches: "
         f"{json.dumps(d8['census'])}")
     check_path(d8_summary, D8_GRAD_STEPS)
     assert d8["shards"][:2] == [D8, D8], d8["shards"]
@@ -4926,7 +4967,12 @@ def main() -> int:
              "ok": err == 0, "shape": "B=512 A=4 delta=1",
              "path": "phase 6 (breakout, host-sampled)",
              "a18": {k: k18[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "composition_ms", "host_ms")}})
+                                         "composition_ms", "host_ms")},
+             "a6": dict({k: loss_k["a6"][part][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "composition_ms",
+                 "host_ms")}, shape="B=512 A=6 delta=1",
+                 path="phase 18 (the bench's pallas_on row)",
+                 launches=p18["line"]["launches"]["pallas_on"][name])})
     bwd_row = kernels[-1]
     bwd_row.update({k: loss_k["a4"]["bwd"][k] for k in (
         "autograd_host_ms", "autograd_grad_host_ms")})
@@ -4981,14 +5027,18 @@ def main() -> int:
                "17e chaos train": p17["launches"]["17e"],
                "17f pixel fleet soak, 64 streams": p17["launches"]["17f"],
                "18 bench": p18["launches"]}
-    # phase 17's B1/B2 launches held against the plain versions
+    # phases 17 and 18's B1/B2 launches held against the plain versions
     for row in kernels[:2]:
-        checked = {tag: {k: v for k, v in p17[tag]["checks"]["shapes"].items()
-                         if k.startswith(row["name"])}
+        def mine(shapes: dict) -> dict:
+            return {k: v for k, v in shapes.items()
+                    if k.startswith(row["name"])}
+        checked = {tag: mine(p17[tag]["checks"]["shapes"])
                    for tag in ("17a", "17f")}
         row["phase17_checked_vs_plain"] = checked
+        row["phase18_checked_vs_plain"] = mine(p18["checks"]["shapes"])
         row["ok"] = row["ok"] and all(
-            r["bitwise"] == r["checked"] for c in checked.values()
+            r["bitwise"] == r["checked"]
+            for c in [*checked.values(), row["phase18_checked_vs_plain"]]
             for r in c.values())
     g6 = p17["gather_w6"]
     kernels[0]["ok"] = kernels[0]["ok"] and g6["max_abs_err"] == 0
@@ -5022,6 +5072,8 @@ if __name__ == "__main__":
             code = phase18_only()
         elif sys.argv[1:2] == ["--phase17f-worker"]:
             code = p17_soak_worker(sys.argv[2:])
+        elif sys.argv[1:2] == ["--phase18-worker"]:
+            code = p18_bench_worker(sys.argv[2:])
         elif sys.argv[1:2] == ["--phase16-worker"]:
             code = p16_worker(sys.argv[2:])
         else:

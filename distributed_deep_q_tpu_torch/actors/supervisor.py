@@ -332,7 +332,6 @@ class _RemoteInference:
                                     actor_id=actor_id,
                                     timeout=cfg.actors.rpc_call_timeout),
             rng=rng, should_abort=stop_event.is_set)
-        self._stub = stub
         self._client = ResilientReplayFeedClient(
             stub, policy, should_abort=stop_event.is_set, seed=seed)
         self._client.on_backpressure = touch
@@ -362,15 +361,14 @@ class _RemoteInference:
         seq = self._seq
         self._seq += 1
 
-        def send() -> dict:
-            resp = self._stub.call("infer", obs=batch, seq=seq)
+        def refuse_closing(resp: dict) -> None:
             if resp.get("error") == CLOSING:
                 raise ServerClosing(f"infer rejected: {CLOSING}")
-            return resp
 
         while True:
             with tracing.span("rpc_call"):
-                resp = self._client._run("infer", send)
+                resp = self._client.call("infer", reply_check=refuse_closing,
+                                         obs=batch, seq=seq)
             if resp.get("error"):
                 raise RPCError(f"infer rejected: {resp['error']}")
             if resp.get("shed"):

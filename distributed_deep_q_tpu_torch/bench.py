@@ -35,10 +35,13 @@ names. The rows, each under the reference's keys:
 - the flagship: the fused device-PER dispatch on the 1M-row ring (8.19 GB
   at 8,192 B a row) filled through four streams, batch 512, chain
   ``min(CHAIN, 32)``; its median rate is the headline ``value``.
-- ``mfu``: ``flops_per_step`` over ``in_scan_step_ms_b512`` over the
-  card's dense bf16 peak (``profiling.peak_flops_for``; null on a card the
-  table does not know, and on the CPU), cross-checked through the live
-  ``MFUMeter`` (``mfu_live``).
+- ``mfu``: ``flops_per_step`` × ``idle_fused_steps_per_s`` (the whole
+  timed window of the program whose FLOPs were counted, per-dispatch cost
+  included) over the card's dense bf16 peak (``profiling.peak_flops_for``;
+  null on a card the table does not know, and on the CPU), cross-checked
+  through the live ``MFUMeter`` (``mfu_live``). The two-chain split does
+  not carry it: a chain is a host loop with no fixed cost per dispatch to
+  split off, so the split is a difference of two noisy rates.
 
 Every rep is timed on the host clock and ends in ``_fence``: a
 device→host read of the train state's step counter, which depends on
@@ -48,12 +51,12 @@ counter's advance over the rep's seconds, and the advance must equal the
 rep's iterations × chain. A row's value is the median of ``REPS`` reps,
 its spread (max − min)/median.
 
-``--quick`` keeps every row's width (frames, batch, chain, ring capacity)
-and cuts its depth only (``QUICK``): 2 reps of ~0.5 s, no warm-up
-dispatch (one calibration dispatch on the chained rows warms each row),
-at least 1 timed dispatch per rep, a 0.5 s settle, prefills of 8,192 (idle rings) and
-16,384 rows (the flagship ring), and the r2d2 ring at 128 sequences with
-1 host and 8 ring steps per rep.
+``--quick`` keeps every row's width (frames, batch, chain, ring
+capacities, the r2d2 ring's 512 sequences) and cuts its depth only
+(``QUICK``): 2 reps of ~0.5 s, no warm-up dispatch (the calibration
+probe warms each row), at least 1 timed dispatch per rep, a 0.5 s
+settle, 16 probe steps, prefills of 8,192 (idle rings) and 16,384 rows
+(the flagship ring), and 1 host and 8 ring steps per r2d2 rep.
 
 ``--device cpu`` runs on the host at the reference's own CPU sizes
 (``CPU``); its rates are the CPU's, and ``device_kind`` says so. Without
@@ -186,12 +189,10 @@ class Sizes:
     flag_capacity: int
     idle_prefill: int
     flag_prefill: int
-    iters: int          # sizes the calibration probe of unchained rows
-    chunks: int         # ... and of chained rows (iters // 16)
+    probe_steps: int    # grad steps of the calibration probe (≥ 1 dispatch)
     warmup: int
     reps: int
     rep_target_s: float
-    probe_min: int      # fewest calibration dispatches
     iters_min: int      # fewest timed dispatches per rep
     settle_s: float     # idle_uniform's settle before its timed reps
     r2d2: R2d2Sizes
@@ -200,26 +201,24 @@ class Sizes:
 # the reference's accelerator sizes
 FULL = Sizes(batch=BATCH, flag_batch=BATCH, chain=CHAIN, b32_chain=B32_CHAIN,
              idle_capacity=65_536, flag_capacity=1_000_000,
-             idle_prefill=40_000, flag_prefill=60_000, iters=400, chunks=64,
-             warmup=10, reps=REPS, rep_target_s=REP_TARGET_S, probe_min=2,
-             iters_min=4, settle_s=3.0,
+             idle_prefill=40_000, flag_prefill=60_000, probe_steps=64,
+             warmup=10, reps=REPS, rep_target_s=REP_TARGET_S, iters_min=4,
+             settle_s=3.0,
              r2d2=R2d2Sizes(hw=(84, 84), stack=4, seq_len=80, burn_in=40,
                             batch=64, lstm=512, compute_dtype="bfloat16",
                             n_seqs=512, iters_host=3, iters_dev=60, reps=2,
                             chain=8))
 # --quick: FULL's widths, its depth cut
 QUICK = dataclasses.replace(
-    FULL, idle_prefill=8_192, flag_prefill=16_384, chunks=4, warmup=0,
-    reps=2, rep_target_s=0.5, probe_min=1, iters_min=1, settle_s=0.5,
-    r2d2=dataclasses.replace(FULL.r2d2, n_seqs=128, iters_host=1,
-                             iters_dev=8))
+    FULL, idle_prefill=8_192, flag_prefill=16_384, probe_steps=16, warmup=0,
+    reps=2, rep_target_s=0.5, iters_min=1, settle_s=0.5,
+    r2d2=dataclasses.replace(FULL.r2d2, iters_host=1, iters_dev=8))
 # --device cpu: the reference's own CPU sizes
 CPU = Sizes(batch=BATCH, flag_batch=128, chain=4, b32_chain=8,
             idle_capacity=65_536, flag_capacity=131_072,
             idle_prefill=20_000, flag_prefill=20_000,
-            iters=20, chunks=4, warmup=3, reps=REPS,
-            rep_target_s=REP_TARGET_S, probe_min=2, iters_min=4,
-            settle_s=1.0,
+            probe_steps=8, warmup=3, reps=REPS,
+            rep_target_s=REP_TARGET_S, iters_min=4, settle_s=1.0,
             r2d2=R2d2Sizes(hw=(36, 36), stack=4, seq_len=16, burn_in=4,
                            batch=8, lstm=16, compute_dtype="float32",
                            n_seqs=64, iters_host=3, iters_dev=6, reps=2,
@@ -372,8 +371,8 @@ class Timed:
         return (max(self.rates) - min(self.rates)) / self.median
 
 
-def time_variant(solver, replay, batch: int, iters: int, warmup: int,
-                 sz: Sizes, chain: int = 1, settle_s: float = 0.0) -> Timed:
+def time_variant(solver, replay, batch: int, sz: Sizes, chain: int = 1,
+                 settle_s: float = 0.0) -> Timed:
     """Per-rep grad-step rates for one (solver, replay) pair.
 
     A fused replay (``DevicePERFrameReplay``) dispatches ``chain`` fused
@@ -381,8 +380,9 @@ def time_variant(solver, replay, batch: int, iters: int, warmup: int,
     host and takes one ring step, and on a prioritized one the priority
     write-back runs ``DelayedPriorityWriteback``'s pipeline (the |TD|
     copy starts at dispatch and is applied 8 steps later), so no step
-    waits on a device→host copy. ``iters`` only sizes the calibration
-    probe; each rep then runs the dispatches that take about
+    waits on a device→host copy. After ``sz.warmup`` dispatches, a probe
+    of ``sz.probe_steps`` grad steps (at least one dispatch) times one
+    dispatch; each rep then runs the dispatches that take about
     ``sz.rep_target_s``."""
     from distributed_deep_q_tpu_torch.replay.prioritized import (
         DelayedPriorityWriteback)
@@ -403,7 +403,7 @@ def time_variant(solver, replay, batch: int, iters: int, warmup: int,
             writeback.push(m["index"], m["td_abs"], sampled_at)
         return m
 
-    for _ in range(warmup):
+    for _ in range(sz.warmup):
         one_step()
     _fence(solver)
     if settle_s > 0.0:
@@ -414,7 +414,7 @@ def time_variant(solver, replay, batch: int, iters: int, warmup: int,
             for _ in range(4):
                 one_step()
             _fence(solver)
-    probe_n = max(iters // 16, sz.probe_min)
+    probe_n = max(sz.probe_steps // chain, 1)
     t0 = time.perf_counter()
     for _ in range(probe_n):
         one_step()
@@ -556,8 +556,7 @@ def _learn_overhead(cfg_mod, device: str, sz: Sizes, launches: dict) -> dict:
                                    device_per=True, prefill=sz.idle_prefill,
                                    learn_metrics=(mode == "on"),
                                    device=device)
-            r = time_variant(solver, replay, 32, sz.chunks * 2, sz.warmup,
-                             sz, chain=sz.b32_chain)
+            r = time_variant(solver, replay, 32, sz, chain=sz.b32_chain)
         rates[mode] = r.median
         out[f"learn_{mode}_steps_per_s"] = round(r.median, 2)
         out[f"learn_{mode}_spread"] = round(r.spread, 4)
@@ -601,8 +600,8 @@ def run(device: str, sz: Sizes, quick: bool = False) -> dict:
                                prioritized=False, pallas=False,
                                prefill=sz.idle_prefill, device=device)
         out["fence_rtt_ms"] = round(1e3 * _fence_rtt(solver), 4)
-        idle = time_variant(solver, replay, sz.batch, sz.iters // 2,
-                            sz.warmup, sz, settle_s=sz.settle_s)
+        idle = time_variant(solver, replay, sz.batch, sz,
+                            settle_s=sz.settle_s)
     out["idle_uniform_steps_per_s"] = round(idle.median, 2)
     out["idle_spread"] = round(idle.spread, 4)
     del solver, replay
@@ -618,10 +617,8 @@ def run(device: str, sz: Sizes, quick: bool = False) -> dict:
                                device_per=True, prefill=sz.idle_prefill,
                                device=device)
         c1, c2 = sz.chain, sz.b32_chain
-        r1 = time_variant(solver, replay, sz.batch, sz.chunks, sz.warmup,
-                          sz, chain=c1).median
-        r2 = time_variant(solver, replay, sz.batch, sz.chunks, sz.warmup,
-                          sz, chain=c2).median
+        r1 = time_variant(solver, replay, sz.batch, sz, chain=c1).median
+        r2 = time_variant(solver, replay, sz.batch, sz, chain=c2).median
     t1, t2 = 1.0 / r1, 1.0 / r2
     s = max((t2 * c2 - t1 * c1) / (c2 - c1), 1e-9)
     out["idle_fused_steps_per_s"] = round(max(r1, r2), 2)
@@ -642,15 +639,14 @@ def run(device: str, sz: Sizes, quick: bool = False) -> dict:
                                batch=32, prioritized=True, pallas=False,
                                device_per=True, prefill=sz.idle_prefill,
                                device=device)
-        r32 = time_variant(solver, replay, 32, sz.chunks * 4, sz.warmup, sz,
-                           chain=sz.b32_chain)
+        r32 = time_variant(solver, replay, 32, sz, chain=sz.b32_chain)
     out["batch32_steps_per_s"] = round(r32.median, 2)
     out["batch32_vs_baseline"] = round(r32.median / CAFFE_STEPS_PER_S, 2)
     out["batch32_spread"] = round(r32.spread, 4)
     out["batch32_chain_k"] = sz.b32_chain
     out["batch32_per"] = "device_fused"
     with counted(launches, "batch32_single_dispatch"):
-        r32u = time_variant(solver, replay, 32, sz.iters, sz.warmup, sz)
+        r32u = time_variant(solver, replay, 32, sz)
     out["batch32_single_dispatch_steps_per_s"] = round(r32u.median, 2)
     del solver, replay
     _release()
@@ -661,7 +657,7 @@ def run(device: str, sz: Sizes, quick: bool = False) -> dict:
                                batch=sz.batch,
                                prioritized=False, pallas=True,
                                prefill=sz.idle_prefill, device=device)
-        pon = time_variant(solver, replay, sz.batch, sz.iters, sz.warmup, sz)
+        pon = time_variant(solver, replay, sz.batch, sz)
     out["pallas_on_steps_per_s"] = round(pon.median, 2)
     out["pallas_off_steps_per_s"] = out["idle_uniform_steps_per_s"]
     del solver, replay
@@ -680,8 +676,8 @@ def run(device: str, sz: Sizes, quick: bool = False) -> dict:
                                batch=sz.flag_batch, prioritized=True,
                                pallas=False, device_per=True, num_streams=4,
                                prefill=sz.flag_prefill, device=device)
-        flag = time_variant(solver, replay, sz.flag_batch, sz.chunks,
-                            sz.warmup, sz, chain=flag_chain)
+        flag = time_variant(solver, replay, sz.flag_batch, sz,
+                            chain=flag_chain)
     flagship = flag.median
     out["flagship_spread"] = round(flag.spread, 4)
     out["flagship_chain_k"] = flag_chain
@@ -700,23 +696,19 @@ def run(device: str, sz: Sizes, quick: bool = False) -> dict:
     out["device_kind"] = (torch.cuda.get_device_name(dev)
                           if dev.type == "cuda" else "cpu")
     out["peak_flops_bf16"] = peak
-    # MFU against the step inside a chain (the per-dispatch cost apart);
-    # none where the two chain lengths gave no positive step time
-    out["tflops_per_s"] = out["mfu"] = out["mfu_live"] = None
+    # MFU over the idle fused row's whole timed window: the FLOPs were
+    # counted over that row's dispatch, at its batch
+    rate = out["idle_fused_steps_per_s"]
+    out["tflops_per_s"] = round(out["flops_per_step"] * rate / 1e12, 4)
+    out["mfu"] = (round(out["flops_per_step"] * rate / peak, 4)
+                  if peak else None)
+    # the same window through the live meter the supervisor logs from:
+    # same FLOPs and peak, only the rate plumbing differs. The meter
+    # rounds steps/s to 1e-3 and mfu to 1e-4; 2% covers both
+    meter = MFUMeter(out["flops_per_step"], peak)
+    meter.update(0, t=0.0)  # opens the window
+    out["mfu_live"] = meter.update(10_000, t=10_000 / rate).get("train/mfu")
     out["mfu_live_tolerance"] = 0.02
-    if out["in_scan_step_ms_b512"]:
-        in_scan_rate = 1e3 / out["in_scan_step_ms_b512"]
-        out["tflops_per_s"] = round(
-            out["flops_per_step"] * in_scan_rate / 1e12, 4)
-        out["mfu"] = (round(out["flops_per_step"] * in_scan_rate / peak, 4)
-                      if peak else None)
-        # the same window through the live meter the supervisor logs
-        # from: same FLOPs and peak, only the rate plumbing differs. The
-        # meter rounds steps/s to 1e-3 and mfu to 1e-4; 2% covers both
-        meter = MFUMeter(out["flops_per_step"], peak)
-        meter.update(0, t=0.0)  # opens the window
-        live = meter.update(10_000, t=10_000 / in_scan_rate)
-        out["mfu_live"] = live.get("train/mfu")
     if out["mfu"]:
         rel = abs(out["mfu_live"] - out["mfu"]) / out["mfu"]
         if rel > out["mfu_live_tolerance"]:

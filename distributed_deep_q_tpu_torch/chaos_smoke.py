@@ -2181,10 +2181,20 @@ def run_tenants_smoke(deadline: float = 240.0, device: str = "cuda",
     for t in pinned:
         t.start()
         time.sleep(0.15)
-    # the greedy actor joins once the A/B rung sheds, so the primary's
-    # first shed cannot come ahead of it
-    run_until1(lambda: server1.ladder_level() >= 2, max_s=10.0,
-               collect=True)
+    # the wave of equal synchronous clients alone is held to a bound: it
+    # must drive the ladder to the A/B rung. The primary's own "fair"
+    # controller may never shed such a fleet (its blind spot, ROADMAP §C
+    # C4), so the greedy actor joins only once the A/B rung sheds, and
+    # the primary's first shed cannot come ahead of it
+    wm1 = float(server1.flow.cfg.staged_high_watermark)
+    equal_occ: list[float] = []
+
+    def equal_wave_at_ab() -> bool:
+        equal_occ.append(server1.queued_rows() / wm1)
+        return server1.ladder_level() >= 2
+
+    ab_by_equal_wave = run_until1(equal_wave_at_ab, max_s=10.0,
+                                  collect=True)
     for t in greedy:
         t.start()
     prim_shed = run_until1(
@@ -2477,7 +2487,8 @@ def run_tenants_smoke(deadline: float = 240.0, device: str = "cuda",
     verdict = {
         "ok": (not errors and hung1 == 0 and wrong == 0 and missing == 0
                and tenant_mm == 0 and version_mm == 0
-               and warmed and lvl_up and prim_shed and shadow_rejected
+               and warmed and lvl_up and ab_by_equal_wave and prim_shed
+               and shadow_rejected
                and s1 > 0 and s2 == s1
                and ledger_classes == ["shadow", "ab", "primary"]
                and ladder_cleared and recovered1
@@ -2508,6 +2519,8 @@ def run_tenants_smoke(deadline: float = 240.0, device: str = "cuda",
         # the phase gates the reference folds into "ok" unnamed
         "warmed": warmed,
         "ladder_rose": lvl_up,
+        "ab_rung_by_equal_wave": ab_by_equal_wave,
+        "equal_wave_occupancy_max": round(max(equal_occ), 4),
         "primary_shed": prim_shed,
         # arc 2 — autoscaler executor
         "booted": booted,

@@ -239,11 +239,20 @@ class ResilientReplayFeedClient:
             self.gave_up += 1
             raise
 
-    def call(self, method: str, **kwargs: Any) -> dict[str, Any]:
+    def call(self, method: str,
+             reply_check: Callable[[dict], None] | None = None,
+             **kwargs: Any) -> dict[str, Any]:
         """Request/reply with retries. Safe for idempotent methods only —
-        ``add_transitions`` must go through its stamped wrapper below."""
-        return self._run(method,
-                         lambda: self._client.call(method, **kwargs))
+        ``add_transitions`` must go through its stamped wrapper below.
+        ``reply_check`` sees every reply inside the retry loop and may
+        raise a retryable error (``ServerClosing``) to re-send."""
+        def send() -> dict[str, Any]:
+            resp = self._client.call(method, **kwargs)
+            if reply_check is not None:
+                reply_check(resp)
+            return resp
+
+        return self._run(method, send)
 
     def call_once(self, method: str, **kwargs: Any) -> dict[str, Any]:
         """Single attempt, no retries (heartbeat thread's cadence)."""

@@ -56,9 +56,9 @@ import chip_smoke  # noqa: E402
 
 TINY = bench.Sizes(
     batch=32, flag_batch=32, chain=2, b32_chain=4, idle_capacity=8_192,
-    flag_capacity=16_384, idle_prefill=2_048, flag_prefill=4_096, iters=2,
-    chunks=2, warmup=1, reps=2, rep_target_s=0.01, probe_min=1,
-    iters_min=1, settle_s=0.0,
+    flag_capacity=16_384, idle_prefill=2_048, flag_prefill=4_096,
+    probe_steps=2, warmup=1, reps=2, rep_target_s=0.01, iters_min=1,
+    settle_s=0.0,
     r2d2=bench.R2d2Sizes(hw=(36, 36), stack=4, seq_len=16, burn_in=4,
                          batch=4, lstm=16, compute_dtype="float32",
                          n_seqs=16, iters_host=1, iters_dev=2, reps=2,
@@ -196,6 +196,10 @@ def test_one_line_whose_keys_with_not_ported_are_the_references(printed):
     assert line["flops_source"] == "torch_flop_counter"
     assert line["device_kind"] == "cpu"
     assert line["mfu"] is None and line["peak_flops_bf16"] is None
+    # the MFU's numerator: the counted FLOPs over the idle fused row's
+    # whole timed window, not the two-chain split
+    assert line["tflops_per_s"] == round(
+        line["flops_per_step"] * line["idle_fused_steps_per_s"] / 1e12, 4)
     assert line["ring_capacity_frames"] == TINY.flag_capacity
     assert set(line["launches"]) == {
         "idle_uniform", "idle_fused", "batch32", "batch32_single_dispatch",
@@ -221,12 +225,12 @@ def test_time_variant_advances_the_step_by_iters_times_chain(fused, chain):
                                  device="cpu")
     sz = dataclasses.replace(TINY, reps=3, iters_min=2)
     before = bench._fence(solver)
-    t = bench.time_variant(solver, replay, 16, iters=2, warmup=1, sz=sz,
-                           chain=chain)
+    t = bench.time_variant(solver, replay, 16, sz, chain=chain)
     assert t.rep_steps == [t.iters * chain] * sz.reps
     assert t.iters >= sz.iters_min
     assert len(t.rates) == sz.reps and min(t.rates) > 0
-    dispatched = 1 + sz.probe_min + sz.reps * t.iters
+    probe = max(sz.probe_steps // chain, 1)
+    dispatched = sz.warmup + probe + sz.reps * t.iters
     assert bench._fence(solver) - before == dispatched * chain
 
 
@@ -300,19 +304,20 @@ def test_bench_is_a_tool_module_of_the_analysis_gate():
 
 def test_quick_cuts_depth_only():
     """``--quick`` keeps the full run's widths (frames, batch, chain,
-    ring capacities, the r2d2 shapes) and cuts reps, rep length, warm-up
-    and prefill."""
+    ring capacities, the r2d2 shapes and ring) and cuts reps, rep length,
+    warm-up, the calibration probe and prefill."""
     widths = ("batch", "flag_batch", "chain", "b32_chain", "idle_capacity",
               "flag_capacity")
     for f in widths:
         assert getattr(bench.QUICK, f) == getattr(bench.FULL, f), f
     for f in ("hw", "stack", "seq_len", "burn_in", "batch", "lstm",
-              "compute_dtype", "chain"):
+              "compute_dtype", "chain", "n_seqs"):
         assert getattr(bench.QUICK.r2d2, f) == getattr(bench.FULL.r2d2, f), f
-    for f in ("reps", "rep_target_s", "warmup", "chunks", "idle_prefill",
-              "flag_prefill"):
+    for f in ("reps", "rep_target_s", "warmup", "probe_steps",
+              "idle_prefill", "flag_prefill"):
         assert getattr(bench.QUICK, f) < getattr(bench.FULL, f), f
-    assert bench.QUICK.r2d2.n_seqs < bench.FULL.r2d2.n_seqs
+    for f in ("iters_host", "iters_dev"):
+        assert getattr(bench.QUICK.r2d2, f) < getattr(bench.FULL.r2d2, f), f
 
 
 def _card_line() -> dict:
@@ -356,3 +361,35 @@ def test_phase18_check(fault):
     else:
         with pytest.raises(AssertionError):
             chip_smoke.check_bench_line(line, keys)
+
+
+def test_phase18_worker_checks_every_gather_and_scatter_shape(tmp_path,
+                                                               capsys):
+    """``chip_smoke.py``'s phase 18 child: the bench's one line on stdout,
+    and the first launches of each B1/B2 shape the bench's rows reach (the
+    frame rings' and the sequence ring's) held against the plain versions
+    on the same inputs. On the CPU the wrappers take the plain versions
+    themselves, so this holds the plumbing: every call site is wrapped,
+    the keys and the scratch-row rule hold, and the checks are written."""
+    out = tmp_path / "checks.json"
+    assert chip_smoke.p18_bench_worker([str(out), "--device", "cpu"],
+                                       sizes=TINY) == 0
+    assert len(capsys.readouterr().out.splitlines()) == 1
+    checks = json.loads(out.read_text())
+    assert checks["all_bitwise"], checks
+    names = {k.split()[0] for k in checks["shapes"]}
+    assert names == {"gather_windows", "scatter_rows"}, checks
+    # the sequence ring's windows (batch × (sequence + stack) rows) and
+    # its slot-wide rows are wrapped too
+    shapes = {k: tuple(int(x) for x in k.split(" ", 1)[1].strip("()")
+                       .split(","))
+              for k in checks["shapes"]}
+    seq_w = TINY.r2d2.seq_len + TINY.r2d2.stack
+    seq = [v for k, v in shapes.items() if k.startswith("gather_windows")
+           and v[:2] == (TINY.r2d2.batch, seq_w)]
+    assert seq, checks
+    assert any(k.startswith("scatter_rows") and v[1] == seq_w * seq[0][2]
+               for k, v in shapes.items()), checks
+    for rec in checks["shapes"].values():
+        assert 0 < rec["checked"] <= chip_smoke.P18_CHECKED, rec
+
