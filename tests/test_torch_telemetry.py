@@ -127,6 +127,9 @@ def test_fleet_health_and_disabled_singletons():
 
 
 def _record(tmod, path):
+    # the tracer is process-global: a test before this one in the same
+    # process may have left events in its rings
+    tmod.reset()
     tmod.configure(enabled=True, sample_rate=1.0, lineage_rate=1.0,
                    export_dir=path)
     with tmod.span("flush"):
@@ -150,9 +153,14 @@ def test_tracing_export_schema_is_the_references(tmp_path):
     assert set(port["otherData"]) == set(ref["otherData"])
 
     def shape(doc):
+        # thread names of the threads this export recorded; the tracer
+        # keeps every thread that ever traced in this process, and a test
+        # before this one may have traced hundreds
+        tids = {e["tid"] for e in doc["traceEvents"] if e["ph"] != "M"}
         return sorted((e["ph"], e["name"], tuple(sorted(e)),
                        tuple(sorted(e.get("args", {}))))
-                      for e in doc["traceEvents"])
+                      for e in doc["traceEvents"]
+                      if e["ph"] != "M" or e["tid"] in tids)
     assert shape(port) == shape(ref)
     assert tracing.STAGES == ref_tracing.STAGES
     assert tracing.EVENTS == ref_tracing.EVENTS
