@@ -166,6 +166,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import os
 import sys
@@ -225,6 +226,29 @@ def _cudnn_deterministic(mode):
             return mode(*args, **kwargs)
         finally:
             b.deterministic, b.benchmark = prev
+
+    return run
+
+
+def _frozen_heap(mode):
+    """Run ``mode`` with the heap it inherits frozen (``gc.freeze``), and
+    thawed on return unless it was frozen before. A gen-2 collection stops every thread for as long
+    as it takes to walk the tracked objects, and in a process that
+    imported the reference and ran other work first (a test worker,
+    ``chip_smoke.py`` after its earlier phases) that walk is several
+    times the mode's own objects. The mode's SLO windows read such a
+    stall as reply and flush latency of the servers it drives."""
+
+    @functools.wraps(mode)
+    def run(*args, **kwargs):
+        # a heap someone else froze stays frozen: unfreeze thaws it all
+        thaw = gc.get_freeze_count() == 0
+        gc.freeze()
+        try:
+            return mode(*args, **kwargs)
+        finally:
+            if thaw:
+                gc.unfreeze()
 
     return run
 
@@ -1935,6 +1959,7 @@ def _wire_retry(do, mk, tries: int = 80):
     raise RuntimeError(f"wire call never landed: {last}")
 
 
+@_frozen_heap
 @_cudnn_deterministic
 def run_tenants_smoke(deadline: float = 240.0, device: str = "cuda",
                       net=None, obs_dim: int = 8) -> dict:
@@ -1948,7 +1973,12 @@ def run_tenants_smoke(deadline: float = 240.0, device: str = "cuda",
     Arc 1's tenants serve on ``device``; ``net`` defaults to the
     reference's MLP over ``obs_dim`` inputs. Every arc-1 microbatch is one
     request of 8 rows at bucket 8, the oracles' shape, under cuDNN
-    deterministic. Arc 2's actor processes stay on the host."""
+    deterministic. Arc 2's actor processes stay on the host. The heap
+    the mode inherits is frozen while it runs (``_frozen_heap``): arc 2's
+    autoscaler shrinks on the first shrink-class finding, and a gen-2
+    collection over a large inherited heap stalls the feed server past
+    ``flush_p99``'s 250 ms before ``ingest_shed`` burns (ROADMAP §C,
+    C5)."""
 
     from distributed_deep_q_tpu_torch import health
     from distributed_deep_q_tpu_torch.actors.autoscaler import (

@@ -28,6 +28,7 @@ processes (``tenants`` arc 2, ``train``) stop them before they return.
 from __future__ import annotations
 
 import importlib.util
+import os
 import signal
 import sys
 import threading
@@ -194,14 +195,61 @@ def test_device_mode_keys_are_the_references():
 def test_tenants_mode_ok_on_the_cpu():
     """Both arcs: the degrade ladder in strict order with every reply the
     right arm's action, then the executor retiring and regrowing a real
-    actor process, exactly-once."""
-    v = chaos_smoke.run_tenants_smoke(device="cpu")
+    actor process, exactly-once.
+
+    The mode runs in an interpreter of its own (its command line), so
+    the threads and the heap that earlier tests leave in this worker
+    share neither its interpreter lock nor its collections: its SLO
+    windows time its own servers only (ROADMAP §C, C5)."""
+    import json
+    import subprocess
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_deep_q_tpu_torch.chaos_smoke",
+         "tenants", "--device", "cpu"], capture_output=True, text=True,
+        timeout=TIMEOUT_S - 20, cwd=REPO,
+        env={**os.environ, "OMP_NUM_THREADS": "2"})
+    lines = proc.stdout.strip().splitlines()
+    assert lines, proc.stderr[-3000:]
+    v = json.loads(lines[-1])
     assert v["ok"], {k: v[k] for k in v if k not in ("decisions",
                                                      "applied")}
+    assert proc.returncode == 0, proc.stderr[-2000:]
     assert [e["class"] for e in v["ladder_ledger"]] == [
         "shadow", "ab", "primary"]
     assert v["wrong_actions"] == v["duplicated"] == 0
     assert v["executor_terminations"] == 1 and v["kill_escalations"] == 0
+
+
+def test_tenants_mode_runs_with_the_inherited_heap_frozen():
+    """``_frozen_heap`` freezes the heap before the mode and thaws it
+    after, also when the mode raises; a heap frozen before stays frozen;
+    the tenants mode carries it."""
+    import gc
+
+    gc.unfreeze()
+    before = gc.get_freeze_count()
+    seen = []
+
+    @chaos_smoke._frozen_heap
+    def mode(fail: bool):
+        seen.append(gc.get_freeze_count())
+        if fail:
+            raise RuntimeError("planted")
+        return "ran"
+
+    assert mode(False) == "ran"
+    with pytest.raises(RuntimeError, match="planted"):
+        mode(True)
+    assert all(n > before for n in seen) and len(seen) == 2
+    assert gc.get_freeze_count() == before == 0
+    gc.freeze()
+    frozen = gc.get_freeze_count()
+    assert mode(False) == "ran"
+    assert gc.get_freeze_count() >= frozen > 0
+    gc.unfreeze()
+    assert chaos_smoke.run_tenants_smoke.__wrapped__.__wrapped__.__name__ \
+        == "run_tenants_smoke"
 
 
 def test_train_mode_on_the_cpu(capsys):
