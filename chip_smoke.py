@@ -303,14 +303,23 @@ Phases (any failure exits non-zero and prints no result line):
    alone): every row of the port's bench at full width (84×84×4, batch
    512 and 32, chains 64, 256 and 32, the 65,536-row rings and the
    1M-row flagship ring, the r2d2 sequence learner at 64 × 80 on its
-   512-sequence ring), its depth cut. Checks: the one JSON line holds
-   every key the bench keeps of the root ``bench.py``'s and its own,
-   every rate is finite and above 0, 0 < ``mfu`` ≤ 1.05,
+   512-sequence ring; the flagship under four paced writers at 256,
+   1,024 and 4,096 transitions/s through its ring's drain; the served
+   inference plane at 4, 16 and 64 clients; the vector acting plane at
+   8, 32 and 128 envs into a 10×10 fused ring behind the feed server;
+   the health plane's overhead), its depth cut. Checks: the one JSON
+   line holds every key the bench keeps of the root ``bench.py``'s and
+   its own, every rate is finite and above 0, 0 < ``mfu`` ≤ 1.05,
    ``flops_per_step`` within 10% of ``flops_per_step_analytic``, B1 and
-   B2 launched in the flagship row and B3 and B4 in ``pallas_on``; the
-   first 4 launches of each B1 and B2 shape in every row (up to 131,072
-   windows, 7.5 GB out, on the chain-256 row) held bitwise against the
-   plain versions on the same inputs; B3 at the bench's A = 6 is in 3b;
+   B2 launched in the flagship row and the ingest curve, B2 in the actor
+   curve, B3 and B4 in ``pallas_on``; every curve point present, ingest
+   achieved above 0 at each target with at most 32,768 + 4 × 64 rows in
+   flight, no ingest or actor row lost, the bucket census within the
+   buckets; the first 4 launches of each B1 and B2 shape in each row (up
+   to 131,072 windows, 7.5 GB out, on the chain-256 row; the ingest
+   curve's drain flushes; the actor curve's 10×10 rows) held bitwise
+   against the plain versions on the same inputs; B3 at the bench's
+   A = 6 is in 3b;
 9. the ``kernels`` JSON line (each kernel's launches on every path in
    ``launches_by_path``), the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -3802,11 +3811,15 @@ class KernelChecks:
     are held against the plain version on the same inputs (B2 on a copy
     of the ring taken just before, compared outside the skipped scratch
     row, whose contents are unspecified). The wrapped kernel counts its
-    launch as always; the plain version launches none."""
+    launch as always; the plain version launches none. With ``scope``
+    set (phase 18 sets it to the bench row running), each scope checks
+    its own first launches of each shape, and its key ends in
+    ``@<scope>``."""
 
     def __init__(self, torch, rg, gather_mods, scatter_mods,
                  limit: int = P17_CHECKED):
         self.torch, self.rg, self.limit = torch, rg, limit
+        self.scope: str | None = None
         self.mods = ([(m, "gather_windows", self._gather)
                       for m in gather_mods]
                      + [(m, "scatter_rows", self._scatter)
@@ -3823,8 +3836,9 @@ class KernelChecks:
             setattr(mod, name, getattr(self.rg, name))
 
     def _slot(self, name: str, key: tuple):
-        rec = self.seen.setdefault(f"{name} {key}", {"checked": 0,
-                                                     "bitwise": 0})
+        tag = f"{name} {key}" if self.scope is None \
+            else f"{name} {key} @{self.scope}"
+        rec = self.seen.setdefault(tag, {"checked": 0, "bitwise": 0})
         return rec if rec["checked"] < self.limit else None
 
     def _gather(self, idx, ring, **kw):
@@ -4169,34 +4183,87 @@ P18_TIMEOUT_S = 300
 P18_CHECKED = 4
 
 
+def _positive(key: str, v) -> None:
+    assert isinstance(v, (int, float)) and math.isfinite(v) and v > 0, \
+        (key, v)
+
+
 def check_bench_line(line: dict, keys: tuple) -> None:
     """The bench's line holds every key it keeps of the reference's and
     its own; every rate is finite and above 0; MFU lies in (0, 1.05]; the
     counted FLOPs lie within 10% of the analytic count; B1 and B2
-    launched in the flagship row, B3 and B4 in ``pallas_on``."""
+    launched in the flagship row, B3 and B4 in ``pallas_on``.
+
+    The curves: every target, client count and env count of the full
+    run; at every ingest target a learner rate and an achieved ingest
+    above 0, and at most ``STAGED_ROWS_CAP`` + 4 × 64 rows seen in
+    flight; no ingest or actor row lost; every inference and actor rate
+    and p99 finite and above 0; the bucket census within the buckets;
+    the health plane's sample and verdict times finite and above 0; B1
+    and B2 launched in the ingest curve and B2 in the actor curve."""
+    from distributed_deep_q_tpu_torch import bench
+    from distributed_deep_q_tpu_torch.config import InferenceConfig
+
     missing = [k for k in keys if k not in line]
     assert not missing, missing
     for k, v in line.items():
         if k == "value" or k.endswith("_steps_per_s"):
-            assert isinstance(v, (int, float)) and math.isfinite(v) \
-                and v > 0, (k, v)
+            _positive(k, v)
     assert line["mfu"] is not None and 0 < line["mfu"] <= 1.05, line["mfu"]
     fl, an = line["flops_per_step"], line["flops_per_step_analytic"]
     assert abs(fl - an) / an <= 0.10, (fl, an)
-    flag, pallas = line["launches"]["flagship"], line["launches"]["pallas_on"]
+    launches = line["launches"]
+    flag, pallas = launches["flagship"], launches["pallas_on"]
     assert flag["gather_windows"] > 0 and flag["scatter_rows"] > 0, flag
     assert pallas["fused_loss_fwd"] > 0 and pallas["fused_loss_bwd"] > 0, \
         pallas
+
+    cs = bench.FULL.curves
+    ingest = line["ingest_curve"]
+    assert set(ingest) == {str(t) for t in cs.ingest_targets}, ingest
+    cap = bench.STAGED_ROWS_CAP + bench.WRITERS * 64
+    for t, pt in ingest.items():
+        _positive(f"ingest {t} steps_per_s", pt["steps_per_s"])
+        _positive(f"ingest {t} achieved_t_per_s", pt["achieved_t_per_s"])
+        assert 0 <= pt["max_in_flight_rows"] <= cap, (t, pt, cap)
+    _positive("ingest_transitions_per_s", line["ingest_transitions_per_s"])
+    assert line["concurrent_writers"] == bench.WRITERS, \
+        line["concurrent_writers"]
+    assert line["ingest_rows_lost"] == 0, line["ingest_rows_lost"]
+    assert line["actor_rows_lost"] == 0, line["actor_rows_lost"]
+    inference = line["inference_curve"]
+    assert set(inference) == {str(n) for n in cs.clients}, inference
+    for n, pt in inference.items():
+        for k in ("actions_per_s", "p99_ms", "local_actions_per_s",
+                  "forward_actions_per_s"):
+            _positive(f"inference {n} {k}", pt[k])
+    buckets = InferenceConfig().buckets
+    census = line["inference_compiled_buckets"]
+    assert 0 < len(census) <= len(buckets) and set(census) <= set(
+        buckets), census
+    actor = line["actor_curve"]
+    assert set(actor) == {str(n) for n in cs.envs}, actor
+    for n, pt in actor.items():
+        for k in ("actions_per_s", "ingest_t_per_s", "tick_p99_ms"):
+            _positive(f"actor {n} {k}", pt[k])
+    for k in ("health_sample_us", "health_verdict_us"):
+        _positive(k, line[k])
+    assert math.isfinite(line["health_disabled_us"]) \
+        and line["health_disabled_us"] >= 0, line["health_disabled_us"]
+    ing, act = launches["ingest_curve"], launches["actor_curve"]
+    assert ing["gather_windows"] > 0 and ing["scatter_rows"] > 0, ing
+    assert act["scatter_rows"] > 0, act
 
 
 def p18_bench_worker(argv: list[str], sizes=None) -> int:
     """``chip_smoke.py --phase18-worker OUT [BENCH ARGS]``: the bench's
     command line (``bench.main``, ``--quick`` unless other arguments
     follow; its one line goes to stdout) in a process of its own, with
-    the first ``P18_CHECKED`` launches of each B1/B2 shape on every row
-    (the frame rings' and the sequence ring's) held against the plain
-    versions; writes the checks to OUT. ``sizes`` goes to ``bench.main``
-    (the tests' small run)."""
+    the first ``P18_CHECKED`` launches of each B1/B2 shape in each row
+    (the frame rings', the sequence ring's, the ingest curve's drain
+    flushes and dispatches, the actor curve's 10×10 ring) held against
+    the plain versions; writes the checks to OUT. ``sizes`` goes to
+    ``bench.main`` (the tests' small run)."""
     import torch
 
     from distributed_deep_q_tpu_torch import bench
@@ -4207,10 +4274,28 @@ def p18_bench_worker(argv: list[str], sizes=None) -> int:
     from distributed_deep_q_tpu_torch.replay import device_per
     from distributed_deep_q_tpu_torch.replay import device_sequence
 
+    counted = bench.counted
+
+    @contextlib.contextmanager
+    def scoped(launches, row):
+        # each row checks its own first launches of each shape: the
+        # ingest curve's drain flushes and dispatches have the flagship
+        # row's shapes
+        chk.scope = row
+        try:
+            with counted(launches, row):
+                yield
+        finally:
+            chk.scope = None
+
     with KernelChecks(torch, rg, [learner_mod, seq_learner_mod],
                       [device_per, device_sequence],
                       limit=P18_CHECKED) as chk:
-        code = bench.main(argv[1:] or ["--quick"], sizes=sizes)
+        bench.counted = scoped
+        try:
+            code = bench.main(argv[1:] or ["--quick"], sizes=sizes)
+        finally:
+            bench.counted = counted
     with open(argv[0], "w") as f:
         json.dump(chk.verdict(), f)
     return code
@@ -5026,7 +5111,10 @@ def main() -> int:
                "17d chaos tenants": p17["launches"]["17d"],
                "17e chaos train": p17["launches"]["17e"],
                "17f pixel fleet soak, 64 streams": p17["launches"]["17f"],
-               "18 bench": p18["launches"]}
+               "18 bench": p18["launches"],
+               **{f"18 bench {row}": p18["line"]["launches"][row]
+                  for row in ("ingest_curve", "actor_curve",
+                              "inference_curve")}}
     # phases 17 and 18's B1/B2 launches held against the plain versions
     for row in kernels[:2]:
         def mine(shapes: dict) -> dict:

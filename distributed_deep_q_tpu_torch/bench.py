@@ -1,13 +1,16 @@
-"""Learner benchmark of the port: the learner rows of the root ``bench.py``.
+"""Benchmark of the port: the learner rows, the ingest, inference and
+actor curves and the health plane's overhead of the root ``bench.py``.
 
     python -m distributed_deep_q_tpu_torch.bench [--quick] [--device cuda|cpu]
 
 Times the port's learner on the Nature-CNN solver (84×84×4 frames, 6
 actions, dueling, Double DQN, bfloat16) fed from a prefilled device ring,
-and prints notes to stderr and ONE JSON line to stdout, led by
-``{"metric": "learner_grad_steps_per_sec", "value": <flagship>, "unit":
-"steps/s", "vs_baseline": ...}`` and carrying the root ``bench.py``'s key
-names. The rows, each under the reference's keys:
+alone and under paced actor ingest, then the served inference plane and
+the vector acting plane against their load, and prints notes to stderr
+and ONE JSON line to stdout, led by ``{"metric":
+"learner_grad_steps_per_sec", "value": <flagship>, "unit": "steps/s",
+"vs_baseline": ...}`` and carrying the root ``bench.py``'s key names.
+The rows, each under the reference's keys:
 
 - ``idle_uniform``: the uniform device ring (``DeviceFrameReplay``),
   65,536 rows, batch 512, one host-sampled ring step per dispatch;
@@ -35,6 +38,26 @@ names. The rows, each under the reference's keys:
 - the flagship: the fused device-PER dispatch on the 1M-row ring (8.19 GB
   at 8,192 B a row) filled through four streams, batch 512, chain
   ``min(CHAIN, 32)``; its median rate is the headline ``value``.
+- the ingest curve (``ingest_curve``): the flagship's own solver and
+  ring, with ``run_writers``' four paced writers streaming 64-row 84×84
+  chunks into its four streams through the ring's ``IngestDrain``, at
+  each target rate; the learner's sample and dispatch hold the writers'
+  lock. Per target the learner's rate, the achieved ingest, the spread
+  and the most rows seen staged; the 1,024 t/s point is also the
+  headline ``flagship_under_ingest_steps_per_s``. Every row the writers
+  counted must land in its stream (``ingest_rows_lost``).
+- the inference curve (``bench_inference``): actions/s, p99 and forward
+  capacity of a ``BatchedPolicy`` behind an ``InferenceServer`` against
+  client count, beside the same thread count's batch-1 forwards on the
+  CPU; the bucket census.
+- the actor curve (``bench_actor_curve``): ``VectorActing`` over the
+  signal env at 10×10 with one ``infer`` RPC per tick and every env's
+  rows through its own feed client into a fused ring behind a
+  ``ReplayFeedServer``: actions/s, ingest transitions/s and the tick's
+  p99 against env count; every acked row must land
+  (``actor_rows_lost``).
+- ``health_*``: the health plane's ``sample``, ``verdict`` and disabled
+  no-op, µs per call, on the host (``_health_overhead``).
 - ``mfu``: ``flops_per_step`` × ``idle_fused_steps_per_s`` (the whole
   timed window of the program whose FLOPs were counted, per-dispatch cost
   included) over the card's dense bf16 peak (``profiling.peak_flops_for``;
@@ -52,17 +75,25 @@ rep's iterations × chain. A row's value is the median of ``REPS`` reps,
 its spread (max − min)/median.
 
 ``--quick`` keeps every row's width (frames, batch, chain, ring
-capacities, the r2d2 ring's 512 sequences) and cuts its depth only
+capacities, the r2d2 ring's 512 sequences, the ingest targets and
+writers, the client and env counts) and cuts its depth only
 (``QUICK``): 2 reps of ~0.5 s, no warm-up dispatch (the calibration
 probe warms each row), at least 1 timed dispatch per rep, a 0.5 s
 settle, 16 probe steps, prefills of 8,192 (idle rings) and 16,384 rows
-(the flagship ring), and 1 host and 8 ring steps per r2d2 rep.
+(the flagship ring), 1 host and 8 ring steps per r2d2 rep; under ingest
+no warm-up dispatch and a 0.5 s settle (the full run: 2 and 3 s); 1.2 s
+windows for each inference and actor point (2.4 s); 3 health reps of
+500 calls (5 of 2,000).
 
 ``--device cpu`` runs on the host at the reference's own CPU sizes
-(``CPU``); its rates are the CPU's, and ``device_kind`` says so. Without
-it and without a card the command raises: it never carries on on the
-CPU. Each row's kernel launches (the wrappers' counters, set to 0 before
-the row's build and read after its last rep) are in ``launches``.
+(``CPU``: one ingest target of 1,024 t/s, 2 and 8 clients, 2, 8 and 32
+envs, 200 health calls a rep); its rates are the CPU's, and
+``device_kind`` says so. Without it and without a card the command
+raises: it never carries on on the CPU. Each row's kernel launches (the
+wrappers' counters, set to 0 before the row's build and read after its
+last rep) are in ``launches``: the ingest curve launches B1 per fused
+dispatch and B2 per flush, the actor curve B2 per flush, the inference
+curve none (its forward is cuBLAS).
 
 Reference keys this module does not print are in ``NOT_PORTED``, with the
 reason; the keys only the port prints are in ``PORT_ONLY``.
@@ -77,10 +108,13 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
+
+from distributed_deep_q_tpu_torch import tracing
 
 BATCH = 512
 CAFFE_STEPS_PER_S = 100.0            # documented estimate, batch 32
@@ -93,6 +127,13 @@ CHAIN = 64
 B32_CHAIN = 256
 # each rep is auto-sized to about this many seconds of fenced work
 REP_TARGET_S = 3.0
+# the ingest curve's headline target (transitions/s, all writers together)
+INGEST_TARGET = 1_024
+# a writer waits while more rows than this are staged and not flushed
+STAGED_ROWS_CAP = 32_768
+# the flagship ring's streams, filled at prefill and by one ingest writer
+# each
+WRITERS = 4
 
 # the reference's keys this module prints, in the line's order
 KEPT = (
@@ -107,8 +148,14 @@ KEPT = (
     "r2d2_host_steps_per_s", "r2d2_device_steps_per_s",
     "r2d2_device_vs_host", "r2d2_chained_steps_per_s",
     "r2d2_chained_chain_k",
+    "inference_curve", "inference_compiled_buckets", "inference_max_batch",
+    "inference_cutoff_us", "inference_slo_ms", "actor_curve",
     "flagship_spread", "flagship_chain_k", "ring_capacity_frames",
     "flagship_batch", "prioritized", "flagship_per",
+    "flagship_under_ingest_steps_per_s", "under_ingest_spread",
+    "ingest_transitions_per_s", "ingest_curve", "concurrent_writers",
+    "health_sample_us", "health_verdict_us", "health_disabled_us",
+    "health_spread",
     "learn_off_steps_per_s", "learn_off_spread", "learn_on_steps_per_s",
     "learn_on_spread", "learn_overhead_pct", "learn_spread",
     "device_kind", "peak_flops_bf16", "tflops_per_s", "mfu", "mfu_live",
@@ -117,24 +164,11 @@ KEPT = (
 
 # the reference's keys this module does not print, and why
 NOT_PORTED = {
-    **{k: "ROADMAP item 3b: the ingest curve (paced writer threads "
-          "beside the flagship learner)"
-       for k in ("flagship_under_ingest_steps_per_s", "under_ingest_spread",
-                 "ingest_transitions_per_s", "ingest_curve",
-                 "concurrent_writers")},
-    **{k: "ROADMAP item 3b: the inference curve"
-       for k in ("inference_curve", "inference_compiled_buckets",
-                 "inference_max_batch", "inference_cutoff_us",
-                 "inference_slo_ms")},
-    "actor_curve": "ROADMAP item 3b: the actor curve",
     **{k: "ROADMAP item 3b: the multi-process curve "
           "(scripts/_bench_multihost_worker.py)"
        for k in ("multihost_curve", "multihost_linearity_2x",
                  "multihost_linearity_4x", "multihost_linearity_2x_spread",
                  "multihost_linearity_4x_spread")},
-    **{k: "ROADMAP item 3b: the health plane's overhead"
-       for k in ("health_sample_us", "health_verdict_us",
-                 "health_disabled_us", "health_spread")},
     **{f"{p}train_{op}": "no counterpart: a census of XLA's compiled "
                          "program (fusions, convolutions, copies); the "
                          "port's launches per row are in 'launches'"
@@ -156,6 +190,12 @@ PORT_ONLY = {
     "quick": "true under --quick (every row's depth cut, widths kept)",
     "nvidia_smi": "the card's name and power limit as nvidia-smi gives "
                   "them (null on the CPU)",
+    "ingest_rows_lost": "the ingest curve's rows the writers counted that "
+                        "did not land in their streams' slots, over every "
+                        "target (the curve raises unless it is 0)",
+    "actor_rows_lost": "the actor curve's rows the feed server acked that "
+                       "did not land in their streams' slots, over every "
+                       "env count (the curve raises unless it is 0)",
 }
 
 
@@ -178,6 +218,20 @@ class R2d2Sizes:
 
 
 @dataclasses.dataclass(frozen=True)
+class CurveSizes:
+    """The curves' and the health row's widths and depth."""
+
+    ingest_targets: tuple[int, ...]  # transitions/s, all writers together
+    ingest_warmup: int       # dispatches before the writers start
+    ingest_settle_s: float   # fenced steps under load before the reps
+    clients: tuple[int, ...]  # the inference curve's client counts
+    envs: tuple[int, ...]    # the actor curve's env counts
+    curve_s: float           # each inference / actor point's timed window
+    health_iters: int        # calls per health rep
+    health_reps: int
+
+
+@dataclasses.dataclass(frozen=True)
 class Sizes:
     """One run's shapes and depth."""
 
@@ -196,6 +250,7 @@ class Sizes:
     iters_min: int      # fewest timed dispatches per rep
     settle_s: float     # idle_uniform's settle before its timed reps
     r2d2: R2d2Sizes
+    curves: CurveSizes
 
 
 # the reference's accelerator sizes
@@ -207,12 +262,20 @@ FULL = Sizes(batch=BATCH, flag_batch=BATCH, chain=CHAIN, b32_chain=B32_CHAIN,
              r2d2=R2d2Sizes(hw=(84, 84), stack=4, seq_len=80, burn_in=40,
                             batch=64, lstm=512, compute_dtype="bfloat16",
                             n_seqs=512, iters_host=3, iters_dev=60, reps=2,
-                            chain=8))
+                            chain=8),
+             curves=CurveSizes(ingest_targets=(256, INGEST_TARGET, 4_096),
+                               ingest_warmup=2,
+                               ingest_settle_s=3.0, clients=(4, 16, 64),
+                               envs=(8, 32, 128), curve_s=2.4,
+                               health_iters=2_000, health_reps=5))
 # --quick: FULL's widths, its depth cut
 QUICK = dataclasses.replace(
     FULL, idle_prefill=8_192, flag_prefill=16_384, probe_steps=16, warmup=0,
     reps=2, rep_target_s=0.5, iters_min=1, settle_s=0.5,
-    r2d2=dataclasses.replace(FULL.r2d2, iters_host=1, iters_dev=8))
+    r2d2=dataclasses.replace(FULL.r2d2, iters_host=1, iters_dev=8),
+    curves=dataclasses.replace(FULL.curves, ingest_warmup=0,
+                               ingest_settle_s=0.5, curve_s=1.2,
+                               health_iters=500, health_reps=3))
 # --device cpu: the reference's own CPU sizes
 CPU = Sizes(batch=BATCH, flag_batch=128, chain=4, b32_chain=8,
             idle_capacity=65_536, flag_capacity=131_072,
@@ -222,7 +285,11 @@ CPU = Sizes(batch=BATCH, flag_batch=128, chain=4, b32_chain=8,
             r2d2=R2d2Sizes(hw=(36, 36), stack=4, seq_len=16, burn_in=4,
                            batch=8, lstm=16, compute_dtype="float32",
                            n_seqs=64, iters_host=3, iters_dev=6, reps=2,
-                           chain=2))
+                           chain=2),
+            curves=CurveSizes(ingest_targets=(INGEST_TARGET,),
+                              ingest_warmup=2, ingest_settle_s=1.0,
+                              clients=(2, 8), envs=(2, 8, 32), curve_s=1.2,
+                              health_iters=200, health_reps=5))
 
 
 def note(msg: str) -> None:
@@ -372,7 +439,8 @@ class Timed:
 
 
 def time_variant(solver, replay, batch: int, sz: Sizes, chain: int = 1,
-                 settle_s: float = 0.0) -> Timed:
+                 settle_s: float = 0.0, lock=None, on_warm=None,
+                 on_settled=None, warmup: int | None = None) -> Timed:
     """Per-rep grad-step rates for one (solver, replay) pair.
 
     A fused replay (``DevicePERFrameReplay``) dispatches ``chain`` fused
@@ -380,40 +448,54 @@ def time_variant(solver, replay, batch: int, sz: Sizes, chain: int = 1,
     host and takes one ring step, and on a prioritized one the priority
     write-back runs ``DelayedPriorityWriteback``'s pipeline (the |TD|
     copy starts at dispatch and is applied 8 steps later), so no step
-    waits on a device→host copy. After ``sz.warmup`` dispatches, a probe
-    of ``sz.probe_steps`` grad steps (at least one dispatch) times one
-    dispatch; each rep then runs the dispatches that take about
-    ``sz.rep_target_s``."""
+    waits on a device→host copy. After ``warmup`` dispatches (default
+    ``sz.warmup``), a probe of ``sz.probe_steps`` grad steps (at least one
+    dispatch) times one dispatch; each rep then runs the dispatches that
+    take about ``sz.rep_target_s``.
+
+    ``lock`` (the ingest curve's) is held around each sample and
+    dispatch, as the distributed learner holds its replay lock.
+    ``on_warm`` runs after the warm-up (the curve starts its writers
+    there), ``on_settled`` after the ``settle_s`` of fenced steps that
+    follow it (the curve re-anchors its ingest window there); the probe
+    and the fence's round trip are measured after both, under the load."""
     from distributed_deep_q_tpu_torch.replay.prioritized import (
         DelayedPriorityWriteback)
 
     fused = hasattr(replay, "dstate")
     if chain != 1 and not fused:
         raise ValueError("chained dispatch is a fused-path feature")
-    writeback = DelayedPriorityWriteback(replay, depth=8) \
+    writeback = DelayedPriorityWriteback(replay, depth=8, lock=lock) \
         if (replay.prioritized and not fused) else None
+    hold = lock if lock is not None else contextlib.nullcontext()
 
     def one_step():
-        if fused:
-            return solver.train_steps_device_per(replay, chain=chain)
-        batch_d = replay.sample(batch)
-        sampled_at = batch_d.pop("_sampled_at", None)
-        m = solver.train_step_from_ring(replay.ring, batch_d)
+        with hold:
+            if fused:
+                return solver.train_steps_device_per(replay, chain=chain)
+            batch_d = replay.sample(batch)
+            sampled_at = batch_d.pop("_sampled_at", None)
+            m = solver.train_step_from_ring(replay.ring, batch_d)
         if writeback:
             writeback.push(m["index"], m["td_abs"], sampled_at)
         return m
 
-    for _ in range(sz.warmup):
+    for _ in range(sz.warmup if warmup is None else warmup):
         one_step()
     _fence(solver)
+    if on_warm is not None:
+        on_warm()
     if settle_s > 0.0:
         # the allocator and the launch queue warm in over the first
-        # seconds: run fenced steps until the window has settled
+        # seconds (and, under ingest, the writers' pacing and the drain):
+        # run fenced steps until the window has settled
         end = time.perf_counter() + settle_s
         while time.perf_counter() < end:
             for _ in range(4):
                 one_step()
             _fence(solver)
+    if on_settled is not None:
+        on_settled()
     probe_n = max(sz.probe_steps // chain, 1)
     t0 = time.perf_counter()
     for _ in range(probe_n):
@@ -573,6 +655,552 @@ def _learn_overhead(cfg_mod, device: str, sz: Sizes, launches: dict) -> dict:
     return out
 
 
+class FairLock:
+    """A mutual-exclusion lock granted in the order it was asked for.
+
+    ``threading.Lock`` lets its releaser take it straight back: a learner
+    that releases it between two dispatches and asks again at once keeps
+    it for as long as it loops, and the writers queued on it starve. The
+    ingest curve measures what the learner and the writers get from one
+    lock, so each asker waits for its turn."""
+
+    def __init__(self):
+        self._cv = threading.Condition(threading.Lock())
+        self._next = 0      # the next ticket handed out
+        self._serving = 0   # the ticket that holds the lock
+
+    def acquire(self) -> bool:
+        with self._cv:
+            ticket = self._next
+            self._next += 1
+            while ticket != self._serving:
+                self._cv.wait()
+        return True
+
+    def release(self) -> None:
+        with self._cv:
+            self._serving += 1
+            self._cv.notify_all()
+
+    def __enter__(self):
+        return self.acquire()
+
+    def __exit__(self, *exc) -> bool:
+        self.release()
+        return False
+
+
+def run_writers(replay, lock, stop: threading.Event, counter: list,
+                num_writers: int, chunk: int = 64,
+                total_rate: float = INGEST_TARGET,
+                stats: dict | None = None) -> list[threading.Thread]:
+    """Actor-ingest load: ``num_writers`` threads, writer i streaming
+    chunks of ``chunk`` 84×84 uint8 rows (one frame block from
+    ``default_rng(7)``, an episode boundary every 10 chunks) into ring
+    stream i, token-paced to ``total_rate / num_writers`` transitions/s.
+    Pacing debt is forgiven: a writer held up behind the lock re-anchors
+    instead of bursting to catch up. Returns the started threads; they
+    stop when ``stop`` is set. ``counter[i]`` counts writer i's rows once
+    they are in the ring; ``stats["max_pending_rows"]`` is the most rows
+    any writer saw staged and not yet flushed.
+
+    Two bounds keep the writers from outrunning the card. A writer waits
+    while more than ``STAGED_ROWS_CAP`` rows are staged (host memory),
+    and every 4th chunk it waits for ``replay.write_event()``: an event
+    recorded under the lock, after every ring write enqueued so far, on
+    the stream the ring writes go to (the learner's, once
+    ``start_drain`` ran). It waits after releasing the lock, and on that
+    event only, never on the whole device, so neither the other writers
+    nor the learner's stream stall behind it. So a writer is never more
+    than 4 chunks ahead of the card's completion of the ring writes (and
+    the learner's work before them on that stream) it has seen enqueued.
+    On the CPU the event is None and only the staged-row bound holds.
+    Each insert runs under ``tracing.locked(lock)`` in a ``ring_insert``
+    span."""
+    rng = np.random.default_rng(7)
+    frames = rng.integers(0, 255, (chunk, 84, 84), dtype=np.uint8)
+    interval = chunk * num_writers / total_rate
+    if stats is None:
+        stats = {}
+    stats.setdefault("max_pending_rows", 0)
+
+    def writer(stream: int) -> None:
+        t = 0
+        next_due = time.perf_counter()
+        while not stop.is_set():
+            delay = next_due - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            pending = replay.pending_rows()
+            # racy across writers: a high-water gauge
+            stats["max_pending_rows"] = max(stats["max_pending_rows"],
+                                            pending)
+            while pending > STAGED_ROWS_CAP and not stop.is_set():
+                time.sleep(0.005)
+                pending = replay.pending_rows()
+            done = np.zeros(chunk, bool)
+            done[-1] = (t % 10 == 9)
+            payload = {"frame": frames, "action": np.zeros(chunk, np.int32),
+                       "reward": np.ones(chunk, np.float32), "done": done}
+            ev = None
+            with tracing.locked(lock):
+                with tracing.span("ring_insert"):
+                    replay.add_batch(payload, stream=stream)
+                if t % 4 == 3:
+                    ev = replay.write_event()
+            if ev is not None:
+                ev.synchronize()
+            counter[stream] += chunk
+            t += 1
+            # the next chunk one interval on, never in the past
+            next_due = max(next_due + interval, time.perf_counter())
+
+    threads = [threading.Thread(target=writer, args=(i,), daemon=True,
+                                name=f"bench-writer-{i}")
+               for i in range(num_writers)]
+    for th in threads:
+        th.start()
+    return threads
+
+
+def _rows_lost(replay, counted_rows: list, base: list) -> int:
+    """Rows counted into streams 0..n-1 that are not in their slots: per
+    stream, the count against the stream's advance since ``base``, plus
+    whatever is still staged."""
+    return int(sum(abs(c - (replay.stream_rows(i) - b))
+                   for i, (c, b) in enumerate(zip(counted_rows, base)))
+               + replay.pending_rows())
+
+
+def ingest_curve(solver, replay, sz: Sizes, chain: int) -> dict:
+    """The flagship learner under paced actor ingest, at each of
+    ``sz.curves.ingest_targets`` transitions/s: ``run_writers``' writers
+    stream into the flagship's own ring through its ``IngestDrain``
+    (``start_drain`` / ``stop_drain`` around each target, under a fresh
+    ``FairLock`` that the learner's sample and dispatch hold too). The
+    writers start after the warm-up and the achieved-ingest window
+    re-opens after the settle. After the writers join and the drain
+    stops, every row they counted must be in its stream's slots
+    (``ingest_rows_lost``; the curve raises otherwise)."""
+    cs = sz.curves
+    out: dict = {}
+    curve: dict = {}
+    lost = 0
+    for target in cs.ingest_targets:
+        lock = FairLock()
+        replay.start_drain(lock)
+        stop = threading.Event()
+        counter = [0] * WRITERS
+        base = [replay.stream_rows(i) for i in range(WRITERS)]
+        window: dict = {}
+        wstats: dict = {}
+
+        def mark_warm(target=target, lock=lock, stop=stop, counter=counter,
+                      window=window, wstats=wstats):
+            window["threads"] = run_writers(replay, lock, stop, counter,
+                                           WRITERS, total_rate=target,
+                                           stats=wstats)
+            window["t0"] = time.perf_counter()
+            window["c0"] = sum(counter)
+
+        def mark_settled(counter=counter, window=window):
+            window["t0"] = time.perf_counter()
+            window["c0"] = sum(counter)
+
+        try:
+            timed = time_variant(solver, replay, sz.flag_batch, sz,
+                                 chain=chain, settle_s=cs.ingest_settle_s,
+                                 lock=lock, on_warm=mark_warm,
+                                 on_settled=mark_settled,
+                                 warmup=cs.ingest_warmup)
+            ingest = ((sum(counter) - window["c0"])
+                      / (time.perf_counter() - window["t0"]))
+        finally:
+            stop.set()
+            # join, don't sleep: a writer mid-pacing must not touch the
+            # ring under this target's lock once the next one starts
+            for th in window.get("threads", ()):
+                th.join(timeout=30.0)
+            replay.stop_drain()
+        lost_here = _rows_lost(replay, counter, base)
+        if lost_here:
+            raise RuntimeError(
+                f"ingest curve at {target} t/s: {lost_here} rows the "
+                f"writers counted ({counter}) are not in their streams")
+        lost += lost_here
+        under = timed.median
+        curve[str(target)] = {
+            "steps_per_s": round(under, 2),
+            "achieved_t_per_s": round(ingest, 1),
+            "spread": round(timed.spread, 4),
+            "max_in_flight_rows": int(wstats.get("max_pending_rows", 0)),
+        }
+        note(f"ingest {target} t/s: {curve[str(target)]}")
+        if target == INGEST_TARGET:
+            out["flagship_under_ingest_steps_per_s"] = round(under, 2)
+            out["under_ingest_spread"] = curve[str(target)]["spread"]
+            out["ingest_transitions_per_s"] = round(ingest, 1)
+    out["ingest_curve"] = curve
+    out["concurrent_writers"] = WRITERS
+    out["ingest_rows_lost"] = lost
+    return out
+
+
+def bench_inference(cfg_mod, device: str, cs: CurveSizes, out: dict) -> None:
+    """The batched inference plane: actions/s and p99 reply latency
+    against client count, beside the same client count running their own
+    batch-1 forwards.
+
+    ``BatchedPolicy`` (an MLP over 64 inputs, 6 actions, the
+    ``InferenceConfig`` buckets) serves on ``device`` behind an
+    ``InferenceServer``; each client thread calls ``infer`` in a loop,
+    honouring ``shed`` and ``retry_after_ms``. Per client count:
+    ``actions_per_s`` is the clients' reply rate (the median of 3
+    sub-windows of ``cs.curve_s``), ``p99_ms`` their reply latency in the
+    window, ``forward_actions_per_s`` the rows the server's forwards
+    served per second of forward time, and ``local_actions_per_s`` the
+    rate of the same thread count doing batch-1 forwards on a
+    ``BatchedPolicy(buckets=(1,))`` on the CPU: what an actor runs, so it
+    is pinned to the host. ``speedup`` is forward over local. The bucket
+    census rides along: every batch landed in one of the buckets."""
+    from distributed_deep_q_tpu_torch.models.policy import BatchedPolicy
+    from distributed_deep_q_tpu_torch.rpc.inference_server import (
+        InferenceClient, InferenceServer)
+
+    obs_dim = 64
+    net = cfg_mod.NetConfig(num_actions=6)
+    icfg = cfg_mod.InferenceConfig()
+    policy = BatchedPolicy(net, seed=0, obs_dim=obs_dim,
+                           buckets=icfg.buckets, device=device)
+    srv = InferenceServer(policy, max_batch=icfg.max_batch,
+                          cutoff_us=icfg.cutoff_us)
+    host, port = srv.address
+    local = BatchedPolicy(net, seed=0, obs_dim=obs_dim, buckets=(1,),
+                          device="cpu")
+    curve: dict = {}
+    try:
+        for n in cs.clients:
+            stop = threading.Event()
+            counts = [0] * n
+            lats: list[list] = [[] for _ in range(n)]
+            shed_counts = [0] * n
+            barrier = threading.Barrier(n + 1)
+
+            def worker(i, counts=counts, lats=lats, stop=stop,
+                       barrier=barrier, shed_counts=shed_counts):
+                cli = InferenceClient(host, port, actor_id=i)
+                o = np.random.default_rng(i).standard_normal(
+                    (1, obs_dim)).astype(np.float32)
+                barrier.wait()
+                while not stop.is_set():
+                    t0 = time.perf_counter()
+                    resp = cli.infer(o)
+                    if resp.get("shed"):
+                        shed_counts[i] += 1
+                        time.sleep(
+                            float(resp.get("retry_after_ms", 10)) / 1e3)
+                        continue
+                    done = time.perf_counter()
+                    lats[i].append((done, 1e3 * (done - t0)))
+                    counts[i] += 1
+                cli.close()
+
+            threads = [threading.Thread(target=worker, args=(i,),
+                                        daemon=True,
+                                        name=f"bench-infer-client-{i}")
+                       for i in range(n)]
+            for th in threads:
+                th.start()
+            barrier.wait()
+            time.sleep(0.5)  # settle: first forwards, queue depth
+            fw_rows0 = policy.rows
+            fw_ms0 = srv.telemetry.forward_ms.total
+            t_start = time.perf_counter()
+            reps = []
+            c_prev, t_prev = sum(counts), t_start
+            for _ in range(3):  # sub-windows: the point's spread
+                time.sleep(cs.curve_s / 3)
+                c_now, t_now = sum(counts), time.perf_counter()
+                reps.append((c_now - c_prev) / (t_now - t_prev))
+                c_prev, t_prev = c_now, t_now
+            t_end = t_prev
+            fw_rows = policy.rows - fw_rows0
+            fw_s = (srv.telemetry.forward_ms.total - fw_ms0) / 1e3
+            stop.set()
+            for th in threads:
+                th.join(timeout=10.0)
+
+            lstop = threading.Event()
+            lcounts = [0] * n
+            lbarrier = threading.Barrier(n + 1)
+
+            def local_worker(i, lcounts=lcounts, lstop=lstop,
+                             lbarrier=lbarrier):
+                o = np.random.default_rng(i).standard_normal(
+                    (1, obs_dim)).astype(np.float32)
+                lbarrier.wait()
+                while not lstop.is_set():
+                    local.forward(o)
+                    lcounts[i] += 1
+
+            lthreads = [threading.Thread(target=local_worker, args=(i,),
+                                         daemon=True,
+                                         name=f"bench-local-forward-{i}")
+                        for i in range(n)]
+            for th in lthreads:
+                th.start()
+            lbarrier.wait()
+            time.sleep(0.3)  # warm
+            lc0, lt0 = sum(lcounts), time.perf_counter()
+            time.sleep(cs.curve_s / 2)
+            lc1, lt1 = sum(lcounts), time.perf_counter()
+            lstop.set()
+            for th in lthreads:
+                th.join(timeout=10.0)
+
+            rate = float(np.median(reps))
+            local_rate = (lc1 - lc0) / (lt1 - lt0)
+            fw_rate = fw_rows / fw_s if fw_s > 0 else 0.0
+            window = [ms for per in lats for (ts, ms) in per
+                      if t_start <= ts <= t_end]
+            curve[str(n)] = {
+                "actions_per_s": round(rate, 1),
+                "p99_ms": (round(float(np.percentile(window, 99)), 3)
+                           if window else None),
+                "local_actions_per_s": round(local_rate, 1),
+                "forward_actions_per_s": round(fw_rate, 1),
+                "speedup": (round(fw_rate / local_rate, 2)
+                            if local_rate > 0 else None),
+                "sheds": int(sum(shed_counts)),
+                "spread": (round((max(reps) - min(reps)) / rate, 4)
+                           if rate > 0 else None),
+            }
+            note(f"inference {n} clients: {curve[str(n)]}")
+    finally:
+        srv.close()
+    out["inference_curve"] = curve
+    out["inference_compiled_buckets"] = policy.compiled_buckets()
+    out["inference_max_batch"] = icfg.max_batch
+    out["inference_cutoff_us"] = icfg.cutoff_us
+    out["inference_slo_ms"] = icfg.slo_ms
+
+
+def bench_actor_curve(cfg_mod, device: str, cs: CurveSizes, out: dict) -> int:
+    """The vectorized acting plane: actions/s, ingest transitions/s and
+    the whole tick's p99 against env count, on the fleet's topology with
+    no learner: per point one ``VectorActing`` over ``make_vector_env``
+    (the signal env at 10×10, stack 2, 4 actions), its greedy rows through
+    ONE ``infer`` RPC per tick to a ``BatchedPolicy`` (MLP 32×32) behind
+    an ``InferenceServer`` on ``device``, and each env's rows, in chunks
+    of ``send_batch``, through its own ``ReplayFeedClient`` into stream j
+    of a ring on ``device`` behind a ``ReplayFeedServer`` (8,192 rows,
+    write chunk 64, one stream per env).
+
+    The ring is the fused device ring (``DevicePERFrameReplay``), whose
+    flush is B2, where the root ``bench.py`` takes the uniform
+    ``DeviceFrameReplay``: that ring's flush is a library scatter in both
+    packages, and the port's fused ring is the one an Ape-X learner
+    serves. The acting plane sees the same wire, server and replay lock.
+
+    After the remainders flush, every row the feed server counted must
+    be in its stream's slots; returns the rows that are not (the curve
+    raises unless it is 0)."""
+    from distributed_deep_q_tpu_torch.actors.supervisor import actor_epsilon
+    from distributed_deep_q_tpu_torch.actors.vector import (
+        VectorActing, make_vector_env)
+    from distributed_deep_q_tpu_torch.models.policy import BatchedPolicy
+    from distributed_deep_q_tpu_torch.replay.device_per import (
+        DevicePERFrameReplay)
+    from distributed_deep_q_tpu_torch.rpc.inference_server import (
+        InferenceClient, InferenceServer)
+    from distributed_deep_q_tpu_torch.rpc.replay_server import (
+        ReplayFeedClient, ReplayFeedServer)
+
+    hw, stack, n_act = (10, 10), 2, 4
+    env_cfg = cfg_mod.EnvConfig(id="signal", kind="signal_atari",
+                                frame_shape=hw, stack=stack)
+    net = cfg_mod.NetConfig(kind="mlp", num_actions=n_act, hidden=(32, 32),
+                            frame_shape=hw, stack=stack)
+    icfg = cfg_mod.InferenceConfig()
+    acfg = cfg_mod.ActorConfig()
+    seed = 0
+    curve: dict = {}
+    lost = 0
+    for n in cs.envs:
+        # fresh planes per point: clean shed counters, a clean ring
+        policy = BatchedPolicy(net, seed=seed,
+                               obs_dim=int(np.prod(hw)) * stack,
+                               buckets=icfg.buckets, device=device)
+        isrv = InferenceServer(policy, max_batch=icfg.max_batch,
+                               cutoff_us=icfg.cutoff_us)
+        ihost, iport = isrv.address
+        replay = DevicePERFrameReplay(
+            cfg_mod.ReplayConfig(capacity=8192, batch_size=32,
+                                 prioritized=True, device_per=True),
+            device, hw, stack=stack, gamma=0.99, seed=seed, write_chunk=64,
+            num_streams=n)
+        fsrv = ReplayFeedServer(replay)
+        fhost, fport = fsrv.address
+        cli = InferenceClient(ihost, iport, actor_id=0)
+        feeds = [ReplayFeedClient(fhost, fport, actor_id=j)
+                 for j in range(n)]
+        # the fleet's seeding: row j is fleet gid j (one process)
+        acting = VectorActing(
+            make_vector_env(env_cfg,
+                            [seed + 1000 * (g + 1) for g in range(n)]),
+            stack,
+            [np.random.default_rng(seed + 7777 * (g + 1))
+             for g in range(n)],
+            [actor_epsilon(g, n, acfg.eps_base, acfg.eps_alpha)
+             for g in range(n)])
+        sheds = [0]
+
+        def greedy_fn(rows, cli=cli, sheds=sheds):
+            while True:
+                resp = cli.infer(rows)
+                if resp.get("shed"):
+                    sheds[0] += 1
+                    time.sleep(float(resp.get("retry_after_ms", 10)) / 1e3)
+                    continue
+                return np.asarray(resp["actions"])
+
+        chunks = [{k: [] for k in ("frame", "action", "reward", "done",
+                                   "boundary")} for _ in range(n)]
+
+        def flush(j, chunks=chunks, feeds=feeds):
+            ch = chunks[j]
+            if not ch["action"]:
+                return
+            feeds[j].add_transitions(
+                frame=np.stack(ch["frame"]).astype(np.uint8),
+                action=np.asarray(ch["action"], np.int32),
+                reward=np.asarray(ch["reward"], np.float32),
+                done=np.asarray(ch["done"], bool),
+                boundary=np.asarray(ch["boundary"], bool))
+            for q in ch.values():
+                q.clear()
+
+        def tick(acting=acting, chunks=chunks, n=n):
+            frames, actions, rewards, dones, overs = acting.tick(greedy_fn)
+            for j in range(n):
+                ch = chunks[j]
+                ch["frame"].append(frames[j])
+                ch["action"].append(int(actions[j]))
+                ch["reward"].append(float(rewards[j]))
+                ch["done"].append(bool(dones[j]))
+                ch["boundary"].append(bool(overs[j]))
+                if len(ch["action"]) >= acfg.send_batch:
+                    flush(j)
+
+        try:
+            settle_end = time.perf_counter() + 0.4  # first forwards
+            while time.perf_counter() < settle_end:
+                tick()
+            c0 = fsrv.counters()["env_steps"]
+            t_start = time.perf_counter()
+            stamps: list[float] = []
+            tick_ms: list[float] = []
+            while time.perf_counter() < t_start + cs.curve_s:
+                t0 = time.perf_counter()
+                tick()
+                t1 = time.perf_counter()
+                stamps.append(t1)
+                tick_ms.append(1e3 * (t1 - t0))
+            for j in range(n):  # remainders land before the ingest read
+                flush(j)
+            wall = time.perf_counter() - t_start
+            ingest = (fsrv.counters()["env_steps"] - c0) / wall
+        finally:
+            cli.close()
+            for c in feeds:
+                c.close()
+            fsrv.close()
+            isrv.close()
+        # the server's drain flushed its last rows as it closed
+        landed = fsrv.counters()["env_steps"]
+        lost_here = abs(landed - sum(replay.stream_rows(j)
+                                     for j in range(n))) \
+            + replay.pending_rows()
+        if lost_here:
+            raise RuntimeError(
+                f"actor curve at {n} envs: the feed server counted "
+                f"{landed} rows, {lost_here} of them not in the ring")
+        lost += lost_here
+        # 3 equal sub-windows of the tick stream: the point's spread
+        edges = [t_start + wall * k / 3 for k in range(4)]
+        reps = [sum(1 for s in stamps if edges[k] <= s < edges[k + 1])
+                * n / (wall / 3) for k in range(3)]
+        rate = float(np.median(reps))
+        curve[str(n)] = {
+            "n_envs": n,
+            "actions_per_s": round(rate, 1),
+            "ingest_t_per_s": round(ingest, 1),
+            "tick_p99_ms": (round(float(np.percentile(tick_ms, 99)), 3)
+                            if tick_ms else None),
+            "sheds": int(sheds[0]),
+            "spread": (round((max(reps) - min(reps)) / rate, 4)
+                       if rate > 0 else None),
+        }
+        note(f"actor curve {n} envs: {curve[str(n)]}")
+        del replay, policy
+        _release()
+    out["actor_curve"] = curve
+    return lost
+
+
+def _health_overhead(reps: int = 5, iters: int = 2000) -> dict:
+    """The health plane's hot calls, on the host: one monitor ``sample``
+    of a scrape's gauges (~34 scalars, most unwatched) and one latency
+    histogram snapshot, one ``verdict`` over the populated rings, and the
+    disabled path's no-op. The median over ``reps`` reps of ``iters``
+    calls, µs per call; ``health_spread`` is the sample reps' (max −
+    min)/median."""
+    from distributed_deep_q_tpu_torch import health
+    from distributed_deep_q_tpu_torch.metrics import Histogram
+
+    health.configure(enabled=True)
+    try:
+        mon = health.HealthMonitor(rules=health.default_server_rules(),
+                                   trends=health.default_server_trends())
+        gauges = {"rpc/" + f"m{i}_calls": float(i) for i in range(30)}
+        gauges.update({"rpc/checksum_errors": 0.0,
+                       "flow/credit_starvation": 0.1,
+                       "flow/ingest_rate": 900.0,
+                       "queue/staged_rows": 100.0})
+        hist = Histogram()
+        hist.observe_many(np.random.default_rng(0).lognormal(1, 1, 512))
+
+        def one_rep(fn, n):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            return 1e6 * (time.perf_counter() - t0) / n
+
+        tick = [0.0]
+
+        def sample_once():
+            tick[0] += 1.0
+            mon.sample(gauges, {"rpc/add_transitions_ms": hist.snapshot()},
+                       t=tick[0])
+
+        sample_us = [one_rep(sample_once, iters) for _ in range(reps)]
+        verdict_us = [one_rep(lambda: mon.verdict(t=tick[0]), iters)
+                      for _ in range(reps)]
+        health.disable()
+        noop_us = [one_rep(lambda: mon.sample(gauges), iters)
+                   for _ in range(reps)]
+        med = float(np.median(sample_us))
+        return {
+            "health_sample_us": round(med, 2),
+            "health_verdict_us": round(float(np.median(verdict_us)), 2),
+            "health_disabled_us": round(float(np.median(noop_us)), 3),
+            "health_spread": round(
+                (max(sample_us) - min(sample_us)) / med, 4),
+        }
+    finally:
+        health.reset()
+
+
 def nvidia_smi_line() -> str | None:
     """``nvidia-smi``'s name and power limit of the card, or None."""
     try:
@@ -667,6 +1295,16 @@ def run(device: str, sz: Sizes, quick: bool = False) -> dict:
     bench_r2d2(cfg_mod, device, sz.r2d2, out, launches)
     _release()
 
+    note("inference")
+    with counted(launches, "inference_curve"):
+        bench_inference(cfg_mod, device, sz.curves, out)
+    _release()
+
+    note("actor_curve")
+    with counted(launches, "actor_curve"):
+        actor_lost = bench_actor_curve(cfg_mod, device, sz.curves, out)
+    _release()
+
     note("flagship")
     # the flagship's staging is chain·B·stack·H·W·2 bytes beside the
     # 8.19 GB ring: its chain is capped at 32
@@ -674,8 +1312,9 @@ def run(device: str, sz: Sizes, quick: bool = False) -> dict:
     with counted(launches, "flagship"):
         solver, replay = build(cfg_mod, capacity=sz.flag_capacity,
                                batch=sz.flag_batch, prioritized=True,
-                               pallas=False, device_per=True, num_streams=4,
-                               prefill=sz.flag_prefill, device=device)
+                               pallas=False, device_per=True,
+                               num_streams=WRITERS, prefill=sz.flag_prefill,
+                               device=device)
         flag = time_variant(solver, replay, sz.flag_batch, sz,
                             chain=flag_chain)
     flagship = flag.median
@@ -685,8 +1324,19 @@ def run(device: str, sz: Sizes, quick: bool = False) -> dict:
     out["flagship_batch"] = sz.flag_batch
     out["prioritized"] = True
     out["flagship_per"] = "device_fused"
+
+    note("ingest_curve")
+    # the flagship's own solver and 1M-row ring, now under paced ingest
+    with counted(launches, "ingest_curve"):
+        ingest = ingest_curve(solver, replay, sz, flag_chain)
+    ingest_lost = ingest.pop("ingest_rows_lost")
+    out.update(ingest)
     del solver, replay
     _release()
+
+    note("health_overhead")
+    out.update(_health_overhead(reps=sz.curves.health_reps,
+                                iters=sz.curves.health_iters))
 
     note("learn_overhead")
     out.update(_learn_overhead(cfg_mod, device, sz, launches))
@@ -720,6 +1370,8 @@ def run(device: str, sz: Sizes, quick: bool = False) -> dict:
     out["launches"] = launches
     out["quick"] = quick
     out["nvidia_smi"] = nvidia_smi_line() if dev.type == "cuda" else None
+    out["ingest_rows_lost"] = ingest_lost
+    out["actor_rows_lost"] = actor_lost
     line = {
         "metric": "learner_grad_steps_per_sec",
         "value": round(flagship, 2),

@@ -260,6 +260,12 @@ class DeviceFrameReplay:
     def steps_added(self) -> int:
         return sum(m.steps_added for m in self.slots)
 
+    def stream_rows(self, stream: int) -> int:
+        """Rows stream ``stream`` has added, over every slot it cycles
+        through (a slot's wraps included)."""
+        return sum(self.slots[s].steps_added
+                   for s in self._slot_cycle[stream])
+
     def _sampleable(self, slot: int) -> int:
         """Sampleable transition mass of a slot (0 until it can sample)."""
         m = self.slots[slot]
@@ -409,6 +415,20 @@ class DeviceFrameReplay:
         drain, self._drain = self._drain, None
         if drain is not None:
             drain.close()
+
+    def write_event(self):
+        """A CUDA event recorded on the stream the ring's device writes
+        go to, after every write enqueued there so far; None on the CPU.
+        Take it under the replay lock and ``synchronize`` it after
+        releasing the lock: the wait then covers those writes (and the
+        learner's work queued before them on the same stream) without
+        holding up the writers, the drain or the stream itself."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self._stream if self._stream is not None
+                  else torch.cuda.current_stream(self.device))
+        return ev
 
     def _writer_stream(self):
         """The context every device write of the ring runs in: the

@@ -33,6 +33,7 @@ import importlib.util
 import io
 import json
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -62,7 +63,19 @@ TINY = bench.Sizes(
     r2d2=bench.R2d2Sizes(hw=(36, 36), stack=4, seq_len=16, burn_in=4,
                          batch=4, lstm=16, compute_dtype="float32",
                          n_seqs=16, iters_host=1, iters_dev=2, reps=2,
-                         chain=2))
+                         chain=2),
+    # the CPU run's target, client and env counts; short windows
+    curves=dataclasses.replace(bench.CPU.curves, ingest_warmup=1,
+                               ingest_settle_s=0.2, curve_s=0.3,
+                               health_iters=20, health_reps=3))
+
+# the reference's keys this slice moved out of NOT_PORTED
+MOVED = {"flagship_under_ingest_steps_per_s", "under_ingest_spread",
+         "ingest_transitions_per_s", "ingest_curve", "concurrent_writers",
+         "inference_curve", "inference_compiled_buckets",
+         "inference_max_batch", "inference_cutoff_us", "inference_slo_ms",
+         "actor_curve", "health_sample_us", "health_verdict_us",
+         "health_disabled_us", "health_spread"}
 
 
 @pytest.fixture(autouse=True)
@@ -164,10 +177,16 @@ def test_reference_key_reader_sees_every_kind_of_key():
 
 @pytest.fixture(scope="module")
 def printed():
-    """What one small run on the CPU prints to stdout."""
+    """What one small run on the CPU prints to stdout (on two torch
+    threads: this fixture runs before the per-test one)."""
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        assert bench.main(["--device", "cpu"], sizes=TINY) == 0
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        with contextlib.redirect_stdout(buf):
+            assert bench.main(["--device", "cpu"], sizes=TINY) == 0
+    finally:
+        torch.set_num_threads(prev)
     return buf.getvalue()
 
 
@@ -203,8 +222,77 @@ def test_one_line_whose_keys_with_not_ported_are_the_references(printed):
     assert line["ring_capacity_frames"] == TINY.flag_capacity
     assert set(line["launches"]) == {
         "idle_uniform", "idle_fused", "batch32", "batch32_single_dispatch",
-        "pallas_on", "r2d2_host", "r2d2_device", "r2d2_chained", "flagship",
+        "pallas_on", "r2d2_host", "r2d2_device", "r2d2_chained",
+        "inference_curve", "actor_curve", "flagship", "ingest_curve",
         "learn_off", "learn_on"}
+
+
+def test_the_moved_keys_are_printed_and_no_longer_not_ported(printed):
+    """The ingest, inference and actor curves' and the health overhead's
+    keys are in the line under the reference's names, and only there."""
+    line = json.loads(printed)
+    assert MOVED <= _reference_keys()
+    assert MOVED <= set(line), MOVED - set(line)
+    assert MOVED <= set(bench.KEPT)
+    assert not MOVED & set(bench.NOT_PORTED)
+    assert {v.split(":")[0] for v in bench.NOT_PORTED.values()
+            if v.startswith("ROADMAP")} == {"ROADMAP item 3b"}
+    assert all("multi-process curve" in v
+               for v in bench.NOT_PORTED.values()
+               if v.startswith("ROADMAP"))
+
+
+def test_ingest_curve_at_the_cpu_sizes(printed):
+    """The CPU's one target: the learner stepped, the writers' rows
+    arrived at a rate above 0, every one of them landed, and no more rows
+    were staged than the writers' bound lets through."""
+    line = json.loads(printed)
+    curve = line["ingest_curve"]
+    assert set(curve) == {str(t) for t in TINY.curves.ingest_targets}
+    pt = curve[str(bench.INGEST_TARGET)]
+    assert set(pt) == {"steps_per_s", "achieved_t_per_s", "spread",
+                       "max_in_flight_rows"}
+    assert pt["steps_per_s"] > 0 and pt["achieved_t_per_s"] > 0
+    assert 0 <= pt["max_in_flight_rows"] <= bench.STAGED_ROWS_CAP + 4 * 64
+    assert line["flagship_under_ingest_steps_per_s"] == pt["steps_per_s"]
+    assert line["ingest_transitions_per_s"] == pt["achieved_t_per_s"]
+    assert line["under_ingest_spread"] == pt["spread"]
+    assert line["concurrent_writers"] == bench.WRITERS == 4
+    assert line["ingest_rows_lost"] == 0
+
+
+def test_inference_and_actor_curves_at_the_cpu_sizes(printed):
+    line = json.loads(printed)
+    inf = line["inference_curve"]
+    assert set(inf) == {"2", "8"}
+    for pt in inf.values():
+        assert set(pt) == {"actions_per_s", "p99_ms", "local_actions_per_s",
+                           "forward_actions_per_s", "speedup", "sheds",
+                           "spread"}
+        assert pt["actions_per_s"] > 0 and pt["p99_ms"] > 0
+        assert pt["local_actions_per_s"] > 0
+        assert pt["forward_actions_per_s"] > 0
+    icfg = port_config.InferenceConfig()
+    assert set(line["inference_compiled_buckets"]) <= set(icfg.buckets)
+    assert (line["inference_max_batch"], line["inference_cutoff_us"],
+            line["inference_slo_ms"]) == (icfg.max_batch, icfg.cutoff_us,
+                                          icfg.slo_ms)
+    act = line["actor_curve"]
+    assert set(act) == {"2", "8", "32"}
+    for n, pt in act.items():
+        assert set(pt) == {"n_envs", "actions_per_s", "ingest_t_per_s",
+                           "tick_p99_ms", "sheds", "spread"}
+        assert pt["n_envs"] == int(n)
+        assert pt["actions_per_s"] > 0 and pt["ingest_t_per_s"] > 0
+    assert line["actor_rows_lost"] == 0
+
+
+def test_health_overhead_keys(printed):
+    line = json.loads(printed)
+    assert line["health_sample_us"] > 0 and line["health_verdict_us"] > 0
+    assert line["health_disabled_us"] >= 0 and line["health_spread"] >= 0
+    # the disabled path is one flag branch: cheaper than a live sample
+    assert line["health_disabled_us"] < line["health_sample_us"]
 
 
 @pytest.mark.parametrize("batch", [32, 512])
@@ -271,6 +359,153 @@ def test_build_state_is_the_references(name):
                               g.view(np.uint8) if g.ndim else g), key
 
 
+def test_actor_curve_server_steps_are_the_rings_rows(monkeypatch):
+    """Every row the actor curve's feed server counted is in its ring:
+    the server's ``env_steps`` equals the ring's size (no slot wraps at
+    these counts) at each env count."""
+    from distributed_deep_q_tpu_torch.rpc import replay_server
+
+    servers = []
+
+    class Recorded(replay_server.ReplayFeedServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    monkeypatch.setattr(replay_server, "ReplayFeedServer", Recorded)
+    cs = dataclasses.replace(TINY.curves, envs=(2, 8))
+    out: dict = {}
+    assert bench.bench_actor_curve(port_config, "cpu", cs, out) == 0
+    assert set(out["actor_curve"]) == {"2", "8"}
+    assert len(servers) == 2
+    for srv, n in zip(servers, cs.envs):
+        steps = srv.counters()["env_steps"]
+        assert steps > 0
+        assert steps == len(srv.replay), (n, steps, len(srv.replay))
+        assert srv.replay.num_streams == n
+        assert srv.replay.pending_rows() == 0
+
+
+class _FirstChunks:
+    """A ring that takes each stream's first ``k`` chunks and drops the
+    rest, and sets ``stop`` once every stream has its ``k``: writers then
+    leave at their next loop, and the ring holds exactly k chunks a
+    stream however the writers interleaved."""
+
+    def __init__(self, ring, k: int, streams: int, stop):
+        self.ring, self.k, self.stop = ring, k, stop
+        self.n = [0] * streams
+
+    def add_batch(self, payload, stream: int = 0):
+        if self.n[stream] < self.k:
+            self.ring.add_batch(payload, stream=stream)
+            self.n[stream] += 1
+            if min(self.n) == self.k:
+                self.stop.set()
+
+    def __getattr__(self, name):
+        return getattr(self.ring, name)
+
+
+def _run_writers(run_writers, ring, writers: int, k: int) -> list:
+    import threading
+
+    lock, stop = threading.Lock(), threading.Event()
+    counter = [0] * writers
+    proxy = _FirstChunks(ring, k, writers, stop)
+    threads = run_writers(proxy, lock, stop, counter, writers,
+                          total_rate=1e6)
+    for th in threads:
+        th.join(timeout=60.0)
+    assert not any(th.is_alive() for th in threads)
+    assert proxy.n == [k] * writers
+    ring.flush()
+    return counter
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["uniform", "fused"])
+@pytest.mark.parametrize("writers", [1, 4])
+def test_run_writers_fill_the_ring_as_the_references(fused, writers):
+    """Writers stopped after exactly 11 chunks a stream (an episode
+    boundary at the 10th) leave the port's ring bitwise the reference's
+    after its ``run_writers``: ring bytes (the fused ring's scratch row
+    aside), metadata, boundaries, priorities and every other key of the
+    replay's state, per stream with 4 writers."""
+    k = 11
+    kw = dict(capacity=4_096, batch=32, pallas=False, seed=5, prefill=0,
+              prioritized=fused, device_per=fused, num_streams=writers)
+    ref = _load_reference_bench()
+    _, ref_ring = ref.build(_dp1(ref_config), **kw)
+    _, port_ring = bench.build(_dp1(port_config), device="cpu", **kw)
+    _run_writers(ref.run_writers, ref_ring, writers, k)
+    _run_writers(bench.run_writers, port_ring, writers, k)
+    for i in range(writers):
+        assert port_ring.stream_rows(i) == k * 64
+    want = ref_persist.replay_state(ref_ring)
+    got = persistence.replay_state(port_ring)
+    assert set(got) == set(want), set(got) ^ set(want)
+    for key in sorted(want):
+        w, g = np.asarray(want[key]), np.asarray(got[key])
+        assert w.dtype == g.dtype and w.shape == g.shape, key
+        if key == "dev_frames" and fused:
+            w, g = w[:-port_ring.rowp], g[:-port_ring.rowp]
+        assert np.array_equal(w.view(np.uint8) if w.ndim else w,
+                              g.view(np.uint8) if g.ndim else g), key
+
+
+def test_run_writers_stage_no_more_than_their_bound(monkeypatch):
+    """With more rows staged than ``STAGED_ROWS_CAP``, a writer waits
+    before its next insert and the high-water gauge reads what it saw."""
+    import threading
+
+    monkeypatch.setattr(bench, "STAGED_ROWS_CAP", 0)
+    _, ring = bench.build(_dp1(port_config), device="cpu", capacity=4_096,
+                          batch=32, pallas=False, prioritized=False,
+                          prefill=0)
+    ring.write_chunk = 1 << 20          # nothing flushes on its own
+    lock, stop = threading.Lock(), threading.Event()
+    counter, stats = [0], {}
+    threads = bench.run_writers(ring, lock, stop, counter, 1,
+                                total_rate=1e6, stats=stats)
+    deadline = time.monotonic() + 30.0
+    while counter[0] < 64 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.2)
+    # one chunk in, then held: 64 rows staged over a cap of 0
+    assert counter[0] == 64 and ring.pending_rows() == 64
+    stop.set()
+    threads[0].join(timeout=10.0)
+    assert stats["max_pending_rows"] == 64
+
+
+def test_fair_lock_serves_in_arrival_order():
+    """A writer queued on the curve's lock gets it at the learner's next
+    release, however fast the learner asks again."""
+    import threading
+
+    lock = bench.FairLock()
+    order: list[str] = []
+    lock.acquire()
+    asked = threading.Event()
+
+    def writer():
+        asked.set()
+        with lock:
+            order.append("writer")
+
+    th = threading.Thread(target=writer)
+    th.start()
+    asked.wait()
+    time.sleep(0.05)              # the writer is queued
+    lock.release()
+    for _ in range(3):            # the learner's loop: release, ask again
+        with lock:
+            order.append("learner")
+    th.join(timeout=10.0)
+    assert order[0] == "writer", order
+    assert order.count("learner") == 3
+
+
 def test_without_a_card_the_bench_raises_and_prints_nothing(capsys):
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -318,27 +553,51 @@ def test_quick_cuts_depth_only():
         assert getattr(bench.QUICK, f) < getattr(bench.FULL, f), f
     for f in ("iters_host", "iters_dev"):
         assert getattr(bench.QUICK.r2d2, f) < getattr(bench.FULL.r2d2, f), f
+    for f in ("ingest_targets", "clients", "envs"):
+        assert getattr(bench.QUICK.curves, f) == getattr(bench.FULL.curves,
+                                                         f), f
+    for f in ("ingest_warmup", "ingest_settle_s", "curve_s", "health_iters",
+              "health_reps"):
+        assert getattr(bench.QUICK.curves, f) < getattr(bench.FULL.curves,
+                                                        f), f
 
 
 def _card_line() -> dict:
     """A line as the card gives it: every key, rates above 0, an MFU, the
-    FLOPs counted near the analytic count, and every kernel launched in
-    every row."""
+    FLOPs counted near the analytic count, every kernel launched in every
+    row, and every curve point of the full run."""
+    cs = bench.FULL.curves
     line = {k: 1.0 for k in bench.KEPT}
     line.update(flops_per_step=44.5e9, flops_per_step_analytic=47.9e9,
-                mfu=0.0055, quick=True, nvidia_smi="card, 700.00 W")
+                mfu=0.0055, quick=True, nvidia_smi="card, 700.00 W",
+                ingest_rows_lost=0, actor_rows_lost=0,
+                concurrent_writers=bench.WRITERS,
+                inference_compiled_buckets=[8, 32],
+                health_disabled_us=0.12)
+    line["ingest_curve"] = {
+        str(t): {"steps_per_s": 120.0, "achieved_t_per_s": 0.98 * t,
+                 "spread": 0.1, "max_in_flight_rows": 1_024}
+        for t in cs.ingest_targets}
+    line["inference_curve"] = {
+        str(n): {"actions_per_s": 900.0, "p99_ms": 4.2,
+                 "local_actions_per_s": 2_000.0,
+                 "forward_actions_per_s": 30_000.0, "speedup": 15.0,
+                 "sheds": 0, "spread": 0.05} for n in cs.clients}
+    line["actor_curve"] = {
+        str(n): {"n_envs": n, "actions_per_s": 800.0,
+                 "ingest_t_per_s": 790.0, "tick_p99_ms": 30.0, "sheds": 0,
+                 "spread": 0.1} for n in cs.envs}
     line["launches"] = {row: {k: 3 for k in PORT_KERNELS}
-                        for row in ("flagship", "pallas_on")}
+                        for row in ("flagship", "pallas_on",
+                                    "ingest_curve", "actor_curve")}
+    line["launches"]["actor_curve"].update(gather_windows=0,
+                                           fused_loss_fwd=0,
+                                           fused_loss_bwd=0)
     return line
 
 
-@pytest.mark.parametrize("fault", [
-    None, "missing_key", "zero_rate", "nan_rate", "mfu_over", "mfu_none",
-    "flops_off", "no_flagship_gather", "no_pallas_bwd"])
-def test_phase18_check(fault):
-    """``chip_smoke.py`` phase 18's check passes a line as the card gives
-    it and fails each planted fault."""
-    line = _card_line()
+def _plant(line: dict, fault: str) -> None:
+    cs = bench.FULL.curves
     if fault == "missing_key":
         del line["learn_spread"]
     elif fault == "zero_rate":
@@ -355,6 +614,55 @@ def test_phase18_check(fault):
         line["launches"]["flagship"]["gather_windows"] = 0
     elif fault == "no_pallas_bwd":
         line["launches"]["pallas_on"]["fused_loss_bwd"] = 0
+    elif fault == "missing_curve_key":
+        del line["actor_curve"]
+    elif fault == "missing_target":
+        del line["ingest_curve"][str(cs.ingest_targets[-1])]
+    elif fault == "zero_achieved_ingest":
+        line["ingest_curve"]["256"]["achieved_t_per_s"] = 0.0
+    elif fault == "zero_under_ingest":
+        line["flagship_under_ingest_steps_per_s"] = 0.0
+    elif fault == "zero_inference_rate":
+        line["inference_curve"]["16"]["forward_actions_per_s"] = 0.0
+    elif fault == "no_p99":
+        line["inference_curve"]["64"]["p99_ms"] = None
+    elif fault == "zero_actor_ingest":
+        line["actor_curve"]["128"]["ingest_t_per_s"] = 0.0
+    elif fault == "lost_ingest_rows":
+        line["ingest_rows_lost"] = 64
+    elif fault == "lost_actor_rows":
+        line["actor_rows_lost"] = 1
+    elif fault == "queue_over_cap":
+        line["ingest_curve"]["4096"]["max_in_flight_rows"] = (
+            bench.STAGED_ROWS_CAP + bench.WRITERS * 64 + 1)
+    elif fault == "too_many_buckets":
+        line["inference_compiled_buckets"] = [8, 16, 32, 128, 256]
+    elif fault == "zero_health_sample":
+        line["health_sample_us"] = 0.0
+    elif fault == "no_ingest_gather":
+        line["launches"]["ingest_curve"]["gather_windows"] = 0
+    elif fault == "no_ingest_scatter":
+        line["launches"]["ingest_curve"]["scatter_rows"] = 0
+    elif fault == "no_actor_scatter":
+        line["launches"]["actor_curve"]["scatter_rows"] = 0
+    else:
+        raise ValueError(fault)
+
+
+@pytest.mark.parametrize("fault", [
+    None, "missing_key", "zero_rate", "nan_rate", "mfu_over", "mfu_none",
+    "flops_off", "no_flagship_gather", "no_pallas_bwd",
+    "missing_curve_key", "missing_target", "zero_achieved_ingest",
+    "zero_under_ingest", "zero_inference_rate", "no_p99",
+    "zero_actor_ingest", "lost_ingest_rows", "lost_actor_rows",
+    "queue_over_cap", "too_many_buckets", "zero_health_sample",
+    "no_ingest_gather", "no_ingest_scatter", "no_actor_scatter"])
+def test_phase18_check(fault):
+    """``chip_smoke.py`` phase 18's check passes a line as the card gives
+    it and fails each planted fault."""
+    line = _card_line()
+    if fault is not None:
+        _plant(line, fault)
     keys = bench.KEPT + tuple(bench.PORT_ONLY)
     if fault is None:
         chip_smoke.check_bench_line(line, keys)
@@ -366,11 +674,13 @@ def test_phase18_check(fault):
 def test_phase18_worker_checks_every_gather_and_scatter_shape(tmp_path,
                                                                capsys):
     """``chip_smoke.py``'s phase 18 child: the bench's one line on stdout,
-    and the first launches of each B1/B2 shape the bench's rows reach (the
-    frame rings' and the sequence ring's) held against the plain versions
-    on the same inputs. On the CPU the wrappers take the plain versions
-    themselves, so this holds the plumbing: every call site is wrapped,
-    the keys and the scratch-row rule hold, and the checks are written."""
+    and the first launches of each B1/B2 shape in each row the bench's
+    rows reach (the frame rings', the sequence ring's, the ingest curve's
+    dispatches and drain flushes, the actor curve's 10×10 ring) held
+    against the plain versions on the same inputs. On the CPU the
+    wrappers take the plain versions themselves, so this holds the
+    plumbing: every call site is wrapped, the keys and the scratch-row
+    rule hold, and the checks are written."""
     out = tmp_path / "checks.json"
     assert chip_smoke.p18_bench_worker([str(out), "--device", "cpu"],
                                        sizes=TINY) == 0
@@ -379,17 +689,35 @@ def test_phase18_worker_checks_every_gather_and_scatter_shape(tmp_path,
     assert checks["all_bitwise"], checks
     names = {k.split()[0] for k in checks["shapes"]}
     assert names == {"gather_windows", "scatter_rows"}, checks
+    # "<kernel> (<shape>) @<row>": each row checks its own launches (the
+    # FLOP count's dispatch runs outside every row)
+    parsed = {}
+    for k in checks["shapes"]:
+        name, rest = k.split(" ", 1)
+        shape, _, row = rest.partition(" @")
+        parsed[k] = (name, tuple(int(x) for x in shape.strip("()")
+                                 .split(",")), row)
     # the sequence ring's windows (batch × (sequence + stack) rows) and
     # its slot-wide rows are wrapped too
-    shapes = {k: tuple(int(x) for x in k.split(" ", 1)[1].strip("()")
-                       .split(","))
-              for k in checks["shapes"]}
     seq_w = TINY.r2d2.seq_len + TINY.r2d2.stack
-    seq = [v for k, v in shapes.items() if k.startswith("gather_windows")
+    seq = [v for n, v, _ in parsed.values() if n == "gather_windows"
            and v[:2] == (TINY.r2d2.batch, seq_w)]
     assert seq, checks
-    assert any(k.startswith("scatter_rows") and v[1] == seq_w * seq[0][2]
-               for k, v in shapes.items()), checks
+    assert any(n == "scatter_rows" and v[1] == seq_w * seq[0][2]
+               for n, v, _ in parsed.values()), checks
+    # the ingest curve's dispatches and drain flushes on the flagship
+    # ring, and the actor curve's flushes of 10×10 rows
+    by_row: dict = {}
+    for n, v, row in parsed.values():
+        by_row.setdefault(row, set()).add((n, v))
+    flag_rowb = {v[1] for n, v in by_row["flagship"] if n == "scatter_rows"}
+    assert {n for n, _ in by_row["ingest_curve"]} == {"gather_windows",
+                                                      "scatter_rows"}
+    assert {v[1] for n, v in by_row["ingest_curve"]
+            if n == "scatter_rows"} == flag_rowb
+    from distributed_deep_q_tpu_torch.ops.ring_gather import (
+        padded_row_bytes)
+    assert by_row["actor_curve"] == {("scatter_rows",
+                                      (2 * 64, padded_row_bytes(100)))}
     for rec in checks["shapes"].values():
         assert 0 < rec["checked"] <= chip_smoke.P18_CHECKED, rec
-
