@@ -46,7 +46,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``index_select``/``index_copy_`` and the byte bound;
 4. main path — ``main train --preset pong --backend cuda`` in process on the
    SignalAtari probe at full 84×84 (bf16 Nature CNN, batch 512, 1M ring,
-   learn_start 20,000), several hundred grad steps of the fused device-PER
+   learn_start cut to 8,192), 501 grad steps of the fused device-PER
    dispatch;
 5. chained dispatch — a ``Solver`` and a filled replay at the same preset,
    ``train_steps_device_per(chain=8)`` timed over a few dozen dispatches
@@ -320,9 +320,10 @@ Phases (any failure exits non-zero and prints no result line):
    curve's drain flushes; the actor curve's 10×10 rows) held bitwise
    against the plain versions on the same inputs; B3 at the bench's
    A = 6 is in 3b;
-9. the ``kernels`` JSON line (each kernel's launches on every path in
-   ``launches_by_path``), the ``nvidia-smi`` line, and the last line
-   ``{"ok": true, "device": {...}}``.
+9. the ``phase_seconds`` JSON line (where the run's time went, phase
+   by phase, and its total), the ``kernels`` JSON line (each kernel's
+   launches on every path in ``launches_by_path``), the ``nvidia-smi``
+   line, and the last line ``{"ok": true, "device": {...}}``.
 
 Every path run (phases 4, 6, 6b, 7, 7b, both runs of 8 and 8b, 8c, 10, 11,
 11b, 11c, 12b, 13, 13b, 14, 15a, each process of 16a, 16b and 16c,
@@ -370,8 +371,26 @@ ITERS, WARMUP = 64, 5
 OUT_DIR = "chip_smoke_out"   # gitignored; the train loop's metrics JSONL
 
 
+# each phase's tag ("[4]", "[17d]") → the clock at its latest log line
+_PHASE_LAST: dict[str, float] = {}
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("[") and "]" in msg[:8]:
+        _PHASE_LAST[msg[1:msg.index("]")]] = time.perf_counter()
     print(msg, flush=True)
+
+
+def phase_seconds() -> dict:
+    """Seconds from each phase's predecessor's last log line to its own
+    last one (the first phase's from the process start), in the order the
+    phases ended: where the run's time went."""
+    out, prev = {}, _T0
+    for tag, t in sorted(_PHASE_LAST.items(), key=lambda kv: kv[1]):
+        out[tag] = round(t - prev, 1)
+        prev = t
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -1067,6 +1086,10 @@ def cross_device_check(torch, config, Solver, DevicePERFrameReplay) -> dict:
 PONG_ARGV = ["train", "--preset", "pong", "--backend", "cuda",
              "--log-every", "100", "--set", "env.kind=signal_atari",
              "env.id=signal", "train.total_steps=22000"]
+# phase 4's run of it: learn_start cut to 8,192 (as in phases 11-15), the
+# same 501 grad steps
+PONG_MAIN_ARGV = PONG_ARGV[:-1] + ["replay.learn_start=8192",
+                                   "train.total_steps=10192"]
 # the Breakout preset at full width; depth cut to 1,600 env steps (400 grad
 # steps) past learn_start 20,000
 BREAKOUT_ARGV = ["train", "--preset", "breakout", "--backend", "cuda",
@@ -1078,19 +1101,21 @@ BREAKOUT_ARGV = ["train", "--preset", "breakout", "--backend", "cuda",
 # the r2d2 preset at full width (bf16 Nature torso at 84×84, LSTM 512,
 # dueling head, batch 64 × 80 steps, burn-in 40, an 8.6 GB sequence ring)
 # on SignalAtari. Its 32-step episodes each give one 80-step sequence, so
-# the 250 sequences of learn_start 20,000 are in at env step 8,000; 8,800
-# steps train every 4th from there: 201 grad steps. A 32-step episode ends
+# the 100 sequences of learn_start 8,000 (cut from the preset's 20,000) are
+# in at env step 3,200; 4,000 steps train every 4th from there: 201 grad
+# steps. A 32-step episode ends
 # before the 40-step burn-in does, so every train window is masked and the
 # loss is 0 (as in the reference): these paths run every layer and kernel
 # without a learning signal; phase 7c's ring step has one.
-R2D2_ARGV = ["train", "--preset", "r2d2", "--backend", "cuda",
-             "--log-every", "100", "--set", "env.kind=signal_atari",
-             "env.id=signal", "train.total_steps=8800"]
-R2D2_GRAD_STEPS = (8800 - 250 * 32) // 4 + 1
+R2D2_SET = ["train", "--preset", "r2d2", "--backend", "cuda",
+            "--log-every", "100", "--set", "env.kind=signal_atari",
+            "env.id=signal"]
+R2D2_ARGV = R2D2_SET + ["replay.learn_start=8000", "train.total_steps=4000"]
+R2D2_GRAD_STEPS = (4000 - 100 * 32) // 4 + 1
 # the chained fused path (replay.device_per=true, chain 8): learn_start cut
 # to 100 sequences (env step 3,200) and depth to 100 grad steps, 13
 # dispatches
-R2D2_FUSED_ARGV = R2D2_ARGV[:-1] + ["train.total_steps=3596",
+R2D2_FUSED_ARGV = R2D2_SET + ["train.total_steps=3596",
                                     "replay.learn_start=8000",
                                     "replay.device_per=true"]
 R2D2_FUSED_GRAD_STEPS, R2D2_FUSED_DISPATCHES = 100, 13
@@ -4466,7 +4491,7 @@ def main() -> int:
     seq_k = r2d2_ring_kernels(torch, rg, dev, empty_ms)
 
     # -- 4. Pong main path through the CLI -------------------------------------
-    summary, launches, record = run_cli(cli_main, counters, PONG_ARGV,
+    summary, launches, record = run_cli(cli_main, counters, PONG_MAIN_ARGV,
                                         "chip_smoke_train.jsonl")
     log(f"[4] main path summary: {json.dumps(summary)}")
     log(f"[4] last metrics record (100 grad steps): {json.dumps(record)}")
@@ -5139,6 +5164,8 @@ def main() -> int:
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
+    log(json.dumps({"phase_seconds": phase_seconds(),
+                    "total_s": round(time.perf_counter() - _T0, 1)}))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
