@@ -112,11 +112,38 @@ SMALL = {"default": dict(flushes=20), "overload": dict(flushes=40),
          "churn": dict(flushes=40)}
 
 
+# modes whose ``ok`` rests on how the threads of one interpreter
+# interleave run through their command line, in an interpreter of their
+# own: the overload mode's sheds need an actor to flush out of turn, and
+# the threads earlier tests leave in a worker serialize its actors into
+# turns, which the "fair" policy never sheds (ROADMAP §C, C6)
+OWN_INTERPRETER = {"overload"}
+
+
+def _verdict_in_own_interpreter(cmd: list[str]) -> dict:
+    """Run a chaos tool's command line in a fresh interpreter and return
+    its one JSON verdict line."""
+    import json
+    import subprocess
+
+    proc = subprocess.run(
+        [sys.executable] + cmd, capture_output=True, text=True,
+        timeout=TIMEOUT_S - 20, cwd=REPO,
+        env={**os.environ, "OMP_NUM_THREADS": "2"})
+    lines = proc.stdout.strip().splitlines()
+    assert lines, proc.stderr[-3000:]
+    return json.loads(lines[-1])
+
+
 @pytest.mark.parametrize("mode", sorted(HOST_ONLY))
 def test_host_only_mode_ok_at_the_references_size(mode):
     """The host-only modes at the reference's sizes: ``ok``, and nothing
     lost, duplicated or wrong."""
-    v = getattr(chaos_smoke, HOST_ONLY[mode])()
+    if mode in OWN_INTERPRETER:
+        v = _verdict_in_own_interpreter(
+            ["-m", "distributed_deep_q_tpu_torch.chaos_smoke", mode])
+    else:
+        v = getattr(chaos_smoke, HOST_ONLY[mode])()
     assert v["ok"], v
     for key in ("lost", "duplicated", "wrong_actions", "critical_flaps"):
         if key in v:
@@ -128,9 +155,17 @@ def test_host_only_mode_keys_equal_the_references(mode):
     """The host-only modes' verdicts carry exactly the reference's keys,
     both packages run at the same size."""
     fn, kw = HOST_ONLY[mode], SMALL[mode]
-    got = getattr(chaos_smoke, fn)(**kw)
-    _reset_globals()
-    want = getattr(_load_reference(), fn)(**kw)
+    if mode in OWN_INTERPRETER:
+        # the command lines run the functions' defaults, this case's size
+        assert kw == {"flushes": 40}
+        got = _verdict_in_own_interpreter(
+            ["-m", "distributed_deep_q_tpu_torch.chaos_smoke", mode])
+        want = _verdict_in_own_interpreter(
+            [str(REPO / "scripts" / "chaos_smoke.py"), mode])
+    else:
+        got = getattr(chaos_smoke, fn)(**kw)
+        _reset_globals()
+        want = getattr(_load_reference(), fn)(**kw)
     assert got["ok"] and want["ok"], (got, want)
     assert set(got) == set(want), set(got) ^ set(want)
 
@@ -157,9 +192,20 @@ DEVICE_KEYS = {
 }
 
 
+# the device modes run in an interpreter of their own, by their command
+# line's mode: the ingest mode's sheds need an actor out of turn, as the
+# overload mode's do (``OWN_INTERPRETER``; ROADMAP §C, C6)
+DEVICE_OWN_INTERPRETER = {"run_ingest_saturation_smoke": "ingest"}
+
+
 @pytest.mark.parametrize("fn", sorted(DEVICE_KEYS))
 def test_device_mode_ok_on_the_cpu(fn):
-    v = getattr(chaos_smoke, fn)(device="cpu")
+    if fn in DEVICE_OWN_INTERPRETER:
+        v = _verdict_in_own_interpreter(
+            ["-m", "distributed_deep_q_tpu_torch.chaos_smoke",
+             DEVICE_OWN_INTERPRETER[fn], "--device", "cpu"])
+    else:
+        v = getattr(chaos_smoke, fn)(device="cpu")
     assert v["ok"], v
     assert DEVICE_KEYS[fn] <= set(v), DEVICE_KEYS[fn] - set(v)
     assert v["device"] == "cpu"
@@ -516,3 +562,55 @@ def test_fair_primary_sheds_the_waves_greedy_actor_only(package):
     equal = list(range(16))
     sheds = _fair_sheds(flow_mod, equal + [112] * 4)
     assert set(sheds) == {112} and sheds[112] > 0, sheds
+
+
+def _overload_sheds(flow_mod, order: list[int], ingest_rate: float,
+                    seconds: float = 6.0) -> dict[int, int]:
+    """The overload mode's controller (its ``FlowConfig``) on a simulated
+    clock: a consumer noting 32 rows every 32/300 s (the mode's
+    ``consume_rate``), and 16-row flushes at ``ingest_rate`` rows/s from
+    the actors of ``order``, repeated. Sheds per actor id."""
+    now = [0.0]
+    flow = flow_mod.FlowController(
+        flow_mod.FlowConfig(ingest_factor=1.5, flush_credit_floor=8,
+                            rate_halflife_s=0.5),
+        None, None, clock=lambda: now[0])
+    t_consume = t_flush = 0.0
+    k = 0
+    sheds: dict[int, int] = {}
+    while t_flush < seconds:
+        if t_consume <= t_flush:
+            now[0] = t_consume
+            flow.note_consumed(32)
+            t_consume += 32 / 300.0
+            continue
+        now[0] = t_flush
+        aid = order[k % len(order)]
+        admitted, _ = flow.admit(aid, 16)
+        if admitted:
+            flow.on_ingest(aid, 16)
+        else:
+            sheds[aid] = sheds.get(aid, 0) + 1
+        k += 1
+        t_flush += 16 / ingest_rate
+    return sheds
+
+
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_overload_sheds_only_an_actor_out_of_turn(package):
+    """Why the overload and ingest modes run in an interpreter of their
+    own (ROADMAP §C, C6): under their "fair" controller three equal actors flushing in strict
+    turns are never shed, at 3 and at 10 times the consumer's rate, since
+    the asking actor's rate has always decayed the longest of the three;
+    the same fleet with actor 0 flushing once out of turn every seven
+    flushes is shed, actor 0 only. Both packages' controllers decide
+    alike."""
+    if package == "reference":
+        from distributed_deep_q_tpu.rpc import flowcontrol as flow_mod
+    else:
+        from distributed_deep_q_tpu_torch.rpc import flowcontrol as flow_mod
+    turns = [0, 1, 2]
+    assert _overload_sheds(flow_mod, turns, 900.0) == {}
+    assert _overload_sheds(flow_mod, turns, 3000.0) == {}
+    sheds = _overload_sheds(flow_mod, [0, 1, 2, 0, 0, 1, 2], 900.0)
+    assert set(sheds) == {0} and sheds[0] > 0, sheds
