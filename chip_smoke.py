@@ -217,7 +217,7 @@ Phases (any failure exits non-zero and prints no result line):
    plain version, timed beside the byte bound and ``index_copy_``. Then
    the Pong preset's geometry on signal_atari (bf16 Nature CNN 84×84×4,
    batch 512, 1M-row ring, α = 0, chain 8, the fused loss), 64 envs × 16
-   ticks, 40 supersteps: all four kernels launched; 10 supersteps under
+   ticks, 30 supersteps: all four kernels launched; 10 supersteps under
    ``torch.cuda.set_sync_debug_mode("warn")`` make no synchronizing call;
    a ``torch.profiler`` window of 1 superstep gives the act / insert /
    sample / train stages' device ms, launches per superstep and
@@ -307,7 +307,10 @@ Phases (any failure exits non-zero and prints no result line):
    1,024 and 4,096 transitions/s through its ring's drain; the served
    inference plane at 4, 16 and 64 clients; the vector acting plane at
    8, 32 and 128 envs into a 10×10 fused ring behind the feed server;
-   the health plane's overhead), its depth cut. Checks: the one JSON
+   the multi-process curve at 1, 2 and 4 learner processes on the one
+   card, each a ``--phase18-mh-worker`` child of the bench's process
+   with its own shards, feed server and writers, joined over gloo; the
+   health plane's overhead), its depth cut. Checks: the one JSON
    line holds every key the bench keeps of the root ``bench.py``'s and
    its own, every rate is finite and above 0, 0 < ``mfu`` ≤ 1.05,
    ``flops_per_step`` within 10% of ``flops_per_step_analytic``, B1 and
@@ -317,9 +320,21 @@ Phases (any failure exits non-zero and prints no result line):
    flight, no ingest or actor row lost, the bucket census within the
    buckets; the first 4 launches of each B1 and B2 shape in each row (up
    to 131,072 windows, 7.5 GB out, on the chain-256 row; the ingest
-   curve's drain flushes; the actor curve's 10×10 rows) held bitwise
-   against the plain versions on the same inputs; B3 at the bench's
-   A = 6 is in 3b;
+   curve's drain flushes; the actor curve's 10×10 rows; each
+   multi-process worker's dispatches and drain flushes) held bitwise
+   against the plain versions on the same inputs; at every process
+   count every rate and the summed ingest above 0, no RPC crossed to
+   another process's server, B1 and B2 launched in every worker, the
+   four linearity keys finite. Then B1 and B2 at the workers' shapes on
+   a ring of each worker's geometry, and B2 at the actor curve's flush,
+   bitwise and timed beside the plain versions, the byte bound and
+   ``index_select``/``index_copy_``. Then, each in a child process,
+   ``bench --trace-ingest --quick`` (its shard under
+   ``chip_smoke_out/p18_traces``, its launches under the same checks):
+   its keys, the learner's and the drain's stages attributed, no span
+   dropped, and the port's ``trace_report --strict`` on its shard exits
+   0; and ``bench_elasticity`` at 2 repeats: the reference's keys.
+   B3 at the bench's A = 6 is in 3b;
 9. the ``phase_seconds`` JSON line (where the run's time went, phase
    by phase, and its total), the ``kernels`` JSON line (each kernel's
    launches on every path in ``launches_by_path``), the ``nvidia-smi``
@@ -2847,12 +2862,12 @@ def anakin_pin(torch, config, modules, dp: int = 1) -> dict:
 # Phase 14 at full width: the Pong preset's geometry (bf16 Nature CNN at
 # 84×84×4, batch 512, 1M-row ring = 8.19 GB, α = 0, chain 8, the fused
 # loss) on signal_atari, 64 envs × 16 ticks = 1,024 env steps and 8 grad
-# steps per superstep; 40 supersteps, the first 10 of them warm-up and 10
+# steps per superstep; 30 supersteps, the first 5 of them warm-up and 10
 # under the sync check (300 until phase 16 came, 200 until phase 17 came,
-# 80 and then 60 beside phase 18, with 20 and 20 and 2 profiled: cut to
-# keep the whole run well inside its limit)
-ANAKIN_ENVS, ANAKIN_TICKS, ANAKIN_SUPERSTEPS = 64, 16, 40
-ANAKIN_WARM, ANAKIN_SYNC_CHECKED = 10, 10
+# 80, 60 and then 40 beside phase 18, with 20 and 20 and 2 profiled, then
+# 10 warm-up: cut to keep the whole run well inside its limit)
+ANAKIN_ENVS, ANAKIN_TICKS, ANAKIN_SUPERSTEPS = 64, 16, 30
+ANAKIN_WARM, ANAKIN_SYNC_CHECKED = 5, 10
 ANAKIN_PROFILED = 1     # ~38,000 launches for the profiler
 
 
@@ -3237,27 +3252,28 @@ def check_sharded_cross(out: dict) -> None:
     assert out["streams_1"]["weight_max_ulps"] <= 2, out
 
 
-def _gather_row(torch, rg, ring, idx_sets, n: int) -> dict:
+def _gather_row(torch, rg, ring, idx_sets, n: int, w: int = WINDOW,
+                rowb: int = ROWB) -> dict:
     """B1 at one shape: the first index set against the plain version
     (bitwise), then all 8 cycled (cold windows) for the kernel, the plain
     version and ``index_select``, device and host ms."""
     dev = ring.device
     idx = idx_sets[0]
-    got = rg.gather_windows(idx, ring, n=n, w=WINDOW, rowb=ROWB)
-    want = rg.gather_windows_plain(idx, ring, n=n, w=WINDOW, rowb=ROWB)
+    got = rg.gather_windows(idx, ring, n=n, w=w, rowb=rowb)
+    want = rg.gather_windows_plain(idx, ring, n=n, w=w, rowb=rowb)
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, want)
     del got, want
-    ring2d = ring.view(-1, ROWB // 4)
-    lib_rows = [(i.long()[:, None] + torch.arange(WINDOW, device=dev)
+    ring2d = ring.view(-1, rowb // 4)
+    lib_rows = [(i.long()[:, None] + torch.arange(w, device=dev)
                  ).reshape(-1) for i in idx_sets]
     ms, host_ms = time_ms(torch, lambda i: rg.gather_windows(
-        idx_sets[i % 8], ring, n=n, w=WINDOW, rowb=ROWB))
+        idx_sets[i % 8], ring, n=n, w=w, rowb=rowb))
     plain_ms = time_ms(torch, lambda i: rg.gather_windows_plain(
-        idx_sets[i % 8], ring, n=n, w=WINDOW, rowb=ROWB))[0]
+        idx_sets[i % 8], ring, n=n, w=w, rowb=rowb))[0]
     library_ms = time_ms(torch, lambda i: torch.index_select(
         ring2d, 0, lib_rows[i % 8]))[0]
-    nbytes = n * 4 + 2 * n * WINDOW * ROWB
+    nbytes = n * 4 + 2 * n * w * rowb
     return {"n": n, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
@@ -4225,7 +4241,13 @@ def check_bench_line(line: dict, keys: tuple) -> None:
     flight; no ingest or actor row lost; every inference and actor rate
     and p99 finite and above 0; the bucket census within the buckets;
     the health plane's sample and verdict times finite and above 0; B1
-    and B2 launched in the ingest curve and B2 in the actor curve."""
+    and B2 launched in the ingest curve and B2 in the actor curve.
+
+    The multi-process curve: every process count of the full run; at
+    each, every rate finite and above 0, the summed ingest above 0 and no
+    RPC crossed to another process's server; B1 and B2 launched in every
+    worker (``launches["multihost_<n>_<pid>"]``); the four linearity keys
+    finite."""
     from distributed_deep_q_tpu_torch import bench
     from distributed_deep_q_tpu_torch.config import InferenceConfig
 
@@ -4278,6 +4300,46 @@ def check_bench_line(line: dict, keys: tuple) -> None:
     ing, act = launches["ingest_curve"], launches["actor_curve"]
     assert ing["gather_windows"] > 0 and ing["scatter_rows"] > 0, ing
     assert act["scatter_rows"] > 0, act
+    mh = line["multihost_curve"]
+    assert set(mh) == {str(n) for n in cs.multihost_hosts}, mh
+    for n, pt in mh.items():
+        for k in ("steps_per_s", "wall_steps_per_s", "ingest_t_per_s"):
+            _positive(f"multihost {n} {k}", pt[k])
+        assert pt["cross_host_replay_rpcs"] == 0, (n, pt)
+        for pid in range(int(n)):
+            w = launches.get(f"multihost_{n}_{pid}", {})
+            assert w.get("gather_windows", 0) > 0 \
+                and w.get("scatter_rows", 0) > 0, (n, pid, w)
+    for k in ("multihost_linearity_2x", "multihost_linearity_4x",
+              "multihost_linearity_2x_spread",
+              "multihost_linearity_4x_spread"):
+        v = line[k]
+        assert isinstance(v, (int, float)) and math.isfinite(v), (k, v)
+
+
+def p18_mh_worker(argv: list[str]) -> int:
+    """``chip_smoke.py --phase18-mh-worker DIR WORKER ARGS``: one process
+    of the bench's multi-process curve (``bench_multihost_worker.main``
+    on WORKER ARGS), with the first ``P18_CHECKED`` launches of each
+    B1/B2 shape (its fused dispatches' gathers, its drain's flushes) held
+    against the plain versions, keys ending in ``@multihost_<n>_<pid>``;
+    writes the checks to ``DIR/multihost_<n>_<pid>.json``."""
+    import torch
+
+    from distributed_deep_q_tpu_torch import bench_multihost_worker
+    from distributed_deep_q_tpu_torch.ops import ring_gather as rg
+    from distributed_deep_q_tpu_torch.parallel import learner as learner_mod
+    from distributed_deep_q_tpu_torch.replay import device_per
+
+    out_dir, args = argv[0], argv[1:]
+    tag = f"multihost_{args[1]}_{args[0]}"
+    with KernelChecks(torch, rg, [learner_mod], [device_per],
+                      limit=P18_CHECKED) as chk:
+        chk.scope = tag
+        code = bench_multihost_worker.main(args)
+    with open(os.path.join(out_dir, f"{tag}.json"), "w") as f:
+        json.dump(chk.verdict(), f)
+    return code
 
 
 def p18_bench_worker(argv: list[str], sizes=None) -> int:
@@ -4286,9 +4348,14 @@ def p18_bench_worker(argv: list[str], sizes=None) -> int:
     follow; its one line goes to stdout) in a process of its own, with
     the first ``P18_CHECKED`` launches of each B1/B2 shape in each row
     (the frame rings', the sequence ring's, the ingest curve's drain
-    flushes and dispatches, the actor curve's 10×10 ring) held against
-    the plain versions; writes the checks to OUT. ``sizes`` goes to
-    ``bench.main`` (the tests' small run)."""
+    flushes and dispatches, the actor curve's 10×10 ring, the
+    ``--trace-ingest`` mode's) held against the plain versions; the
+    multi-process curve's workers are ``--phase18-mh-worker`` processes,
+    which check their own launches the same way. Writes the checks, the
+    workers' merged in, to OUT. ``sizes`` goes to ``bench.main`` (the
+    tests' small run)."""
+    import shutil
+
     import torch
 
     from distributed_deep_q_tpu_torch import bench
@@ -4313,58 +4380,288 @@ def p18_bench_worker(argv: list[str], sizes=None) -> int:
         finally:
             chk.scope = None
 
+    mh_dir = argv[0] + ".workers"
+    shutil.rmtree(mh_dir, ignore_errors=True)
+    os.makedirs(mh_dir)
+    mh_worker = bench.MULTIHOST_WORKER
     with KernelChecks(torch, rg, [learner_mod, seq_learner_mod],
                       [device_per, device_sequence],
                       limit=P18_CHECKED) as chk:
         bench.counted = scoped
+        bench.MULTIHOST_WORKER = [sys.executable, os.path.abspath(__file__),
+                                  "--phase18-mh-worker", mh_dir]
         try:
             code = bench.main(argv[1:] or ["--quick"], sizes=sizes)
         finally:
             bench.counted = counted
+            bench.MULTIHOST_WORKER = mh_worker
+    verdict = chk.verdict()
+    for name in sorted(os.listdir(mh_dir)):
+        with open(os.path.join(mh_dir, name)) as f:
+            worker = json.load(f)
+        verdict["shapes"].update(worker["shapes"])
+        verdict["all_bitwise"] = (verdict["all_bitwise"]
+                                  and worker["all_bitwise"])
     with open(argv[0], "w") as f:
-        json.dump(chk.verdict(), f)
+        json.dump(verdict, f)
     return code
+
+
+# the --trace-ingest line's keys (the root bench.py's, and the port's
+# launches) and the stages its attribution must hold: the learner's
+# dispatch and draw, and the drain's flushes
+P18_TRACE_KEYS = {"metric", "wall_s", "steps_per_s", "achieved_t_per_s",
+                  "trace_path", "spans_dropped", "stage_self_ms", "launches"}
+P18_TRACE_STAGES = {"train_step", "sample", "ingest_drain", "lock_hold"}
+# the elasticity bench's keys (scripts/bench_elasticity.py's)
+P18_ELASTICITY_KEYS = {
+    "handoff_export_ms", "handoff_import_ms", "handoff_rows",
+    "elasticity_spread", "fleet_size", "remap_fraction_grow",
+    "remap_fraction_shrink", "tenant_swap_us", "shadow_overhead_pct",
+    "executor_apply_us", "tenant_spread"}
+
+
+def p18_child(argv: list[str], tag: str, timeout: float) -> tuple[dict,
+                                                                  float]:
+    """One phase-18 child process: its stderr to ``p18_<tag>.stderr``, its
+    exit code 0, its one stdout line parsed; (line, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, f"p18_{tag}.stderr"), "w") as f:
+        f.write(proc.stderr)
+    assert proc.returncode == 0, (
+        f"{tag} rc={proc.returncode}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 1, lines
+    return json.loads(lines[0]), seconds
+
+
+def check_trace_ingest_line(line: dict) -> None:
+    """``bench --trace-ingest``'s line: its keys, rates above 0, the
+    learner's and the drain's stages attributed, no span dropped, B1 and
+    B2 launched."""
+    assert set(line) == P18_TRACE_KEYS, set(line) ^ P18_TRACE_KEYS
+    assert line["metric"] == "ingest_attribution", line["metric"]
+    for k in ("wall_s", "steps_per_s", "achieved_t_per_s"):
+        _positive(f"trace_ingest {k}", line[k])
+    stages = line["stage_self_ms"]
+    assert P18_TRACE_STAGES <= set(stages), stages
+    assert line["spans_dropped"] == 0, line["spans_dropped"]
+    assert line["launches"]["gather_windows"] > 0 \
+        and line["launches"]["scatter_rows"] > 0, line["launches"]
+
+
+def check_elasticity_line(line: dict) -> None:
+    """The elasticity bench's line: the reference's keys, times and
+    fractions finite, every handed-off row counted."""
+    assert set(line) == P18_ELASTICITY_KEYS, set(line) ^ P18_ELASTICITY_KEYS
+    for k in ("handoff_export_ms", "handoff_import_ms", "tenant_swap_us",
+              "executor_apply_us"):
+        _positive(f"elasticity {k}", line[k])
+    for k in ("remap_fraction_grow", "remap_fraction_shrink"):
+        assert 0 < line[k] < 1, (k, line[k])
+
+
+def _p18_gather_row(torch, rg, ring, n: int, w: int, rowb: int) -> dict:
+    """B1 at (n, w, rowb) on ``ring`` (``_gather_row``) over 8 sets of
+    random window starts anywhere in the ring."""
+    dev, rows = ring.device, ring.numel() // (rowb // 4)
+    gen = torch.Generator(device=dev).manual_seed(n * 31 + w)
+    sets = [torch.randint(0, rows - w + 1, (n,), dtype=torch.int32,
+                          device=dev, generator=gen) for _ in range(8)]
+    return dict(_gather_row(torch, rg, ring, sets, n, w=w, rowb=rowb),
+                w=w, rowb=rowb, ring_MB=ring.numel() * 4 / 1e6)
+
+
+def _p18_scatter_row(torch, rg, ring, n: int, real: int, rowb: int,
+                     skip: int) -> dict:
+    """B2 at ``n`` lanes of ``rowb`` bytes, the first ``real`` to distinct
+    random rows of ``ring`` and the rest aimed at the scratch row
+    ``skip``, as a flush builds them: bitwise against the plain version
+    (outside the skip row, which the kernel leaves), then timed beside it
+    and ``index_copy_`` of the real lanes; bytes are the real rows read
+    and written and the two index vectors."""
+    dev, rowp = ring.device, rowb // 4
+    rows = ring.numel() // rowp
+    gen = torch.Generator(device=dev).manual_seed(n * 7 + real)
+    staged = torch.randint(-2**31, 2**31 - 1, (n * rowp,),
+                           dtype=torch.int32, device=dev, generator=gen)
+    src = torch.arange(n, dtype=torch.int32, device=dev)
+    dst = torch.full((n,), skip, dtype=torch.int32, device=dev)
+    targets = torch.randperm(rows - 1, device=dev, generator=gen)[:real]
+    dst[:real] = torch.where(targets >= skip, targets + 1, targets).to(
+        torch.int32)
+    plain = ring.clone()
+    rg.scatter_rows(src, dst, staged, ring, n=n, rowb=rowb, skip_row=skip)
+    rg.scatter_rows_plain(src, dst, staged, plain, n=n, rowb=rowb)
+    r2, p2 = ring.view(-1, rowp), plain.view(-1, rowp)
+    err = max(max_abs_err(torch, r2[:skip], p2[:skip]),
+              max_abs_err(torch, r2[skip + 1:], p2[skip + 1:]))
+    del plain, p2
+    dst_l = dst[:real].long()
+    rows_src = staged.view(-1, rowp)[:real]
+    ms, host_ms = time_ms(torch, lambda i: rg.scatter_rows(
+        src, dst, staged, ring, n=n, rowb=rowb, skip_row=skip))
+    plain_ms = time_ms(torch, lambda i: rg.scatter_rows_plain(
+        src, dst, staged, ring, n=n, rowb=rowb))[0]
+    library_ms = time_ms(torch, lambda i: r2.index_copy_(
+        0, dst_l, rows_src))[0]
+    nbytes = 2 * real * rowb + 2 * n * 4
+    return {"lanes": n, "real_lanes": real, "rowb": rowb,
+            "ring_MB": ring.numel() * 4 / 1e6, "max_abs_err": err, "ms": ms,
+            "host_ms": host_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bytes": nbytes,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def p18_kernel_rows(torch, rg, checks: dict, actor_envs: int) -> dict:
+    """B1 and B2 at the shapes phase 18's multi-process workers launched
+    (process 0's at each process count, read from their checks), each on
+    a ring of that process's geometry (the worker's replay holding D / N
+    of its D shards), and B2 at the actor curve's flush shape on that
+    curve's ring (``actor_envs`` streams): bitwise against the plain
+    versions, then timed (CUDA events over ``ITERS`` launches) beside the
+    plain versions and the library calls, with each byte bound."""
+    from distributed_deep_q_tpu_torch import bench_multihost_worker as mhw
+    from distributed_deep_q_tpu_torch import config
+    from distributed_deep_q_tpu_torch.replay.device_per import (
+        DevicePERFrameReplay)
+
+    def shapes(scope: str) -> dict:
+        out: dict = {}
+        for key, rec in checks["shapes"].items():
+            name, rest = key.split(" ", 1)
+            shape, _, where = rest.partition(" @")
+            if where == scope:
+                dims = tuple(int(x) for x in shape.strip("()").split(","))
+                out.setdefault(name, []).append((dims, rec))
+        return out
+
+    dev = torch.device("cuda", 0)
+    res: dict = {"multihost": {}}
+    for n in sorted({int(k.rsplit("_", 2)[1]) for k in checks["shapes"]
+                     if "@multihost_" in k}):
+        cfg = mhw.config(0, n, "0", "cuda")
+        replay = DevicePERFrameReplay(
+            cfg.replay, dev, mhw.FRAME, stack=4, gamma=0.99, seed=0,
+            write_chunk=mhw.WRITE_CHUNK, num_streams=mhw.STREAMS,
+            num_shards=mhw.DEVICES,
+            local_shards=list(range(mhw.DEVICES // n)))
+        ring = replay.dstate["frames"]
+        skip = replay.shard_rows - 1          # shard 0's scratch row
+        got = shapes(f"multihost_{n}_0")
+        res["multihost"][str(n)] = {
+            "gather": [_p18_gather_row(torch, rg, ring, *dims)
+                       for dims, _ in got.get("gather_windows", [])],
+            "scatter": [_p18_scatter_row(
+                torch, rg, ring, dims[0], max(rec["real_lanes"]), dims[1],
+                skip) for dims, rec in got.get("scatter_rows", [])]}
+        del replay, ring
+        torch.cuda.empty_cache()
+    replay = DevicePERFrameReplay(
+        config.ReplayConfig(capacity=8192, batch_size=32, prioritized=True,
+                            device_per=True),
+        dev, (10, 10), stack=2, gamma=0.99, seed=0, write_chunk=64,
+        num_streams=actor_envs)
+    ring = replay.dstate["frames"]
+    res["actor_flush"] = [
+        _p18_scatter_row(torch, rg, ring, dims[0], max(rec["real_lanes"]),
+                         dims[1], replay.shard_rows - 1)
+        for dims, rec in shapes("actor_curve").get("scatter_rows", [])]
+    del replay, ring
+    torch.cuda.empty_cache()
+    return res
 
 
 def run_phase18() -> dict:
     """18: the bench's ``--quick`` command line in a ``--phase18-worker``
     child process (its rings, 8.19 GB for the flagship, are freed when it
-    exits), its one line parsed and checked, and its B1/B2 checks against
-    the plain versions read; the launches of all its rows summed per
-    kernel."""
+    exits; its multi-process curve's workers are children of it), its one
+    line parsed and checked, and its B1/B2 checks against the plain
+    versions read, the workers' among them; the launches of all its rows
+    summed per kernel, and the multi-process curve's alone. Then, each in
+    a child process: ``bench --trace-ingest --quick`` (under the same
+    checks), its line checked and its shard read by the port's
+    ``trace_report --strict``; and ``bench_elasticity`` at 2 repeats."""
     from distributed_deep_q_tpu_torch import bench
 
     res = os.path.join(OUT_DIR, "p18_checks.json")
     with contextlib.suppress(FileNotFoundError):
         os.remove(res)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    line, seconds = p18_child(
         [sys.executable, os.path.abspath(__file__), "--phase18-worker", res],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        timeout=P18_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
-    with open(os.path.join(OUT_DIR, "p18_bench.stderr"), "w") as f:
-        f.write(proc.stderr)
-    assert proc.returncode == 0, (
-        f"bench rc={proc.returncode}\n{proc.stderr[-3000:]}")
-    lines = proc.stdout.splitlines()
-    assert len(lines) == 1, lines
-    line = json.loads(lines[0])
+        "bench", P18_TIMEOUT_S)
     check_bench_line(line, bench.KEPT + tuple(bench.PORT_ONLY))
     launches: dict[str, int] = {}
-    for row in line["launches"].values():
+    multihost: dict[str, int] = {}
+    for name, row in line["launches"].items():
         for k, n in row.items():
             launches[k] = launches.get(k, 0) + n
+            if name.startswith("multihost_"):
+                multihost[k] = multihost.get(k, 0) + n
     with open(res) as f:
         checks = json.load(f)
     log(f"[18] bench --quick: {seconds:.1f} s; {json.dumps(line)}")
-    log(f"[18] launches {json.dumps(launches)}; {nvidia_smi_line()}")
+    log(f"[18] launches {json.dumps(launches)}; multi-process curve "
+        f"{json.dumps(multihost)}; {nvidia_smi_line()}")
+
+    # --trace-ingest, under the same checks, its shard into OUT_DIR
+    trace_dir = os.path.join(OUT_DIR, "p18_traces")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    tres = os.path.join(OUT_DIR, "p18_trace_checks.json")
+    trace, trace_s = p18_child(
+        [sys.executable, os.path.abspath(__file__), "--phase18-worker", tres,
+         "--trace-ingest", "--quick", "--trace-dir", trace_dir],
+        "trace_ingest", P18_TIMEOUT_S)
+    check_trace_ingest_line(trace)
+    with open(tres) as f:
+        tchecks = json.load(f)
+    checks["shapes"].update(tchecks["shapes"])
+    checks["all_bitwise"] = checks["all_bitwise"] and tchecks["all_bitwise"]
+    report = subprocess.run(
+        [sys.executable, "-m", "distributed_deep_q_tpu_torch.trace_report",
+         trace["trace_path"], "--strict", "--wall", str(trace["wall_s"]),
+         "--out", os.path.join(trace_dir, "merged.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        timeout=120)
+    with open(os.path.join(OUT_DIR, "p18_trace_report.txt"), "w") as f:
+        f.write(report.stdout + report.stderr)
+    assert report.returncode == 0, report.stdout[-3000:] + report.stderr
+    log(f"[18] bench --trace-ingest --quick: {trace_s:.1f} s; "
+        f"{json.dumps(trace)}; trace_report --strict: exit 0")
+
+    elastic, elastic_s = p18_child(
+        [sys.executable, "-m", "distributed_deep_q_tpu_torch.bench_elasticity",
+         "--repeats", "2", "--tenant-repeats", "1"], "elasticity", 120)
+    check_elasticity_line(elastic)
+    log(f"[18] bench_elasticity: {elastic_s:.1f} s; {json.dumps(elastic)}")
+
     log(f"[18] B1/B2 against the plain versions: {json.dumps(checks)}")
     kinds = {k.split()[0] for k in checks["shapes"]}
     assert kinds == {"gather_windows", "scatter_rows"}, checks
+    workers = {f"multihost_{n}_{pid}" for n in bench.QUICK.curves.
+               multihost_hosts for pid in range(n)}
+    scopes = {k.rsplit("@", 1)[-1] for k in checks["shapes"] if "@" in k}
+    assert workers | {"trace_ingest"} <= scopes, scopes
     assert checks["all_bitwise"], checks
+
+    import torch
+
+    from distributed_deep_q_tpu_torch.ops import ring_gather as rg
+    kernel_rows = p18_kernel_rows(torch, rg, checks,
+                                  min(bench.QUICK.curves.envs))
+    log(f"[18] B1/B2 at the workers' and the actor flush's shapes: "
+        f"{json.dumps(kernel_rows)}")
+    for part in [*kernel_rows["multihost"].values(),
+                 {"scatter": kernel_rows["actor_flush"]}]:
+        for row in [*part.get("gather", []), *part["scatter"]]:
+            assert row["max_abs_err"] == 0, row
     return {"line": line, "seconds": seconds, "launches": launches,
-            "checks": checks}
+            "multihost_launches": multihost, "checks": checks,
+            "trace_ingest": trace, "elasticity": elastic,
+            "kernel_rows": kernel_rows}
 
 
 def phase18_only() -> int:
@@ -5139,7 +5436,10 @@ def main() -> int:
                "18 bench": p18["launches"],
                **{f"18 bench {row}": p18["line"]["launches"][row]
                   for row in ("ingest_curve", "actor_curve",
-                              "inference_curve")}}
+                              "inference_curve")},
+               "18 bench multihost_curve (every worker)":
+                   p18["multihost_launches"],
+               "18 bench --trace-ingest": p18["trace_ingest"]["launches"]}
     # phases 17 and 18's B1/B2 launches held against the plain versions
     for row in kernels[:2]:
         def mine(shapes: dict) -> dict:
@@ -5161,6 +5461,20 @@ def main() -> int:
         shape="n=512 w=6 rowb=8192 (n-step 2)",
         launches=p17["launches"]["17f"]["gather_windows"],
         path="phase 17f (pixel fleet soak, 64 streams)")
+    # phase 18's multi-process workers' shapes (process 0's at each
+    # count; the launches are every worker's) and the actor curve's flush
+    kr, p18_launches = p18["kernel_rows"], p18["line"]["launches"]
+    for row, part in ((kernels[0], "gather"), (kernels[1], "scatter")):
+        row["multihost_workers"] = {
+            n: [dict(r, launches=[p18_launches[f"multihost_{n}_{pid}"][
+                row["name"]] for pid in range(int(n))],
+                path=f"phase 18 (bench multihost_curve, {n} processes)")
+                for r in rows[part]]
+            for n, rows in kr["multihost"].items()}
+    kernels[1]["actor_flush"] = [
+        dict(r, launches=p18_launches["actor_curve"]["scatter_rows"],
+             path="phase 18 (bench actor_curve)")
+        for r in kr["actor_flush"]]
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
@@ -5189,6 +5503,8 @@ if __name__ == "__main__":
             code = p17_soak_worker(sys.argv[2:])
         elif sys.argv[1:2] == ["--phase18-worker"]:
             code = p18_bench_worker(sys.argv[2:])
+        elif sys.argv[1:2] == ["--phase18-mh-worker"]:
+            code = p18_mh_worker(sys.argv[2:])
         elif sys.argv[1:2] == ["--phase16-worker"]:
             code = p16_worker(sys.argv[2:])
         else:

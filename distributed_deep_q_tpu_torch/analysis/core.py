@@ -41,7 +41,8 @@ PACKAGE = "distributed_deep_q_tpu_torch"
 # report and the bench, each run as
 # ``python -m distributed_deep_q_tpu_torch.<tool>``
 TOOL_MODULES = ("chaos_smoke.py", "fleet_smoke.py", "telemetry_report.py",
-                "bench.py")
+                "bench.py", "bench_multihost_worker.py", "bench_diff.py",
+                "trace_report.py", "bench_elasticity.py")
 
 _PRAGMA = re.compile(r"#\s*ddq:\s*allow\(([^)]*)\)")
 

@@ -134,6 +134,17 @@ STAGED_ROWS_CAP = 32_768
 # the flagship ring's streams, filled at prefill and by one ingest writer
 # each
 WRITERS = 4
+# the multi-process curve: its global ingest target (transitions/s, split
+# over the processes), each point's time limit, and the worker's command,
+# which its arguments follow (chip_smoke.py's phase 18 points it at a
+# wrapper that holds each worker's launches against the plain versions)
+MULTIHOST_INGEST_TARGET = 16_384
+MULTIHOST_TIMEOUT_S = 120.0
+MULTIHOST_WORKER = [sys.executable, "-m",
+                    "distributed_deep_q_tpu_torch.bench_multihost_worker"]
+# each process's output of the last multi-process curve run in this
+# process, by process count (the tests read the assigned gids there)
+LAST_MULTIHOST: dict[str, list[dict]] = {}
 
 # the reference's keys this module prints, in the line's order
 KEPT = (
@@ -154,6 +165,8 @@ KEPT = (
     "flagship_batch", "prioritized", "flagship_per",
     "flagship_under_ingest_steps_per_s", "under_ingest_spread",
     "ingest_transitions_per_s", "ingest_curve", "concurrent_writers",
+    "multihost_curve", "multihost_linearity_2x", "multihost_linearity_4x",
+    "multihost_linearity_2x_spread", "multihost_linearity_4x_spread",
     "health_sample_us", "health_verdict_us", "health_disabled_us",
     "health_spread",
     "learn_off_steps_per_s", "learn_off_spread", "learn_on_steps_per_s",
@@ -164,11 +177,6 @@ KEPT = (
 
 # the reference's keys this module does not print, and why
 NOT_PORTED = {
-    **{k: "ROADMAP item 3b: the multi-process curve "
-          "(scripts/_bench_multihost_worker.py)"
-       for k in ("multihost_curve", "multihost_linearity_2x",
-                 "multihost_linearity_4x", "multihost_linearity_2x_spread",
-                 "multihost_linearity_4x_spread")},
     **{f"{p}train_{op}": "no counterpart: a census of XLA's compiled "
                          "program (fusions, convolutions, copies); the "
                          "port's launches per row are in 'launches'"
@@ -229,6 +237,13 @@ class CurveSizes:
     curve_s: float           # each inference / actor point's timed window
     health_iters: int        # calls per health rep
     health_reps: int
+    # the multi-process curve's process counts and each worker's depth:
+    # reps, each rep's target seconds, and settle dispatches (that many
+    # reps' worth, plus 2)
+    multihost_hosts: tuple[int, ...] = (1, 2, 4)
+    multihost_reps: int = 5
+    multihost_rep_s: float = 2.0
+    multihost_settle_reps: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,7 +290,9 @@ QUICK = dataclasses.replace(
     r2d2=dataclasses.replace(FULL.r2d2, iters_host=1, iters_dev=8),
     curves=dataclasses.replace(FULL.curves, ingest_warmup=0,
                                ingest_settle_s=0.5, curve_s=1.2,
-                               health_iters=500, health_reps=3))
+                               health_iters=500, health_reps=3,
+                               multihost_reps=2, multihost_rep_s=0.5,
+                               multihost_settle_reps=0))
 # --device cpu: the reference's own CPU sizes
 CPU = Sizes(batch=BATCH, flag_batch=128, chain=4, b32_chain=8,
             idle_capacity=65_536, flag_capacity=131_072,
@@ -344,7 +361,8 @@ def _release() -> None:
 def build(cfg_mod, *, capacity: int, batch: int, prioritized: bool,
           pallas: bool, num_streams: int = 1, prefill: int = 40_000,
           seed: int = 0, device_per: bool = False,
-          learn_metrics: bool = False, device: str = "cuda"):
+          learn_metrics: bool = False, device: str = "cuda",
+          write_chunk: int = 1024):
     """Construct (solver, replay) for one row and prefill the ring."""
     from distributed_deep_q_tpu_torch.replay.device_per import (
         DevicePERFrameReplay)
@@ -360,7 +378,8 @@ def build(cfg_mod, *, capacity: int, batch: int, prioritized: bool,
                                     use_pallas_loss=pallas,
                                     learn_metrics=learn_metrics)
     cfg.replay = cfg_mod.ReplayConfig(
-        capacity=capacity, batch_size=batch, n_step=3, write_chunk=1024,
+        capacity=capacity, batch_size=batch, n_step=3,
+        write_chunk=write_chunk,
         prioritized=prioritized, device_per=device_per)
     cfg.mesh.backend = device
 
@@ -846,6 +865,108 @@ def ingest_curve(solver, replay, sz: Sizes, chain: int) -> dict:
     return out
 
 
+def _multihost_curve(device: str, cs: CurveSizes, launches: dict) -> dict:
+    """The multi-process curve: ``MULTIHOST_WORKER`` started at each of
+    ``cs.multihost_hosts`` process counts (``bench_multihost_worker``'s
+    docstring has the design) and each point aggregated as the reference
+    does. Rates and spread come from process 0 (the collectives keep every
+    process's window the same wall interval); ingest and the cross-process
+    RPC ledger sum over the processes. Each worker's kernel launches go to
+    ``launches["multihost_<n>_<pid>"]``. A worker that exits non-zero, or
+    whose writers died, raises; one still running after
+    ``MULTIHOST_TIMEOUT_S`` is killed, as are its peers."""
+    import os
+    import socket
+    import tempfile
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    depth = ["--device", device, "--reps", str(cs.multihost_reps),
+             "--rep-s", str(cs.multihost_rep_s),
+             "--settle-reps", str(cs.multihost_settle_reps)]
+    curve: dict = {}
+    LAST_MULTIHOST.clear()
+    for n in cs.multihost_hosts:
+        with socket.socket() as s:  # a free port for process 0's group
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        tmp = tempfile.mkdtemp(prefix=f"bench-mh{n}-")
+        outs = [os.path.join(tmp, f"host{pid}.json") for pid in range(n)]
+        # stderr to files, not pipes: a worker stuck in a collective must
+        # not also wedge a sibling blocked writing to a full pipe
+        errp = [os.path.join(tmp, f"host{pid}.stderr") for pid in range(n)]
+        err_fhs = [open(e, "wb") for e in errp]
+        procs = [subprocess.Popen(
+            MULTIHOST_WORKER + [str(pid), str(n), str(port), outs[pid],
+                                str(MULTIHOST_INGEST_TARGET)] + depth,
+            cwd=root, stdout=subprocess.DEVNULL, stderr=err_fhs[pid])
+            for pid in range(n)]
+        try:
+            deadline = time.monotonic() + MULTIHOST_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+        finally:
+            for p in procs:  # one hung collective must not leak the rest
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for fh in err_fhs:
+                fh.close()
+        for pid, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(errp[pid], "rb") as fh:
+                    err = fh.read()
+                raise RuntimeError(
+                    f"multihost worker {pid}/{n} rc={p.returncode}:\n"
+                    + err.decode(errors="replace")[-2000:])
+        hosts = []
+        for o in outs:
+            with open(o) as fh:
+                hosts.append(json.load(fh))
+        for h in hosts:
+            if h.get("writer_errors"):
+                raise RuntimeError(
+                    f"multihost n={n}: host {h['pid']} writer thread "
+                    f"died mid-run: {h['writer_errors']}")
+            launches[f"multihost_{n}_{h['pid']}"] = h["launches"]
+        LAST_MULTIHOST[str(n)] = hosts
+        rates = hosts[0]["rates"]
+        wall = float(np.median(rates))
+        point = {
+            "n_hosts": n,
+            # the aggregate plane throughput: the headline
+            "steps_per_s": round(wall * n, 2),
+            "wall_steps_per_s": round(wall, 2),
+            "spread": round((max(rates) - min(rates)) / wall, 4),
+            "ingest_t_per_s": round(sum(h["ingest_t_per_s"]
+                                        for h in hosts), 1),
+            "cross_host_replay_rpcs": sum(h["foreign_actor_calls"]
+                                          for h in hosts),
+            "dispatch_k": hosts[0]["dispatch_k"],
+        }
+        note(f"multihost n={n}: {point['steps_per_s']} agg steps/s "
+             f"(wall {point['wall_steps_per_s']}, "
+             f"spread {point['spread']})")
+        curve[str(n)] = point
+    return curve
+
+
+def multihost_keys(curve: dict) -> dict:
+    """``multihost_curve`` and the linearity ratios against one process,
+    with their spreads (a ratio's spread is, to first order, the sum of
+    its two points'); a ratio whose process count was not run is null."""
+    base = curve["1"]
+    pts = {n: curve.get(str(n)) for n in (2, 4)}
+    out = {"multihost_curve": curve}
+    for n, pt in pts.items():
+        out[f"multihost_linearity_{n}x"] = (
+            round(pt["steps_per_s"] / base["steps_per_s"], 2)
+            if pt else None)
+    for n, pt in pts.items():
+        out[f"multihost_linearity_{n}x_spread"] = (
+            round(base["spread"] + pt["spread"], 4) if pt else None)
+    return out
+
+
 def bench_inference(cfg_mod, device: str, cs: CurveSizes, out: dict) -> None:
     """The batched inference plane: actions/s and p99 reply latency
     against client count, beside the same client count running their own
@@ -1201,6 +1322,117 @@ def _health_overhead(reps: int = 5, iters: int = 2000) -> dict:
         health.reset()
 
 
+# --trace-ingest's shapes: the reference's accelerator shape (the
+# flagship's batch and chain cap on a 65,536-row ring) on the card, its
+# CPU smoke shape on the CPU; --quick cuts the window only
+TRACE_INGEST = {
+    "cuda": dict(batch=BATCH, chain=32, writers=4, capacity=65_536,
+                 prefill=20_000, window_s=8.0),
+    "cpu": dict(batch=32, chain=2, writers=2, capacity=16_384,
+                prefill=4_096, window_s=3.0),
+}
+TRACE_INGEST_QUICK_S = 2.0
+# the ring's write chunk under --trace-ingest (the drain's threshold): one
+# of run_writers' chunks
+TRACE_DRAIN_ROWS = 64
+
+
+def trace_ingest(cfg_mod, device: str, quick: bool = False,
+                 export_dir: str = "traces") -> dict:
+    """The ingest-attribution mode (``--trace-ingest``): a flagship-shaped
+    learner under ``run_writers``' paced ingest (``INGEST_TARGET``) through
+    the ring's ``IngestDrain``, with the tracer at sample rate 1. The
+    learner's dispatch, the writers' inserts and the drain's flushes
+    (each writer chunk, ``TRACE_DRAIN_ROWS``, wakes it) all take one
+    ``FairLock`` through ``tracing.locked``, and the learner's own
+    ``sample``/``train_step`` spans ride inside. After the timed
+    window the shard is exported to ``export_dir`` and each stage's self
+    time is summed over threads (``tracing.self_times``); the attribution
+    table goes to stderr. Returns the mode's one line: the reference's
+    keys, and ``launches`` (each kernel's launches over the whole mode)."""
+    shape = TRACE_INGEST[device]
+    batch, chain, writers = shape["batch"], shape["chain"], shape["writers"]
+    window_s = min(shape["window_s"], TRACE_INGEST_QUICK_S) if quick \
+        else shape["window_s"]
+    launches: dict = {}
+    tracing.configure(enabled=True, sample_rate=1.0, lineage_rate=0.2,
+                      buffer_spans=1 << 16, export_dir=export_dir)
+    try:
+        with counted(launches, "trace_ingest"):
+            note("trace_ingest: build + prefill")
+            # the ring's write chunk is one writer chunk, so each insert
+            # wakes the drain: at the flagship's 1,024 rows it would never
+            # run, since every dispatch first flushes the few chunks
+            # staged since the last
+            solver, replay = build(cfg_mod, capacity=shape["capacity"],
+                                   batch=batch, prioritized=True,
+                                   pallas=False, device_per=True,
+                                   num_streams=writers,
+                                   prefill=shape["prefill"], device=device,
+                                   write_chunk=TRACE_DRAIN_ROWS)
+            lock = FairLock()
+            # the production ingest shape: drained, not inline
+            replay.start_drain(lock)
+            stop = threading.Event()
+            threads: list[threading.Thread] = []
+            try:
+                def one_step():
+                    # the inner sample/train_step spans come from the
+                    # learner's dispatch (parallel/learner.py)
+                    with tracing.locked(lock):
+                        solver.train_steps_device_per(replay, chain=chain)
+
+                note("trace_ingest: warm-up")
+                for _ in range(2):
+                    one_step()
+                _fence(solver)
+                tracing.drain()  # warm-up spans stay out of the table
+                counter = [0] * writers
+                threads = run_writers(replay, lock, stop, counter, writers,
+                                      total_rate=INGEST_TARGET)
+                c0 = sum(counter)
+                note(f"trace_ingest: timed window ({window_s} s)")
+                t0 = time.perf_counter()
+                steps = 0
+                while time.perf_counter() - t0 < window_s:
+                    one_step()
+                    steps += chain
+                _fence(solver)  # completion, not enqueue
+                wall = time.perf_counter() - t0
+                ingest = (sum(counter) - c0) / wall
+            finally:
+                stop.set()
+                for th in threads:
+                    th.join(timeout=30.0)
+                replay.stop_drain()
+        path = tracing.export()  # drains the rings into the shard
+        dropped = tracing.drop_count()
+        events = []
+        if path:
+            with open(path) as fh:
+                events = [e for e in json.load(fh)["traceEvents"]
+                          if e.get("ph") == "X"]
+            print(tracing.attribution_table(events, wall_s=wall),
+                  file=sys.stderr, flush=True)
+        stage_ms: dict[str, float] = {}
+        for per_thread in tracing.self_times(events).values():
+            for name, us in per_thread["stages"].items():
+                stage_ms[name] = stage_ms.get(name, 0.0) + us / 1e3
+    finally:
+        tracing.disable()
+    return {
+        "metric": "ingest_attribution",
+        "wall_s": round(wall, 3),
+        "steps_per_s": round(steps / wall, 2),
+        "achieved_t_per_s": round(ingest, 1),
+        "trace_path": path,
+        "spans_dropped": dropped,
+        "stage_self_ms": {k: round(v, 3)
+                          for k, v in sorted(stage_ms.items())},
+        "launches": launches["trace_ingest"],
+    }
+
+
 def nvidia_smi_line() -> str | None:
     """``nvidia-smi``'s name and power limit of the card, or None."""
     try:
@@ -1334,6 +1566,12 @@ def run(device: str, sz: Sizes, quick: bool = False) -> dict:
     del solver, replay
     _release()
 
+    note("multihost_curve")
+    # separate learner processes, each with its own replay shards, feed
+    # server and writers; the one interaction is the gradient mean
+    out.update(multihost_keys(_multihost_curve(device, sz.curves,
+                                               launches)))
+
     note("health_overhead")
     out.update(_health_overhead(reps=sz.curves.health_reps,
                                 iters=sz.curves.health_iters))
@@ -1393,10 +1631,21 @@ def main(argv: list[str] | None = None, sizes: Sizes | None = None) -> int:
                     help="cut every row's depth (reps, rep length, "
                          "prefill); widths stay")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--trace-ingest", action="store_true",
+                    help="the ingest-attribution mode alone: one traced "
+                         "window under ingest, its own one line")
+    ap.add_argument("--trace-dir", default="traces",
+                    help="where --trace-ingest exports its shard")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (torch.cuda.is_available() is "
                            "false); pass --device cpu to run on the host")
+    if args.trace_ingest:
+        from distributed_deep_q_tpu_torch import config as cfg_mod
+
+        print(json.dumps(trace_ingest(cfg_mod, args.device, args.quick,
+                                      args.trace_dir)), flush=True)
+        return 0
     if sizes is None:
         sizes = CPU if args.device == "cpu" else (
             QUICK if args.quick else FULL)

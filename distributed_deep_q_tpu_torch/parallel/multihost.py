@@ -209,6 +209,18 @@ def all_processes_ready(local_ready: bool) -> bool:
     return bool(t.item())
 
 
+def global_max_int(value: int) -> int:
+    """MAX of a host integer over processes (the bench's multi-process
+    worker agrees its per-rep dispatch count with it, so every process
+    enters the train step's collectives the same number of times). A
+    collective: every process calls it at the same loop point. The
+    identity at one process."""
+    if not is_multiprocess():
+        return int(value)
+    t = torch.tensor([int(value)], dtype=torch.int64)
+    return int(all_reduce_(t, op="max").item())
+
+
 def local_rows(t: torch.Tensor) -> np.ndarray:
     """This process's rows of a per-row result, on the host: all of ``t``
     (see the module docstring)."""

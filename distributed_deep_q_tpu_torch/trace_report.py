@@ -1,0 +1,178 @@
+"""Merge per-process trace shards into one Perfetto-loadable trace and
+print the data-path attribution.
+
+    python -m distributed_deep_q_tpu_torch.trace_report \
+        traces/trace-*.json [--out FILE] [--wall S] [--strict]
+
+The port's copy of the reference's ``scripts/trace_report.py`` (port
+tools live in the port package), over the shards the port's ``tracing``
+exports. Its findings, its text and its exit codes are the reference's:
+
+- merges the Chrome trace-event shards ``tracing.export()`` wrote (one
+  per process), shifting each shard's timestamps by its recorded
+  ``skew_s`` so every event sits on the replay server's clock;
+- prints the per-(process, thread) SELF-time attribution table — each
+  stage's exclusive time, its share of thread wall time, and the
+  untraced residue, so "stages sum to ≈ wall" is checkable at a glance;
+- prints causal-integrity counters: orphan spans (a ``parent`` id found
+  in no shard — dropped or never exported), per-shard span drops, and
+  the clock-skew estimates applied;
+- ``--strict`` exits non-zero on orphans or drops (the chaos tool,
+  ``chaos_smoke.py``, uses the same orphan check as an assertion).
+
+Stdlib-only, like the tracer itself: the port's ``tracing.py`` is loaded
+directly by file path, so reading a trace imports no torch (running it
+with ``-m`` imports the package's ``__init__``, which imports none
+either).
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import importlib.util
+import json
+import os
+import sys
+
+
+def _load_tracing():
+    """Load the port's ``tracing.py`` (beside this file) by path, without
+    importing anything of the package: the attribution helpers are
+    shared with ``bench --trace-ingest``, not duplicated here."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tracing.py")
+    spec = importlib.util.spec_from_file_location("_ddq_torch_tracing",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_shards(paths: list[str]) -> list[dict]:
+    """Parse shard files; raises ValueError naming the bad file."""
+    docs = []
+    for p in paths:
+        try:
+            with open(p) as fh:
+                doc = json.load(fh)
+        except (OSError, json.JSONDecodeError) as e:
+            raise ValueError(f"{p}: unreadable trace shard ({e})")
+        if "traceEvents" not in doc:
+            raise ValueError(f"{p}: no traceEvents key (not a trace shard)")
+        doc["_path"] = p
+        docs.append(doc)
+    return docs
+
+
+def merge_shards(docs: list[dict]) -> tuple[list[dict], list[dict]]:
+    """One event list on a common clock + per-shard info rows.
+
+    Each shard's ``otherData.skew_s`` is the offset of the SERVER clock
+    relative to that process (NTP-style, estimated from reply stamps), so
+    ``ts + skew_s`` puts the event on the server clock. The server's own
+    shard (and any process that never sampled skew) carries 0.0.
+    """
+    events: list[dict] = []
+    info: list[dict] = []
+    for doc in docs:
+        other = doc.get("otherData", {})
+        shift_us = float(other.get("skew_s", 0.0)) * 1e6
+        for ev in doc["traceEvents"]:
+            if ev.get("ph") in ("X", "i"):
+                ev = dict(ev, ts=ev["ts"] + shift_us)
+            events.append(ev)
+        info.append({
+            "path": doc["_path"],
+            "pid": other.get("pid"),
+            "skew_ms": round(float(other.get("skew_s", 0.0)) * 1e3, 3),
+            "spans_dropped": int(other.get("spans_dropped", 0)),
+            "events": sum(1 for e in doc["traceEvents"]
+                          if e.get("ph") in ("X", "i")),
+        })
+    return events, info
+
+
+def orphan_spans(events: list[dict]) -> list[dict]:
+    """Events whose ``parent`` id resolves to no exported span in ANY
+    shard. Cross-process parents are expected (a server-side span's
+    parent is the client's ``rpc_call`` span), so the id set spans the
+    whole merge; instants carry span id 0 and can never be parents."""
+    ids = {e["args"]["span"] for e in events
+           if e.get("ph") == "X" and "args" in e}
+    ids.discard(0)
+    return [e for e in events
+            if e.get("ph") in ("X", "i") and "args" in e
+            and e["args"].get("parent", 0) != 0
+            and e["args"]["parent"] not in ids]
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("shards", nargs="+",
+                    help="trace-<pid>.json shard files (or globs)")
+    ap.add_argument("--out", default=None,
+                    help="write the merged Perfetto JSON here "
+                         "(default: <dir of first shard>/merged.json)")
+    ap.add_argument("--wall", type=float, default=None,
+                    help="wall-clock seconds of the traced window, for "
+                         "the per-thread share column")
+    ap.add_argument("--strict", action="store_true",
+                    help="exit non-zero on orphan spans or span drops")
+    args = ap.parse_args(argv)
+
+    paths = sorted({p for pat in args.shards for p in glob.glob(pat)})
+    if not paths:
+        print("error: no shard files match", file=sys.stderr)
+        return 1
+    tracing = _load_tracing()
+    try:
+        docs = load_shards(paths)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    events, info = merge_shards(docs)
+    spans = [e for e in events if e.get("ph") == "X"]
+    orphans = orphan_spans(events)
+    dropped = sum(row["spans_dropped"] for row in info)
+
+    out_path = args.out or os.path.join(
+        os.path.dirname(paths[0]) or ".", "merged.json")
+    merged = {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "shards": [row["path"] for row in info],
+            "spans_dropped": dropped,
+            "orphan_spans": len(orphans),
+        },
+    }
+    with open(out_path, "w") as fh:
+        json.dump(merged, fh)
+
+    print("== shards ==")
+    for row in info:
+        print(f"  {row['path']}: pid={row['pid']} events={row['events']} "
+              f"skew={row['skew_ms']}ms dropped={row['spans_dropped']}")
+    stages = sorted({e["name"] for e in spans})
+    pids = sorted({e["pid"] for e in spans})
+    print(f"\n== coverage ==\n  {len(spans)} spans, "
+          f"{len(stages)} distinct stages across {len(pids)} process(es)")
+    print(f"  stages: {', '.join(stages) or '-'}")
+    print(f"\n== attribution (self time) ==")
+    print(tracing.attribution_table(events, wall_s=args.wall))
+    print(f"\n== causal integrity ==")
+    print(f"  orphan spans: {len(orphans)}")
+    for e in orphans[:10]:
+        print(f"    ! {e['name']} pid={e['pid']} tid={e['tid']} "
+              f"parent={e['args']['parent']}")
+    print(f"  spans dropped at record time: {dropped}")
+    print(f"\nmerged trace -> {out_path} (load in ui.perfetto.dev)")
+    if args.strict and (orphans or dropped):
+        print("strict: FAILED (orphans or drops present)", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

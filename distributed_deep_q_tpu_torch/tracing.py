@@ -28,7 +28,7 @@ Design constraints, in order:
    stamps riding a request/reply pair) measures the remaining
    cross-process offset, which corrects lineage birth stamps before
    they are sent and shifts exported shards at merge time
-   (``scripts/trace_report.py``).
+   (the port's ``trace_report.py``).
 
 **Sampling** is deterministic and counter-based (every k-th cycle, k
 from ``sample_rate``) rather than RNG-based: no random() call on the
@@ -470,7 +470,7 @@ def reset() -> None:
 
 def export(path: str | None = None) -> str | None:
     """Write this process's buffered events as one Chrome trace-event
-    JSON shard (Perfetto-loadable on its own; ``scripts/trace_report.py``
+    JSON shard (Perfetto-loadable on its own; the port's ``trace_report``
     merges shards and aligns clocks). Returns the path, or None when
     there was nothing to write."""
     events = drain()

@@ -64,10 +64,15 @@ TINY = bench.Sizes(
                          batch=4, lstm=16, compute_dtype="float32",
                          n_seqs=16, iters_host=1, iters_dev=2, reps=2,
                          chain=2),
-    # the CPU run's target, client and env counts; short windows
+    # the CPU run's target, client and env counts; short windows; the
+    # multi-process curve at 1 and 2 processes, 2 reps of the fewest
+    # dispatches a worker runs (3), no settle beyond its 2 dispatches
     curves=dataclasses.replace(bench.CPU.curves, ingest_warmup=1,
                                ingest_settle_s=0.2, curve_s=0.3,
-                               health_iters=20, health_reps=3))
+                               health_iters=20, health_reps=3,
+                               multihost_hosts=(1, 2), multihost_reps=2,
+                               multihost_rep_s=0.01,
+                               multihost_settle_reps=0))
 
 # the reference's keys this slice moved out of NOT_PORTED
 MOVED = {"flagship_under_ingest_steps_per_s", "under_ingest_spread",
@@ -75,7 +80,9 @@ MOVED = {"flagship_under_ingest_steps_per_s", "under_ingest_spread",
          "inference_curve", "inference_compiled_buckets",
          "inference_max_batch", "inference_cutoff_us", "inference_slo_ms",
          "actor_curve", "health_sample_us", "health_verdict_us",
-         "health_disabled_us", "health_spread"}
+         "health_disabled_us", "health_spread", "multihost_curve",
+         "multihost_linearity_2x", "multihost_linearity_4x",
+         "multihost_linearity_2x_spread", "multihost_linearity_4x_spread"}
 
 
 @pytest.fixture(autouse=True)
@@ -224,22 +231,23 @@ def test_one_line_whose_keys_with_not_ported_are_the_references(printed):
         "idle_uniform", "idle_fused", "batch32", "batch32_single_dispatch",
         "pallas_on", "r2d2_host", "r2d2_device", "r2d2_chained",
         "inference_curve", "actor_curve", "flagship", "ingest_curve",
+        "multihost_1_0", "multihost_2_0", "multihost_2_1",
         "learn_off", "learn_on"}
 
 
 def test_the_moved_keys_are_printed_and_no_longer_not_ported(printed):
-    """The ingest, inference and actor curves' and the health overhead's
-    keys are in the line under the reference's names, and only there."""
+    """The curves' (ingest, inference, actor, multi-process) and the
+    health overhead's keys are in the line under the reference's names,
+    and only there; what is left in ``NOT_PORTED`` has no counterpart
+    (no ROADMAP item ports it)."""
     line = json.loads(printed)
     assert MOVED <= _reference_keys()
     assert MOVED <= set(line), MOVED - set(line)
     assert MOVED <= set(bench.KEPT)
     assert not MOVED & set(bench.NOT_PORTED)
-    assert {v.split(":")[0] for v in bench.NOT_PORTED.values()
-            if v.startswith("ROADMAP")} == {"ROADMAP item 3b"}
-    assert all("multi-process curve" in v
-               for v in bench.NOT_PORTED.values()
-               if v.startswith("ROADMAP"))
+    assert all(v.startswith("no counterpart")
+               for v in bench.NOT_PORTED.values()), bench.NOT_PORTED
+    assert not any(k.startswith("multihost") for k in bench.NOT_PORTED)
 
 
 def test_ingest_curve_at_the_cpu_sizes(printed):
@@ -285,6 +293,83 @@ def test_inference_and_actor_curves_at_the_cpu_sizes(printed):
         assert pt["n_envs"] == int(n)
         assert pt["actions_per_s"] > 0 and pt["ingest_t_per_s"] > 0
     assert line["actor_rows_lost"] == 0
+
+
+def _reference_dict_keys(path: Path, func: str, name: str) -> set[str]:
+    """The keys of the dict literal assigned to ``name`` in ``func`` of
+    the file at ``path``."""
+    tree = ast.parse(path.read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == func)
+    for node in ast.walk(fn):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(isinstance(t, ast.Name) and t.id == name
+                        for t in node.targets)):
+            return {k.value for k in node.value.keys}
+    raise AssertionError(f"no {name} = {{...}} in {func}")
+
+
+def test_multihost_curve_at_one_and_two_processes(printed):
+    """The multi-process curve at 1 and 2 processes on the CPU: each
+    point's keys are the root ``bench.py``'s (``_multihost_curve``), its
+    rates and ingest above 0, no RPC crossed to another process's server,
+    each worker's fields are the reference worker's plus ``launches``
+    (the wrappers' counters: 0 on the CPU), and each worker served the
+    gids the reference's ``local_slice`` assigns it. The 4-process ratio
+    is null, its point not run."""
+    from distributed_deep_q_tpu.actors.assignment import (
+        local_slice as ref_local_slice)
+
+    line = json.loads(printed)
+    curve = line["multihost_curve"]
+    assert set(curve) == {"1", "2"}
+    want = _reference_dict_keys(REPO / "bench.py", "_multihost_curve",
+                                "point")
+    worker_keys = _reference_dict_keys(
+        REPO / "scripts" / "_bench_multihost_worker.py", "main", "out")
+    for n, pt in curve.items():
+        assert set(pt) == want, set(pt) ^ want
+        assert pt["n_hosts"] == int(n)
+        for k in ("steps_per_s", "wall_steps_per_s", "ingest_t_per_s"):
+            assert np.isfinite(pt[k]) and pt[k] > 0, (n, k, pt)
+        # the aggregate: process 0's wall rate × n (each rounded alone)
+        assert abs(pt["steps_per_s"] - pt["wall_steps_per_s"] * int(n)) \
+            <= 0.005 * (int(n) + 1)
+        assert pt["cross_host_replay_rpcs"] == 0
+        assert pt["dispatch_k"] >= 3
+        hosts = bench.LAST_MULTIHOST[n]
+        assert [h["pid"] for h in hosts] == list(range(int(n)))
+        for h in hosts:
+            assert set(h) == worker_keys | {"launches"}, set(h) ^ worker_keys
+            assert h["assigned_gids"] == ref_local_slice(
+                2 * int(n), int(n), h["pid"])
+            assert h["actor_ids_seen"] == [0, 1] and not h["writer_errors"]
+            assert len(h["rates"]) == TINY.curves.multihost_reps
+            assert h["launches"] == line["launches"][
+                f"multihost_{n}_{h['pid']}"]
+            assert set(h["launches"].values()) == {0}
+    assert line["multihost_linearity_2x"] == round(
+        curve["2"]["steps_per_s"] / curve["1"]["steps_per_s"], 2)
+    assert line["multihost_linearity_2x_spread"] == round(
+        curve["1"]["spread"] + curve["2"]["spread"], 4)
+    assert line["multihost_linearity_4x"] is None
+    assert line["multihost_linearity_4x_spread"] is None
+
+
+def test_bench_diff_of_the_cpu_line_against_itself(printed, tmp_path):
+    """``bench_diff`` on the CPU run's line against itself: every shared
+    metric within tolerance, no note, exit 0."""
+    from distributed_deep_q_tpu_torch import bench_diff
+
+    path = tmp_path / "line.json"
+    path.write_text(printed)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_diff.main([str(path), str(path)])
+    assert rc == 0, buf.getvalue()
+    text = buf.getvalue()
+    assert text.startswith("all ") and "0 regressed" in text, text
+    assert "launches" not in text and "note:" not in text
 
 
 def test_health_overhead_keys(printed):
@@ -553,11 +638,12 @@ def test_quick_cuts_depth_only():
         assert getattr(bench.QUICK, f) < getattr(bench.FULL, f), f
     for f in ("iters_host", "iters_dev"):
         assert getattr(bench.QUICK.r2d2, f) < getattr(bench.FULL.r2d2, f), f
-    for f in ("ingest_targets", "clients", "envs"):
+    for f in ("ingest_targets", "clients", "envs", "multihost_hosts"):
         assert getattr(bench.QUICK.curves, f) == getattr(bench.FULL.curves,
                                                          f), f
     for f in ("ingest_warmup", "ingest_settle_s", "curve_s", "health_iters",
-              "health_reps"):
+              "health_reps", "multihost_reps", "multihost_rep_s",
+              "multihost_settle_reps"):
         assert getattr(bench.QUICK.curves, f) < getattr(bench.FULL.curves,
                                                         f), f
 
@@ -587,9 +673,20 @@ def _card_line() -> dict:
         str(n): {"n_envs": n, "actions_per_s": 800.0,
                  "ingest_t_per_s": 790.0, "tick_p99_ms": 30.0, "sheds": 0,
                  "spread": 0.1} for n in cs.envs}
+    line["multihost_curve"] = {
+        str(n): {"n_hosts": n, "steps_per_s": 40.0 * n,
+                 "wall_steps_per_s": 40.0, "spread": 0.05,
+                 "ingest_t_per_s": 2_000.0, "cross_host_replay_rpcs": 0,
+                 "dispatch_k": 12} for n in cs.multihost_hosts}
+    line.update(multihost_linearity_2x=1.9, multihost_linearity_4x=3.5,
+                multihost_linearity_2x_spread=0.1,
+                multihost_linearity_4x_spread=0.1)
+    workers = [f"multihost_{n}_{pid}" for n in cs.multihost_hosts
+               for pid in range(n)]
     line["launches"] = {row: {k: 3 for k in PORT_KERNELS}
                         for row in ("flagship", "pallas_on",
-                                    "ingest_curve", "actor_curve")}
+                                    "ingest_curve", "actor_curve",
+                                    *workers)}
     line["launches"]["actor_curve"].update(gather_windows=0,
                                            fused_loss_fwd=0,
                                            fused_loss_bwd=0)
@@ -645,6 +742,24 @@ def _plant(line: dict, fault: str) -> None:
         line["launches"]["ingest_curve"]["scatter_rows"] = 0
     elif fault == "no_actor_scatter":
         line["launches"]["actor_curve"]["scatter_rows"] = 0
+    elif fault == "missing_host_point":
+        del line["multihost_curve"]["4"]
+    elif fault == "cross_host_rpc":
+        line["multihost_curve"]["2"]["cross_host_replay_rpcs"] = 1
+    elif fault == "zero_multihost_ingest":
+        line["multihost_curve"]["4"]["ingest_t_per_s"] = 0.0
+    elif fault == "zero_multihost_rate":
+        line["multihost_curve"]["1"]["wall_steps_per_s"] = 0.0
+    elif fault == "nan_linearity":
+        line["multihost_linearity_4x"] = float("nan")
+    elif fault == "null_linearity_spread":
+        line["multihost_linearity_2x_spread"] = None
+    elif fault == "no_worker_gather":
+        line["launches"]["multihost_4_3"]["gather_windows"] = 0
+    elif fault == "no_worker_scatter":
+        line["launches"]["multihost_2_1"]["scatter_rows"] = 0
+    elif fault == "missing_worker_row":
+        del line["launches"]["multihost_4_2"]
     else:
         raise ValueError(fault)
 
@@ -656,7 +771,10 @@ def _plant(line: dict, fault: str) -> None:
     "zero_under_ingest", "zero_inference_rate", "no_p99",
     "zero_actor_ingest", "lost_ingest_rows", "lost_actor_rows",
     "queue_over_cap", "too_many_buckets", "zero_health_sample",
-    "no_ingest_gather", "no_ingest_scatter", "no_actor_scatter"])
+    "no_ingest_gather", "no_ingest_scatter", "no_actor_scatter",
+    "missing_host_point", "cross_host_rpc", "zero_multihost_ingest",
+    "zero_multihost_rate", "nan_linearity", "null_linearity_spread",
+    "no_worker_gather", "no_worker_scatter", "missing_worker_row"])
 def test_phase18_check(fault):
     """``chip_smoke.py`` phase 18's check passes a line as the card gives
     it and fails each planted fault."""
@@ -719,5 +837,15 @@ def test_phase18_worker_checks_every_gather_and_scatter_shape(tmp_path,
         padded_row_bytes)
     assert by_row["actor_curve"] == {("scatter_rows",
                                       (2 * 64, padded_row_bytes(100)))}
+    # each multi-process worker (a --phase18-mh-worker child) checks its
+    # own dispatches' gathers and its drain's flushes of 36×36 rows
+    workers = {f"multihost_{n}_{pid}" for n in TINY.curves.multihost_hosts
+               for pid in range(n)}
+    assert workers <= set(by_row), set(by_row)
+    for w in workers:
+        assert {n for n, _ in by_row[w]} == {"gather_windows",
+                                             "scatter_rows"}, by_row[w]
+        assert {v[1] for n, v in by_row[w] if n == "scatter_rows"} == {
+            padded_row_bytes(36 * 36)}, by_row[w]
     for rec in checks["shapes"].values():
         assert 0 < rec["checked"] <= chip_smoke.P18_CHECKED, rec
