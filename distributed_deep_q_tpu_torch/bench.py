@@ -1,7 +1,10 @@
-"""Benchmark of the port: the learner rows, the ingest, inference and
-actor curves and the health plane's overhead of the root ``bench.py``.
+"""Benchmark of the port: the learner rows, the ingest, inference, actor
+and multi-process curves and the health plane's overhead of the root
+``bench.py``, and its ``--trace-ingest`` mode.
 
     python -m distributed_deep_q_tpu_torch.bench [--quick] [--device cuda|cpu]
+    python -m distributed_deep_q_tpu_torch.bench --trace-ingest [--quick]
+        [--device cuda|cpu] [--trace-dir DIR]
 
 Times the port's learner on the Nature-CNN solver (84×84×4 frames, 6
 actions, dueling, Double DQN, bfloat16) fed from a prefilled device ring,
@@ -56,6 +59,16 @@ The rows, each under the reference's keys:
   ``ReplayFeedServer``: actions/s, ingest transitions/s and the tick's
   p99 against env count; every acked row must land
   (``actor_rows_lost``).
+- the multi-process curve (``_multihost_curve``): ``MULTIHOST_WORKER``
+  (``bench_multihost_worker``) at 1, 2 and 4 learner processes joined over
+  gloo, the global workload fixed (4 replay shards, global batch 64, chain
+  8, 36×36 frames, the 16,384 t/s ingest target split over the
+  processes' writers); per point the aggregate grad steps/s (process 0's
+  wall rate × processes), the summed ingest and the RPCs that crossed to
+  another process's server (``cross_host_replay_rpcs``), and the
+  linearity ratios against one process. On the card every process takes
+  ``cuda:0``: the processes time-slice the one card as the reference's
+  time-slice the CPU cores.
 - ``health_*``: the health plane's ``sample``, ``verdict`` and disabled
   no-op, µs per call, on the host (``_health_overhead``).
 - ``mfu``: ``flops_per_step`` × ``idle_fused_steps_per_s`` (the whole
@@ -76,14 +89,19 @@ its spread (max − min)/median.
 
 ``--quick`` keeps every row's width (frames, batch, chain, ring
 capacities, the r2d2 ring's 512 sequences, the ingest targets and
-writers, the client and env counts) and cuts its depth only
+writers, the client, env and process counts) and cuts its depth only
 (``QUICK``): 2 reps of ~0.5 s, no warm-up dispatch (the calibration
 probe warms each row), at least 1 timed dispatch per rep, a 0.5 s
 settle, 16 probe steps, prefills of 8,192 (idle rings) and 16,384 rows
 (the flagship ring), 1 host and 8 ring steps per r2d2 rep; under ingest
 no warm-up dispatch and a 0.5 s settle (the full run: 2 and 3 s); 1.2 s
 windows for each inference and actor point (2.4 s); 3 health reps of
-500 calls (5 of 2,000).
+500 calls (5 of 2,000); 2 multi-process reps of ~0.5 s and no settle
+beyond 2 dispatches (5 of ~2 s after a rep's worth).
+
+``--trace-ingest`` runs the ingest-attribution mode alone
+(``trace_ingest``) and prints its own line; its shard goes to
+``--trace-dir``. ``--quick`` cuts its window only.
 
 ``--device cpu`` runs on the host at the reference's own CPU sizes
 (``CPU``: one ingest target of 1,024 t/s, 2 and 8 clients, 2, 8 and 32
@@ -93,7 +111,9 @@ raises: it never carries on on the CPU. Each row's kernel launches (the
 wrappers' counters, set to 0 before the row's build and read after its
 last rep) are in ``launches``: the ingest curve launches B1 per fused
 dispatch and B2 per flush, the actor curve B2 per flush, the inference
-curve none (its forward is cuBLAS).
+curve none (its forward is cuBLAS), each multi-process worker B1 per
+dispatch and B2 per flush (``multihost_<n>_<pid>``, counted in the
+worker).
 
 Reference keys this module does not print are in ``NOT_PORTED``, with the
 reason; the keys only the port prints are in ``PORT_ONLY``.
