@@ -30,7 +30,10 @@ settle and reps; the per-rep count agreed through
 ``multihost.global_max_int``), so the collectives of the train steps pair
 up across processes. Each dispatch runs under the feed server's replay
 lock and is followed by the reference's 10 ms yield, so the serve threads
-get the lock between dispatches; a rep ends in the device→host fence
+get the lock between dispatches; where a writer's RPC was queued at the
+release, the yield lasts until it is served (at most ``HANDOFF_S``: a
+loaded host need not wake its serve thread within 10 ms, and the lock is
+not granted in order). A rep ends in the device→host fence
 (``bench._fence``).
 
 The reference also agrees a lockstep flush round count before each
@@ -72,12 +75,17 @@ REPS = 5
 WRITER_ROWS = 256    # rows per writer RPC
 REP_S = 2.0          # each rep's target seconds (sizes its dispatch count)
 SETTLE_REPS = 1      # settle dispatches: this many reps' worth, plus 2
+YIELD_S = 0.01       # the reference's yield after each dispatch
+HANDOFF_S = 1.0      # the longest the yield waits for the queued writers
+WRITER_TIMEOUT_S = 120.0  # a writer's RPC deadline (the client's: 30 s)
 
 
 def _writer(client, stop, rate_tps: float, seed: int, counter, ci: int,
-            errs: list):
+            errs: list, rpcs: list):
     """Paced RPC writer for one local stream: frames, actions and rewards
-    from the stream's own rng, short episodes so slots seal steadily."""
+    from the stream's own rng, short episodes so slots seal steadily.
+    ``rpcs[ci]`` is ``[in flight, RPCs done]``, which the dispatch loop
+    reads to hand the lock over."""
     rng = np.random.default_rng(seed)
     # big batches: the dispatch loop holds the replay lock for most of a
     # step, so each yield between dispatches admits about one RPC per
@@ -92,12 +100,16 @@ def _writer(client, stop, rate_tps: float, seed: int, counter, ci: int,
             "reward": rng.standard_normal(rows).astype(np.float32),
             "done": (rng.random(rows) < 1 / 9).astype(bool),
         }
+        rpcs[ci][0] = True
         try:
             resp = client.add_transitions(**batch)
         except Exception:
             if not stop.is_set():  # teardown races are expected
                 errs.append(traceback.format_exc())
             return
+        finally:
+            rpcs[ci][0] = False
+            rpcs[ci][1] += 1
         if resp.get("ok"):
             counter[ci] += rows
         nxt += period
@@ -182,26 +194,37 @@ def run(pid: int, nproc: int, port: str, out_path: str, target_tps: float,
     gids = local_slice(fleet, nproc, pid)
     stop = threading.Event()
     counter = [0] * STREAMS
+    rpcs = [[False, 0] for _ in range(STREAMS)]
     errs: list[str] = []
     writers = []
     clients = []
     for s in range(STREAMS):
         client = ReplayFeedClient("127.0.0.1", server.address[1],
-                                  actor_id=s)
+                                  actor_id=s, timeout=WRITER_TIMEOUT_S)
         clients.append(client)
         th = threading.Thread(
             target=_writer, name=f"bench-mh-writer-{s}",
             args=(client, stop, target_tps / fleet, 5000 + gids[s],
-                  counter, s, errs), daemon=True)
+                  counter, s, errs, rpcs), daemon=True)
         th.start()
         writers.append(th)
 
     def dispatch() -> None:
         with server.replay_lock:
             solver.train_steps_device_per(replay, chain=CHAIN)
+        queued = [(i, done) for i, (busy, done) in enumerate(rpcs) if busy]
         # the reference's yield: the serve threads get the lock between
         # dispatches; charged to the measured wall time
-        time.sleep(0.01)
+        time.sleep(YIELD_S)
+        # the lock is not granted in order: a host too loaded to wake a
+        # queued serve thread within the yield would let this loop take it
+        # straight back, dispatch after dispatch, until the writers' RPCs
+        # time out. So the yield lasts until the writers that were queued
+        # at the release are served (at most HANDOFF_S)
+        deadline = time.perf_counter() + HANDOFF_S
+        while (any(rpcs[i][0] and rpcs[i][1] == done for i, done in queued)
+               and time.perf_counter() < deadline):
+            time.sleep(0.001)
 
     try:
         # warm-up, then calibration; the per-rep dispatch count must be
