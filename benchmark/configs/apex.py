@@ -1,4 +1,4 @@
-"""Builder of the ``apex`` configuration: the program's Ape-X learner
+"""The ``apex`` configuration, built: the program's Ape-X learner
 (``Solver`` over a ``DevicePERFrameReplay``), its seeded weights, and its
 ring filled through its actor streams from the seed. It also takes actor
 ingest: the writers' rows, their landing, and the check that every row a

@@ -1,4 +1,4 @@
-"""Builder of the ``r2d2`` configuration: the program's R2D2 learner
+"""The ``r2d2`` configuration, built: the program's R2D2 learner
 (``SequenceSolver`` over a ``DeviceSequenceReplay``), its seeded weights,
 and its sequence ring filled from the seed: sequence q's frame stream and
 metadata as ``benchmark.data`` makes them, handed over stacked, as an

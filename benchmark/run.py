@@ -4,7 +4,7 @@
         --trace <0|1>
 
 The cell (``BENCHMARK.json``'s ``workloads``) names a configuration, whose
-file under ``configs/`` names its builder, plain reference and counts, and
+file under ``configs/`` names its module, plain reference and counts, and
 a traffic mix, a data file under ``mixes/`` that ``traffic.py`` reads. The
 run builds the program's learner with weights and replay made from the
 seed, drives its first steps and keeps what the reference needs, warms up,

@@ -1,12 +1,12 @@
-"""What every configuration's builder shares: the program's configuration
+"""What every configuration module shares: the program's configuration
 from a preset and the file's sections, the seeded weights loaded into the
 program, the first steps driven through the window's own call with what
 the plain reference needs from them captured, and the comparison that
 decides ``correct``.
 
-A builder (``configs/<name>.py``) defines ``build(cfg, seed, device)``
-returning a ``System``: the program's solver and replay, filled, with
-``dispatch()`` the call the window repeats.
+A configuration module (``configs/<name>.py``) defines ``build(cfg,
+seed, device)`` returning a ``System``: the program's solver and replay,
+filled, with ``dispatch()`` the call the window repeats.
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ def test_top_level_keys_and_budget():
     assert SPEC["paths"] == ["benchmark"]
     rs = SPEC["run_seconds"]
     assert 1 <= rs <= 51
-    # a full check of 24 cells fits the driver's 43,200 seconds
+    # a full check of 24 cells fits in 43,200 seconds
     runs = 2 + 14 * 24
     assert runs * (rs + 60) + 24 * 2 * 90 + 1200 <= 43200
     four = sum(w["chips"] == 4 for w in SPEC["workloads"])
