@@ -83,8 +83,8 @@ class ApexSystem(system.System):
 
     # -- ingest ---------------------------------------------------------------
 
-    def start_ingest(self, lock) -> None:
-        self.replay.start_drain(lock)
+    def start_ingest(self) -> None:
+        self.replay.start_drain(self.lock)
 
     def stop_ingest(self) -> None:
         self.replay.stop_drain()

@@ -1,6 +1,6 @@
 """The ``r2d2`` configuration, built: the program's R2D2 learner
 (``SequenceSolver`` over a ``DeviceSequenceReplay``), its seeded weights,
-and its sequence ring filled from the seed: sequence q's frame stream and
+and its sequence replay filled from the seed: sequence q's frame stream and
 metadata as ``benchmark.data`` makes them, handed over stacked, as an
 actor's ``SequenceBuilder`` hands them.
 """
@@ -15,8 +15,9 @@ from benchmark.reference import r2d2 as reference
 
 
 def fill_counts(cfg: dict) -> list:
-    """The fill writes every sequence the ring holds."""
-    return [cfg["replay"]["sequences"]]
+    """The fill writes ``fill_sequences`` sequences into the first slots
+    of a replay that holds ``replay.sequences``."""
+    return [min(cfg["fill_sequences"], cfg["replay"]["sequences"])]
 
 
 class R2d2System(system.System):
@@ -42,9 +43,10 @@ class R2d2System(system.System):
             seed=seed, write_chunk=rp["write_chunk"])
 
     def fill_ring(self, block: int = 64) -> None:
-        """Every sequence, ``block`` streams made on the device at a time."""
+        """``fill_counts`` sequences, ``block`` streams made on the device
+        at a time."""
         rp, stack = self.cfg["replay"], self.cfg["net"]["stack"]
-        n, W = rp["sequences"], (stack - 1) + rp["sequence_length"] + 1
+        n, W = fill_counts(self.cfg)[0], (stack - 1) + rp["sequence_length"] + 1
         row_len = self.hw[0] * self.hw[1]
         for q0 in range(0, n, block):
             q = torch.arange(q0, min(q0 + block, n), device=self.device)

@@ -38,8 +38,7 @@ def reading(cfg: dict, seed: int, mode: str, device) -> dict:
     reference = system.load_module("reference", cfg["reference"])
     builder = system.load_module("configs", cfg["builder"])
     fill = builder.fill_counts(cfg)
-    chain = int(cfg["replay"]["fused_chain"])
-    plan = [(1, 1), (2, 2), (chain, 1)]
+    plan = common.plan_for(cfg)
     kw = {}
     if mode == "control":
         kw["prec"] = "fp8"
@@ -48,8 +47,7 @@ def reading(cfg: dict, seed: int, mode: str, device) -> dict:
     else:
         kw["fault"] = mode
     cand = reference.run(cfg, seed, fill, device, plan, **kw)
-    ref = reference.run(cfg, seed, fill, device, plan,
-                        snapshots=cand["snapshots"], theta3=cand["theta3"])
+    ref = reference.run(cfg, seed, fill, device, plan, cand=cand)
     nums = common.follow_and_compare(ref, cand)
     nums.pop("quiet_leaves")
     return nums

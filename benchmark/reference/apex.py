@@ -18,7 +18,8 @@ their stream's written rows, and the transition is
 Each followed step is one Double-DQN step on 512 such transitions with
 their IS weights (Schaul et al. 2016): Q(s) from θ, argmax over θ(s'),
 bootstrap from θ⁻(s'), the weighted Huber loss, the global-norm clip and
-Adam, then the row priorities (|TD| + ε)^α. A dispatch draws every step's
+the configuration's optimizer (Ape-X's centered RMSProp), then the row
+priorities (|TD| + ε)^α. A dispatch draws every step's
 batch from the priorities as they stood at its start.
 """
 
@@ -124,7 +125,7 @@ def q_values(p: dict, frames: torch.Tensor, prec: str) -> torch.Tensor:
 
 def _loss(p: dict, tp: dict, batch: dict, weight: torch.Tensor,
           tcfg: dict, prec: str, fault: str | None = None):
-    """The weighted Huber loss of one Double-DQN step, |TD| and Q(s)."""
+    """The weighted Huber loss of one Double-DQN step and |TD|."""
     q = q_values(p, batch["obs"], prec)
     with torch.no_grad():
         a_star = q_values(p, batch["next_obs"], prec).argmax(dim=-1)
@@ -135,20 +136,7 @@ def _loss(p: dict, tp: dict, batch: dict, weight: torch.Tensor,
     per = weight * common.huber(td, tcfg["huber_delta"])
     if fault == "half_batch":
         per = per[:len(per) // 2]
-    return per.mean(), td.detach().abs(), q.detach()
-
-
-def train_step(p: dict, tp: dict, adam: common.Adam, batch: dict,
-               weight: torch.Tensor, tcfg: dict, prec: str,
-               fault: str | None):
-    """One Double-DQN step; returns (loss, clipped gradient, |TD|)."""
-    loss, td, _ = _loss(p, tp, batch, weight, tcfg, prec, fault)
-    names = list(p)
-    grads = dict(zip(names, torch.autograd.grad(loss, [p[k] for k in names])))
-    if fault == "frozen":
-        return float(loss.detach()), {k: torch.zeros_like(g) for k, g in
-                                      grads.items()}, td
-    return float(loss.detach()), adam.step(p, tp, grads), td
+    return per.mean(), td.detach().abs()
 
 
 class Model:
@@ -157,6 +145,7 @@ class Model:
     def __init__(self, cfg: dict, seed: int, fill: list, device):
         self.ring = Ring(cfg, seed, fill, device)
         self.tcfg = cfg["train"]
+        self.constants = cfg.get("optimizer_constants", {})
         self.p0 = data.make_weights(seed, param_spec(cfg), device)
         self.prio0 = self.ring.initial_priorities()
         self.valid = self.ring.valid
@@ -165,21 +154,17 @@ class Model:
     def batch(self, idx):
         return self.ring.transitions(idx, self.tcfg["gamma"])
 
-    def step(self, p, tp, adam, batch, w, prec, fault):
-        return train_step(p, tp, adam, batch, w, self.tcfg, prec, fault)
-
-    @torch.no_grad()
-    def loss(self, p, tp, batch, w, prec):
-        loss, _, q = _loss(p, tp, batch, w, self.tcfg, prec)
-        return {"loss": float(loss), "q_mean": float(q.mean()),
-                "q_abs": float(q.abs().mean())}
+    def step(self, p, tp, opt, batch, w, prec, fault):
+        return common.train_step(
+            lambda: _loss(p, tp, batch, w, self.tcfg, prec, fault),
+            p, tp, opt, fault)
 
 
 def run(cfg: dict, seed: int, fill: list, device, plan: list,
-        snapshots: list | None = None, theta3: dict | None = None,
-        prec: str = "f32", fault: str | None = None) -> dict:
+        cand: dict | None = None, prec: str = "f32",
+        fault: str | None = None) -> dict:
     """``common.follow`` over the ``apex`` learner's first dispatches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return common.follow(Model(cfg, seed, fill, device), seed,
-                         cfg["replay"], plan, snapshots, theta3, prec, fault)
+                         cfg["replay"], plan, cand, prec, fault)

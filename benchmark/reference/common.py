@@ -238,41 +238,54 @@ def value_rescale_inv(x, eps=1e-3):
                              / (2.0 * eps)) ** 2 - 1.0)
 
 
-class Adam:
-    """Adam (Kingma & Ba) after a global-norm clip, and the periodic target
-    copy, on dicts of float32 leaves."""
+class Optimizer:
+    """The global-norm clip, then Adam (Kingma & Ba) or centered RMSProp
+    (Graves 2013: ε inside the root, no momentum), and the periodic target
+    copy, on dicts of float32 leaves. ``stat`` is the optimizer's running
+    mean of the clipped gradients (Adam's first moment, RMSProp's mean
+    gradient): the gradient as the optimizer holds it."""
 
-    def __init__(self, params: dict, lr: float, eps: float, clip: float,
-                 target_period: int):
-        self.lr, self.eps, self.clip = lr, eps, clip
-        self.period = target_period
-        self.m = {k: torch.zeros_like(v) for k, v in params.items()}
+    def __init__(self, params: dict, tcfg: dict, constants: dict):
+        self.kind = tcfg["optimizer"]
+        if self.kind not in ("adam", "rmsprop"):
+            raise ValueError(f"unknown optimizer {self.kind!r}")
+        self.lr, self.clip = tcfg["lr"], tcfg["grad_clip_norm"]
+        self.period = tcfg["target_update_period"]
+        if self.kind == "adam":
+            self.eps = tcfg["adam_eps"]
+        else:
+            self.decay = constants["rmsprop_decay"]
+            self.eps = constants["rmsprop_eps"]
+        self.stat = {k: torch.zeros_like(v) for k, v in params.items()}
         self.v = {k: torch.zeros_like(v) for k, v in params.items()}
         self.count = 0
 
     @torch.no_grad()
-    def step(self, params: dict, target: dict, grads: dict) -> dict:
-        """Updates ``params`` and ``target`` in place; returns the clipped
-        gradient the moments took."""
+    def step(self, params: dict, target: dict, grads: dict) -> None:
+        """Updates ``params``, ``target`` and the state in place."""
         gnorm = math.sqrt(sum(float(g.double().square().sum())
                               for g in grads.values()))
         scale = min(1.0, self.clip / max(gnorm, 1e-12)) if self.clip > 0 \
             else 1.0
         self.count += 1
-        bc1 = 1.0 - ADAM_B1 ** self.count
-        bc2 = 1.0 - ADAM_B2 ** self.count
-        clipped = {}
         for k, p in params.items():
             g = grads[k] * scale
-            clipped[k] = g
-            self.m[k] = ADAM_B1 * self.m[k] + (1.0 - ADAM_B1) * g
-            self.v[k] = ADAM_B2 * self.v[k] + (1.0 - ADAM_B2) * g * g
-            p -= self.lr * (self.m[k] / bc1) / (torch.sqrt(self.v[k] / bc2)
-                                                + self.eps)
+            if self.kind == "adam":
+                self.stat[k] = ADAM_B1 * self.stat[k] + (1.0 - ADAM_B1) * g
+                self.v[k] = ADAM_B2 * self.v[k] + (1.0 - ADAM_B2) * g * g
+                bc1 = 1.0 - ADAM_B1 ** self.count
+                bc2 = 1.0 - ADAM_B2 ** self.count
+                p -= self.lr * (self.stat[k] / bc1) / (
+                    torch.sqrt(self.v[k] / bc2) + self.eps)
+            else:
+                d = self.decay
+                self.stat[k] = d * self.stat[k] + (1.0 - d) * g
+                self.v[k] = d * self.v[k] + (1.0 - d) * g * g
+                p -= self.lr * g / torch.sqrt(
+                    self.v[k] - self.stat[k] ** 2 + self.eps)
         if self.count % self.period == 0:
             for k in target:
                 target[k].copy_(params[k])
-        return clipped
 
 
 # -- comparing a candidate with the reference ---------------------------------
@@ -321,12 +334,14 @@ def written_priorities(rows: list, vals: list, cand: torch.Tensor):
 
 
 def priority_gap(cand: torch.Tensor, before: torch.Tensor, idx: np.ndarray,
-                 val: np.ndarray, alpha: float, eps: float) -> float:
+                 val: np.ndarray, alpha: float, eps: float,
+                 skip: np.ndarray | None = None) -> float:
     """The written priorities' gap in |TD| units: each priority p read
     back as p^(1/α) − ε, then ‖candidate − expected‖ / ‖expected‖ over the
-    rows written, where every row not written must still hold its value
-    from ``before``: a row that changed unwritten counts its whole change.
-    (Under the power α a small |TD|'s round-off would swell.)"""
+    rows written, where every row neither written nor in ``skip`` must
+    still hold its value from ``before``: a row that changed unwritten
+    counts its whole change. (Under the power α a small |TD|'s round-off
+    would swell.)"""
     def td(p):
         return torch.clamp(p.double().cpu(), min=0.0) ** (1.0 / alpha) - eps
 
@@ -334,121 +349,151 @@ def priority_gap(cand: torch.Tensor, before: torch.Tensor, idx: np.ndarray,
     i = torch.as_tensor(idx)
     expect[i] = torch.as_tensor(val)
     diff = td(cand) - td(expect)
+    if skip is not None and len(skip):
+        diff[torch.as_tensor(skip)] = 0.0
     return float(diff.norm() / torch.clamp(td(expect)[i].norm(), min=1e-30))
 
 
-def follow(model, seed: int, rp: dict, plan: list, snapshots=None,
-           theta3=None, prec: str = "f32", fault: str | None = None) -> dict:
-    """Follow the program's first dispatches, ``plan`` = ``[(chain, steps
-    followed), ...]``: steps 1, 2–3, and the first step of a dispatch at
-    the window's chain. Each dispatch draws its steps from the priorities
-    as they stood at its start.
+def plan_for(cfg: dict) -> list:
+    """The steps of each dispatch that set-up drives and the reference
+    follows: one at the window's chain, drawn from the fresh priorities,
+    then one of P mod chain steps (P the target period; chain where that
+    is 0), so that every later dispatch at the window's chain ends on a
+    step ≡ P, and step P, the first target refresh, ends one."""
+    chain = int(cfg["replay"]["fused_chain"])
+    return [chain, int(cfg["train"]["target_update_period"]) % chain
+            or chain]
 
-    Standing in for the program (``snapshots`` None: the control, or a
-    planted fault) it draws from its own priorities and returns its trace:
-    the losses of steps 1 and 4, the first clipped gradient's leaf norms,
-    the change's leaf norms after three steps, θ after three steps, and
-    the priorities before dispatches 2 and 3.
 
-    Judging a candidate it draws dispatch 2 from ``snapshots[0]`` and
-    dispatch 3 from ``snapshots[1]`` (the candidate's priorities), takes
-    step 4's loss from the candidate's θ after three steps (``theta3``)
-    with θ⁻ its own, and returns beside its own trace the gap of the
-    priorities step 1 wrote. Only step 1's draw is exact: its priorities
-    are all 1, so every partial sum of its CDF is an integer, whatever the
-    order of the sum; a float32 CUDA cumsum of a million other priorities
-    may round differently from one call to the next, and a draw near a
-    row's edge may land on its neighbour.
+def follow(model, seed: int, rp: dict, plan: list, cand: dict | None = None,
+           prec: str = "f32", fault: str | None = None) -> dict:
+    """Follow the program's first two dispatches, of ``plan`` steps each.
+    Each dispatch draws all its steps from the priorities as they stood at
+    its start.
 
-    ``model`` gives ``p0`` and ``prio0`` (the seeded weights and the fresh
+    The first runs at the window's chain from the fresh priorities, which
+    are all 1: every partial sum of the CDF is an integer, whatever the
+    order of the sum, so every draw is exact and every IS weight 1. The
+    second draws from the priorities the first wrote, with IS weights.
+
+    Standing in for the program (``cand`` None: the control, or a planted
+    fault) it returns its trace: every step's loss; after the first
+    dispatch the optimizer's mean gradient (``stat``), the change of θ,
+    θ itself and the priorities; the change of θ over the second.
+
+    Judging a candidate it also gives the gap of the priorities the first
+    dispatch wrote (``prio_gap``: the rows whose last write was its first
+    step, whose |TD| came from θ₀ alone; ``prio_all_gap``: every row, each
+    by its last write), then follows the second dispatch from the
+    candidate's θ and priorities, with its own optimizer state. A float32
+    CUDA cumsum over a million unequal priorities may round differently
+    from one call to the next, so a draw of the second dispatch near a
+    row's edge may land on its neighbour: what it compares is the change
+    of θ, to which one row in thousands adds little.
+
+    ``model`` gives ``p0``, ``prio0`` (the seeded weights and the fresh
     priorities), ``valid`` (the rows a draw may pick), ``n_live``,
-    ``batch(idx)``, ``step(p, tp, adam, batch, w, prec, fault)`` → (loss,
-    clipped gradient, |TD|) and ``loss(p, tp, batch, w, prec)`` → the
-    loss, and the mean and mean magnitude of the online Q it took."""
+    ``tcfg`` and ``constants`` (the optimizer's), ``batch(idx)`` and
+    ``step(p, tp, opt, batch, w, prec, fault)`` → (loss, the priority
+    base: |TD| or the sequence's mixed |TD|)."""
     alpha, eps, b = rp["priority_alpha"], rp["priority_eps"], \
         rp["batch_size"]
-    tcfg = model.tcfg
     p0 = model.p0
     p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
     tp = {k: v.clone() for k, v in p0.items()}
-    adam = Adam(p, tcfg["lr"], tcfg["adam_eps"], tcfg["grad_clip_norm"],
-                tcfg["target_update_period"])
+    opt = Optimizer(p, model.tcfg, model.constants)
     prio = model.prio0.clone()
-    out = {"losses": [], "losses_own": [], "snapshots": [], "prio_gap": 0.0}
-    step, rows, vals, before = 0, [], [], prio
-    for d, (chain, followed) in enumerate(plan):
-        if d > 0:
-            if snapshots is not None:
-                cand = snapshots[d - 1].to(prio.device)
-                if d == 1:
-                    written = written_priorities(rows, vals, cand)
-                    out["prio_gap"] = priority_gap(cand, before, *written,
-                                                   alpha, eps)
-                prio = cand.clone()
-            out["snapshots"].append(prio.clone())
-        before = prio.clone()
+    out = {"losses": [], "plan": list(plan)}
+    step, start = 0, p0
+    for d, n in enumerate(plan):
+        if d == 1:
+            if cand is not None:
+                c = cand["snapshot"].to(prio.device)
+                later = torch.cat(rows[1:]).unique().cpu().numpy() \
+                    if len(rows) > 1 else np.zeros(0, np.int64)
+                idx, val = written_priorities(rows[:1], vals[:1], c)
+                keep = ~np.isin(idx, later)
+                out["prio_gap"] = priority_gap(
+                    c, model.prio0, idx[keep], val[keep], alpha, eps,
+                    skip=later)
+                out["prio_all_gap"] = priority_gap(
+                    c, model.prio0, *written_priorities(rows, vals, c),
+                    alpha, eps)
+                prio = c.clone()
+                with torch.no_grad():
+                    for k in p:
+                        p[k].copy_(cand["theta1"][k].to(p[k].device))
+            out["snapshot"] = prio.detach().cpu().clone()
+            out["theta1"] = {k: v.detach().cpu().clone()
+                             for k, v in p.items()}
+            start = {k: v.detach().clone() for k, v in p.items()}
         pm = prio * model.valid
-        keys = step_keys(seed, step, followed)
-        u = torch.as_tensor(uniforms(keys, b), device=prio.device)
+        u = torch.as_tensor(uniforms(step_keys(seed, step, n), b),
+                            device=prio.device)
         rows, vals = [], []
-        for j in range(followed):
+        for j in range(n):
             step += 1
             beta = beta_at(step, rp["priority_beta0"],
                            rp["priority_beta_steps"])
             idx, w = prioritized_draw(pm, model.n_live, u[j], beta)
-            batch = model.batch(idx)
-            if step == 4:
-                # from θ after three steps: the candidate's when judging
-                use = theta3 if theta3 is not None else \
-                    {k: v.detach() for k, v in p.items()}
-                use = {k: v.to(prio.device) for k, v in use.items()}
-                r = model.loss(use, tp, batch, w, prec)
-                out["losses"].append(r["loss"])
-                out["q4"] = (r["q_mean"], r["q_abs"])
-                continue
-            loss, clipped, td = model.step(p, tp, adam, batch, w, prec,
-                                           fault)
-            out["losses_own"].append(loss)
-            if step == 1:
-                out["losses"].append(loss)
-                out["grad1"] = leaf_norms(clipped)
+            loss, td = model.step(p, tp, opt, model.batch(idx), w, prec,
+                                  fault)
+            out["losses"].append(loss)
             new = (td + eps) ** alpha
             prio[idx] = new
             rows.append(idx)
             vals.append(new)
-            if step == 3:
-                out["dtheta3"] = leaf_norms(
-                    {k: p[k].detach() - p0[k] for k in p})
-                out["theta3"] = {k: v.detach().cpu().clone()
-                                 for k, v in p.items()}
+        change = leaf_norms({k: p[k].detach() - start[k] for k in p})
+        if d == 0:
+            out["stat"] = leaf_norms(opt.stat)
+            out["dtheta1"] = change
+        else:
+            out["dtheta2"] = change
     return out
 
 
-NUMBERS = ("loss1_gap", "q4_gap", "grad1_gap", "dtheta3_gap", "prio_gap")
+def train_step(model_loss, p: dict, tp: dict, opt: Optimizer,
+               fault: str | None):
+    """One step from ``model_loss() → (loss, priority base)``: the
+    gradient, then the optimizer, unless the fault ``frozen`` leaves the
+    state unchanged. Returns (loss, priority base)."""
+    loss, base = model_loss()
+    names = list(p)
+    grads = dict(zip(names, torch.autograd.grad(loss, [p[k] for k in names])))
+    if fault != "frozen":
+        opt.step(p, tp, grads)
+    return float(loss.detach()), base
 
 
-def follow_and_compare(ref_trace: dict, cand: dict) -> dict:
+NUMBERS = ("loss1_gap", "grad_gap", "dtheta1_gap", "prio_gap",
+           "dtheta2_gap", "loss_last_gap", "loss2_gap", "prio_all_gap")
+
+
+def follow_and_compare(ref: dict, cand: dict) -> dict:
     """The compared numbers from the reference's trace and a candidate's:
-    step 1's relative loss gap; step 4's online Q mean (from the
-    candidate's own θ after three steps), its gap over the reference's
-    mean |Q|; the first clipped gradient's and the three-step change's
-    worst-leaf gaps; and step 1's priority gap. (Step 4's loss is logged,
-    not compared: its IS weights are normalized by the batch's largest,
-    so one draw that lands on a neighbour row of low priority rescales
-    them all. The Q mean takes every row once, unweighted.)"""
+    step 1's relative loss gap; the worst-leaf gaps of the optimizer's
+    mean gradient after the first dispatch and of θ's change over it and
+    over the second; the priority gaps; and, logged, the relative loss
+    gaps of the first dispatch's last step and of the second's first
+    (the latter's IS weights are normalized by the batch's largest, so
+    one draw that lands on a neighbour row of low priority rescales them
+    all). Leaves whose reference mean gradient is quiet are left out of
+    the changes."""
     def rel(c, r):
         return abs(c - r) / max(abs(r), 1e-30)
 
-    g_ref = ref_trace["grad1"]
-    quiet = quiet_leaves(g_ref)
+    quiet = quiet_leaves(ref["stat"])
+    n1 = ref["plan"][0]
     return {
-        "loss1_gap": rel(cand["losses"][0], ref_trace["losses"][0]),
-        "loss4_gap": rel(cand["losses"][1], ref_trace["losses"][1]),
-        "q4_gap": (abs(cand["q4"][0] - ref_trace["q4"][0])
-                   / max(ref_trace["q4"][1], 1e-30)),
-        "grad1_gap": worst_leaf_gap(cand["grad1"], g_ref),
-        "dtheta3_gap": worst_leaf_gap(cand["dtheta3"], ref_trace["dtheta3"],
+        "loss1_gap": rel(cand["losses"][0], ref["losses"][0]),
+        "loss_last_gap": rel(cand["losses"][n1 - 1], ref["losses"][n1 - 1]),
+        "loss2_gap": rel(cand["losses"][n1], ref["losses"][n1]),
+        "grad_gap": worst_leaf_gap(cand["stat"], ref["stat"]),
+        "dtheta1_gap": worst_leaf_gap(cand["dtheta1"], ref["dtheta1"],
                                       skip=quiet),
-        "prio_gap": ref_trace["prio_gap"],
+        "dtheta2_gap": worst_leaf_gap(cand["dtheta2"], ref["dtheta2"],
+                                      skip=quiet),
+        "prio_gap": ref["prio_gap"],
+        "prio_all_gap": ref["prio_all_gap"],
         "quiet_leaves": quiet,
     }

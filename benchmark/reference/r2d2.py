@@ -17,7 +17,8 @@ their maximum. For a drawn sequence of T steps (burn-in b):
 - Q over the window from θ, bootstraps from θ⁻ at the action θ picks one
   step on, targets h(r + γ_t·h⁻¹(Q⁻)), the masked Huber loss per sequence
   over its valid steps, weighted and averaged;
-- the global-norm clip and Adam, then each sequence's priority
+- the global-norm clip (where the configuration sets one) and Adam,
+  then each sequence's priority
   (η·max|TD| + (1−η)·mean|TD| + ε)^α.
 
 Only the window's first T−b steps take a gradient: the last step's Q
@@ -53,13 +54,13 @@ def sequence(cfg: dict, seed: int, q: int) -> dict:
 
 
 class Store:
-    """The sequences the fill wrote: metadata on ``device``, frames made on
-    demand."""
+    """The ``n`` sequences the fill wrote into the first slots of a replay
+    of ``capacity``: metadata on ``device``, frames made on demand."""
 
-    def __init__(self, cfg: dict, seed: int, device):
+    def __init__(self, cfg: dict, seed: int, n: int, device):
         rp, net = cfg["replay"], cfg["net"]
         self.cfg, self.seed, self.device = cfg, seed, torch.device(device)
-        self.n = rp["sequences"]
+        self.n, self.capacity = int(n), rp["sequences"]
         self.T, self.stack = rp["sequence_length"], net["stack"]
         self.W = (self.stack - 1) + self.T + 1
         self.hw = tuple(net["frame_shape"])
@@ -137,57 +138,42 @@ def _loss(p: dict, tp: dict, batch: dict, weight: torch.Tensor,
     a = td.detach().abs()
     eta = tcfg["priority_eta"]
     priority = eta * a.max(dim=1).values + (1.0 - eta) * a.sum(dim=1) / denom
-    return per.mean(), priority, q.detach()
-
-
-def train_step(p: dict, tp: dict, adam: common.Adam, batch: dict,
-               weight: torch.Tensor, cfg: dict, prec: str, lstm_prec: str,
-               fault: str | None):
-    """One R2D2 step; returns (loss, clipped gradient, priority)."""
-    loss, priority, _ = _loss(p, tp, batch, weight, cfg, prec, lstm_prec,
-                              fault)
-    names = list(p)
-    grads = dict(zip(names, torch.autograd.grad(loss, [p[k] for k in names])))
-    if fault == "frozen":
-        return float(loss.detach()), {k: torch.zeros_like(g) for k, g in
-                                      grads.items()}, priority
-    return float(loss.detach()), adam.step(p, tp, grads), priority
+    return per.mean(), priority
 
 
 class Model:
     """What ``common.follow`` needs of the ``r2d2`` learner."""
 
-    def __init__(self, cfg: dict, seed: int, device, lstm_prec: str):
+    def __init__(self, cfg: dict, seed: int, n: int, device,
+                 lstm_prec: str):
         self.cfg, self.lstm_prec = cfg, lstm_prec
-        self.store = Store(cfg, seed, device)
+        self.store = Store(cfg, seed, n, device)
         self.tcfg = cfg["train"]
+        self.constants = cfg.get("optimizer_constants", {})
         self.p0 = data.make_weights(seed, param_spec(cfg), device)
-        self.prio0 = torch.ones(self.store.n, device=self.store.device)
-        self.valid = torch.ones_like(self.prio0)
+        # fresh sequences enter at the running maximum 1, to the α: 1
+        self.prio0 = torch.zeros(self.store.capacity,
+                                 device=self.store.device)
+        self.prio0[:self.store.n] = 1.0
+        self.valid = (self.prio0 > 0).float()
         self.n_live = torch.tensor(float(self.store.n),
                                    device=self.store.device)
 
     def batch(self, idx):
         return self.store.batch(idx)
 
-    def step(self, p, tp, adam, batch, w, prec, fault):
-        return train_step(p, tp, adam, batch, w, self.cfg, prec,
-                          self.lstm_prec, fault)
-
-    @torch.no_grad()
-    def loss(self, p, tp, batch, w, prec):
-        loss, _, q = _loss(p, tp, batch, w, self.cfg, prec, self.lstm_prec)
-        return {"loss": float(loss), "q_mean": float(q.mean()),
-                "q_abs": float(q.abs().mean())}
+    def step(self, p, tp, opt, batch, w, prec, fault):
+        return common.train_step(
+            lambda: _loss(p, tp, batch, w, self.cfg, prec, self.lstm_prec,
+                          fault), p, tp, opt, fault)
 
 
 def run(cfg: dict, seed: int, fill, device, plan: list,
-        snapshots: list | None = None, theta3: dict | None = None,
-        prec: str = "f32", fault: str | None = None,
-        lstm_prec: str = "f32") -> dict:
+        cand: dict | None = None, prec: str = "f32",
+        fault: str | None = None, lstm_prec: str = "f32") -> dict:
     """``common.follow`` over the ``r2d2`` learner's first dispatches
-    (``fill`` is unused: the store holds every sequence)."""
+    (``fill``: the sequences filled, ``[n]``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return common.follow(Model(cfg, seed, device, lstm_prec), seed,
-                         cfg["replay"], plan, snapshots, theta3, prec, fault)
+    return common.follow(Model(cfg, seed, fill[0], device, lstm_prec), seed,
+                         cfg["replay"], plan, cand, prec, fault)

@@ -12,7 +12,9 @@ and measures one window. With ``--trace 0`` the result carries the cell's
 end-to-end metrics, with ``--trace 1`` its per-layer metrics, each read by
 ``metrics/<name>.py`` from the run and a profiled stretch of the window.
 Then the program is freed and the reference judges the first steps (and,
-under ingest, every row the writers counted): ``correct``.
+under ingest, every row the writers counted), and θ⁻ is held against θ
+at step P, the first target refresh, where the run reached it:
+``correct``.
 
 Standard output's last line is the result: ``correct``, ``attempted``,
 ``failed``, ``metrics``, ``device``, with ``--trace 1`` ``breakdown``, and
@@ -60,17 +62,13 @@ def find(entries: list, name: str) -> dict:
 
 
 def metric_entries(spec: dict, cell: str, per_layer: bool) -> list:
-    """The cell's metrics of one kind: an entry with ``workloads`` where it
-    lists the cell; a per-layer one without, where the cell reports the
-    end-to-end metric it moves."""
-    e2e = [m for m in spec["end_to_end"]
-           if "workloads" not in m or cell in m["workloads"]]
-    if not per_layer:
-        return e2e
-    names = {m["name"] for m in e2e}
-    return [m for m in spec["per_layer"]
-            if (cell in m["workloads"] if "workloads" in m
-                else m["moves"] in names)]
+    """The cell's metrics of one kind: an end-to-end one without
+    ``workloads`` in every cell, any other where its ``workloads`` lists
+    the cell (every per-layer entry lists its cells)."""
+    if per_layer:
+        return [m for m in spec["per_layer"] if cell in m["workloads"]]
+    return [m for m in spec["end_to_end"]
+            if "workloads" not in m or cell in m["workloads"]]
 
 
 def end_to_end(name: str, out, t_start: float):
@@ -126,6 +124,7 @@ def run_cell(spec: dict, cell: str, seed: int, seconds: float, traced: bool,
     sysm = builder.build(cfg, seed, dev)
     split["build_and_fill_s"] = time.perf_counter() - t
     t = time.perf_counter()
+    sysm.attach(bool(mix.get("ingest")))
     sysm.first_steps()
     split["first_steps_s"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -140,11 +139,14 @@ def run_cell(spec: dict, cell: str, seed: int, seconds: float, traced: bool,
                  if traced else end_to_end(m["name"], out, t_start))
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    checks, failed_chunks, chunks = [], 0, traffic.window_chunks(out)
+    # θ⁻ is a copy of θ: exact
+    checks = [("target_gap", sysm.target_gap(), 0.0)]
+    failed_chunks, chunks = 0, traffic.window_chunks(out)
     if out.writers is not None:
         wrong = sysm.rows_wrong(out.writers.counted, out.writers.first_t)
         checks.append(("ingest_rows_wrong", wrong, 0))
         failed_chunks = min(chunks, -(-wrong // out.writers.chunk))
+    refreshed = sysm.at_period is not None
     fill, plan, trace = sysm.fill, sysm.plan, sysm.trace
     reference = sysm.reference
     sysm.free()
@@ -152,6 +154,7 @@ def run_cell(spec: dict, cell: str, seed: int, seconds: float, traced: bool,
     judged, diag = system.judge(cfg, seed, fill, dev, plan, trace,
                                 reference)
     checks = judged + checks
+    diag["target_refresh_reached"] = refreshed
     correct = all(math.isfinite(v) and v <= lim for _, v, lim in checks)
     result = {
         "correct": bool(correct),

@@ -13,7 +13,7 @@ from benchmark import control, run
 from benchmark.tests import tiny
 from benchmark.tests.test_bench_cpu_runs import cpu_cfg
 
-SPEC = run.load_spec()
+SPEC = tiny.with_ingest(run.load_spec())
 
 
 def fails(nums: dict, cfg: dict) -> list:
@@ -86,19 +86,34 @@ def _altered_row(monkeypatch):
     monkeypatch.setattr(device_per, "insert_meta_pack", altered)
 
 
+def _no_refresh(monkeypatch):
+    """The target copy dropped: θ⁻ stays θ₀ at step P."""
+    from distributed_deep_q_tpu_torch.parallel import learner
+
+    adam = learner.fused_adam_target_step
+
+    def adam_no_target(cfg, grads, opt_state, params, target_params, *rest):
+        adam(cfg, grads, opt_state, params, None, *rest)
+
+    monkeypatch.setattr(learner, "refresh_target", lambda *a, **k: None)
+    monkeypatch.setattr(learner, "fused_adam_target_step", adam_no_target)
+
+
 FAULTS = {"frozen": _frozen_step, "half_batch": _half_batch,
-          "altered_row": _altered_row}
+          "altered_row": _altered_row, "no_refresh": _no_refresh}
 
 
 @pytest.mark.parametrize("cell,fault", [
     ("apex-fused", "frozen"), ("apex-fused", "half_batch"),
+    ("apex-fused", "no_refresh"), ("r2d2-ring", "no_refresh"),
     ("r2d2-ring", "frozen"), ("r2d2-ring", "half_batch"),
     ("apex-ingest", "frozen"), ("apex-ingest", "half_batch"),
     ("apex-ingest", "altered_row")])
 def test_a_broken_program_reads_not_correct(cell, fault, monkeypatch):
     """A whole run, the chip's look skipped, with the timed path broken
     underneath: ``correct`` comes out false. (One chip: no exchange
-    between chips to leave out.)"""
+    between chips to leave out. The tiny configurations' target period
+    puts step P in the warm-up, so a dropped refresh shows.)"""
     FAULTS[fault](monkeypatch)
     res = run.run_cell(SPEC, cell, 424242, 0.5, False, device="cpu",
                        cfg=cpu_cfg(cell))

@@ -57,27 +57,28 @@ def test_apex_count_is_the_references_step():
     p0 = data.make_weights(1, apex.param_spec(cfg), "cpu")
     p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
     tp = {k: v.clone() for k, v in p0.items()}
-    adam = common.Adam(p, 1e-4, 1e-4, 10.0, 100)
+    opt = common.Optimizer(p, cfg["train"], cfg["optimizer_constants"])
     frames = torch.randint(0, 255, (b, 4) + hw, dtype=torch.uint8)
     batch = {"obs": frames, "next_obs": frames.flip(0),
              "action": torch.zeros(b, dtype=torch.int64),
              "reward": torch.zeros(b), "discount": torch.ones(b)}
-    n = _counted(lambda: apex.train_step(p, tp, adam, batch, torch.ones(b),
-                                         cfg["train"], "f32", None))
+    n = _counted(lambda: common.train_step(
+        lambda: apex._loss(p, tp, batch, torch.ones(b), cfg["train"], "f32"),
+        p, tp, opt, None))
     assert n == apex_counts.flops_per_step(cfg)["bf16"]
 
 
 def test_r2d2_count_is_the_references_step():
     cfg = tiny.config("r2d2")
     rp = cfg["replay"]
-    store = r2d2.Store(cfg, 3, "cpu")
+    store = r2d2.Store(cfg, 3, cfg["fill_sequences"], "cpu")
     p0 = data.make_weights(3, r2d2.param_spec(cfg), "cpu")
     p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
     tp = {k: v.clone() for k, v in p0.items()}
-    adam = common.Adam(p, 1e-4, 1e-4, 10.0, 100)
+    opt = common.Optimizer(p, cfg["train"], {})
     batch = store.batch(torch.arange(rp["batch_size"]))
-    n = _counted(lambda: r2d2.train_step(
-        p, tp, adam, batch, torch.ones(rp["batch_size"]), cfg, "f32", "f32",
-        None))
+    n = _counted(lambda: common.train_step(
+        lambda: r2d2._loss(p, tp, batch, torch.ones(rp["batch_size"]), cfg,
+                           "f32", "f32"), p, tp, opt, None))
     f = r2d2_counts.flops_per_step(cfg)
     assert n == f["bf16"] + f["fp32"]

@@ -15,7 +15,7 @@ import pytest
 from benchmark import run, system
 from benchmark.tests import tiny
 
-SPEC = run.load_spec()
+SPEC = tiny.with_ingest(run.load_spec())
 CELLS = {w["name"]: w["config"] for w in SPEC["workloads"]}
 
 

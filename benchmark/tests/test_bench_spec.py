@@ -9,6 +9,7 @@ import re
 import pytest
 
 from benchmark import run, system
+from benchmark.tests import tiny
 
 SPEC = run.load_spec()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -87,13 +88,18 @@ def test_each_config_is_used_and_layer_names_agree():
     for m in SPEC["per_layer"]:
         layers.setdefault(m["layer"], set()).add(m["name"])
     assert set(layers) == {"learner dispatch", "device", "whole grad step",
-                           "kernels", "feed", "feed lock"}
+                           "kernels"}
 
 
 def test_ingest_metrics_only_in_the_ingest_cell():
-    for cell in CELLS:
-        e2e = {m["name"] for m in run.metric_entries(SPEC, cell, False)}
-        layer = {m["name"] for m in run.metric_entries(SPEC, cell, True)}
+    """The actor-ingest cell, added by its entries alone, reports the feed's
+    metrics, and no other cell does."""
+    spec = tiny.with_ingest(SPEC)
+    for cell in [w["name"] for w in spec["workloads"]]:
+        e2e = {m["name"] for m in run.metric_entries(spec, cell, False)}
+        layer = {m["name"] for m in run.metric_entries(spec, cell, True)}
         ingest = cell == "apex-ingest"
         assert ("ingest_transitions_per_s" in e2e) == ingest
         assert ("learner_lock_hold_ms" in layer) == ingest
+        for name in layer:
+            assert callable(system.load_module("metrics", name).read)

@@ -1,19 +1,22 @@
 """The one traffic generator: a mix (``mixes/<name>.json``) is data it
 reads.
 
-The learner's call is driven back to back, as a decoupled learner runs.
-A mix with an ``ingest`` section adds actor writers: ``writers`` threads,
-writer i streaming chunks of ``chunk_rows`` rows (made from the seed) into
-ring stream i, paced together to ``offered_per_s`` transitions/s through
-the ring's ``IngestDrain``, under one first-come lock that the learner's
-dispatch holds too. Pacing debt is forgiven (a writer held up re-anchors
-instead of bursting), a writer waits while more than ``staged_cap_rows``
-rows are staged, and every ``event_every``-th chunk it waits for the ring
-writes enqueued so far to complete on the card.
+The learner's dispatch is driven back to back through the program's own
+``FusedStepStream``, as its train loop drives it, one grad step's metrics
+at a time. A mix with an ``ingest`` section adds actor writers:
+``writers`` threads, writer i streaming chunks of ``chunk_rows`` rows
+(made from the seed) into ring stream i, paced together to
+``offered_per_s`` transitions/s through the ring's ``IngestDrain``, each
+chunk added under the program's replay lock (a ``threading.RLock``, as
+the ``ReplayFeedServer``'s serve threads add under theirs), which the
+stream's dispatch holds too. Pacing debt is forgiven (a writer held up
+re-anchors instead of bursting), a writer waits while more than
+``staged_cap_rows`` rows are staged, and every ``event_every``-th chunk
+it waits for the ring writes enqueued so far to complete on the card.
 
 The window opens and closes on a fence (the step counter read to the
-host). Set-up runs ``warmup_dispatches`` of the window's call first and,
-under ingest, ``settle_s`` seconds of it with the writers running.
+host). Set-up runs ``warmup_dispatches`` of the window's dispatch first
+and, under ingest, ``settle_s`` seconds of it with the writers running.
 """
 
 from __future__ import annotations
@@ -27,42 +30,11 @@ import torch
 from benchmark.trace import Stretch
 
 
-class FairLock:
-    """A mutual-exclusion lock granted in the order it was asked for, so a
-    learner that asks again right after releasing cannot starve the
-    writers queued on it."""
-
-    def __init__(self):
-        self._cv = threading.Condition(threading.Lock())
-        self._next = 0
-        self._serving = 0
-
-    def acquire(self) -> bool:
-        with self._cv:
-            ticket = self._next
-            self._next += 1
-            while ticket != self._serving:
-                self._cv.wait()
-        return True
-
-    def release(self) -> None:
-        with self._cv:
-            self._serving += 1
-            self._cv.notify_all()
-
-    def __enter__(self):
-        return self.acquire()
-
-    def __exit__(self, *exc) -> bool:
-        self.release()
-        return False
-
-
 class Writers:
     """The paced actor writers of an ``ingest`` section."""
 
-    def __init__(self, system, lock, ingest: dict):
-        self.system, self.lock = system, lock
+    def __init__(self, system, ingest: dict):
+        self.system, self.lock = system, system.lock
         self.n = int(ingest["writers"])
         self.chunk = int(ingest["chunk_rows"])
         self.cap = int(ingest["staged_cap_rows"])
@@ -138,8 +110,8 @@ class Outcome:
         self.steps = 0
         self.dispatches = 0
         self.losses: list = []
-        self.dispatch_s: list = []      # host seconds inside each call
-        self.lock_hold_s: list = []
+        self.dispatch_s: list = []      # host s of each dispatching call
+        self.lock_hold_s: list = []     # the learner's hold of the lock
         self.spans: list = []           # the learner's (name, t0, t1)
         self.t_open = self.t_close = 0.0
         self.landed = (0, 0)            # ring rows at the fences
@@ -151,8 +123,8 @@ class Outcome:
         self.setup_end = 0.0
 
 
-def _landed(system, lock) -> int:
-    with lock:
+def _landed(system) -> int:
+    with system.lock.inner:
         return system.landed_rows()
 
 
@@ -163,23 +135,20 @@ def run(system, mix: dict, seconds: float, traced: bool) -> Outcome:
     if ingest and not system.supports_ingest:
         raise ValueError(f"configuration {system.cfg['name']} takes no "
                          "actor ingest")
-    lock = FairLock() if ingest else None
-    hold = lock if lock is not None else contextlib.nullcontext()
     for _ in range(int(system.cfg["warmup_dispatches"])):
         system.dispatch()
     system.steps()
     writers = None
     if ingest:
-        system.start_ingest(lock)
-        writers = out.writers = Writers(system, lock, ingest)
-        base = _landed(system, lock)
+        system.start_ingest()
+        writers = out.writers = Writers(system, ingest)
+        base = _landed(system)
         if traced:
             _watch_flushes(system, out, base)
         writers.start()
         end = time.perf_counter() + float(ingest["settle_s"])
         while time.perf_counter() < end:
-            with hold:
-                system.dispatch()
+            system.dispatch()
         system.steps()
     # the profiler traces the card (a run on the CPU, in the tests, has no
     # stretch, and the readers of device metrics find nothing to read).
@@ -192,19 +161,19 @@ def run(system, mix: dict, seconds: float, traced: bool) -> Outcome:
         s0 = system.steps()
         t0 = out.t_open = time.perf_counter()
         if ingest:
-            out.landed = (_landed(system, lock), 0)
+            out.landed = (_landed(system), 0)
         while time.perf_counter() - t0 < seconds:
             if stretch_at is not None and \
                     time.perf_counter() - t0 >= stretch_at:
                 out.outside = (system.steps() - s0, time.perf_counter() - t0)
-                out.stretch = _stretch(system, out, hold, lock,
+                out.stretch = _stretch(system, out,
                                        int(mix.get("trace_dispatches", 4)))
                 break
-            _one(system, out, hold)
+            _one(system, out)
         s_end = system.steps()
         out.t_close = time.perf_counter()
         if ingest:
-            out.landed = (out.landed[0], _landed(system, lock))
+            out.landed = (out.landed[0], _landed(system))
     finally:
         if writers is not None:
             writers.stop()
@@ -224,33 +193,42 @@ def run(system, mix: dict, seconds: float, traced: bool) -> Outcome:
     return out
 
 
-def _one(system, out: Outcome, hold) -> None:
-    """One dispatch of the window's call under the lock."""
+def _one(system, out: Outcome) -> None:
+    """One dispatch through the stream, and the chain's per-step rows.
+    The host time of the dispatching call is kept net of the wait for the
+    replay lock, whose hold the lock itself timed."""
     t_ask = time.perf_counter()
-    with hold:
-        t_in = time.perf_counter()
-        m = system.dispatch()
-        t_out = time.perf_counter()
-    out.losses.append(m["loss"])
+    secs, losses = system.dispatch()
+    t_end = time.perf_counter()
+    wait = 0.0
+    if system.lock is not None:
+        asked, got, released = system.lock.holds[-1]
+        wait = got - asked
+        out.lock_hold_s.append(released - got)
+        out.spans += [("lock_wait", asked, got), ("dispatch", got, released),
+                      ("steps", released, t_end)]
+    else:
+        out.spans += [("dispatch", t_ask, t_ask + secs),
+                      ("steps", t_ask + secs, t_end)]
+    out.losses += losses
     out.dispatches += 1
-    out.dispatch_s.append(t_out - t_in)
-    out.lock_hold_s.append(t_out - t_in)
-    out.spans += [("lock_wait", t_ask, t_in), ("dispatch", t_in, t_out)]
+    out.dispatch_s.append(secs - wait)
 
 
-def _stretch(system, out: Outcome, hold, lock, n: int) -> Stretch:
+def _stretch(system, out: Outcome, n: int) -> Stretch:
     """``n`` dispatches under the profiler. Their steps count in the
     window; their host times do not."""
     st = Stretch()
-    with hold:
+    lock = system.lock
+    with (lock.inner if lock is not None else contextlib.nullcontext()):
         st.start()
         if lock is not None:
             out.stretch_landed = (system.landed_rows(), 0)
     keep = (list(out.dispatch_s), list(out.lock_hold_s))
     out.spans = []
     for _ in range(n):
-        _one(system, out, hold)
-    with hold:
+        _one(system, out)
+    with (lock.inner if lock is not None else contextlib.nullcontext()):
         st.close()
         if lock is not None:
             out.stretch_landed = (out.stretch_landed[0],
@@ -261,7 +239,7 @@ def _stretch(system, out: Outcome, hold, lock, n: int) -> Stretch:
 
 def _watch_flushes(system, out: Outcome, base: int) -> None:
     """Record when each flush of the ring returns and how many writer rows
-    have landed by then (a flush runs under the writers' lock)."""
+    have landed by then (a flush runs under the replay lock)."""
     replay = system.replay
     flush = replay.flush
 
@@ -302,5 +280,4 @@ def window_chunks(out: Outcome) -> int:
 def nonfinite_steps(out: Outcome) -> int:
     if not out.losses:
         return 0
-    return int((~torch.isfinite(torch.cat([x.reshape(-1)
-                                           for x in out.losses]))).sum())
+    return int((~torch.isfinite(torch.stack(out.losses))).sum())
