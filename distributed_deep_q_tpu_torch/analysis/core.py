@@ -38,11 +38,12 @@ from dataclasses import dataclass, field
 PACKAGE = "distributed_deep_q_tpu_torch"
 
 # package-relative: the chaos harness, the fleet soak, the telemetry
-# report and the bench, each run as
+# report, the bench and the dispatch split, each run as
 # ``python -m distributed_deep_q_tpu_torch.<tool>``
 TOOL_MODULES = ("chaos_smoke.py", "fleet_smoke.py", "telemetry_report.py",
                 "bench.py", "bench_multihost_worker.py", "bench_diff.py",
-                "trace_report.py", "bench_elasticity.py")
+                "trace_report.py", "bench_elasticity.py",
+                "dispatch_phases.py")
 
 _PRAGMA = re.compile(r"#\s*ddq:\s*allow\(([^)]*)\)")
 

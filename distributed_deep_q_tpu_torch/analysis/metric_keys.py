@@ -19,8 +19,9 @@ read under another). This pass pins the names:
   histogram`` — when a literal — must be declared too (covers bare
   names like ``grad_steps`` that carry no namespace).
 - Span/instant names at ``tracing.span/span_sampled/instant`` call
-  sites must exist in the tracer's ``STAGES``/``EVENTS`` tables (parsed
-  from ``tracing.py``'s AST, no import) →
+  sites must exist in the tracer's tables (parsed from ``tracing.py``'s
+  AST, no import): a span's in ``STAGES`` or the port's own
+  ``PORT_STAGES``, an instant's in ``EVENTS`` →
   ``metric_keys.unknown-span``.
 
 Dynamic keys (f-strings such as ``f"rpc/{m}_calls"``) are out of
@@ -50,8 +51,10 @@ _NS_RE = re.compile(r"^(?:%s)/.+" % "|".join(NAMESPACES))
 
 EMITTERS = frozenset(
     {"count", "gauge", "observe", "observe_many", "histogram"})
-SPAN_FNS = {"span": "STAGES", "span_sampled": "STAGES",
-            "instant": "EVENTS"}
+# each span function's name tables (any one of them holds a valid name)
+SPAN_FNS = {"span": ("STAGES", "PORT_STAGES"),
+            "span_sampled": ("STAGES", "PORT_STAGES"),
+            "instant": ("EVENTS",)}
 
 # every metric name that appears as a string literal — emit sites,
 # report-side reads, and registry-keyed tables. One source of truth;
@@ -222,9 +225,11 @@ _TRACING_REL = pkg("tracing.py")
 
 
 def tracer_tables(tracing_src: Source) -> dict[str, frozenset[str]]:
-    """``{"STAGES": {...}, "EVENTS": {...}}`` from module-level tuple
-    assignments in tracing.py — AST only, the tracer is never imported."""
-    out = {"STAGES": frozenset(), "EVENTS": frozenset()}
+    """``{"STAGES": {...}, "PORT_STAGES": {...}, "EVENTS": {...}}`` from
+    module-level tuple assignments in tracing.py — AST only, the tracer
+    is never imported."""
+    out = {"STAGES": frozenset(), "PORT_STAGES": frozenset(),
+           "EVENTS": frozenset()}
     for node in tracing_src.tree.body:
         if not (isinstance(node, ast.Assign) and len(node.targets) == 1
                 and isinstance(node.targets[0], ast.Name)):
@@ -268,13 +273,13 @@ class _Walker:
                and isinstance(arg.value, str) else None)
         if parts[-1] in SPAN_FNS and "tracing" in parts and lit is not None:
             self._claimed.add(id(arg))
-            table = SPAN_FNS[parts[-1]]
-            if lit not in self.tables[table]:
+            tables = SPAN_FNS[parts[-1]]
+            if not any(lit in self.tables[t] for t in tables):
                 self.src.finding(
                     RULE_SPAN, node,
-                    f"{parts[-1]}({lit!r}) is not in tracing.{table} — "
-                    "add it to the tracer's stage table or fix the name",
-                    self.out)
+                    f"{parts[-1]}({lit!r}) is not in tracing."
+                    f"{' or tracing.'.join(tables)} — add it to the "
+                    "tracer's stage table or fix the name", self.out)
         elif parts[-1] in EMITTERS and any("metrics" in p.lower()
                                            for p in parts[:-1]) \
                 and lit is not None and not _NS_RE.match(lit):

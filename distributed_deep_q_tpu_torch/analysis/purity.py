@@ -30,8 +30,9 @@ state happens once. This pass keeps those functions capture-safe:
   ``self.forward`` is ``MlpQNet.forward``, not the host wrapper
   ``QNet.forward`` of the same module).
 - Rules inside a root's scope: ``purity.print``, ``purity.logging``,
-  ``purity.time`` (``time.*``/``datetime.*``), ``purity.host-rng``
-  (``random.*``, ``np.random.*``, ``torch.Generator(``,
+  ``purity.time`` (``time.*``/``datetime.*``, and the tracer's
+  ``tracing.*``, whose spans stamp the host's clock into a host ring: a
+  graph replays none of them), ``purity.host-rng`` (``random.*``, ``np.random.*``, ``torch.Generator(``,
   ``torch.manual_seed``), ``purity.host-sync`` (``.item()``, ``.cpu()``,
   ``.tolist()``, ``.numpy()``, ``np.asarray``/``np.array``,
   ``torch.cuda.synchronize``/``.synchronize()``) and
@@ -180,6 +181,7 @@ NO_COUNTERPART = {
 }
 
 _TIME_PREFIXES = ("time.", "datetime.")
+_TRACER_PREFIX = "tracing."
 _RNG_PREFIXES = ("random.", "np.random.", "numpy.random.")
 _RNG_NAMES = {"torch.Generator", "torch.manual_seed", "torch.seed",
               "torch.cuda.manual_seed", "torch.cuda.manual_seed_all"}
@@ -545,6 +547,12 @@ def _lint_calls(fn: ast.AST, src: Source, out: list[Finding]) -> None:
             src.finding("purity.time", node,
                         f"{name}() is a capture-time constant inside a "
                         "device-step function", out)
+        elif name.startswith(_TRACER_PREFIX):
+            src.finding("purity.time", node,
+                        f"{name}() reads the host's clock inside a "
+                        "device-step function: under a CUDA graph it is "
+                        "stamped once, at capture, and never on replay",
+                        out)
         elif name.startswith(_RNG_PREFIXES) or name in _RNG_NAMES:
             src.finding("purity.host-rng", node,
                         f"{name}() is host RNG — a capture-time constant "

@@ -307,26 +307,32 @@ class Learner:
         ``forward_nchw`` for ``[B, stack, H, W]`` frames (the ring paths),
         ``forward`` for the reference's layouts (a host batch). Updates
         ``state`` in place; returns (metrics, |TD|, the online Q
-        ``[B, A]``)."""
+        ``[B, A]``). The three spans time the host's enqueue of each
+        pass."""
         cfg = self.cfg
         net, target = state.net, state.target_net
-        q = getattr(net, forward)(batch["obs"])
-        with torch.no_grad():
-            # action selection must not backprop into the online net
-            q_next_o = (getattr(net, forward)(batch["next_obs"])
-                        if cfg.double_dqn else None)
-            q_next_t = getattr(target, forward)(batch["next_obs"])
-        loss, td_abs = q_step_loss(cfg, q, q_next_o, q_next_t, batch)
+        with tracing.span("step_forward"):  # ddq: allow(purity.time) — the host enqueue's span: a CUDA graph over this path must drop or hoist it (ROADMAP D1)
+            q = getattr(net, forward)(batch["obs"])
+            with torch.no_grad():
+                # action selection must not backprop into the online net
+                q_next_o = (getattr(net, forward)(batch["next_obs"])
+                            if cfg.double_dqn else None)
+                q_next_t = getattr(target, forward)(batch["next_obs"])
+            loss, td_abs = q_step_loss(cfg, q, q_next_o, q_next_t, batch)
         params = dict(net.named_parameters())
-        grads = dict(zip(params, torch.autograd.grad(loss,
-                                                     list(params.values()))))
-        # the reference's pmean of grads, loss and Q mean, before the clip
-        grads, (loss, q_mean) = multihost.mean_grads_and_scalars(
-            grads, [loss.detach(), q.detach().mean()])
-        gnorm = global_norm(grads)
-        state.step = state.step + 1
-        apply_optimizer(cfg, grads, state.opt_state, params,
-                        dict(target.named_parameters()), gnorm, state.step)
+        with tracing.span("step_backward"):  # ddq: allow(purity.time) — the host enqueue's span: a CUDA graph over this path must drop or hoist it (ROADMAP D1)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            # the reference's pmean of grads, loss and Q mean, before the
+            # clip
+            grads, (loss, q_mean) = multihost.mean_grads_and_scalars(
+                grads, [loss.detach(), q.detach().mean()])
+            gnorm = global_norm(grads)
+        with tracing.span("step_optimizer"):  # ddq: allow(purity.time) — the host enqueue's span: a CUDA graph over this path must drop or hoist it (ROADMAP D1)
+            state.step = state.step + 1
+            apply_optimizer(cfg, grads, state.opt_state, params,
+                            dict(target.named_parameters()), gnorm,
+                            state.step)
         metrics = {"loss": loss, "q_mean": q_mean, "grad_norm": gnorm}
         return metrics, td_abs, q.detach()
 

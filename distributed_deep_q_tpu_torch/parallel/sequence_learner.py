@@ -43,7 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from distributed_deep_q_tpu_torch import learning
+from distributed_deep_q_tpu_torch import learning, tracing
 from distributed_deep_q_tpu_torch.config import Config
 from distributed_deep_q_tpu_torch.models.qnet import R2d2QNet
 from distributed_deep_q_tpu_torch.ops.losses import (
@@ -118,41 +118,48 @@ class SequenceLearner(Learner):
         for ``obs``'s layout (``R2d2QNet.features_stacked`` for the ring's
         ``[B, T+1, stack, H·W]`` planes, ``R2d2QNet.features`` for a host
         batch). Updates ``state`` in place; returns (metrics, per-sequence
-        priority)."""
+        priority). The three spans time the host's enqueue of each pass,
+        as ``Learner._step_core``'s do."""
         cfg, burn = self.cfg, self.burn_in
         net, target = state.net, state.target_net
         obs = batch["obs"]
         carry0 = (batch["init_c"], batch["init_h"])
-        f_on = features(net, obs)
-        with torch.no_grad():
-            f_tg = features(target, obs)
-            if burn > 0:
-                # the online carry is cut at the burn-in seam
-                carry_on = net.burn_carry(f_on[:, :burn], carry0)
-                carry_tg = target.burn_carry(f_tg[:, :burn], carry0)
-            else:
-                carry_on = carry_tg = carry0
-        q_all, _ = net.recur(f_on[:, burn:], carry_on)
-        with torch.no_grad():
-            q_tgt_all, _ = target.recur(f_tg[:, burn:], carry_tg)
-        q = q_all[:, :-1]                                  # [B, T, A]
-        targets = sequence_bellman_targets(
-            batch["reward"][:, burn:], batch["discount"][:, burn:],
-            q_tgt_all[:, 1:], q_all[:, 1:].detach(),
-            double=cfg.double_dqn, rescale=cfg.value_rescale)
-        loss, priority = sequence_dqn_loss(
-            q, batch["action"][:, burn:], targets, batch["mask"][:, burn:],
-            batch["weight"], cfg.huber_delta, eta=cfg.priority_eta)
+        with tracing.span("step_forward"):  # ddq: allow(purity.time) — the host enqueue's span: a CUDA graph over this path must drop or hoist it (ROADMAP D1)
+            f_on = features(net, obs)
+            with torch.no_grad():
+                f_tg = features(target, obs)
+                if burn > 0:
+                    # the online carry is cut at the burn-in seam
+                    carry_on = net.burn_carry(f_on[:, :burn], carry0)
+                    carry_tg = target.burn_carry(f_tg[:, :burn], carry0)
+                else:
+                    carry_on = carry_tg = carry0
+            q_all, _ = net.recur(f_on[:, burn:], carry_on)
+            with torch.no_grad():
+                q_tgt_all, _ = target.recur(f_tg[:, burn:], carry_tg)
+            q = q_all[:, :-1]                              # [B, T, A]
+            targets = sequence_bellman_targets(
+                batch["reward"][:, burn:], batch["discount"][:, burn:],
+                q_tgt_all[:, 1:], q_all[:, 1:].detach(),
+                double=cfg.double_dqn, rescale=cfg.value_rescale)
+            loss, priority = sequence_dqn_loss(
+                q, batch["action"][:, burn:], targets,
+                batch["mask"][:, burn:], batch["weight"], cfg.huber_delta,
+                eta=cfg.priority_eta)
         params = dict(net.named_parameters())
-        grads = dict(zip(params, torch.autograd.grad(loss,
-                                                     list(params.values()))))
-        # the reference's pmean of grads, loss and Q mean, before the clip
-        grads, (loss, q_mean) = multihost.mean_grads_and_scalars(
-            grads, [loss.detach(), q.detach().mean()])
-        gnorm = global_norm(grads)
-        state.step = state.step + 1
-        apply_optimizer(cfg, grads, state.opt_state, params,
-                        dict(target.named_parameters()), gnorm, state.step)
+        with tracing.span("step_backward"):  # ddq: allow(purity.time) — the host enqueue's span: a CUDA graph over this path must drop or hoist it (ROADMAP D1)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            # the reference's pmean of grads, loss and Q mean, before the
+            # clip
+            grads, (loss, q_mean) = multihost.mean_grads_and_scalars(
+                grads, [loss.detach(), q.detach().mean()])
+            gnorm = global_norm(grads)
+        with tracing.span("step_optimizer"):  # ddq: allow(purity.time) — the host enqueue's span: a CUDA graph over this path must drop or hoist it (ROADMAP D1)
+            state.step = state.step + 1
+            apply_optimizer(cfg, grads, state.opt_state, params,
+                            dict(target.named_parameters()), gnorm,
+                            state.step)
         metrics = {"loss": loss, "q_mean": q_mean, "grad_norm": gnorm}
         if cfg.learn_metrics:
             # the recurrent step's Q extreme, the plane's q input, as the
@@ -197,37 +204,42 @@ class SequenceLearner(Learner):
         Returns (new running max priority, metrics stacked over
         ``[chain]``, with the dispatch's ``learn_plane`` under
         ``learn_metrics``)."""
-        chain = betas.shape[0]
-        metas, win, idx = fused_sequence_sample(replay, batch_size, sizes,
-                                                betas, u)
-        prio, maxp = replay.dmeta["prio"], replay.dmaxp
-        lmp = learning.lm_init(self.device) if self.cfg.learn_metrics else None
-        steps = []
-        for i in range(chain):
-            batch = {key: metas[key][i] for key in metas}
-            batch["obs"] = compose_sequence_block(
-                win[i], batch["mask"], replay.seq_len, replay.stack,
-                replay._row_len)
-            metrics, priority = self._step_core(state, batch,
-                                                R2d2QNet.features_stacked)
-            maxp = scatter_priorities(prio, maxp, idx[i], priority,
-                                      replay.alpha, replay.eps)
+        # the spans time the host's enqueue of the sample stage and of the
+        # train stage, as Learner's do
+        with tracing.span("sample"):  # ddq: allow(purity.time) — the host enqueue's span: a CUDA graph over this path must drop or hoist it (ROADMAP D1)
+            metas, win, idx = fused_sequence_sample(replay, batch_size,
+                                                    sizes, betas, u)
+        with tracing.span("train_step"):  # ddq: allow(purity.time) — the host enqueue's span: a CUDA graph over this path must drop or hoist it (ROADMAP D1)
+            prio, maxp = replay.dmeta["prio"], replay.dmaxp
+            lmp = (learning.lm_init(self.device) if self.cfg.learn_metrics
+                   else None)
+            steps = []
+            for i in range(betas.shape[0]):
+                batch = {key: metas[key][i] for key in metas}
+                batch["obs"] = compose_sequence_block(
+                    win[i], batch["mask"], replay.seq_len, replay.stack,
+                    replay._row_len)
+                metrics, priority = self._step_core(
+                    state, batch, R2d2QNet.features_stacked)
+                maxp = scatter_priorities(prio, maxp, idx[i], priority,
+                                          replay.alpha, replay.eps)
+                if lmp is not None:
+                    learning.lm_update(
+                        lmp, cfg=self.cfg, td_abs=priority,
+                        weight=batch["weight"], loss=metrics["loss"],
+                        q=metrics["q_max"], q_mean=metrics["q_mean"],
+                        gnorm=metrics["grad_norm"], step=state.step,
+                        alpha=replay.alpha, eps=replay.eps)
+                steps.append(metrics)
+            # the running max over processes, once per dispatch (see
+            # Learner._train_chain)
+            maxp = multihost.all_reduce_(maxp, "max")
+            stacked = {k: torch.stack([m[k] for m in steps])
+                       for k in steps[0]}
             if lmp is not None:
-                learning.lm_update(
-                    lmp, cfg=self.cfg, td_abs=priority,
-                    weight=batch["weight"], loss=metrics["loss"],
-                    q=metrics["q_max"], q_mean=metrics["q_mean"],
-                    gnorm=metrics["grad_norm"], step=state.step,
-                    alpha=replay.alpha, eps=replay.eps)
-            steps.append(metrics)
-        # the running max over processes, once per dispatch (see
-        # Learner._train_chain)
-        maxp = multihost.all_reduce_(maxp, "max")
-        stacked = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
-        if lmp is not None:
-            stacked["learn_plane"] = learning.lm_finalize(
-                lmp, replay.num_shards)
-        return maxp, stacked
+                stacked["learn_plane"] = learning.lm_finalize(
+                    lmp, replay.num_shards)
+            return maxp, stacked
 
 
 class SequenceSolver(Solver):
@@ -263,16 +275,18 @@ class SequenceSolver(Solver):
         ``Solver.train_steps_device_per``, so ``FusedStepStream`` drives
         either). Returns metrics stacked ``[chain]``."""
         chain = chain or max(int(self.config.replay.fused_chain), 1)
-        if replay.pending_rows():
-            replay.flush()
         dev, b = self.device, self.local_batch
-        sizes = to_device(replay.device_inputs(), dev)
-        betas = to_device(replay.next_betas(chain), dev)
-        # each of this process's shards draws with its global shard's keys
-        keys = next_fused_keys(self, replay.num_shards, chain)[
-            replay.local_shards]
-        u = self.draw_uniforms(keys.reshape(-1, 2),
-                               b // len(replay.local_shards), dev)
+        with tracing.span("dispatch_inputs"):
+            if replay.pending_rows():
+                replay.flush()
+            sizes = to_device(replay.device_inputs(), dev)
+            betas = to_device(replay.next_betas(chain), dev)
+            # each of this process's shards draws with its global shard's
+            # keys
+            keys = next_fused_keys(self, replay.num_shards, chain)[
+                replay.local_shards]
+            u = self.draw_uniforms(keys.reshape(-1, 2),
+                                   b // len(replay.local_shards), dev)
         replay.dmaxp, metrics = self.learner.train_steps_fused(
             self.state, replay, b, sizes, betas, u)
         return metrics

@@ -16,6 +16,9 @@
 - ``launch_census`` — kernel launches, device time and busy share per
   step from a ``torch.profiler`` window: the port's counterpart of the
   reference's compiled-HLO op census.
+- ``phase_census`` — the same window's device time and the host's launch
+  calls split by the tracer's span (``tracing.py``) open on the host when
+  each launch was made, joined through the profiler's ``correlation``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Callable, Iterator
 
 import torch
 
+from distributed_deep_q_tpu_torch import tracing
 from distributed_deep_q_tpu_torch.metrics import Histogram
 
 # the port's hand-written kernels, by the name of their __global__ function
@@ -336,6 +340,116 @@ class TraceWindow:
         if not self._done:
             raise RuntimeError("the trace window has not run to its end")
         return _census(self._prof.key_averages(), self.wall_ms, steps, top_n)
+
+
+# a chrome-trace export's device operations, and the host's CUDA calls
+# (``cuda*`` and the lower-level ``cu*`` ones, which libraries such as
+# cuDNN launch through); a device operation carries the ``correlation`` of
+# the call that launched it
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cuda_runtime", "cuda_driver")
+NO_SPAN = "(none)"              # launched outside every span
+UNMATCHED = "(unmatched)"       # no launch call in the export
+
+
+def _innermost(times: list[float], spans: list[tuple]) -> list:
+    """For each of the sorted ``times``, the name of the innermost span
+    of ``spans`` ((t0, t1, name), properly nested, as one thread's are)
+    open at it, or ``NO_SPAN``."""
+    spans = sorted(spans, key=lambda s: (s[0], -s[1]))
+    out, stack, j = [], [], 0
+    for t in times:
+        while j < len(spans) and spans[j][0] <= t:
+            while stack and stack[-1][1] <= spans[j][0]:
+                stack.pop()
+            stack.append(spans[j])
+            j += 1
+        while stack and stack[-1][1] <= t:
+            stack.pop()
+        out.append(stack[-1][2] if stack else NO_SPAN)
+    return out
+
+
+def phase_census(trace_events: list[dict], spans: list[dict],
+                 mark_s: float, steps: int, gaps: int = 10,
+                 top_n: int = 12) -> dict:
+    """Device time and host launch calls per tracer span, from a
+    ``torch.profiler`` window with ``ProfilerActivity.CUDA``.
+
+    ``trace_events`` is its ``export_chrome_trace`` (``traceEvents``):
+    device operations and the host's CUDA calls, each device operation
+    carrying its launch call's ``correlation``. ``spans`` are the
+    tracer's drained events of the launching thread. The window's first
+    launch is a marker made right after ``time.perf_counter()`` read
+    ``mark_s``: its launch call ties the profiler's clock to the host's,
+    as ``tracing.to_perf_counter`` ties the spans'. ``steps``: the grad
+    steps the window holds.
+
+    A launch call is a host call that some device operation names (a
+    kernel, copy or fill launch; a graph launch counts once). Each device
+    operation counts under the innermost span open when its launch call
+    began (``NO_SPAN`` where none was, ``UNMATCHED`` where the export has
+    no such call). Returns per grad step the device ms and the launch
+    calls by span, their totals, each span's share of the device time,
+    the ``top_n`` device operations by time (name, span, ms per step),
+    the ``gaps`` longest idle stretches of the device (start s, length s,
+    the innermost span at their middle), and ``align_us``: the marker
+    kernel's start less its launch call's, the offset an alignment on
+    the kernel would add."""
+    host = {e["args"]["correlation"]: e for e in trace_events
+            if e.get("ph") == "X" and e.get("cat") in HOST_CATS
+            and "correlation" in e.get("args", {})}
+    device = sorted((e for e in trace_events if e.get("ph") == "X"
+                     and str(e.get("cat", "")).lower() in DEVICE_CATS),
+                    key=lambda e: float(e["ts"]))
+    if not device:
+        raise ValueError("the window holds no device operation")
+    marker, device = device[0], device[1:]
+    launch = host[marker["args"]["correlation"]]
+    off_us = float(launch["ts"]) - 1e6 * mark_s
+    ivals = [(tracing.to_perf_counter(e["ts"]),
+              tracing.to_perf_counter(e["ts"] + e["dur"]), e["name"])
+             for e in spans if e.get("ph") == "X"]
+    named = {e["args"].get("correlation") for e in device}
+    calls = sorted(((float(e["ts"]) - off_us) / 1e6, c)
+                   for c, e in host.items() if c in named)
+    owner = dict(zip((c for _, c in calls),
+                     _innermost([t for t, _ in calls], ivals)))
+    steps = max(int(steps), 1)
+    dev_ms: dict = defaultdict(float)
+    by_op: dict = defaultdict(float)
+    busy = []
+    for e in device:
+        name = owner.get(e["args"].get("correlation"), UNMATCHED)
+        dev_ms[name] += float(e["dur"]) / 1e3
+        by_op[(e["name"][:120], name)] += float(e["dur"]) / 1e3
+        t0 = (float(e["ts"]) - off_us) / 1e6
+        busy.append((t0, t0 + float(e["dur"]) / 1e6))
+    launches: dict = defaultdict(int)
+    for name in owner.values():
+        launches[name] += 1
+    idle = []
+    end = (float(marker["ts"]) + float(marker["dur"]) - off_us) / 1e6
+    for t0, t1 in busy:
+        if t0 > end:
+            idle.append((end, t0 - end))
+        end = max(end, t1)
+    idle = sorted(idle, key=lambda g: -g[1])[:gaps]
+    mids = sorted(t + n / 2 for t, n in idle)
+    by_mid = dict(zip(mids, _innermost(mids, ivals)))
+    total = sum(dev_ms.values())
+    return {
+        "device_ms_per_step": {k: v / steps for k, v in dev_ms.items()},
+        "device_ms_per_step_total": total / steps,
+        "device_share": {k: v / max(total, 1e-12)
+                         for k, v in dev_ms.items()},
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "launches_per_step_total": len(owner) / steps,
+        "top_ops": [[op, name, v / steps] for (op, name), v in sorted(
+            by_op.items(), key=lambda kv: -kv[1])[:top_n]],
+        "idle_gaps": [[t, n, by_mid[t + n / 2]] for t, n in idle],
+        "align_us": float(marker["ts"]) - float(launch["ts"]),
+    }
 
 
 def check_profile_port(port: int) -> None:

@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from distributed_deep_q_tpu_torch import tracing
 from distributed_deep_q_tpu_torch.config import Config
 from distributed_deep_q_tpu_torch.convert import (
     flax_leaves, load_flax_leaves, train_state_from_flax,
@@ -243,26 +244,31 @@ class Solver:
         ``Learner.train_steps_device_per``). Host cost per chunk: a flush
         of staged rows, (cached) cursor/size arrays, the chunk's keys and
         uniforms. Returns metrics stacked ``[chain]`` (device tensors —
-        convert only when logging)."""
+        convert only when logging). The ``dispatch_inputs`` span times the
+        host's part before the learner's call."""
         chain = chain or max(int(self.config.replay.fused_chain), 1)
-        if replay.pending_rows():
-            # device rows must cover everything the host bookkeeping
-            # (cursors/sizes below) claims is written
-            replay.flush()
-        cursors, sizes = replay.device_inputs()
-        betas = replay.next_betas(chain)
-        spec = self._dp_spec
-        if spec is None or self._dp_spec_replay is not replay:
-            spec = fused_spec(self.config, replay)
-            self._dp_spec, self._dp_spec_replay = spec, replay
-        # each of this process's shards draws with its global shard's keys
-        keys = next_fused_keys(self, replay.num_shards, chain)[
-            replay.local_shards]
-        u = self.draw_uniforms(keys.reshape(-1, 2), spec[8], self.device)
-        dev = self.device
+        with tracing.span("dispatch_inputs"):
+            if replay.pending_rows():
+                # device rows must cover everything the host bookkeeping
+                # (cursors/sizes below) claims is written
+                replay.flush()
+            cursors, sizes = replay.device_inputs()
+            betas = replay.next_betas(chain)
+            spec = self._dp_spec
+            if spec is None or self._dp_spec_replay is not replay:
+                spec = fused_spec(self.config, replay)
+                self._dp_spec, self._dp_spec_replay = spec, replay
+            # each of this process's shards draws with its global shard's
+            # keys
+            keys = next_fused_keys(self, replay.num_shards, chain)[
+                replay.local_shards]
+            u = self.draw_uniforms(keys.reshape(-1, 2), spec[8],
+                                   self.device)
+            dev = self.device
+            inputs = (to_device(cursors, dev), to_device(sizes, dev),
+                      to_device(betas, dev), u)
         maxp, metrics = self.learner.train_steps_device_per(
-            self.state, replay.dstate, to_device(cursors, dev),
-            to_device(sizes, dev), to_device(betas, dev), u, spec)
+            self.state, replay.dstate, *inputs, spec)
         replay.dstate["maxp"] = maxp
         return metrics
 

@@ -33,7 +33,7 @@ Design constraints, in order:
 **Sampling** is deterministic and counter-based (every k-th cycle, k
 from ``sample_rate``) rather than RNG-based: no random() call on the
 hot path and reproducible overhead. Span names are drawn from the
-closed ``STAGES``/``EVENTS`` tables below.
+closed ``STAGES``/``PORT_STAGES``/``EVENTS`` tables below.
 
 Pure stdlib (json/os/threading/time): importable by scripts and actor
 processes without touching torch. A copy of the reference ``tracing.py``:
@@ -91,7 +91,17 @@ EVENTS = (
     "degraded",        # flow controller tripped degraded mode
 )
 
-_VALID_NAMES = frozenset(STAGES) | frozenset(EVENTS)
+# Durations the port adds, inside the fused dispatch. Kept apart from
+# ``STAGES``, which stays the reference's letter for letter: the host's
+# enqueue of one dispatch's inputs, and of one grad step's three passes.
+PORT_STAGES = (
+    "dispatch_inputs",  # flush, cursors, betas, keys, uniforms, copies
+    "step_forward",     # online/target forwards, burn-in, unrolls, loss
+    "step_backward",    # autograd, the gradient all-reduce, global norm
+    "step_optimizer",   # step increment, optimizer, target refresh
+)
+
+_VALID_NAMES = frozenset(STAGES) | frozenset(PORT_STAGES) | frozenset(EVENTS)
 
 # wire piggyback keys (plain dict entries — no wire version bump; see
 # rpc/protocol.py "evolution without a version bump")
@@ -119,6 +129,13 @@ _PID = os.getpid()
 def now() -> float:
     """Anchored wall clock: wall at import + monotonic elapsed since."""
     return _T0_WALL + (time.perf_counter() - _T0_MONO)
+
+
+def to_perf_counter(ts_us: float) -> float:
+    """An event's ``ts`` (anchored wall clock, µs) as the
+    ``time.perf_counter()`` seconds it was stamped at: the clock a
+    ``torch.profiler`` window is aligned to by its caller."""
+    return ts_us / 1e6 - _T0_WALL + _T0_MONO
 
 
 # -- id generation ---------------------------------------------------------
@@ -154,6 +171,18 @@ class _Ring:
             self.dropped += 1
         self.buf[i] = ev
         self.n += 1
+
+    def grow(self, cap: int) -> None:
+        """A larger capacity, keeping every un-drained event; a smaller
+        ``cap`` leaves the ring as it is. The larger buffer is in place
+        before the capacity grows, so an ``append`` racing this indexes
+        in range (its event may be lost)."""
+        if cap <= self.cap:
+            return
+        kept = self.drain()
+        self.buf = kept + [None] * (cap - len(kept))
+        self.cap = cap
+        self.n = len(kept)
 
     def drain(self) -> list:
         """Oldest-first snapshot; clears the ring (drop counter survives
@@ -275,8 +304,9 @@ class _Span:
 
 
 def span(name: str):
-    """Duration span context manager. ``name`` must be in ``STAGES``
-    (statically enforced). Disabled → the ``_NULL`` singleton."""
+    """Duration span context manager. ``name`` must be in ``STAGES`` or
+    ``PORT_STAGES`` (statically enforced). Disabled → the ``_NULL``
+    singleton."""
     if not ENABLED:
         return _NULL
     return _Span(name)
@@ -396,14 +426,18 @@ def lineage_sample() -> bool:
 def configure(enabled: bool = False, sample_rate: float = 0.01,
               lineage_rate: float = 0.05, buffer_spans: int = 8192,
               export_dir: str = "traces") -> None:
-    """Set module state from config values (``cfg.trace``). Safe to call
-    before any span is recorded; rings created earlier keep their old
-    capacity (threads are long-lived, so configure first)."""
+    """Set module state from config values (``cfg.trace``). Rings that
+    exist already (the importing thread's among them) grow to a larger
+    ``buffer_spans`` and never shrink, so no un-drained span is lost:
+    call it while no thread records spans."""
     global ENABLED, _SAMPLE_EVERY, _LINEAGE_EVERY, _BUFFER_SPANS
     global _EXPORT_DIR
     _SAMPLE_EVERY = max(1, int(round(1.0 / max(sample_rate, 1e-9))))
     _LINEAGE_EVERY = max(1, int(round(1.0 / max(lineage_rate, 1e-9))))
     _BUFFER_SPANS = max(int(buffer_spans), 1)
+    with _reg_lock:
+        for r in _rings:
+            r.grow(_BUFFER_SPANS)
     _EXPORT_DIR = export_dir or "traces"
     ENABLED = bool(enabled)
 

@@ -445,6 +445,34 @@ def test_purity_torch_host_reads_and_rng():
         ("purity.host-sync", 7), ("purity.host-sync", 8)]
 
 
+@pytest.mark.parametrize("pragma,want", [
+    ("", [("purity.time", 6), ("purity.time", 8)]),
+    ("  # ddq: allow(purity.time) — a host span", []),
+], ids=["flagged", "allowed"])
+def test_purity_tracer_span_in_a_root_reads_the_clock(pragma, want):
+    """A tracer span inside a device root is a clock read (a graph would
+    stamp it once, at capture); the pragma on its line takes it, and the
+    same span in host code is no finding."""
+    text = f"""
+        import torch
+        from pkg import tracing
+
+        def step(x):
+            with tracing.span("step_forward"):{pragma}
+                y = x * 2
+            with tracing.span("step_backward"):{pragma}
+                return y + 1
+
+        def host(x):
+            with tracing.span("dispatch_inputs"):
+                return step(x)
+
+        train = torch.compile(step)
+    """
+    findings = purity.check_sources([src(text)], device_roots=())
+    assert sorted((f.rule, f.line) for f in findings) == want
+
+
 def _reference_roots() -> set[str]:
     """The reference's jit roots, as ``file:line name`` under its
     package, found by its own pass."""
