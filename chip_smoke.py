@@ -57,7 +57,18 @@ Phases (any failure exits non-zero and prints no result line):
    (``uniforms_for_keys`` on the host or on the card: ms per call and per
    grad step, in turns); then the same small fused
    dispatch on the card and on the CPU (whose path the CPU tests hold to
-   the JAX reference), compared;
+   the JAX reference), compared; phase 5's chain is its solvers' configured
+   one, so its dispatches replay a CUDA graph;
+5g. the dispatch as one CUDA graph — at the ``apex`` shapes (84×84,
+   dueling, 18 actions, batch 512, chain 32, centered RMSProp; a
+   131,072-row ring) two solvers from one seed, cuDNN and PyTorch
+   deterministic: three dispatches replayed against three eager ones,
+   bitwise (θ, θ⁻, RMSProp's moments, the step, the priorities, the max
+   priority, every per-step metric); B1's launch counter once per replay
+   (twice at the first: the capture's eager warm-up); then, determinism
+   off, ms per grad step and host ms per dispatch of each, in turns, and
+   the replayed dispatch's two host spans with the card idle
+   (``chip_smoke.py --phase5g`` runs it alone);
 6. host-sampled path — ``main train --preset breakout --backend cuda`` with
    ``replay.device_per=false train.use_pallas_loss=true`` at full width
    (84×84, batch 512, 1M-frame device ring, host sum trees, n-step 3,
@@ -1016,6 +1027,134 @@ def phase5_trees(dirs: list[str]) -> int:
     return 0
 
 
+def check_dispatch_graph(torch, config, Solver, DevicePERFrameReplay,
+                         rg) -> dict:
+    """Phase 5g (see the module's docstring): the replayed dispatch against
+    the eager one at the ``apex`` shapes."""
+    import dataclasses
+
+    def solver_for():
+        cfg = config.apex_config()
+        cfg.mesh.backend = "cuda"
+        cfg.env.kind, cfg.env.id = "signal_atari", "signal"
+        cfg.replay = dataclasses.replace(cfg.replay, capacity=131_072,
+                                         fused_chain=32)
+        cfg.train = dataclasses.replace(cfg.train, optimizer="rmsprop",
+                                        grad_clip_norm=40.0)
+        s = Solver(cfg)
+        r = DevicePERFrameReplay(cfg.replay, s.device, (84, 84),
+                                 cfg.env.stack, cfg.train.gamma,
+                                 write_chunk=cfg.replay.write_chunk)
+        fill_replay(r, 40_000)
+        return s, r
+
+    def carried(s, r):
+        st = s.state
+        out = {f"theta.{k}": p for k, p in st.net.named_parameters()}
+        out.update({f"target.{k}": p
+                    for k, p in st.target_net.named_parameters()})
+        for key in ("mu", "nu"):
+            out.update({f"{key}.{k}": t
+                        for k, t in st.opt_state[key].items()})
+        out.update(step=st.step, prio=r.dstate["prio"],
+                   maxp=r.dstate["maxp"])
+        return out
+
+    def unequal(a, b):
+        return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+    b = torch.backends.cudnn
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            b.deterministic, b.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    b.deterministic, b.benchmark = True, False
+    try:
+        (g, gr), (e, er) = solver_for(), solver_for()
+        out = {"chain": 32, "batch": g.config.replay.batch_size,
+               "b1_per_dispatch": [], "unequal": []}
+        for d in range(3):
+            b1 = rg.gather_windows.launches
+            mg = g.train_steps_device_per(gr, chain=32)
+            out["b1_per_dispatch"].append(rg.gather_windows.launches - b1)
+            me = e.train_steps_eager(er, chain=32)
+            out["unequal"] += [f"{d}:{k}" for k in unequal(mg, me)]
+            out["unequal"] += [f"{d}:{k}" for k in unequal(
+                carried(g, gr), carried(e, er))]
+        out["counts"] = dict(g.dispatch_counts)
+        out["losses"] = [float(x) for x in mg["loss"][:3]]
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        b.deterministic, b.benchmark = prev[2], prev[3]
+    for name, run in (("eager", lambda: e.train_steps_eager(er, chain=32)),
+                      ("graph", lambda: g.train_steps_device_per(gr, 32)),
+                      ("graph", lambda: g.train_steps_device_per(gr, 32)),
+                      ("eager", lambda: e.train_steps_eager(er, chain=32))):
+        run()
+        torch.cuda.synchronize()
+        host, t0 = 0.0, time.perf_counter()
+        for _ in range(8):
+            t = time.perf_counter()
+            run()
+            host += time.perf_counter() - t
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out.setdefault(f"{name}_ms_per_grad_step", []).append(
+            1e3 * wall / (8 * 32))
+        out.setdefault(f"{name}_host_ms_per_dispatch", []).append(
+            1e3 * host / 8)
+    out["counts_after_timing"] = dict(g.dispatch_counts)
+    # the host's part of a replayed dispatch with the card idle (a
+    # synchronize before each): the tracer's two spans, ms (min, median,
+    # max) over 8 dispatches
+    from distributed_deep_q_tpu_torch import tracing
+    tracing.drain()
+    tracing.configure(enabled=True, sample_rate=1.0)
+    try:
+        for _ in range(8):
+            torch.cuda.synchronize()
+            g.train_steps_device_per(gr, 32)
+        torch.cuda.synchronize()
+        spans = [e for e in tracing.drain() if e.get("ph") == "X"]
+    finally:
+        tracing.configure(enabled=False)
+        tracing.drain()
+    for name in ("dispatch_inputs", "dispatch_replay"):
+        d = sorted(e["dur"] / 1e3 for e in spans if e["name"] == name)
+        out[f"idle_card_{name}_host_ms"] = [d[0], d[len(d) // 2], d[-1]]
+    return out
+
+
+def phase5g_only() -> int:
+    """``chip_smoke.py --phase5g``: 5g alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from distributed_deep_q_tpu_torch import config
+    from distributed_deep_q_tpu_torch.ops import cuda_build
+    from distributed_deep_q_tpu_torch.ops import ring_gather as rg
+    from distributed_deep_q_tpu_torch.replay.device_per import (
+        DevicePERFrameReplay)
+    from distributed_deep_q_tpu_torch.solver import Solver
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log(nvidia_smi_line())
+    log(f"[2] build: {cuda_build.build_all()}")
+    log(f"[1] torch {torch.__version__} cuda {torch.version.cuda}")
+    graph = check_dispatch_graph(torch, config, Solver, DevicePERFrameReplay,
+                                 rg)
+    log(f"[5g] dispatch graph: {json.dumps(graph)}")
+    check_graph(graph)
+    return 0
+
+
+def check_graph(graph: dict) -> None:
+    assert not graph["unequal"], f"replay differs from eager: {graph}"
+    assert graph["b1_per_dispatch"] == [2, 1, 1], graph
+    assert graph["counts"] == {"graph_captures": 1, "graph_replays": 3,
+                               "eager_dispatches": 0}, graph
+
+
 def trace_empty_kernel(torch, launches: int = 64, windows: int = 3) -> float:
     """An empty kernel's (``torch.cuda._sleep(0)``) device time per launch
     in a ``torch.profiler`` window of its own: the floor of the phase-5
@@ -1518,13 +1657,15 @@ def pong_resume(torch, config, cli_main, counters, modules) -> dict:
         return {"idx": idx.clone(), "ws": ws.clone(), "win": win.clone(),
                 **{f"meta_{k}": v.clone() for k, v in metas.items()}}
 
+    # the eager body, whose fused_sample calls are the dispatches' own (a
+    # chain-8 dispatch would replay a CUDA graph, which runs no Python)
     with cudnn_deterministic(torch), \
             capturing(learner, "fused_sample", keep) as calls:
         losses = [orig.train_steps_device_per(orig_replay, chain=1),
                   restored.train_steps_device_per(restored_replay, chain=1),
                   cpu.train_steps_device_per(cpu_replay, chain=1),
-                  orig.train_steps_device_per(orig_replay, chain=8),
-                  restored.train_steps_device_per(restored_replay, chain=8)]
+                  orig.train_steps_eager(orig_replay, chain=8),
+                  restored.train_steps_eager(restored_replay, chain=8)]
     lo, lr_, lc, lo8, lr8 = (m["loss"].float().cpu().numpy().tolist()
                              for m in losses)
     co, cr, cc, co8, cr8 = calls
@@ -1961,6 +2102,7 @@ def replay_feed(torch, config, counters, modules) -> dict:
     out = {
         "feeders": [results[i] for i in sorted(results)],
         "grad_steps": gsteps, "dispatches": dispatches,
+        "dispatch_counts": dict(solver.dispatch_counts),
         "wall_s": wall,
         "rows_per_s_over_wire": sum(acked.values()) / max(
             r["wall_s"] for r in results.values()),
@@ -2049,7 +2191,10 @@ def check_replay_feed(out: dict) -> None:
     for name in ("gather_windows", "scatter_rows", "fused_loss_fwd",
                  "fused_loss_bwd"):
         assert out["launches"][name] > 0, out["launches"]
-    assert out["launches"]["gather_windows"] == out["dispatches"]
+    # one B1 launch a dispatch, and one in each CUDA graph capture's eager
+    # warm-up
+    assert out["launches"]["gather_windows"] == (
+        out["dispatches"] + out["dispatch_counts"]["graph_captures"]), out
     assert out["launches"]["fused_loss_fwd"] >= out["grad_steps"]
     wb = out["warm_boot"]
     assert not wb["replay_diffs"], wb
@@ -2211,9 +2356,11 @@ class ActorWatch:
     the actor processes among this process's ``spawn``ed children, the
     card files each holds open, whether each maps ``libcuda.so``, the
     compute apps ``nvidia-smi`` lists, and whether the learner had logged
-    a grad step yet (its metrics JSONL)."""
+    a grad step yet (its metrics JSONL). The period is short: on the
+    fused dispatch's CUDA graph a 400-step run trains for about a second
+    after its first log line."""
 
-    def __init__(self, jsonl: str, period: float = 1.5):
+    def __init__(self, jsonl: str, period: float = 0.2):
         self.jsonl, self.period = jsonl, period
         self.samples: list[dict] = []
         self._stop = threading.Event()
@@ -2614,8 +2761,10 @@ def learn_plane_gate(torch, config, Solver, DevicePERFrameReplay,
                           else v) for k, v in kw.items()})
         return orig(plane, **kw)
 
+    # the eager body: ``recording`` hooks its lm_update calls, which a CUDA
+    # graph's replay would not make
     with deterministic(torch):
-        m_off = off.train_steps_device_per(replay, chain=8)
+        m_off = off.train_steps_eager(replay, chain=8)
         prio_off = replay.dstate["prio"].clone()
         maxp_off = replay.dstate["maxp"].clone()
         replay.dstate["prio"].copy_(saved[0])
@@ -2623,7 +2772,7 @@ def learn_plane_gate(torch, config, Solver, DevicePERFrameReplay,
         replay._samples = saved[2]
         learning.lm_update = recording
         try:
-            m_on = on.train_steps_device_per(replay, chain=8)
+            m_on = on.train_steps_eager(replay, chain=8)
         finally:
             learning.lm_update = orig
         torch.cuda.synchronize()
@@ -3575,8 +3724,11 @@ def p16_pin_run(pid: int, nproc: int, cfg, out: str) -> None:
                                       res[0]["weight"].cpu().numpy())) \
             as draws:
         try:
+            # the eager body at every process count: the hooks above read
+            # each dispatch's draws, which a one-process CUDA graph's
+            # replay would not hand them
             for _ in range(P16_DISPATCHES):
-                solver.train_steps_device_per(replay, chain=P16_CHAIN)
+                solver.train_steps_eager(replay, chain=P16_CHAIN)
             torch.cuda.synchronize()
         finally:
             learner_mod.gather_windows = gather
@@ -3852,7 +4004,8 @@ class KernelChecks:
     are held against the plain version on the same inputs (B2 on a copy
     of the ring taken just before, compared outside the skipped scratch
     row, whose contents are unspecified). The wrapped kernel counts its
-    launch as always; the plain version launches none. With ``scope``
+    launch as always; the plain version launches none. A launch captured
+    into a CUDA graph is left unchecked (it has not run). With ``scope``
     set (phase 18 sets it to the bench row running), each scope checks
     its own first launches of each shape, and its key ends in
     ``@<scope>``."""
@@ -3884,6 +4037,10 @@ class KernelChecks:
 
     def _gather(self, idx, ring, **kw):
         out = self.rg.gather_windows(idx, ring, **kw)
+        if out.is_cuda and self.torch.cuda.is_current_stream_capturing():
+            # captured into a CUDA graph: this launch runs on the replays,
+            # past the wrapper (the capture's eager warm-up was checked)
+            return out
         rec = self._slot("gather_windows",
                          (kw["n"], kw["w"], kw["rowb"]))
         if rec is not None:
@@ -4808,6 +4965,13 @@ def main() -> int:
     log(f"[5] card vs CPU fused dispatch: {json.dumps(cross)}")
     torch.cuda.empty_cache()
 
+    # -- 5g. the dispatch as one CUDA graph against the eager body ----------
+    graph = check_dispatch_graph(torch, config, Solver, DevicePERFrameReplay,
+                                 rg)
+    log(f"[5g] dispatch graph: {json.dumps(graph)}")
+    check_graph(graph)
+    torch.cuda.empty_cache()
+
     # -- 6. Breakout host-sampled path through the CLI ------------------------
     b_summary, b_launches, b_record = run_cli(
         cli_main, counters, BREAKOUT_ARGV + ["replay.device_per=false"],
@@ -5491,6 +5655,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--phase5"]:
             code = phase5_trees(sys.argv[2:])
+        elif sys.argv[1:2] == ["--phase5g"]:
+            code = phase5g_only()
         elif sys.argv[1:2] == ["--phase16a"]:
             code = phase16a_only()
         elif sys.argv[1:2] == ["--phase17"]:

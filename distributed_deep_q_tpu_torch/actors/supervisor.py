@@ -1597,7 +1597,8 @@ def train_distributed(cfg: Config, metrics: Metrics | None = None,
                     autoscaler=autoscaler, executor=scale_executor)
                 metrics.log(gstep, **summary, **timer.summary(),
                             **server.telemetry_summary(), **infer_tm,
-                            **metrics.telemetry(), **hk)
+                            **metrics.telemetry(), **hk,
+                            **solver.dispatch_counters())
         fleet_rate = _fleet_rate(server, first)
     finally:
         trace.close()
@@ -1762,7 +1763,8 @@ def _train_distributed_recurrent(cfg: Config, metrics: Metrics | None = None,
                     autoscaler=autoscaler, executor=scale_executor)
                 metrics.log(gstep, **summary, **timer.summary(),
                             **server.telemetry_summary(),
-                            **metrics.telemetry(), **hk)
+                            **metrics.telemetry(), **hk,
+                            **solver.dispatch_counters())
         fleet_rate = _fleet_rate(server, first)
     finally:
         _tear_down_rpc_plane(cfg, server, sup)

@@ -102,6 +102,10 @@ REGISTRY = frozenset({
     "trace/skew_samples",
     "trace/spans_buffered",
     "trace/spans_dropped",
+    # how the fused dispatches ran (Solver.dispatch_counters)
+    "learner/eager_dispatches",
+    "learner/graph_captures",
+    "learner/graph_replays",
     "learner/publish_params_ms",
     "learner/time_to_learn_ms",
     # columnar ingest plane (ISSUE 8): drain-thread throughput gauges

@@ -24,6 +24,10 @@ and replay from the seed), warms up, then with the tracer on
    and off in turns (on, off, off, on, ...): ``dispatch_host_ms`` and
    grad steps/s of each, fence to fence.
 
+The dispatches run the eager body (``Solver.train_steps_eager``), which a
+CUDA graph replays on the benchmark's own path: a replay is one launch
+call under one span, so only the eager body shows the passes apart.
+
 Prints one JSON line (and appends it to ``--out`` where given). Exits 2
 without a card. It reads the benchmark's internals, so it goes once the
 benchmark's traced run reads the spans itself.
@@ -143,6 +147,8 @@ def main(argv: list | None = None) -> int:
         cfg = json.load(f)
     builder = system.load_module("configs", cfg["builder"])
     sysm = builder.build(cfg, args.seed, torch.device("cuda"))
+    # the eager body, whose passes the spans split (see above)
+    sysm.solver.train_steps_device_per = sysm.solver.train_steps_eager
     sysm.attach(False)
     for _ in range(int(cfg["warmup_dispatches"])):
         sysm.dispatch()

@@ -6,11 +6,13 @@ the package (the hash is the source's, so an edited source rebuilds), then
 loaded with ``ctypes``. Nothing is built when the package is imported: the
 first CUDA call of a kernel builds its library, and ``build_all`` starts one
 ``nvcc`` per source at once for callers that want the build up front.
-``Entry`` is how a kernel wrapper calls a C entry point.
+``Entry`` is how a kernel wrapper calls a C entry point, and
+``count_launch`` how it counts its launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -126,3 +128,34 @@ class Entry:
             return fn(*args, stream)
         with torch.cuda.device(index):
             return fn(*args, stream)
+
+
+# the tallies of the CUDA graph captures in progress (``launch_tally``)
+_tallies: list[dict] = []
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``.
+    A launch made into a stream that is capturing a CUDA graph, while a
+    ``launch_tally`` is open, has not run: it goes to that tally, which the
+    graph's owner adds to the counters on every replay."""
+    if _tallies and torch.cuda.is_current_stream_capturing():
+        tally = _tallies[-1]
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+    else:
+        wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """Around a CUDA graph's capture: yields ``{wrapper: launches}`` of the
+    kernels captured inside the block, which ``count_launch`` left
+    uncounted. The capture's own thread and the autograd thread that runs
+    its backward both launch into the capturing stream, so the check is on
+    the stream and not on the thread."""
+    tally: dict = {}
+    _tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        _tallies.remove(tally)

@@ -18,7 +18,8 @@ Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its CUDA kernel (``csrc/fused_loss.cu``, built for ``sm_90a`` at
 first use) for tensors on the card; any other device raises. The kernel
 path counts its launches in ``fused_loss_fwd.launches`` /
-``fused_loss_bwd.launches``.
+``fused_loss_bwd.launches`` (``cuda_build.count_launch``: a launch
+captured into a CUDA graph counts on each of its replays).
 
 Batch size: the reference runs the kernel per mesh shard and averages the
 shard losses; the port runs one device and divides by the full batch —
@@ -31,7 +32,7 @@ import ctypes
 
 import torch
 
-from distributed_deep_q_tpu_torch.ops.cuda_build import Entry
+from distributed_deep_q_tpu_torch.ops.cuda_build import Entry, count_launch
 
 
 def _check(q: torch.Tensor, actions: torch.Tensor, targets: torch.Tensor,
@@ -141,7 +142,7 @@ def _fwd(q, a32, targets, weights, delta):
     if err:
         raise RuntimeError(f"fused_loss_fwd kernel launch failed: CUDA "
                            f"error {err}")
-    fused_loss_fwd.launches += 1  # ddq: allow(purity.captured-write) — host launch count: under a CUDA graph it counts the capture, not the replays (ROADMAP item 8)
+    count_launch(fused_loss_fwd)
     return loss, td_abs
 
 
@@ -163,7 +164,7 @@ def _bwd(q, a32, targets, weights, g, delta):
     if err:
         raise RuntimeError(f"fused_loss_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    fused_loss_bwd.launches += 1  # ddq: allow(purity.captured-write) — host launch count: under a CUDA graph it counts the capture, not the replays (ROADMAP item 8)
+    count_launch(fused_loss_bwd)
     return dq
 
 

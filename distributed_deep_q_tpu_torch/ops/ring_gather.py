@@ -17,7 +17,8 @@ Each wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its CUDA kernel (``csrc/ring_gather.cu``, built for ``sm_90a`` at
 first use) for a tensor on the card; any other device raises. The kernel
 path counts its launches in ``gather_windows.launches`` /
-``scatter_rows.launches``.
+``scatter_rows.launches`` (``cuda_build.count_launch``: a launch captured
+into a CUDA graph counts on each of its replays).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import ctypes
 
 import torch
 
-from distributed_deep_q_tpu_torch.ops.cuda_build import Entry
+from distributed_deep_q_tpu_torch.ops.cuda_build import Entry, count_launch
 
 # rows are padded to whole 4096-byte blocks (the reference's 1024-element
 # int32 tile; on the card it keeps every row 16-byte aligned)
@@ -127,7 +128,7 @@ def gather_windows(idx: torch.Tensor, ring: torch.Tensor, *, n: int, w: int,
     if err:
         raise RuntimeError(f"gather_windows kernel launch failed: CUDA "
                            f"error {err}")
-    gather_windows.launches += 1  # ddq: allow(purity.captured-write) — host launch count: under a CUDA graph it counts the capture, not the replays (ROADMAP item 8)
+    count_launch(gather_windows)
     return out
 
 
@@ -174,7 +175,7 @@ def scatter_rows(src_idx: torch.Tensor, dst_idx: torch.Tensor,
     if err:
         raise RuntimeError(f"scatter_rows kernel launch failed: CUDA "
                            f"error {err}")
-    scatter_rows.launches += 1  # ddq: allow(purity.captured-write) — host launch count: under a CUDA graph it counts the capture, not the replays (ROADMAP item 8)
+    count_launch(scatter_rows)
     return ring
 
 

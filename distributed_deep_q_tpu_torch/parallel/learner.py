@@ -34,6 +34,7 @@ What the port computes differently from the reference, on purpose:
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from typing import Any
@@ -44,6 +45,7 @@ from torch import nn
 
 from distributed_deep_q_tpu_torch import learning, tracing
 from distributed_deep_q_tpu_torch.config import TrainConfig
+from distributed_deep_q_tpu_torch.ops.cuda_build import launch_tally
 from distributed_deep_q_tpu_torch.ops.fused_loss import FusedDqnLoss
 from distributed_deep_q_tpu_torch.ops.losses import bellman_targets, dqn_loss
 from distributed_deep_q_tpu_torch.ops.ring_gather import gather_windows
@@ -77,6 +79,18 @@ class TrainState:
     step: torch.Tensor
 
 
+def state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor of a train state: θ, θ⁻, the optimizer's moments (and
+    Adam's count) and the step."""
+    out = [p.data for p in state.net.parameters()]
+    out += [p.data for p in state.target_net.parameters()]
+    opt = state.opt_state
+    out += list(opt["mu"].values()) + list(opt["nu"].values())
+    if "count" in opt:
+        out.append(opt["count"])
+    return out + [state.step]
+
+
 def safe_increment(count: torch.Tensor) -> torch.Tensor:
     """``count + 1``, saturating at the int32 maximum (optax's rule)."""
     return torch.where(count < _INT32_MAX, count + 1, count)
@@ -101,8 +115,9 @@ def fused_adam_target_step(cfg: TrainConfig, grads: dict[str, torch.Tensor],
     ``(m2/bc1)/(sqrt(v2/bc2)+eps)``, ``p - lr*upd``. The target refresh is
     Polyak ``τ·p₂ + (1−τ)·t`` when ``target_tau`` > 0, else
     ``where(step % C == 0, p₂, t)`` with ``step`` already incremented.
-    (``torch.optim.Adam`` takes ``sqrt(v)/sqrt(bc2)`` and rounds
-    elsewhere, so it is not used.)"""
+    Every tensor of the state keeps its storage (a CUDA graph replays its
+    address). (``torch.optim.Adam`` takes ``sqrt(v)/sqrt(bc2)`` and
+    rounds elsewhere, so it is not used.)"""
     b1, b2 = ADAM_B1, ADAM_B2
     count = safe_increment(opt_state["count"])
     c = count.float()
@@ -110,19 +125,24 @@ def fused_adam_target_step(cfg: TrainConfig, grads: dict[str, torch.Tensor],
     bc2 = 1.0 - torch.pow(b2, c)
     scale = clip_scale(cfg, gnorm)
     lr, eps = cfg.lr, cfg.adam_eps
-    mu_dtype = getattr(torch, cfg.adam_mu_dtype)
     refresh = None
     if target_params is not None and cfg.target_tau <= 0:
         refresh = step % cfg.target_update_period == 0
     mu, nu = opt_state["mu"], opt_state["nu"]
     for name, p in params.items():
         g = grads[name] * scale
-        m2 = b1 * mu[name].float() + (1.0 - b1) * g
-        v2 = b2 * nu[name] + (1.0 - b2) * g.square()
+        # the moments are written in place, each with the value a new
+        # tensor would hold: a float32 μ and ν by the add itself, a
+        # lower-precision μ by a rounding copy of the float32 m2
+        mu_n = mu[name]
+        m2 = torch.add(b1 * mu_n.float(), (1.0 - b1) * g,
+                       out=mu_n if mu_n.dtype == torch.float32 else None)
+        v2 = torch.add(b2 * nu[name], (1.0 - b2) * g.square(),
+                       out=nu[name])
         upd = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
         p2 = p - lr * upd
-        mu[name] = m2.to(mu_dtype)
-        nu[name] = v2
+        if m2 is not mu_n:
+            mu_n.copy_(m2)
         p.copy_(p2)
         if target_params is not None:
             t = target_params[name]
@@ -131,7 +151,7 @@ def fused_adam_target_step(cfg: TrainConfig, grads: dict[str, torch.Tensor],
                 t.copy_(tau * p2 + (1.0 - tau) * t)
             else:
                 t.copy_(torch.where(refresh, p2, t))
-    opt_state["count"] = count
+    opt_state["count"].copy_(count)
 
 
 def clip_scale(cfg: TrainConfig, gnorm: torch.Tensor):
@@ -171,7 +191,8 @@ def rmsprop_target_step(cfg: TrainConfig, grads: dict[str, torch.Tensor],
     2. with the clip on, the optimizer chain's own
        ``clip_by_global_norm`` again, on the clipped tree:
        ``select(norm < clip, t, (t / norm)·clip)``;
-    3. centered RMSProp: ``mu ← (1−d)·g + d·mu``, ``nu ← (1−d)·g² + d·nu``,
+    3. centered RMSProp: ``mu ← (1−d)·g + d·mu``, ``nu ← (1−d)·g² + d·nu``
+       (each written into its own storage by the add),
        ``u = rsqrt(nu − mu² + eps)·g``, ``u·(−lr)``, ``p + u``;
     4. ``refresh_target`` on the updated θ.
     """
@@ -187,8 +208,8 @@ def rmsprop_target_step(cfg: TrainConfig, grads: dict[str, torch.Tensor],
     mu, nu = opt_state["mu"], opt_state["nu"]
     for name, p in params.items():
         g = grads[name]
-        mu[name] = (1 - d) * g + d * mu[name]
-        nu[name] = (1 - d) * g.square() + d * nu[name]
+        torch.add((1 - d) * g, d * mu[name], out=mu[name])
+        torch.add((1 - d) * g.square(), d * nu[name], out=nu[name])
         u = torch.rsqrt(nu[name] - mu[name].square() + eps) * g
         p.copy_(p + u * neg_lr)
     refresh_target(cfg, params, target_params, step)
@@ -279,6 +300,14 @@ def fused_sample(rows: dict[str, torch.Tensor], cursors: torch.Tensor,
     return metas, win, idxs, ws
 
 
+def no_span(name: str):
+    """A span that records nothing, for the enqueue a CUDA graph captures:
+    a replay stamps no host clock, so the owner opens one span around it
+    (``dispatch_replay``) instead."""
+    del name
+    return contextlib.nullcontext()
+
+
 class Learner:
     """Owns the train step for feed-forward Q-nets on one device."""
 
@@ -301,17 +330,18 @@ class Learner:
     # -- train step --------------------------------------------------------
 
     def _step_core(self, state: TrainState, batch: dict[str, torch.Tensor],
-                   forward: str = "forward_nchw"):
+                   forward: str = "forward_nchw", spans=tracing.span):
         """Loss + gradients + optimizer + target refresh on one batch on the
         device. ``forward`` names the nets' method for ``obs``/``next_obs``:
         ``forward_nchw`` for ``[B, stack, H, W]`` frames (the ring paths),
         ``forward`` for the reference's layouts (a host batch). Updates
-        ``state`` in place; returns (metrics, |TD|, the online Q
-        ``[B, A]``). The three spans time the host's enqueue of each
-        pass."""
+        ``state`` in place, every tensor in its own storage; returns
+        (metrics, |TD|, the online Q ``[B, A]``). ``spans`` opens the
+        three spans that time the host's enqueue of each pass
+        (``tracing.span``; ``no_span`` under a CUDA graph's capture)."""
         cfg = self.cfg
         net, target = state.net, state.target_net
-        with tracing.span("step_forward"):  # ddq: allow(purity.time) — the host enqueue's span: a CUDA graph over this path must drop or hoist it (ROADMAP D1)
+        with spans("step_forward"):
             q = getattr(net, forward)(batch["obs"])
             with torch.no_grad():
                 # action selection must not backprop into the online net
@@ -320,7 +350,7 @@ class Learner:
                 q_next_t = getattr(target, forward)(batch["next_obs"])
             loss, td_abs = q_step_loss(cfg, q, q_next_o, q_next_t, batch)
         params = dict(net.named_parameters())
-        with tracing.span("step_backward"):  # ddq: allow(purity.time) — the host enqueue's span: a CUDA graph over this path must drop or hoist it (ROADMAP D1)
+        with spans("step_backward"):
             grads = dict(zip(params, torch.autograd.grad(
                 loss, list(params.values()))))
             # the reference's pmean of grads, loss and Q mean, before the
@@ -328,8 +358,8 @@ class Learner:
             grads, (loss, q_mean) = multihost.mean_grads_and_scalars(
                 grads, [loss.detach(), q.detach().mean()])
             gnorm = global_norm(grads)
-        with tracing.span("step_optimizer"):  # ddq: allow(purity.time) — the host enqueue's span: a CUDA graph over this path must drop or hoist it (ROADMAP D1)
-            state.step = state.step + 1
+        with spans("step_optimizer"):
+            state.step.add_(1)
             apply_optimizer(cfg, grads, state.opt_state, params,
                             dict(target.named_parameters()), gnorm,
                             state.step)
@@ -374,32 +404,37 @@ class Learner:
                                rows: dict[str, torch.Tensor],
                                cursors: torch.Tensor, sizes: torch.Tensor,
                                betas: torch.Tensor, u: torch.Tensor,
-                               spec: tuple):
-        """``len(betas)`` fused sample+train+priority-update steps.
+                               spec: tuple, spans=tracing.span):
+        """``len(betas)`` fused sample+train+priority-update steps: the
+        device work of one dispatch, as the eager path runs it and a
+        ``DispatchGraph`` captures it.
 
         Sampling happens once for the whole chunk (``fused_sample``), then
         the chain's optimizer steps and priority scatters run strictly in
         order (staleness within a chunk ≤ chain steps, as in the
-        reference).
+        reference). ``spans`` time the host's enqueue of the sample stage
+        and of the train stage, not device execution (nothing here
+        synchronizes; ``no_span`` under a capture).
 
         Updates ``state`` and ``rows["prio"]`` in place. Returns (new
         running max priority, metrics stacked over ``[chain]``, with the
         dispatch's ``learn_plane`` where ``plane_gate`` holds)."""
-        # the spans time the host's enqueue of the sample stage and of the
-        # train stage, not device execution (nothing here synchronizes)
-        with tracing.span("sample"):
+        with spans("sample"):
             metas, win, idxs, _ = fused_sample(rows, cursors, sizes, betas,
                                                u, spec)
-        with tracing.span("train_step"):
+        with spans("train_step"):
             return self._train_chain(state, rows, metas, win, idxs, spec,
-                                     plane_gate(self.cfg, spec[8]))
+                                     plane_gate(self.cfg, spec[8]),
+                                     spans=spans)
 
     def _train_chain(self, state: TrainState, rows: dict[str, torch.Tensor],
                      metas: dict[str, torch.Tensor], win: torch.Tensor,
-                     idxs: torch.Tensor, spec: tuple, with_plane: bool):
+                     idxs: torch.Tensor, spec: tuple, with_plane: bool,
+                     spans=tracing.span):
         """The train stage of a fused dispatch: ``len(idxs)`` optimizer
         steps and priority scatters, in order, and, ``with_plane``, the
-        learning-dynamics plane carried across them."""
+        learning-dynamics plane carried across them. ``spans`` opens each
+        step's spans (``_step_core``)."""
         (_, _, rowb, row_len, stack, n_step, _, frame_shape, _,
          alpha, eps, num_shards) = spec
         lmp = learning.lm_init(win.device) if with_plane else None
@@ -425,7 +460,7 @@ class Learner:
                 "discount": metas["discount"][i],
                 "weight": metas["weight"][i],
             }
-            metrics, td_abs, q = self._step_core(state, batch)
+            metrics, td_abs, q = self._step_core(state, batch, spans=spans)
             maxp = scatter_priorities(prio, maxp, idxs[i], td_abs, alpha,
                                       eps)
             if lmp is not None:
@@ -443,3 +478,96 @@ class Learner:
         if lmp is not None:
             stacked["learn_plane"] = learning.lm_finalize(lmp, num_shards)
         return maxp, stacked
+
+
+def dispatch_key(cfg: TrainConfig, state: TrainState,
+                 rows: dict[str, torch.Tensor], chain: int,
+                 spec: tuple) -> tuple:
+    """What a captured fused dispatch froze: the train settings, the chain
+    and the ring's geometry, and the address of every tensor of the train
+    state and of the replay's rows."""
+    ptrs = tuple(t.data_ptr() for t in state_tensors(state))
+    ptrs += tuple(t.data_ptr() for t in rows.values())
+    return (copy.copy(cfg), int(chain), spec, ptrs)
+
+
+class DispatchGraph:
+    """One fused dispatch captured as a CUDA graph, then replayed: the
+    sample stage, the chain's grad steps and priority scatters, and the
+    running max priority written back into ``rows["maxp"]``
+    (``Learner.train_steps_device_per``).
+
+    A replay runs on the device addresses the capture saw. So the
+    host-made inputs (cursors, sizes, β, uniforms) reach it through static
+    buffers (``load``, enqueued on the stream the replay runs on), every
+    tensor a dispatch carries to the next is written in place, and ``key``
+    (``dispatch_key``) says what the capture froze: an owner whose key has
+    changed builds a new graph, so a stale one is never replayed. Each
+    replay hands out its own copy of the per-step metrics, and advances
+    the kernel wrappers' launch counters by the launches it holds."""
+
+    def __init__(self, learner: Learner, state: TrainState,
+                 rows: dict[str, torch.Tensor], spec: tuple, inputs: tuple,
+                 key: tuple):
+        self.key = key
+        self._learner, self._state, self._rows = learner, state, rows
+        self._spec = spec
+        dev = rows["prio"].device
+        self.inputs = tuple(torch.empty_like(torch.as_tensor(a), device=dev)
+                            for a in inputs)
+        self._graph: torch.cuda.CUDAGraph | None = None
+        self._outputs: dict[str, torch.Tensor] = {}
+        self._launches: dict = {}
+
+    def load(self, *inputs) -> None:
+        """One dispatch's (cursors, sizes, betas, u) into the static
+        buffers, on the current stream: host arrays through
+        ``to_device``'s pinned copy, a device tensor by a device copy."""
+        for buf, a in zip(self.inputs, inputs):
+            if isinstance(a, torch.Tensor):
+                buf.copy_(a, non_blocking=True)
+            else:
+                to_device(a, buf.device, out=buf)
+
+    def _capture(self) -> None:
+        """Capture the dispatch on the loaded inputs, without advancing
+        anything: one eager dispatch first sets up what a capture cannot
+        (cuBLAS and cuDNN handles and workspaces, autograd's device
+        thread), on the real state and priorities, which are then put
+        back in place from a copy. The next ``replay`` computes what an
+        eager dispatch would."""
+        learner, state, rows, spec = (self._learner, self._state,
+                                      self._rows, self._spec)
+        side = torch.cuda.Stream(rows["prio"].device)
+        side.wait_stream(torch.cuda.current_stream(side.device))
+        touched = state_tensors(state) + [rows["prio"], rows["maxp"]]
+        with torch.cuda.stream(side):
+            with torch.no_grad():
+                saved = [t.clone() for t in touched]
+            learner.train_steps_device_per(state, rows, *self.inputs,
+                                           spec, spans=no_span)
+            with torch.no_grad():
+                for t, s in zip(touched, saved):
+                    t.copy_(s)
+        torch.cuda.current_stream(side.device).wait_stream(side)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        with launch_tally() as tally:
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                maxp, outputs = learner.train_steps_device_per(
+                    state, rows, *self.inputs, spec, spans=no_span)
+                rows["maxp"].copy_(maxp)
+        self._graph, self._outputs = graph, outputs
+        self._launches = dict(tally)
+
+    def replay(self) -> dict[str, torch.Tensor]:
+        """Run the dispatch on the loaded inputs, on the current stream
+        (the first call captures it); returns a copy of its per-step
+        metrics (the next replay overwrites the graph's)."""
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        for wrapper, n in self._launches.items():
+            wrapper.launches += n
+        return {k: v.clone() for k, v in self._outputs.items()}

@@ -269,8 +269,8 @@ class SequenceSolver(Solver):
             self.state, replay, _strip_host_keys(batch))
         return self._with_feedback(metrics, priority, batch)
 
-    def train_steps_device_per(self, replay,
-                               chain: int | None = None) -> dict[str, Any]:
+    def train_steps_eager(self, replay,
+                          chain: int | None = None) -> dict[str, Any]:
         """``chain`` fused sequence steps in one dispatch (the protocol of
         ``Solver.train_steps_device_per``, so ``FusedStepStream`` drives
         either). Returns metrics stacked ``[chain]``."""
@@ -289,7 +289,11 @@ class SequenceSolver(Solver):
                                    b // len(replay.local_shards), dev)
         replay.dmaxp, metrics = self.learner.train_steps_fused(
             self.state, replay, b, sizes, betas, u)
+        self.dispatch_counts["eager_dispatches"] += 1
         return metrics
+
+    # the sequence dispatch is never captured: it always runs eagerly
+    train_steps_device_per = train_steps_eager
 
     # -- recurrent actor path ----------------------------------------------
 

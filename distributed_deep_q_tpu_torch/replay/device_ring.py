@@ -70,13 +70,22 @@ from distributed_deep_q_tpu_torch.replay.prioritized import (
 from distributed_deep_q_tpu_torch.replay.replay_memory import FrameStackReplay
 
 
-def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array → device tensor. On the card the copy goes through pinned
-    memory and does not block the host behind queued device work: the
-    array is copied into a fresh pinned block first, so the caller may
-    reuse it at once, and PyTorch's pinned allocator hands that block out
-    again only after the copy that reads it has run."""
+def to_device(a: np.ndarray, device: torch.device,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """Host array → device tensor (into ``out``, of its shape and dtype,
+    where given). On the card the copy goes through pinned memory and
+    does not block the host behind queued device work: the array is
+    copied into a fresh pinned block first, so the caller may reuse it at
+    once, and PyTorch's pinned allocator hands that block out again only
+    after the copy that reads it has run."""
     t = torch.from_numpy(np.ascontiguousarray(a))
+    if out is not None:
+        if out.shape != t.shape or out.dtype != t.dtype:
+            raise ValueError(f"a {t.dtype} {tuple(t.shape)} array cannot "
+                             f"fill a {out.dtype} {tuple(out.shape)} tensor")
+        if out.device.type == "cuda":
+            t = t.pin_memory()
+        return out.copy_(t, non_blocking=out.device.type == "cuda")
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.clone()

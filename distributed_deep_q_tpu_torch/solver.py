@@ -7,6 +7,11 @@ shard count D (``parallel/mesh.py``). With more than one learner process
 (``parallel/multihost.py``) every process holds the whole train state,
 made equal to process 0's at init and at restore (``replicate_state``),
 and trains on its ``B / num_processes`` rows (``local_batch``).
+
+The fused device-PER dispatch at the configured chain, on a card and in a
+process alone, is captured once as a CUDA graph and replayed
+(``graph_engages``, ``parallel/learner.py::DispatchGraph``); every other
+dispatch runs the same code eagerly. ``dispatch_counters`` says which ran.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from distributed_deep_q_tpu_torch.convert import (
     flax_leaves, load_flax_leaves, train_state_from_flax,
     train_state_to_flax)
 from distributed_deep_q_tpu_torch.models.qnet import build_qnet
-from distributed_deep_q_tpu_torch.parallel.learner import Learner, TrainState
+from distributed_deep_q_tpu_torch.parallel.learner import (
+    DispatchGraph, Learner, TrainState, dispatch_key, state_tensors)
 from distributed_deep_q_tpu_torch.parallel import mesh, multihost
 from distributed_deep_q_tpu_torch.replay.device_per import uniforms_for_keys
 from distributed_deep_q_tpu_torch.replay.device_ring import (
@@ -101,16 +107,13 @@ def fused_spec(config: Config, replay) -> tuple:
             float(config.replay.priority_eps), replay.num_shards)
 
 
-def state_tensors(state: TrainState) -> list[torch.Tensor]:
-    """Every tensor of a train state: θ, θ⁻, the optimizer's moments (and
-    Adam's count) and the step."""
-    out = [p.data for p in state.net.parameters()]
-    out += [p.data for p in state.target_net.parameters()]
-    opt = state.opt_state
-    out += list(opt["mu"].values()) + list(opt["nu"].values())
-    if "count" in opt:
-        out.append(opt["count"])
-    return out + [state.step]
+def graph_engages(device: torch.device, chain: int, configured: int) -> bool:
+    """Whether a fused dispatch of ``chain`` steps runs as a CUDA graph:
+    on a CUDA device, in a process alone (with more, the all-reduces run on
+    the host, over gloo, where a graph cannot hold them) and at the
+    configured chain (a shorter tail chunk runs eagerly)."""
+    return (device.type == "cuda" and not multihost.is_multiprocess()
+            and int(chain) == int(configured))
 
 
 def _strip_host_keys(batch: dict[str, Any]) -> dict[str, Any]:
@@ -128,7 +131,8 @@ class Solver:
     - ``train_step_from_ring(ring, batch, frame_shape)`` — one step on an
       index batch into a ``DeviceFrameReplay`` ring;
     - ``train_steps_device_per(replay, chain)`` — the fused device-PER
-      dispatch;
+      dispatch, replayed as a CUDA graph where ``graph_engages`` holds;
+      ``train_steps_eager`` runs it eagerly whatever the rule says;
     - ``q_values(obs)`` / ``act(obs, ε, rng)`` — the actor-side forward;
     - ``get_weights()`` / ``update(weights)`` — numpy weight IO in the
       reference's layout and leaf order (the ``θ`` wire);
@@ -182,6 +186,10 @@ class Solver:
         self.draw_uniforms = uniforms_for_keys
         self._fused_key_base: int | None = None
         self._fused_steps_issued = 0
+        self.fused_chain = max(int(config.replay.fused_chain), 1)
+        self._graph: DispatchGraph | None = None
+        self.dispatch_counts = {"graph_captures": 0, "graph_replays": 0,
+                                "eager_dispatches": 0}
 
     # -- training ----------------------------------------------------------
 
@@ -241,36 +249,82 @@ class Solver:
     def train_steps_device_per(self, replay,
                                chain: int | None = None) -> dict[str, Any]:
         """``chain`` fused prioritized steps in one dispatch (see
-        ``Learner.train_steps_device_per``). Host cost per chunk: a flush
-        of staged rows, (cached) cursor/size arrays, the chunk's keys and
-        uniforms. Returns metrics stacked ``[chain]`` (device tensors —
-        convert only when logging). The ``dispatch_inputs`` span times the
-        host's part before the learner's call."""
-        chain = chain or max(int(self.config.replay.fused_chain), 1)
+        ``Learner.train_steps_device_per``): where ``graph_engages`` holds,
+        a replay of the dispatch captured as one CUDA graph (captured at
+        the first such dispatch, and again whenever ``dispatch_key``
+        changes), else ``train_steps_eager``; the same device work either
+        way. Host cost per chunk: a flush of staged rows, (cached)
+        cursor/size arrays, the chunk's keys and uniforms and their copies
+        into the graph's static inputs, the replay's launch. Returns
+        metrics stacked ``[chain]``, this dispatch's own device tensors
+        (convert only when logging). The ``dispatch_inputs`` span times the
+        host's part before the replay, ``dispatch_replay`` the replay (and,
+        the first time, the capture)."""
+        chain = chain or self.fused_chain
+        if not graph_engages(self.device, chain, self.fused_chain):
+            return self.train_steps_eager(replay, chain)
         with tracing.span("dispatch_inputs"):
-            if replay.pending_rows():
-                # device rows must cover everything the host bookkeeping
-                # (cursors/sizes below) claims is written
-                replay.flush()
-            cursors, sizes = replay.device_inputs()
-            betas = replay.next_betas(chain)
-            spec = self._dp_spec
-            if spec is None or self._dp_spec_replay is not replay:
-                spec = fused_spec(self.config, replay)
-                self._dp_spec, self._dp_spec_replay = spec, replay
-            # each of this process's shards draws with its global shard's
-            # keys
-            keys = next_fused_keys(self, replay.num_shards, chain)[
-                replay.local_shards]
-            u = self.draw_uniforms(keys.reshape(-1, 2), spec[8],
-                                   self.device)
+            spec, inputs = self._dispatch_inputs(replay, chain)
+            key = dispatch_key(self.learner.cfg, self.state, replay.dstate,
+                               chain, spec)
+            if self._graph is None or self._graph.key != key:
+                # the old graph's memory goes back before the new capture
+                self._graph = None
+                self._graph = DispatchGraph(self.learner, self.state,
+                                            replay.dstate, spec, inputs, key)
+                self.dispatch_counts["graph_captures"] += 1
+            graph = self._graph
+            graph.load(*inputs)
+        with tracing.span("dispatch_replay"):
+            metrics = graph.replay()
+        self.dispatch_counts["graph_replays"] += 1
+        return metrics
+
+    def train_steps_eager(self, replay,
+                          chain: int | None = None) -> dict[str, Any]:
+        """The fused dispatch of ``train_steps_device_per``, run eagerly:
+        the body a CUDA graph captures, with the tracer's spans inside it.
+        The ``dispatch_inputs`` span times the host's part before the
+        learner's call."""
+        chain = chain or self.fused_chain
+        with tracing.span("dispatch_inputs"):
+            spec, (cursors, sizes, betas, u) = self._dispatch_inputs(
+                replay, chain)
             dev = self.device
             inputs = (to_device(cursors, dev), to_device(sizes, dev),
                       to_device(betas, dev), u)
         maxp, metrics = self.learner.train_steps_device_per(
             self.state, replay.dstate, *inputs, spec)
-        replay.dstate["maxp"] = maxp
+        replay.dstate["maxp"].copy_(maxp)
+        self.dispatch_counts["eager_dispatches"] += 1
         return metrics
+
+    def _dispatch_inputs(self, replay, chain: int) -> tuple:
+        """The host's part of a fused dispatch: (spec, (cursors, sizes,
+        betas, u)), the first three host arrays, ``u`` the uniforms."""
+        if replay.pending_rows():
+            # device rows must cover everything the host bookkeeping
+            # (cursors/sizes below) claims is written
+            replay.flush()
+        cursors, sizes = replay.device_inputs()
+        betas = replay.next_betas(chain)
+        spec = self._dp_spec
+        if spec is None or self._dp_spec_replay is not replay:
+            spec = fused_spec(self.config, replay)
+            self._dp_spec, self._dp_spec_replay = spec, replay
+        # each of this process's shards draws with its global shard's keys
+        keys = next_fused_keys(self, replay.num_shards, chain)[
+            replay.local_shards]
+        u = self.draw_uniforms(keys.reshape(-1, 2), spec[8], self.device)
+        return spec, (cursors, sizes, betas, u)
+
+    def dispatch_counters(self) -> dict[str, float]:
+        """The fused dispatches so far by how they ran, for the metrics the
+        train loops log: CUDA graph captures, replays, eager dispatches."""
+        c = self.dispatch_counts
+        return {"learner/graph_captures": float(c["graph_captures"]),
+                "learner/graph_replays": float(c["graph_replays"]),
+                "learner/eager_dispatches": float(c["eager_dispatches"])}
 
     # -- inference (actor path) -------------------------------------------
 
@@ -318,25 +372,27 @@ class Solver:
             for name, p in module.named_parameters():
                 p.copy_(torch.from_numpy(tree[name]))
         self.load_opt_state(s["opt_state"])
-        st.step = torch.tensor(int(step), dtype=torch.int32,
-                               device=self.device)
+        st.step.fill_(int(step))
 
+    @torch.no_grad()
     def load_opt_state(self, opt: dict) -> None:
         """Install an optimizer-state dict of numpy arrays in the port's
         layouts (``convert.opt_state_from_flax`` or
-        ``opt_state_from_optax_leaves``), onto the state's devices and
-        dtypes."""
-        st, dev = self.state, self.device
+        ``opt_state_from_optax_leaves``) into the state's tensors, in
+        place (in their dtypes)."""
+        st = self.state
         if opt["name"] != st.opt_state["name"]:
             raise ValueError(f"a {opt['name']} optimizer state cannot be "
                              f"installed into a {st.opt_state['name']} one")
         for key in ("mu", "nu"):
             for name, t in st.opt_state[key].items():
-                st.opt_state[key][name] = torch.from_numpy(
-                    np.asarray(opt[key][name])).to(dev, t.dtype)
+                src = torch.from_numpy(np.asarray(opt[key][name]))
+                if src.shape != t.shape:
+                    raise ValueError(f"{key}[{name!r}] is {tuple(src.shape)}"
+                                     f", the state's is {tuple(t.shape)}")
+                t.copy_(src.to(t.device, t.dtype))
         if "count" in st.opt_state:
-            st.opt_state["count"] = torch.tensor(
-                int(opt["count"]), dtype=torch.int32, device=dev)
+            st.opt_state["count"].fill_(int(opt["count"]))
 
     def flax_state(self) -> dict:
         """The train state in the reference's layout (numpy trees): keys
@@ -364,7 +420,11 @@ class Solver:
 class FusedStepStream:
     """Per-grad-step metrics from chained fused-PER dispatches: dispatch a
     chunk of ``min(chain, steps_left)`` steps whenever the previous chunk
-    is exhausted, then hand out its stacked metrics row by row.
+    is exhausted, then hand out its stacked metrics row by row. Each
+    dispatch's metrics are its own tensors, which later dispatches (a CUDA
+    graph's replays among them) leave as they are. Where ``graph_engages``
+    holds, a full chunk replays the solver's graph and a shorter tail runs
+    eagerly.
 
     ``dispatch_lock`` (optional, e.g. the ``ReplayFeedServer``'s
     ``replay_lock``) is held across the dispatch only: the drain's and the

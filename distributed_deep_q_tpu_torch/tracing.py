@@ -93,12 +93,14 @@ EVENTS = (
 
 # Durations the port adds, inside the fused dispatch. Kept apart from
 # ``STAGES``, which stays the reference's letter for letter: the host's
-# enqueue of one dispatch's inputs, and of one grad step's three passes.
+# enqueue of one dispatch's inputs, of one grad step's three passes on the
+# eager body, and of a CUDA graph's replay of the whole dispatch.
 PORT_STAGES = (
     "dispatch_inputs",  # flush, cursors, betas, keys, uniforms, copies
     "step_forward",     # online/target forwards, burn-in, unrolls, loss
     "step_backward",    # autograd, the gradient all-reduce, global norm
     "step_optimizer",   # step increment, optimizer, target refresh
+    "dispatch_replay",  # the captured dispatch's replay (first: capture)
 )
 
 _VALID_NAMES = frozenset(STAGES) | frozenset(PORT_STAGES) | frozenset(EVENTS)

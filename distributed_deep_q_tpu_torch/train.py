@@ -352,7 +352,8 @@ def train_single_process(cfg: Config, metrics: Metrics | None = None,
                         learning.publish_planes(
                             learn_acc, fused_stream.drain_planes(), metrics)
                     metrics.log(gsteps, **summary, **timer.summary(),
-                                **metrics.telemetry())
+                                **metrics.telemetry(),
+                                **solver.dispatch_counters())
 
         if cfg.train.eval_every and t % cfg.train.eval_every == 0:
             ret = evaluate(solver, cfg)
@@ -569,7 +570,8 @@ def train_recurrent(cfg: Config, metrics: Metrics | None = None,
                 if pending is not None:
                     metrics.gauge("queue/staged_rows", pending())
                 metrics.log(gsteps, **summary, **timer.summary(),
-                            **metrics.telemetry())
+                            **metrics.telemetry(),
+                            **solver.dispatch_counters())
 
     trace.close()
     if writeback is not None:

@@ -202,12 +202,14 @@ def test_port_stages_are_their_own_table():
     assert set(tracing.PORT_STAGES).isdisjoint(tracing.STAGES)
     assert set(tracing.PORT_STAGES).isdisjoint(tracing.EVENTS)
     assert set(tracing.PORT_STAGES) == {
-        "dispatch_inputs", "step_forward", "step_backward", "step_optimizer"}
+        "dispatch_inputs", "step_forward", "step_backward", "step_optimizer",
+        "dispatch_replay"}
 
 
 @pytest.mark.parametrize("name, known", [
     ("train_step", True), ("sample", True), ("dispatch_inputs", True),
-    ("step_optimizer", True), ("step_optimiser", False), ("shed", False)])
+    ("step_optimizer", True), ("dispatch_replay", True),
+    ("step_optimiser", False), ("shed", False)])
 def test_span_check_takes_either_table_and_nothing_else(name, known):
     src = Source.parse(textwrap.dedent(f"""
         from distributed_deep_q_tpu_torch import tracing
